@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with one CUDA device:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time
 
 It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order; a
 phase that fails raises, and the script exits non-zero without its last line:
@@ -11,16 +12,22 @@ phase that fails raises, and the script exits non-zero without its last line:
 1. Device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` gives them; turns TF32 off for f32 matmuls
    and convolutions.
-2. Build: compiles the CUDA sources with ``nvcc`` for ``sm_90a``.
+2. Build: compiles the CUDA sources with ``nvcc`` for ``sm_90a``, prints
+   ptxas's registers and spills, and counts with ``cuobjdump -sass`` each
+   kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``) and mbarrier
+   (``SYNCS``) instructions; the forward and dkv kernels must have wgmma
+   and TMA loads.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs, at the slice's shape, a ragged shape,
    the ring's offset cases (with an lse cotangent), a case with rows that see
-   no key, and head dims 8, 16 and 32, row by row and element by element;
+   no key, head dims 8, 16 and 32, and fewer queries than keys, row by row
+   and element by element;
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
-   slice's shape; then each kernel's
-   time at the slice's shape beside its plain version's, one library call's
-   and the card's bound.
+   slice's shape; then each kernel's time at the slice's shape (``ms``: one
+   call at a time; ``ms_back_to_back``: ten launches in a row), its wrapper's
+   host time a call, its plain version's time, one library call's (timed
+   both ways) and the card's bound.
 4. The slice: the GPT-2-small-width transformer LM (12 layers, d_model 768,
    seq 1024, vocab 32000, batch 8) trained by the ``Trainer`` with Adam at lr
    3e-4 on one repeated synthetic batch. Losses must be finite and fall, and
@@ -38,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +90,8 @@ SLICE = dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072, seq_len=1024,
 BATCH = 8
 STEPS = 10
 WARMUP_STEPS = 2
+#: launches in a row for the back-to-back kernel and library timings
+BACK_TO_BACK = 10
 
 KERNELS = {  # name -> (plain version, TPU kernel it replaces)
     "fwd": ("_fwd_reference", "edl_tpu/ops/flash_attention.py:88"),
@@ -90,6 +100,14 @@ KERNELS = {  # name -> (plain version, TPU kernel it replaces)
 }
 SOURCE = "edl_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+#: kernel -> (its function in the library, the design it is built on)
+DESIGNS = {
+    "fwd": ("flash_fwd_kernel", "wgmma+TMA, PR 2"),
+    "bwd_dq": ("flash_bwd_dq_kernel", "mma.sync, PR 1"),
+    "bwd_dkv": ("flash_bwd_dkv_kernel", "wgmma+TMA, PR 2"),
+}
+#: SASS instructions counted per kernel: wgmma, TMA tile load, mbarrier
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
 
 #: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused):
 #: ``fused`` cases take q, k and v as strided slices of one (B, S, 3, H, D)
@@ -104,6 +122,8 @@ CASES = [
     ("head_dim_8", (1, 100, 100, 2, 8), True, 0, 0, False, True),
     ("head_dim_16", (1, 100, 100, 2, 16), True, 0, 0, False, True),
     ("head_dim_32", (1, 100, 100, 2, 32), False, 0, 0, False, True),
+    # fewer queries than keys, the queries late in the sequence
+    ("uneven", (1, 100, 260, 2, 32), True, 160, 0, True, False),
 ]
 
 
@@ -116,8 +136,12 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events, after a warm-up."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, batch: int = 1) -> float:
+    """Device time of one call of ``fn`` in ms, by CUDA events: the median of
+    ``reps`` runs after a warm-up. A run is one call by default, so the
+    host's work for the call shows in its time; with ``batch`` > 1 it is
+    ``batch`` calls in a row, divided by ``batch``, so that the host's work
+    for a call overlaps the device's work as it does in a step."""
     import torch
 
     for _ in range(warmup):
@@ -128,11 +152,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Host time of one call of ``fn`` in ms: the wall clock over ``reps``
+    calls in a row with no synchronisation between them (the wrapper's
+    Python, ctypes and tensor-map work and the launch itself), after a
+    warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
 
 
 def _flash_module():
@@ -170,7 +213,8 @@ def phase_device():
     return torch.device("cuda", 0)
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build the library; returns the SASS counts (`sass_counts`)."""
     from edl_tpu_torch.ops import _build
 
     fa = _flash_module()
@@ -179,8 +223,46 @@ def phase_build() -> None:
     fa._kernels()
     print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
             print(f"  ptxas: {line.strip()}")
+    counts = sass_counts(path)
+    for fn, by_dp in counts.items():
+        for dp, ops in sorted(by_dp.items()):
+            print(f"  sass: {fn}<{dp}> " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    for kname, (fn, design) in DESIGNS.items():
+        require(fn in counts, f"{fn} is not in the library's SASS")
+        if design.startswith("wgmma"):
+            for dp, ops in counts[fn].items():
+                require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+                        f"{fn}<{dp}> has no wgmma or no TMA load in its SASS: {ops}")
+    return counts
+
+
+def sass_counts(path) -> dict:
+    """{kernel: {padded head dim: {op: instructions}}} for the flash
+    kernels, from ``cuobjdump -sass`` of the built library."""
+    from pathlib import Path
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(path)],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    counts, ops = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((n for n in FLASH_NAMES if n in fn), None)
+            dp = re.search(r"ILi(\d+)E", fn)
+            ops = None
+            if name is not None and dp is not None:
+                ops = counts.setdefault(name, {}).setdefault(int(dp.group(1)),
+                                                             dict.fromkeys(SASS_OPS, 0))
+        elif ops is not None:
+            hit = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
+            if hit:
+                ops[hit.group(1)] += 1
+    return counts
 
 
 def _case_inputs(shape, fused, return_lse, gen, device):
@@ -360,10 +442,17 @@ def phase_kernels(device):
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     lib_do = do.transpose(1, 2)
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
-                                                  retain_graph=True))
-    library = {"fwd": lib_fwd, "bwd_dq": lib_bwd, "bwd_dkv": lib_bwd}
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+
+    # each (one call at a time, back to back)
+    fwd_times = (time_ms(lib_fwd), time_ms(lib_fwd, batch=BACK_TO_BACK))
+    bwd_times = (time_ms(lib_bwd), time_ms(lib_bwd, batch=BACK_TO_BACK))
+    library = {"fwd": fwd_times, "bwd_dq": bwd_times, "bwd_dkv": bwd_times}
 
     pairs = B * H * S * (S + 1) // 2  # visible (query, key) pairs, causal
     row_bytes = B * H * S * D * 2     # one bf16 (B, S, H, D) tensor
@@ -379,16 +468,21 @@ def phase_kernels(device):
     results = {}
     for kname, (kernel, plain) in timed.items():
         ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5, warmup=1)
-        bound_ms, bound_by = bounds[kname]
-        print(f"time {kname} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library[kname]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        ms_b2b, wrapper_ms = time_ms(kernel, batch=BACK_TO_BACK), host_ms(kernel)
+        (lib_ms, lib_b2b), (bound_ms, bound_by) = library[kname], bounds[kname]
+        print(f"time {kname} at {shape}: kernel {ms:.4f} ms one call at a time "
+              f"({ms_b2b:.4f} ms back to back; host {wrapper_ms:.4f} ms a call), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_b2b:.4f} ms back to back), "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
         results[kname] = dict(
             name=kname, route="cuda", source=SOURCE, replaces=KERNELS[kname][1],
+            design=DESIGNS[kname][1],
             max_abs_err=worst[kname]["abs"][0],
             worst={m: {"value": x, "case": c} for m, (x, c) in worst[kname].items()},
             tolerance={"row": TOL_ROW, "elem": TOL_ELEM, "lse_abs": TOL_LSE}, ms=ms,
+            ms_back_to_back=ms_b2b, host_ms=wrapper_ms,
             plain_ms=plain_ms, plain=KERNELS[kname][0], bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library[kname],
+            bound_by=bound_by, library_ms=lib_ms, library_ms_back_to_back=lib_b2b,
             library_call=("scaled_dot_product_attention(is_causal=True)"
                           if kname == "fwd" else
                           "scaled_dot_product_attention backward: dq, dk and dv together"),
@@ -396,9 +490,10 @@ def phase_kernels(device):
     return results
 
 
-def phase_slice(device) -> dict:
+def phase_slice(device) -> tuple:
     """Train the GPT-2-small-width LM through the Trainer; returns the launch
-    counts of the timed steps."""
+    counts of the timed steps and the profiled step's device ms a launch of
+    each flash kernel."""
     import numpy as np
     import torch
 
@@ -443,14 +538,14 @@ def phase_slice(device) -> dict:
           f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, peak memory "
           f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, "
           f"launches {launches}")
-    profile_step(trainer, state, batch, step * 1e3)
-    return launches
+    return launches, profile_step(trainer, state, batch, step * 1e3)
 
 
-def profile_step(trainer, state, batch, step_ms: float) -> None:
+def profile_step(trainer, state, batch, step_ms: float) -> dict:
     """Where one step's device time goes, by CUDA kernel (torch.profiler),
     and the device's busy share: of the profiled step's own wall time (the
-    profiler slows the host) and of the median unprofiled step."""
+    profiler slows the host) and of the median unprofiled step. Returns each
+    flash kernel's device ms a launch in that step (empty if not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -467,7 +562,7 @@ def profile_step(trainer, state, batch, step_ms: float) -> None:
     total_us = sum(e.self_device_time_total for e in kernels)
     if total_us == 0:
         print("profile: device time not measured (the profiler saw no CUDA kernel)")
-        return
+        return {}
     groups = {"flash attention kernels": 0.0, "bf16 matmuls": 0.0,
               "f32 matmuls (TF32 off)": 0.0, "other": 0.0}
     for e in kernels:
@@ -483,6 +578,15 @@ def profile_step(trainer, state, batch, step_ms: float) -> None:
               f"{g} {us / 1e3:.2f} ms ({us / total_us:.1%})" for g, us in groups.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+    in_step = {}
+    for kname, (fn, _) in DESIGNS.items():
+        hits = [e for e in kernels if fn in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            in_step[kname] = sum(e.self_device_time_total for e in hits) / 1e3 / n
+    print("profile: flash kernels' device ms a launch in the step: " + ", ".join(
+        f"{k} {ms:.4f}" for k, ms in in_step.items()))
+    return in_step
 
 
 def phase_step_parity(device) -> None:
@@ -517,22 +621,29 @@ def phase_step_parity(device) -> None:
             f"depth-2 grads off: {grads}")
 
 
-def main() -> int:
+def main(argv) -> int:
     device = phase_device()
-    phase_build()
+    sass = phase_build()
     kernels = phase_kernels(device)
-    launches = phase_slice(device)
+    for name, row in kernels.items():
+        fn = DESIGNS[name][0]
+        row["sass"] = {f"DP{dp}": ops for dp, ops in sorted(sass[fn].items())}
+    if "--kernels" in argv:
+        print(json.dumps({"kernels": list(kernels.values())}))
+        return 0
+    launches, in_step = phase_slice(device)
     phase_step_parity(device)
     for name, row in kernels.items():
         row["launches"] = launches[name]
+        row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     import torch
 
+    # count: the devices this run uses
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,14 +1,16 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-The ``csrc/*.cu`` files are compiled by one ``nvcc`` call for ``sm_90a``
-(Hopper) and linked into one shared library with a plain C interface, which
-`load` opens with ``ctypes``. Nothing here includes PyTorch's headers, so a
-build takes seconds, not minutes.
+The ``csrc/*.cu`` files (which include the ``csrc/*.cuh`` headers) are
+compiled by one ``nvcc`` call for ``sm_90a`` (Hopper) and linked into one
+shared library with a plain C interface, which `load` opens with ``ctypes``.
+Nothing here includes PyTorch's headers, so a build takes seconds, not
+minutes.
 
 The library lands in ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a digest of the sources and flags: an edited source
-builds anew, an unchanged one is reused. The build happens at first use,
-never at import, so the CPU tests import every module without ``nvcc``.
+``.gitignore``), named by a digest of every file under ``csrc/`` and the
+flags: an edited source or header builds anew, an unchanged one is reused.
+The build happens at first use, never at import, so the CPU tests import
+every module without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -36,13 +38,17 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def _sources() -> List[Path]:
+    """The translation units that nvcc compiles."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
+    """Where the library built from the current sources lives: named by a
+    digest of the flags and of every file under ``csrc/``, headers included,
+    so that an edited ``.cuh`` builds anew."""
     h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(src.relative_to(CSRC)).encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libedl_tpu_torch_kernels-{h.hexdigest()[:16]}.so"
 

@@ -30,32 +30,37 @@
 //    which the ring's logaddexp merge relies on.
 //  * Scores, softmax statistics and accumulators are f32.
 //
-// Precision: every product runs on the tensor cores as mma.sync m16n8k16 with
-// bf16 operands and f32 accumulation. Q·Kᵀ and dO·Vᵀ take the bf16 inputs as
-// they are, which is exact up to summation order, as on the TPU. P and dS are
-// rounded to bf16 before P·V, Pᵀ·dO, dS·K and dSᵀ·Q, where the Pallas kernels
-// multiply in f32: one bf16 rounding (relative 2^-9) per term, which the bf16
-// tolerances against the plain PyTorch versions cover.
+// Precision: every product runs on the tensor cores with bf16 operands and f32
+// accumulation. Q·Kᵀ and dO·Vᵀ take the bf16 inputs as they are, which is
+// exact up to summation order, as on the TPU. P and dS are rounded to bf16
+// before P·V, Pᵀ·dO, dS·K and dSᵀ·Q, where the Pallas kernels multiply in f32:
+// one bf16 rounding (relative 2^-9) per term, which the bf16 tolerances against
+// the plain PyTorch versions cover. The forward and dkv kernels take exp as
+// 2^x on the special-function unit with scale·log2(e) folded into one multiply.
 //
-// Design, this first version: each thread block has 4 warps and owns one
-// 64-row tile (queries in fwd and dq, keys in dkv) of one (batch, head); each
-// warp owns 16 of its rows and keeps their operand fragments and f32
-// accumulators in registers. The TPU grid's sequential third axis, which
-// carried m, l and the accumulators from one grid step to the next, is a loop
-// inside the block over 64-row tiles of the other operand, staged in shared
-// memory (rows padded by 8 bf16 so the fragment loads spread over all banks).
-// dkv runs key-tile outer, query-tile inner, so no atomics are needed and the
-// result is deterministic. Not yet done: TMA, wgmma, double buffering and
-// warp specialisation.
+// Two designs live here:
+//  * flash_fwd_kernel and flash_bwd_dkv_kernel are built for Hopper (see the
+//    note above each): a producer warpgroup streams tiles by TMA into a ring
+//    of shared-memory stages guarded by mbarriers, and two consumer
+//    warpgroups run every product as wgmma while the next tiles load.
+//  * flash_bwd_dq_kernel is the first, simpler design: 4 warps own one
+//    64-row tile of one (batch, head) and keep their operand fragments and
+//    f32 accumulators in registers; the other operand's 64-row tiles are
+//    staged in padded shared memory between __syncthreads() and multiplied
+//    with mma.sync m16n8k16.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// The dq kernel's tiling (the dkv kernel's query tiles have kTile rows too).
 constexpr int kTile = 64;          // rows per thread block and per inner tile
 constexpr int kWarps = 4;          // each warp owns 16 rows of the block's tile
 constexpr int kThreads = kWarps * 32;
@@ -194,123 +199,6 @@ __device__ __forceinline__ int first_query_tile(int k0, int q_offset, int k_offs
   return need <= 0 ? 0 : (int)((need + kTile - 1) / kTile);
 }
 
-// -- forward ------------------------------------------------------------------
-//
-// Replaces _fwd_kernel of edl_tpu/ops/flash_attention.py.
-// Bound on the H100: at head_dim 64 it does 4·D = 256 FLOPs per visible
-// (query, key) pair against 8·D bytes per row moved, so a 1024-token causal
-// sequence sits near the ridge (~15 µs of bytes and ~13 µs of bf16 FLOPs for
-// the slice's 96 heads). The design keeps S and P in registers (the (S, S)
-// matrix never reaches device memory), reads each K/V tile once per 64 query
-// rows, and skips causal-future tiles, so device memory traffic stays
-// O(S·D) per query tile.
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    void* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk, int D,
-    Strides qs, Strides ks, Strides vs, int q_offset, int k_offset, float scale, int causal,
-    int out_f32) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = DP + kPad;
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kTile * ld;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_qt, qt = blockIdx.x % n_qt;
-  const int b = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = qt * kTile + (threadIdx.x >> 5) * 16;  // this warp's first query row
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-
-  uint32_t qa[DP / 16][4];
-  load_a<DP>(qa, qb, qs.s, row0, Sq, D);
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g and g + 8
-  const int qpos = q_offset + row0 + g;                 // global position of row g
-
-  const int n_kt = key_tiles(Sk, qt * kTile, q_offset, k_offset, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile<DP>(sk, kb, ks.s, kt * kTile, Sk, D);
-    load_tile<DP>(sv, vb, vs.s, kt * kTile, Sk, D);
-    __syncthreads();
-
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_abt<DP, kTile / 8>(s, qa, sk);
-
-    uint32_t valid = 0;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = kt * kTile + j * 8 + 2 * t + (e & 1);
-        const bool ok = key < Sk && (!causal || k_offset + key <= qpos + 8 * r);
-        s[j][e] = ok ? s[j][e] * scale : kNegInf;
-        valid |= (uint32_t)ok << (j * 4 + e);
-        mx[r] = fmaxf(mx[r], s[j][e]);
-      }
-    }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-    const float alpha[2] = {expf(m[0] - mx[0]), expf(m[1] - mx[1])};
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = (valid >> (j * 4 + e)) & 1u ? expf(s[j][e] - mx[r]) : 0.f;
-        s[j][e] = p;
-        rs[r] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * alpha[r] + rs[r];  // per-thread partial sum; reduced once at the end
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      acc[i][0] *= alpha[0];
-      acc[i][1] *= alpha[0];
-      acc[i][2] *= alpha[1];
-      acc[i][3] *= alpha[1];
-    }
-    mma_pv<DP>(acc, s, sv);
-  }
-
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= Sq) continue;
-    const float safe = l[r] > 0.f ? l[r] : 1.f;  // a row with no key: acc is 0, so O = 0
-    const long long base = (((long long)b * Sq + row) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      const int d = i * 8 + 2 * t;
-      if (d >= D) continue;
-      const float x0 = acc[i][2 * r] / safe, x1 = acc[i][2 * r + 1] / safe;
-      if (out_f32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(o) + base + d) = make_float2(x0, x1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(o) + base + d) =
-            __floats2bfloat162_rn(x0, x1);
-      }
-    }
-    if (t == 0) lse[(long long)bh * Sq + row] = l[r] > 0.f ? m[r] + logf(safe) : kNegInf;
-  }
-}
-
 // -- backward: dQ -------------------------------------------------------------
 //
 // Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py.
@@ -400,104 +288,542 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
+// -- the Hopper kernels: shared pieces ------------------------------------------
+//
+// Both kernels run two consumer warpgroups and one producer warp: each
+// consumer warpgroup owns 64 rows of the block's tile and runs wgmma on them;
+// one thread of the producer warp issues the TMA loads. With 9 warps a block,
+// three share one quarter of the SM's register file, so ptxas gives each
+// thread at most 168 registers. The tiles are sized to that: 64 keys per
+// forward stage (S, P and O in registers together), and a dkv that forms Pᵀ
+// and dSᵀ only between its products.
+
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kWsThreads = kConsumers * 128 + 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+constexpr int kFwdRows = 128;   // query rows per forward block
+constexpr int kFwdKeys = 64;    // keys per forward pipeline stage
+constexpr int kFwdStages = 4;
+constexpr int kDkvKeys = 128;   // keys per dkv block
+constexpr int kDkvRows = 64;    // query rows per dkv pipeline stage
+constexpr int kDkvStages = 3;
+static_assert(kDkvRows == kTile, "first_query_tile() counts dkv query tiles of kTile rows");
+static_assert(kFwdKeys == kTile, "key_tiles() counts forward key tiles of kTile keys");
+
+// The block's dynamic shared memory, moved up to a 1024-byte boundary (the
+// 128-byte swizzle's period); launches ask for 1024 bytes of slack.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024u - (hopper::smem_addr(raw) & 1023u)) & 1023u);
+}
+
+// What the forward's softmax needs to mask one thread's two rows of an S
+// tile: the global position of row g (row g + 8 is 8 further), the lane's
+// column pair t, and the request.
+struct FwdRows {
+  int qpos, t, Sk, causal, k_offset;
+  float scale_log2;
+};
+
+// One S tile's online-softmax step, in place: sc (Q·Kᵀ of keys key0 + ...)
+// becomes P = 2^(S·scale·log2 e − m_new) in f32, with every masked entry
+// exactly 0 through its validity, never through its score; m moves to the new
+// row max (log2 units), the per-thread partial sum l is rescaled and grows,
+// and alpha is the factor that rescales O. Unless kMasked, every entry is
+// visible and no mask is evaluated. The code is branch-free, so it can run
+// while a wgmma is in flight.
+template <bool kMasked, int NC>
+__device__ __forceinline__ void fwd_softmax(float (&sc)[NC][32], float (&m)[2], float (&l)[2],
+                                            float (&alpha)[2], int key0, const FwdRows& q) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int key = key0 + c * 64 + (i >> 2) * 8 + 2 * q.t + (i & 1);
+      const bool ok =
+          !kMasked || (key < q.Sk && (!q.causal || q.k_offset + key <= q.qpos + 8 * r));
+      const float x = ok ? sc[c][i] * q.scale_log2 : kNegInf;
+      sc[c][i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const int key = key0 + c * 64 + (i >> 2) * 8 + 2 * q.t + (i & 1);
+      const bool ok =
+          !kMasked || (key < q.Sk && (!q.causal || q.k_offset + key <= q.qpos + 8 * r));
+      const float p = ok ? hopper::exp2_approx(sc[c][i] - mx[r]) : 0.f;
+      sc[c][i] = p;
+      rs[r] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    alpha[r] = hopper::exp2_approx(m[r] - mx[r]);
+    l[r] = l[r] * alpha[r] + rs[r];  // per-thread partial sum; reduced once at the end
+    m[r] = mx[r];
+  }
+}
+
+// P (f32, accumulator layout) to the bf16 A fragments of P·V, 16 keys each:
+// the accumulator layout of a 64 x 16 slice is the A operand's layout.
+template <int NC>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[NC * 4][4], const float (&sc)[NC][32]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[c * 4 + jj][e] = pack_bf16(sc[c][8 * jj + 2 * e], sc[c][8 * jj + 2 * e + 1]);
+}
+
+// S (64 x kFwdKeys) = Q·Kᵀ for one warpgroup: its Q rows (descriptor dq) and
+// a K tile, both K-major, in chunks of 64 keys.
+template <int DP>
+__device__ __forceinline__ void fwd_issue_s(float (&sc)[kFwdKeys / 64][32], uint64_t dq,
+                                            const bf16* k_tile) {
+  const uint64_t dk = hopper::make_desc<DP>(k_tile);
+#pragma unroll
+  for (int c = 0; c < kFwdKeys / 64; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      hopper::wgmma_ss_n64(sc[c], hopper::desc_add(dq, kk * 32),
+                           hopper::desc_add(dk, c * 64 * DP * 2 + kk * 32), kk);
+    }
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P·V for one warpgroup: P from registers, the V tile MN-major.
+template <int DP>
+__device__ __forceinline__ void fwd_issue_pv(float (&acc)[DP / 2],
+                                             const uint32_t (&pa)[kFwdKeys / 16][4],
+                                             const bf16* v_tile) {
+  const uint64_t dv = hopper::make_desc<DP>(v_tile);
+#pragma unroll
+  for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+    hopper::wgmma_rs_mn<DP>(acc, pa[kk], hopper::desc_add(dv, kk * 16 * DP * 2));
+  }
+  hopper::wgmma_commit();
+}
+
+// One step of a consumer warpgroup's pipeline at key tile kt >= 1: issue
+// S = Q·K_ktᵀ and O += P_(kt-1)·V_(kt-1), run the softmax of tile kt while
+// P·V runs, release tile kt - 1's stage, rescale O and pack P_kt.
+template <int DP, bool kMasked>
+__device__ __forceinline__ void fwd_step(int kt, float (&sc)[kFwdKeys / 64][32],
+                                         uint32_t (&pa)[kFwdKeys / 16][4], float (&acc)[DP / 2],
+                                         float (&m)[2], float (&l)[2], uint64_t dq,
+                                         const bf16* sk, const bf16* sv, uint64_t* full,
+                                         uint64_t* empty, const FwdRows& rows) {
+  using namespace hopper;
+  const int s = kt % kFwdStages, prev = (kt - 1) % kFwdStages;
+  mbar_wait(&full[s], (kt / kFwdStages) & 1);
+  wgmma_fence();
+  fwd_issue_s<DP>(sc, dq, sk + s * kFwdKeys * DP);
+  fwd_issue_pv<DP>(acc, pa, sv + prev * kFwdKeys * DP);
+  wgmma_wait<1>();  // S done, P·V may still run
+  fence_regs(sc);
+  float alpha[2];
+  fwd_softmax<kMasked>(sc, m, l, alpha, kt * kFwdKeys, rows);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(pa);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  pack_p(pa, sc);
+}
+
+// -- forward ------------------------------------------------------------------
+//
+// Replaces _fwd_kernel of edl_tpu/ops/flash_attention.py.
+// Bound on the H100: at head_dim 64 it does 4·D = 256 FLOPs per visible
+// (query, key) pair against 8·D bytes per row moved, so a 1024-token causal
+// sequence sits near the ridge (~15 µs of bytes and ~13 µs of bf16 FLOPs for
+// the slice's 96 heads). Design: one block owns 128 query rows of one
+// (batch, head), the heaviest query tiles launched first. The producer loads
+// the Q tile once and streams 64-key K and V tiles by TMA through a
+// 4-stage ring (full/empty mbarriers), so later tiles load while this one is
+// multiplied. Each consumer warpgroup computes S = Q·Kᵀ for its 64 rows as
+// wgmma with both operands in shared memory, runs the online softmax on the
+// accumulator fragment (the mask is evaluated only on tiles that cross the
+// diagonal or the ragged edge), rounds P to bf16 in registers and feeds it as
+// the register operand of O += P·V, with V read MN-major. The warpgroup
+// issues S of tile kt and P·V of tile kt - 1 together and runs the softmax
+// of tile kt while P·V runs, so the exponentials overlap the tensor cores.
+// S and P never leave registers; each K/V tile is read once per 128 rows.
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, void* __restrict__ o, float* __restrict__ lse,
+    int H, int Sq, int Sk, int D, int q_offset, int k_offset, float scale_log2, int causal,
+    int out_f32) {
+  using namespace hopper;
+  constexpr int kQBytes = kFwdRows * DP * 2, kKVBytes = kFwdKeys * DP * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sk = reinterpret_cast<bf16*>(smem + kQBytes);
+  bf16* sv = reinterpret_cast<bf16*>(smem + kQBytes + kFwdStages * kKVBytes);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kQBytes + 2 * kFwdStages * kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kFwdStages;
+
+  const int n_qt = (Sq + kFwdRows - 1) / kFwdRows;
+  const int BH = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - blockIdx.x / BH;  // the last query tiles carry the most keys
+  const int bh = blockIdx.x % BH, b = bh / H, h = bh % H;
+  const int q0 = qt * kFwdRows;
+  // the key tiles that the block's last kTile rows see
+  const int n_kt = key_tiles(Sk, q0 + kFwdRows - kTile, q_offset, k_offset, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers * 128) {  // one thread issues every load
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(q_full, kQBytes);
+      tma_load_4d(sq, &tq, q_full, 0, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kFwdStages;
+        mbar_wait(&empty[s], ((kt / kFwdStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
+        tma_load_4d(sk + s * kFwdKeys * DP, &tk, &full[s], 0, h, kt * kFwdKeys, b);
+        tma_load_4d(sv + s * kFwdKeys * DP, &tv, &full[s], 0, h, kt * kFwdKeys, b);
+      }
+    }
+  } else {  // consumer warpgroup wg: query rows q0 + 64·wg ...
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int wg_row0 = q0 + wg * 64;
+    const int row0 = wg_row0 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's first row
+    const FwdRows rows = {q_offset + row0 + (lane >> 2), t, Sk, causal, k_offset, scale_log2};
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g and g + 8, log2 units
+    float sc[kFwdKeys / 64][32];    // S, then P in f32, keys 64·c + ..., accumulator layout
+    uint32_t pa[kFwdKeys / 16][4];  // P in bf16: the A fragments of P·V
+    float alpha[2];                 // the first tile's: O is still 0
+
+    mbar_wait(q_full, 0);
+    const uint64_t dq = make_desc<DP>(sq + wg * 64 * DP);
+    // Tiles [0, n_open) need no mask: each key0 is at most both the last key0
+    // of a tile wholly visible to this warpgroup's rows and of a tile wholly
+    // inside Sk. The masked tiles (the diagonal, the ragged edge) come last.
+    int last_open = Sk - kFwdKeys;
+    const int last_visible = q_offset + wg_row0 - k_offset - kFwdKeys + 1;
+    if (causal && last_visible < last_open) last_open = last_visible;
+    int n_open = last_open < 0 ? 0 : last_open / kFwdKeys + 1;
+    if (n_open > n_kt) n_open = n_kt;
+
+    // Software pipeline inside the warpgroup: while the tensor cores run
+    // O += P·V of tile kt - 1, the softmax of tile kt runs on S. The code
+    // between a wgmma's issue and its wait has no branch: the mask is a
+    // template parameter of each loop, not a runtime test.
+    if (n_kt > 0) {
+      mbar_wait(&full[0], 0);
+      wgmma_fence();
+      fwd_issue_s<DP>(sc, dq, sk);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (n_open > 0) {
+        fwd_softmax<false>(sc, m, l, alpha, 0, rows);
+      } else {
+        fwd_softmax<true>(sc, m, l, alpha, 0, rows);
+      }
+      pack_p(pa, sc);
+    }
+    for (int kt = 1; kt < n_open; ++kt) {
+      fwd_step<DP, false>(kt, sc, pa, acc, m, l, dq, sk, sv, full, empty, rows);
+    }
+    for (int kt = n_open > 1 ? n_open : 1; kt < n_kt; ++kt) {
+      fwd_step<DP, true>(kt, sc, pa, acc, m, l, dq, sk, sv, full, empty, rows);
+    }
+    if (n_kt > 0) {
+      wgmma_fence();
+      fwd_issue_pv<DP>(acc, pa, sv + (n_kt - 1) % kFwdStages * kFwdKeys * DP);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+    }
+
+    const int g = lane >> 2;
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row >= Sq) continue;
+      const float safe = l[r] > 0.f ? l[r] : 1.f;  // a row with no key: acc is 0, so O = 0
+      const long long base = (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d >= D) continue;
+        const float x0 = acc[4 * j + 2 * r] / safe, x1 = acc[4 * j + 2 * r + 1] / safe;
+        if (out_f32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(o) + base + d) = make_float2(x0, x1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(o) + base + d) =
+              __floats2bfloat162_rn(x0, x1);
+        }
+      }
+      if (t == 0) {
+        lse[(long long)bh * Sq + row] = l[r] > 0.f ? m[r] * kLn2 + logf(safe) : kNegInf;
+      }
+    }
+  }
+}
+
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (64 keys x kDkvRows queries) for one warpgroup:
+// its K and V rows (descriptors dkd, dvd) and a Q and a dO tile, all K-major.
+template <int DP>
+__device__ __forceinline__ void dkv_issue_s(float (&st)[32], float (&dpt)[32], uint64_t dkd,
+                                            uint64_t dvd, const bf16* q_tile,
+                                            const bf16* do_tile) {
+  const uint64_t dqd = hopper::make_desc<DP>(q_tile), dod = hopper::make_desc<DP>(do_tile);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    hopper::wgmma_ss_n64(st, hopper::desc_add(dkd, kk * 32), hopper::desc_add(dqd, kk * 32), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    hopper::wgmma_ss_n64(dpt, hopper::desc_add(dvd, kk * 32), hopper::desc_add(dod, kk * 32), kk);
+  }
+  hopper::wgmma_commit();
+}
+
+// dK += dSᵀ·Q and dV += Pᵀ·dO for one warpgroup: Pᵀ and dSᵀ from registers,
+// the Q and dO tiles MN-major.
+template <int DP>
+__device__ __forceinline__ void dkv_issue_grads(float (&dk)[DP / 2], float (&dv)[DP / 2],
+                                                const uint32_t (&pa)[kDkvRows / 16][4],
+                                                const uint32_t (&da)[kDkvRows / 16][4],
+                                                const bf16* q_tile, const bf16* do_tile) {
+  const uint64_t dqd = hopper::make_desc<DP>(q_tile), dod = hopper::make_desc<DP>(do_tile);
+#pragma unroll
+  for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+    hopper::wgmma_rs_mn<DP>(dv, pa[kk], hopper::desc_add(dod, kk * 16 * DP * 2));
+  }
+#pragma unroll
+  for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+    hopper::wgmma_rs_mn<DP>(dk, da[kk], hopper::desc_add(dqd, kk * 16 * DP * 2));
+  }
+  hopper::wgmma_commit();
+}
+
+// What dkv's probabilities need to mask one thread's two key rows of a
+// transposed tile: the global position of key row g (row g + 8 is 8 further),
+// its local index, the lane's column pair t, and the request.
+struct DkvKeys {
+  int kpos, krow, t, Sq, Sk, causal, q_offset;
+  float scale, scale_log2;
+};
+
+// Pᵀ = exp(Sᵀ·scale − lse) and dSᵀ = Pᵀ ∘ (dPᵀ − delta) · scale in place, for
+// the query tile at q0 whose lse (times log2 e) and delta are `ls` and `dl`;
+// masked entries are exactly 0 through their validity. Unless kMasked,
+// every entry is visible and no mask is evaluated.
+template <bool kMasked>
+__device__ __forceinline__ void dkv_probs(float (&st)[32], float (&dpt)[32], const float* ls,
+                                          const float* dl, int q0, const DkvKeys& k) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const int qi = (i >> 2) * 8 + 2 * k.t + (i & 1);  // query row within the tile
+    const bool ok = !kMasked || (k.krow + 8 * r < k.Sk && q0 + qi < k.Sq &&
+                                (!k.causal || k.kpos + 8 * r <= k.q_offset + q0 + qi));
+    const float p = ok ? hopper::exp2_approx(st[i] * k.scale_log2 - ls[qi]) : 0.f;
+    st[i] = p;
+    dpt[i] = p * (dpt[i] - dl[qi]) * k.scale;
+  }
+}
+
+// Pᵀ and dSᵀ (f32, accumulator layout) to bf16 A fragments, 16 queries each.
+__device__ __forceinline__ void pack_pt(uint32_t (&pa)[kDkvRows / 16][4],
+                                        uint32_t (&da)[kDkvRows / 16][4], const float (&st)[32],
+                                        const float (&dpt)[32]) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      pa[jj][e] = pack_bf16(st[8 * jj + 2 * e], st[8 * jj + 2 * e + 1]);
+      da[jj][e] = pack_bf16(dpt[8 * jj + 2 * e], dpt[8 * jj + 2 * e + 1]);
+    }
+  }
+}
+
 // -- backward: dK and dV ------------------------------------------------------
 //
 // Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py.
 // Bound on the H100: 8·D FLOPs per visible pair (Sᵀ, dPᵀ, dV and dK products)
 // against 12·D bytes per row: FLOP-bound at the slice's shape (~26 µs against
-// ~23 µs of bytes). Key-tile outer, query-tile inner: one block per
-// (batch·head, 64 keys) holds K and V for its keys in registers, streams Q, dO,
-// lse and delta tiles from the first query tile that can see its keys, and
-// keeps dK and dV in f32 registers, written once. Each block owns its output
-// rows, so there are no atomics and the sums are deterministic.
+// ~23 µs of bytes). Design: key-tile outer, query-tile inner. One block owns
+// 128 keys of one (batch, head), the earliest (most-seen) key tiles launched
+// first; each consumer warpgroup owns 64 of them. K and V are loaded once by
+// TMA; 64-query tiles of Q and dO stream through a 3-stage ring by TMA, with
+// their lse (pre-multiplied by log2 e) and delta stored beside them by the
+// producer warp, from the first query tile that can see the block's keys.
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma with both operands in shared memory;
+// Pᵀ and dSᵀ are formed in registers (masked only on tiles that cross the
+// diagonal or the ragged edge), rounded to bf16 and fed as register operands
+// of dV += Pᵀ·dO and dK += dSᵀ·Q with dO and Q read MN-major. dK and dV stay
+// in f32 registers and are written once: each block owns its output rows, so
+// there are no atomics and the sums are deterministic.
 template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-    int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs, int q_offset, int k_offset,
-    float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = DP + kPad;
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = sq + kTile * ld;
-  float* slse = reinterpret_cast<float*>(sdo + kTile * ld);
-  float* sdelta = slse + kTile;
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkv_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int Sq, int Sk, int D, int q_offset, int k_offset,
+    float scale, float scale_log2, int causal) {
+  using namespace hopper;
+  constexpr int kKVBytes = kDkvKeys * DP * 2, kQBytes = kDkvRows * DP * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* sk = reinterpret_cast<bf16*>(smem);
+  bf16* sv = reinterpret_cast<bf16*>(smem + kKVBytes);
+  bf16* sq = reinterpret_cast<bf16*>(smem + 2 * kKVBytes);
+  bf16* sdo = reinterpret_cast<bf16*>(smem + 2 * kKVBytes + kDkvStages * kQBytes);
+  float* slse = reinterpret_cast<float*>(smem + 2 * kKVBytes + 2 * kDkvStages * kQBytes);
+  float* sdelta = slse + kDkvStages * kDkvRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sdelta + kDkvStages * kDkvRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kDkvStages;
 
-  const int n_kt = (Sk + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_kt, kt = blockIdx.x % n_kt;
-  const int b = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int krow0 = kt * kTile + (threadIdx.x >> 5) * 16;  // this warp's first key row
-  const Strides os = {(long long)Sq * H * D, (long long)H * D, D};  // dO: contiguous
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* dob = dout + b * os.b + h * os.h;
-  const float* lseb = lse + (long long)bh * Sq;
-  const float* deltab = delta + (long long)bh * Sq;
+  const int n_kt = (Sk + kDkvKeys - 1) / kDkvKeys;
+  const int BH = gridDim.x / n_kt;
+  const int kt = blockIdx.x / BH;  // the first key tiles are seen by the most queries
+  const int bh = blockIdx.x % BH, b = bh / H, h = bh % H;
+  const int k0 = kt * kDkvKeys;
+  const int n_qt = (Sq + kDkvRows - 1) / kDkvRows;
+  const int qt0 = first_query_tile(k0, q_offset, k_offset, causal);
 
-  uint32_t ka[DP / 16][4], va[DP / 16][4];
-  load_a<DP>(ka, k + b * ks.b + h * ks.h, ks.s, krow0, Sk, D);
-  load_a<DP>(va, v + b * vs.b + h * vs.h, vs.s, krow0, Sk, D);
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-#pragma unroll
-  for (int i = 0; i < DP / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 32);               // the producer warp's 32 lanes
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
   }
-  const int kpos = k_offset + krow0 + g;  // global position of key row g
-  const bool key_ok[2] = {krow0 + g < Sk, krow0 + g + 8 < Sk};
+  __syncthreads();
 
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  for (int qt = first_query_tile(kt * kTile, q_offset, k_offset, causal); qt < n_qt; ++qt) {
-    __syncthreads();
-    load_tile<DP>(sq, qb, qs.s, qt * kTile, Sq, D);
-    load_tile<DP>(sdo, dob, os.s, qt * kTile, Sq, D);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const int row = qt * kTile + i;
-      slse[i] = row < Sq ? lseb[row] : 0.f;
-      sdelta[i] = row < Sq ? deltab[row] : 0.f;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wg == kConsumers) {  // the producer warp
+    if (lane == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tdo);
+      mbar_arrive_expect_tx(kv_full, 2 * kKVBytes);
+      tma_load_4d(sk, &tk, kv_full, 0, h, k0, b);
+      tma_load_4d(sv, &tv, kv_full, 0, h, k0, b);
     }
-    __syncthreads();
-
-    float st[kTile / 8][4], dpt[kTile / 8][4];  // Sᵀ and dPᵀ: rows are keys
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-    }
-    mma_abt<DP, kTile / 8>(st, ka, sq);    // Sᵀ = K Qᵀ
-    mma_abt<DP, kTile / 8>(dpt, va, sdo);  // dPᵀ = V dOᵀ
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int qi = j * 8 + 2 * t + (e & 1);  // query row within the tile
-        const int qrow = qt * kTile + qi;
-        const bool ok = key_ok[r] && qrow < Sq &&
-                        (!causal || kpos + 8 * r <= q_offset + qrow);
-        const float p = ok ? expf(st[j][e] * scale - slse[qi]) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - sdelta[qi]) * scale;  // dSᵀ
+    const float* lseb = lse + (long long)bh * Sq;
+    const float* deltab = delta + (long long)bh * Sq;
+    for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
+      const int s = it % kDkvStages, q0 = qt * kDkvRows;
+      mbar_wait(&empty[s], ((it / kDkvStages) & 1) ^ 1);
+      for (int r = lane; r < kDkvRows; r += 32) {
+        const bool ok = q0 + r < Sq;
+        slse[s * kDkvRows + r] = ok ? lseb[q0 + r] * kLog2e : 0.f;
+        sdelta[s * kDkvRows + r] = ok ? deltab[q0 + r] : 0.f;
+      }
+      if (lane == 0) {  // its arrival releases its own stores, as every lane's does
+        mbar_arrive_expect_tx(&full[s], 2 * kQBytes);
+        tma_load_4d(sq + s * kDkvRows * DP, &tq, &full[s], 0, h, q0, b);
+        tma_load_4d(sdo + s * kDkvRows * DP, &tdo, &full[s], 0, h, q0, b);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
-    mma_pv<DP>(dv_acc, st, sdo);  // dV += Pᵀ dO
-    mma_pv<DP>(dk_acc, dpt, sq);  // dK += dSᵀ Q
-  }
+  } else {  // consumer warpgroup wg: keys k0 + 64·wg ...
+    const int g = lane >> 2, t = lane & 3;
+    const int wg_key0 = k0 + wg * 64;
+    const int krow0 = wg_key0 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's first key
+    const int kpos = k_offset + krow0 + g;                       // global position of key g
+
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    float st[32], dpt[32];        // Sᵀ and dPᵀ, then Pᵀ and dSᵀ in f32: rows are keys
+    uint32_t pa[4][4], da[4][4];  // Pᵀ and dSᵀ in bf16: the A fragments
+
+    mbar_wait(kv_full, 0);
+    const uint64_t dkd = make_desc<DP>(sk + wg * 64 * DP);
+    const uint64_t dvd = make_desc<DP>(sv + wg * 64 * DP);
+    const DkvKeys keys = {kpos, krow0 + g, t, Sq, Sk, causal, q_offset, scale, scale_log2};
+    // Query tile qt is masked iff it crosses the ragged edge or this
+    // warpgroup's diagonal (its first query does not see all 64 keys).
+    const bool keys_ragged = wg_key0 + 64 > Sk;
+    const int diag = k_offset + wg_key0 + 63 - q_offset;  // first query that sees all
+
+    for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
+      const int s = it % kDkvStages, q0 = qt * kDkvRows;
+      const bf16* q_tile = sq + s * kDkvRows * DP;
+      const bf16* do_tile = sdo + s * kDkvRows * DP;
+      mbar_wait(&full[s], (it / kDkvStages) & 1);
+      wgmma_fence();
+      dkv_issue_s<DP>(st, dpt, dkd, dvd, q_tile, do_tile);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      if (keys_ragged || q0 + kDkvRows > Sq || (causal && q0 < diag)) {
+        dkv_probs<true>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
+      } else {
+        dkv_probs<false>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
+      }
+      pack_pt(pa, da, st, dpt);
+      wgmma_fence();
+      dkv_issue_grads<DP>(dk_acc, dv_acc, pa, da, q_tile, do_tile);
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = krow0 + g + 8 * r;
-    if (row >= Sk) continue;
-    const long long base = (((long long)b * Sk + row) * H + h) * D;
+    for (int r = 0; r < 2; ++r) {
+      const int row = krow0 + g + 8 * r;
+      if (row >= Sk) continue;
+      const long long base = (((long long)b * Sk + row) * H + h) * D;
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      const int d = i * 8 + 2 * t;
-      if (d < D) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + base + d) =
-            __floats2bfloat162_rn(dk_acc[i][2 * r], dk_acc[i][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + base + d) =
-            __floats2bfloat162_rn(dv_acc[i][2 * r], dv_acc[i][2 * r + 1]);
+      for (int j = 0; j < DP / 8; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < D) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + base + d) =
+              __floats2bfloat162_rn(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + base + d) =
+              __floats2bfloat162_rn(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        }
       }
     }
   }
@@ -509,24 +835,91 @@ template <int DP>
 constexpr size_t tiles_smem() {
   return 2 * kTile * (DP + kPad) * sizeof(bf16);
 }
-// All three kernels stay under the 48 KB of static shared memory a launch may
+// The dq kernel stays under the 48 KB of static shared memory a launch may
 // take without cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, ...).
-static_assert(tiles_smem<64>() + 2 * kTile * sizeof(float) <= 48 * 1024, "shared memory");
+static_assert(tiles_smem<64>() <= 48 * 1024, "shared memory");
 
-// The padded head dim a kernel is compiled for: D even, 2 <= D <= 64.
+// Shared memory of the Hopper kernels, with 1024 bytes of slack for alignment.
+template <int DP>
+constexpr size_t fwd_smem() {
+  return 1024 + (kFwdRows + 2 * kFwdStages * kFwdKeys) * DP * 2 + (1 + 2 * kFwdStages) * 8;
+}
+template <int DP>
+constexpr size_t dkv_smem() {
+  return 1024 + (2 * kDkvKeys + 2 * kDkvStages * kDkvRows) * DP * 2 +
+         2 * kDkvStages * kDkvRows * sizeof(float) + (1 + 2 * kDkvStages) * 8;
+}
+static_assert(fwd_smem<64>() <= 227 * 1024 && dkv_smem<64>() <= 227 * 1024, "shared memory");
+
+// The padded head dim a kernel is compiled for: D a multiple of 8, 8 <= D <= 64
+// (TMA moves rows of 16-byte multiples).
 int padded_head_dim(int D) {
-  if (D <= 0 || D % 2 || D > 64) return 0;
+  if (D <= 0 || D % 8 || D > 64) return 0;
   return D <= 16 ? 16 : D <= 32 ? 32 : 64;
+}
+
+// cuTensorMapEncodeTiled, a driver-API function, fetched through the runtime
+// so that the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t rc =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a (B, S, H, D) bf16 view with element strides `st` (unit
+// stride along D), in boxes of DP x 1 x `rows` x 1 elements, swizzled by the
+// span of one box row. TMA needs a 16-byte aligned start and byte strides that
+// are multiples of 16; elements outside the view (d >= D, s >= S) load as 0.
+template <int DP>
+cudaError_t view_map(CUtensorMap* map, const void* base, int B, int S, int H, int D, Strides st,
+                     int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {DP, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = DP == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : DP == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above the default 48 KB)
+// on the current device. Set at every launch, so that every device has it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int DP>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                 int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs, int q_offset,
                 int k_offset, float scale, int causal, int out_f32, cudaStream_t stream) {
-  const int blocks = B * H * ((Sq + kTile - 1) / kTile);
-  flash_fwd_kernel<DP><<<blocks, kThreads, tiles_smem<DP>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), o,
-      lse, H, Sq, Sk, D, qs, ks, vs, q_offset, k_offset, scale, causal, out_f32);
+  CUtensorMap tq, tk, tv;
+  cudaError_t rc = allow_smem(flash_fwd_kernel<DP>, fwd_smem<DP>());
+  if (rc == cudaSuccess) rc = view_map<DP>(&tq, q, B, Sq, H, D, qs, kFwdRows);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tk, k, B, Sk, H, D, ks, kFwdKeys);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tv, v, B, Sk, H, D, vs, kFwdKeys);
+  if (rc != cudaSuccess) return rc;
+  const int blocks = B * H * ((Sq + kFwdRows - 1) / kFwdRows);
+  flash_fwd_kernel<DP><<<blocks, kWsThreads, fwd_smem<DP>(), stream>>>(
+      tq, tk, tv, o, lse, H, Sq, Sk, D, q_offset, k_offset, scale * kLog2e, causal, out_f32);
   return cudaGetLastError();
 }
 
@@ -548,12 +941,18 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
                     const float* lse, const float* delta, void* dk, void* dv, int B, int H,
                     int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs, int q_offset,
                     int k_offset, float scale, int causal, cudaStream_t stream) {
-  const int blocks = B * H * ((Sk + kTile - 1) / kTile);
-  const size_t smem = tiles_smem<DP>() + 2 * kTile * sizeof(float);
-  flash_bwd_dkv_kernel<DP><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, D, qs, ks, vs, q_offset, k_offset, scale, causal);
+  const Strides os = {(long long)Sq * H * D, (long long)H * D, D};  // dO: contiguous
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t rc = allow_smem(flash_bwd_dkv_kernel<DP>, dkv_smem<DP>());
+  if (rc == cudaSuccess) rc = view_map<DP>(&tq, q, B, Sq, H, D, qs, kDkvRows);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tdo, dout, B, Sq, H, D, os, kDkvRows);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tk, k, B, Sk, H, D, ks, kDkvKeys);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tv, v, B, Sk, H, D, vs, kDkvKeys);
+  if (rc != cudaSuccess) return rc;
+  const int blocks = B * H * ((Sk + kDkvKeys - 1) / kDkvKeys);
+  flash_bwd_dkv_kernel<DP><<<blocks, kWsThreads, dkv_smem<DP>(), stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk, D,
+      q_offset, k_offset, scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 

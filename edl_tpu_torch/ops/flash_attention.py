@@ -38,11 +38,12 @@ __all__ = ["flash_attention"]
 #: finite "masked" score: exp() of it is exactly 0.0 without nan risk
 _NEG_INF = -1e30
 
-#: the kernels' tile: query rows and key rows per thread block, fixed when
-#: the CUDA source is compiled
+#: the kernels' tile, fixed when the CUDA source is compiled: the rows one
+#: warpgroup owns in the forward and dkv kernels (wgmma's 64-row M), the query
+#: tile that dkv streams, and the dq kernel's query and key tiles
 TILE = 64
 
-#: head dims the kernels are compiled for (even, at most 64)
+#: the largest head dim the kernels are compiled for (multiples of 8)
 MAX_HEAD_DIM = 64
 
 #: kernel launches since the counts were last set to 0, one per kernel; each
@@ -163,6 +164,26 @@ def _check(rc: int, kernel: str) -> None:
                            f"CUDA error {rc} ({msg})")
 
 
+def _view_problem(shape, strides, itemsize: int, ptr: int) -> Optional[str]:
+    """Why the kernels cannot read a (B, S, H, D) view of this layout, or
+    None if they can. The kernels load q, k and v by TMA: unit stride along
+    D, a start aligned to 16 bytes, byte strides that are multiples of 16,
+    and a head dim that is a multiple of 8 (rows of 16-byte multiples) and at
+    most `MAX_HEAD_DIM`."""
+    D = shape[3]
+    if D % 8 or not 0 < D <= MAX_HEAD_DIM:
+        return (f"head_dim {D}: the kernels take head dims that are multiples "
+                f"of 8, up to {MAX_HEAD_DIM}")
+    if strides[3] != 1:
+        return f"strides {tuple(strides)}: D needs unit stride"
+    if any(s * itemsize % 16 for s in strides[:3]):
+        return (f"strides {tuple(strides)} (elements of {itemsize} bytes): "
+                f"TMA needs byte strides that are multiples of 16")
+    if ptr % 16:
+        return f"start address {ptr:#x}: TMA needs a 16-byte aligned start"
+    return None
+
+
 def _check_kernel_inputs(q, k, v) -> None:
     """Raise on any request the kernels do not take."""
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -172,17 +193,10 @@ def _check_kernel_inputs(q, k, v) -> None:
         if x.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"{name} is {x.dtype}; the CUDA kernels take bfloat16 only")
-        if x.stride(3) != 1 or any(s % 2 for s in x.stride()[:3]) \
-                or x.data_ptr() % 4:
-            raise ValueError(
-                f"{name} has strides {x.stride()}: the kernels read pairs of "
-                f"bf16, so D needs unit stride and the other strides and the "
-                f"start must be even")
-    D = q.shape[3]
-    if D % 2 or D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"head_dim {D}: the kernels take even head dims up to "
-            f"{MAX_HEAD_DIM}")
+        problem = _view_problem(x.shape, x.stride(), x.element_size(),
+                                x.data_ptr())
+        if problem is not None:
+            raise NotImplementedError(f"{name}: {problem}")
     B, H = q.shape[0], q.shape[2]
     tiles = -(-max(q.shape[1], k.shape[1]) // TILE)
     if B * H * tiles >= 2**31:

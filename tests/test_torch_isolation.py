@@ -76,7 +76,8 @@ def test_entry_points_raise_without_cuda_unless_the_cpu_is_asked_for():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["float32", "head_dim_128", "odd_stride"])
+@pytest.mark.parametrize("case", ["float32", "head_dim_128", "odd_stride",
+                                  "stride_not_16B"])
 def test_kernel_wrapper_raises_on_cuda_requests_it_cannot_serve(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -87,5 +88,7 @@ def test_kernel_wrapper_raises_on_cuda_requests_it_cannot_serve(case):
     q = torch.zeros((1, 16, 2, D), dtype=dtype, device="cuda")
     if case == "odd_stride":
         q = torch.zeros((1, 16, 2, D + 1), dtype=dtype, device="cuda")[..., 1:]
+    if case == "stride_not_16B":  # head stride 68 bf16 = 136 bytes
+        q = torch.zeros((1, 16, 2, D + 4), dtype=dtype, device="cuda")[..., :D]
     with pytest.raises((NotImplementedError, ValueError)):
         flash_attention(q, q, q)
