@@ -14,20 +14,22 @@ phase that fails raises, and the script exits non-zero without its last line:
    and convolutions.
 2. Build: compiles the CUDA sources with ``nvcc`` for ``sm_90a``, prints
    ptxas's registers and spills, and counts with ``cuobjdump -sass`` each
-   kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``) and mbarrier
-   (``SYNCS``) instructions; the forward and dkv kernels must have wgmma
-   and TMA loads.
+   kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``), mbarrier
+   (``SYNCS``) and ``mma.sync`` (``HMMA``) instructions; every flash kernel
+   must have wgmma and TMA loads and no ``mma.sync``.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs, at the slice's shape, a ragged shape,
-   the ring's offset cases (with an lse cotangent), a case with rows that see
-   no key, head dims 8, 16 and 32, and fewer queries than keys, row by row
-   and element by element;
+   the ring's offset cases (with an lse cotangent), cases with rows that see
+   no key (one with a whole 128-row query block that sees none), head dims
+   8, 16 and 32, and fewer queries than keys, row by row and element by
+   element;
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
    slice's shape; then each kernel's time at the slice's shape (``ms``: one
    call at a time; ``ms_back_to_back``: ten launches in a row), its wrapper's
-   host time a call, its plain version's time, one library call's (timed
-   both ways) and the card's bound.
+   host time a call (and the whole backward's, inputs checked once), its
+   plain version's time, one library call's (timed both ways) and the
+   card's bound.
 4. The slice: the GPT-2-small-width transformer LM (12 layers, d_model 768,
    seq 1024, vocab 32000, batch 8) trained by the ``Trainer`` with Adam at lr
    3e-4 on one repeated synthetic batch. Losses must be finite and fall, and
@@ -103,11 +105,12 @@ FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
 #: kernel -> (its function in the library, the design it is built on)
 DESIGNS = {
     "fwd": ("flash_fwd_kernel", "wgmma+TMA, PR 2"),
-    "bwd_dq": ("flash_bwd_dq_kernel", "mma.sync, PR 1"),
+    "bwd_dq": ("flash_bwd_dq_kernel", "wgmma+TMA, PR 3"),
     "bwd_dkv": ("flash_bwd_dkv_kernel", "wgmma+TMA, PR 2"),
 }
-#: SASS instructions counted per kernel: wgmma, TMA tile load, mbarrier
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+#: SASS instructions counted per kernel: wgmma, TMA tile load, mbarrier,
+#: mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA")
 
 #: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused):
 #: ``fused`` cases take q, k and v as strided slices of one (B, S, 3, H, D)
@@ -119,6 +122,9 @@ CASES = [
     ("ring_diagonal", (2, 300, 300, 2, 64), True, 300, 300, True, False),
     ("ring_past", (2, 300, 300, 2, 64), True, 300, 0, True, False),
     ("no_key_rows", (1, 200, 200, 2, 64), True, 0, 69, True, False),
+    # queries 0-199 see no key: the first 128-row dq block sees none, the
+    # second has one warpgroup that sees none; keys 100-299 are seen by none
+    ("no_key_block", (1, 300, 300, 2, 64), True, 0, 200, True, False),
     ("head_dim_8", (1, 100, 100, 2, 8), True, 0, 0, False, True),
     ("head_dim_16", (1, 100, 100, 2, 16), True, 0, 0, False, True),
     ("head_dim_32", (1, 100, 100, 2, 32), False, 0, 0, False, True),
@@ -229,12 +235,12 @@ def phase_build() -> dict:
     for fn, by_dp in counts.items():
         for dp, ops in sorted(by_dp.items()):
             print(f"  sass: {fn}<{dp}> " + ", ".join(f"{op} {n}" for op, n in ops.items()))
-    for kname, (fn, design) in DESIGNS.items():
+    for fn, _ in DESIGNS.values():
         require(fn in counts, f"{fn} is not in the library's SASS")
-        if design.startswith("wgmma"):
-            for dp, ops in counts[fn].items():
-                require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
-                        f"{fn}<{dp}> has no wgmma or no TMA load in its SASS: {ops}")
+        for dp, ops in counts[fn].items():
+            require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+                    f"{fn}<{dp}> lacks wgmma or TMA loads, or has mma.sync, in its "
+                    f"SASS: {ops}")
     return counts
 
 
@@ -487,6 +493,10 @@ def phase_kernels(device):
                           if kname == "fwd" else
                           "scaled_dot_product_attention backward: dq, dk and dv together"),
         )
+    bwd_host = host_ms(lambda: fa._bwd_kernel(*args, **opts))
+    print(f"host: the backward's two launches (inputs checked once) {bwd_host:.4f} ms a "
+          f"call, against {results['bwd_dq']['host_ms'] + results['bwd_dkv']['host_ms']:.4f} "
+          f"ms for the two wrappers called one after the other")
     return results
 
 

@@ -35,19 +35,13 @@
 // exact up to summation order, as on the TPU. P and dS are rounded to bf16
 // before P·V, Pᵀ·dO, dS·K and dSᵀ·Q, where the Pallas kernels multiply in f32:
 // one bf16 rounding (relative 2^-9) per term, which the bf16 tolerances against
-// the plain PyTorch versions cover. The forward and dkv kernels take exp as
-// 2^x on the special-function unit with scale·log2(e) folded into one multiply.
+// the plain PyTorch versions cover. Every kernel takes exp as 2^x on the
+// special-function unit with scale·log2(e) folded into one multiply.
 //
-// Two designs live here:
-//  * flash_fwd_kernel and flash_bwd_dkv_kernel are built for Hopper (see the
-//    note above each): a producer warpgroup streams tiles by TMA into a ring
-//    of shared-memory stages guarded by mbarriers, and two consumer
-//    warpgroups run every product as wgmma while the next tiles load.
-//  * flash_bwd_dq_kernel is the first, simpler design: 4 warps own one
-//    64-row tile of one (batch, head) and keep their operand fragments and
-//    f32 accumulators in registers; the other operand's 64-row tiles are
-//    staged in padded shared memory between __syncthreads() and multiplied
-//    with mma.sync m16n8k16.
+// One design serves all three (see the note above each kernel): a producer
+// warp streams tiles by TMA into a ring of shared-memory stages guarded by
+// mbarriers, and two consumer warpgroups run every product as wgmma while the
+// next tiles load.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -60,25 +54,12 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// The dq kernel's tiling (the dkv kernel's query tiles have kTile rows too).
-constexpr int kTile = 64;          // rows per thread block and per inner tile
-constexpr int kWarps = 4;          // each warp owns 16 rows of the block's tile
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;            // bf16 padding per shared-memory row
+constexpr int kTile = 64;          // rows one consumer warpgroup owns (wgmma's M)
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF sentinel
 
 struct Strides {  // element strides of a (B, S, H, D) view; D has unit stride
   long long b, s, h;
 };
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -93,91 +74,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Columns d and d + 1 of row `row`; zero outside [0, n_rows) x [0, D).
-__device__ __forceinline__ uint32_t ld_pair(const bf16* base, long long row_stride,
-                                            int row, int n_rows, int d, int D) {
-  if (row >= n_rows || d >= D) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * row_stride + d);
-}
-
-// Rows [row0, row0 + kTile) of a (S, D) slice into shared memory, laid out as
-// kTile x (DP + kPad) and zero-filled past the ragged edge and past D.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long row_stride,
-                                          int row0, int n_rows, int D) {
-  constexpr int kPairs = DP / 2;
-  for (int i = threadIdx.x; i < kTile * kPairs; i += kThreads) {
-    const int r = i / kPairs, c = (i % kPairs) * 2;
-    *reinterpret_cast<uint32_t*>(dst + r * (DP + kPad) + c) =
-        ld_pair(base, row_stride, row0 + r, n_rows, c, D);
-  }
-}
-
-// One warp's A operand: rows [row0, row0 + 16) x DP, row-major, from global memory.
-template <int DP>
-__device__ __forceinline__ void load_a(uint32_t (&a)[DP / 16][4], const bf16* base,
-                                       long long row_stride, int row0, int n_rows, int D) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int d = kk * 16 + 2 * t;
-    a[kk][0] = ld_pair(base, row_stride, row0 + g, n_rows, d, D);
-    a[kk][1] = ld_pair(base, row_stride, row0 + g + 8, n_rows, d, D);
-    a[kk][2] = ld_pair(base, row_stride, row0 + g, n_rows, d + 8, D);
-    a[kk][3] = ld_pair(base, row_stride, row0 + g + 8, n_rows, d + 8, D);
-  }
-}
-
-// B operand of X·Yᵀ with Y in shared memory as [n][k]: Y[n][k], Y[n][k + 1].
-__device__ __forceinline__ uint32_t lds_nk(const bf16* s, int ld, int n, int k) {
-  return *reinterpret_cast<const uint32_t*>(s + n * ld + k);
-}
-
-// B operand of X·Y with Y in shared memory as [k][n]: Y[k][n], Y[k + 1][n].
-__device__ __forceinline__ uint32_t lds_kn(const bf16* s, int ld, int k, int n) {
-  __nv_bfloat162 v;
-  v.x = s[k * ld + n];
-  v.y = s[(k + 1) * ld + n];
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c (16 x 8·NT, accumulator layout) += A (16 x DP) · Yᵀ, Y = NT·8 rows of DP in smem.
-template <int DP, int NT>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const uint32_t (&a)[DP / 16][4],
-                                        const bf16* s) {
-  constexpr int ld = DP + kPad;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      mma16816(c[j], a[kk], lds_nk(s, ld, j * 8 + g, kk * 16 + 2 * t),
-               lds_nk(s, ld, j * 8 + g, kk * 16 + 2 * t + 8));
-    }
-  }
-}
-
-// c (16 x DP) += P (16 x kTile, f32 in accumulator layout, rounded to bf16 here)
-// · Y (kTile x DP in smem as [k][n]). The accumulator layout of P is the A
-// operand's layout, so P never leaves registers.
-template <int DP>
-__device__ __forceinline__ void mma_pv(float (&c)[DP / 8][4], const float (&p)[kTile / 8][4],
-                                       const bf16* s) {
-  constexpr int ld = DP + kPad;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]), pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      mma16816(c[i], a, lds_kn(s, ld, kk * 16 + 2 * t, i * 8 + g),
-               lds_kn(s, ld, kk * 16 + 2 * t + 8, i * 8 + g));
-    }
-  }
 }
 
 // Key tiles [0, n) holding a key that some row of the query tile at local row
@@ -199,104 +95,28 @@ __device__ __forceinline__ int first_query_tile(int k0, int q_offset, int k_offs
   return need <= 0 ? 0 : (int)((need + kTile - 1) / kTile);
 }
 
-// -- backward: dQ -------------------------------------------------------------
-//
-// Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py.
-// Bound on the H100: 6·D FLOPs per visible pair (S, dP and dQ products)
-// against 10·D bytes per row (q, k, v, dO in, dQ out): at the slice's shape
-// about as much bytes time as FLOP time (~19-20 µs each). One block per
-// (batch·head, 64 query rows) holds Q, dO, lse and delta for its rows in
-// registers and streams K and V tiles through shared memory up to the causal
-// limit; dQ accumulates in f32 registers and is written once.
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq, int Sk, int D,
-    Strides qs, Strides ks, Strides vs, int q_offset, int k_offset, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = DP + kPad;
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kTile * ld;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int bh = blockIdx.x / n_qt, qt = blockIdx.x % n_qt;
-  const int b = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = qt * kTile + (threadIdx.x >> 5) * 16;
-  const Strides os = {(long long)Sq * H * D, (long long)H * D, D};  // dO and dQ: contiguous
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-
-  uint32_t qa[DP / 16][4], da[DP / 16][4];
-  load_a<DP>(qa, q + b * qs.b + h * qs.h, qs.s, row0, Sq, D);
-  load_a<DP>(da, dout + b * os.b + h * os.h, os.s, row0, Sq, D);
-  float lrow[2], drow[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    lrow[r] = row < Sq ? lse[(long long)bh * Sq + row] : 0.f;
-    drow[r] = row < Sq ? delta[(long long)bh * Sq + row] : 0.f;
-  }
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const int qpos = q_offset + row0 + g;
-
-  const int n_kt = key_tiles(Sk, qt * kTile, q_offset, k_offset, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile<DP>(sk, kb, ks.s, kt * kTile, Sk, D);
-    load_tile<DP>(sv, vb, vs.s, kt * kTile, Sk, D);
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-    mma_abt<DP, kTile / 8>(s, qa, sk);   // S = Q Kᵀ
-    mma_abt<DP, kTile / 8>(dp, da, sv);  // dP = dO Vᵀ
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = kt * kTile + j * 8 + 2 * t + (e & 1);
-        const bool ok = key < Sk && (!causal || k_offset + key <= qpos + 8 * r);
-        const float p = ok ? expf(s[j][e] * scale - lrow[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - drow[r]) * scale;  // dS
-      }
-    }
-    mma_pv<DP>(acc, s, sk);  // dQ += dS K
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= Sq) continue;
-    const long long base = (((long long)b * Sq + row) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      const int d = i * 8 + 2 * t;
-      if (d < D) {
-        *reinterpret_cast<__nv_bfloat162*>(dq + base + d) =
-            __floats2bfloat162_rn(acc[i][2 * r], acc[i][2 * r + 1]);
-      }
-    }
-  }
+// Key tiles [0, n_open) that every row of the warpgroup whose first row is
+// wg_row0 sees whole: each tile is wholly inside Sk and wholly visible to
+// that first row (and so to every later row, none of which sees no key).
+// The masked tiles (the diagonal, the ragged edge) come after them.
+__device__ __forceinline__ int open_key_tiles(int n_kt, int Sk, int wg_row0, int q_offset,
+                                              int k_offset, int causal) {
+  int last_open = Sk - kTile;
+  const int last_visible = q_offset + wg_row0 - k_offset - kTile + 1;
+  if (causal && last_visible < last_open) last_open = last_visible;
+  const int n_open = last_open < 0 ? 0 : last_open / kTile + 1;
+  return n_open < n_kt ? n_open : n_kt;
 }
 
-// -- the Hopper kernels: shared pieces ------------------------------------------
+// -- shared pieces --------------------------------------------------------------
 //
-// Both kernels run two consumer warpgroups and one producer warp: each
+// Every kernel runs two consumer warpgroups and one producer warp: each
 // consumer warpgroup owns 64 rows of the block's tile and runs wgmma on them;
 // one thread of the producer warp issues the TMA loads. With 9 warps a block,
 // three share one quarter of the SM's register file, so ptxas gives each
 // thread at most 168 registers. The tiles are sized to that: 64 keys per
-// forward stage (S, P and O in registers together), and a dkv that forms Pᵀ
-// and dSᵀ only between its products.
+// forward and dq stage (S, P and O, or S, dP, dS and dQ, in registers
+// together), and a dkv that forms Pᵀ and dSᵀ only between its products.
 
 constexpr int kConsumers = 2;  // consumer warpgroups
 constexpr int kWsThreads = kConsumers * 128 + 32;
@@ -306,17 +126,68 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kFwdRows = 128;   // query rows per forward block
 constexpr int kFwdKeys = 64;    // keys per forward pipeline stage
 constexpr int kFwdStages = 4;
+constexpr int kDqRows = 128;    // query rows per dq block
+constexpr int kDqKeys = 64;     // keys per dq pipeline stage
+constexpr int kDqStages = 4;
 constexpr int kDkvKeys = 128;   // keys per dkv block
 constexpr int kDkvRows = 64;    // query rows per dkv pipeline stage
 constexpr int kDkvStages = 3;
 static_assert(kDkvRows == kTile, "first_query_tile() counts dkv query tiles of kTile rows");
-static_assert(kFwdKeys == kTile, "key_tiles() counts forward key tiles of kTile keys");
+static_assert(kFwdKeys == kTile && kDqKeys == kTile,
+              "key_tiles() and open_key_tiles() count key tiles of kTile keys");
+static_assert(kFwdRows == kConsumers * kTile && kDqRows == kConsumers * kTile,
+              "each consumer warpgroup owns kTile query rows");
 
 // The block's dynamic shared memory, moved up to a 1024-byte boundary (the
 // 128-byte swizzle's period); launches ask for 1024 bytes of slack.
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((1024u - (hopper::smem_addr(raw) & 1023u)) & 1023u);
 }
+
+// A 64 x 64 tile (f32, accumulator layout) to the bf16 A fragments of a
+// product that reduces over its 64 columns, 16 columns each: the accumulator
+// layout of a 64 x 16 slice is the A operand's layout.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[jj][e] = pack_bf16(x[8 * jj + 2 * e], x[8 * jj + 2 * e + 1]);
+}
+
+// X = A_x·B_xᵀ and Y = A_y·B_yᵀ (64 x 64 each) for one warpgroup, in one
+// commit group: A_x and A_y are the warpgroup's own 64 rows (descriptors ax,
+// ay), B_x and B_y tiles of 64 rows, all K-major. dq: S = Q·Kᵀ and
+// dP = dO·Vᵀ; dkv: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.
+template <int DP>
+__device__ __forceinline__ void issue_abt_pair(float (&x)[32], float (&y)[32], uint64_t ax,
+                                               uint64_t ay, const bf16* bx_tile,
+                                               const bf16* by_tile) {
+  const uint64_t bx = hopper::make_desc<DP>(bx_tile), by = hopper::make_desc<DP>(by_tile);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    hopper::wgmma_ss_n64(x, hopper::desc_add(ax, kk * 32), hopper::desc_add(bx, kk * 32), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    hopper::wgmma_ss_n64(y, hopper::desc_add(ay, kk * 32), hopper::desc_add(by, kk * 32), kk);
+  }
+  hopper::wgmma_commit();
+}
+
+// acc (64 x DP) += A·B for one warpgroup, left uncommitted: A (64 x 64) in
+// bf16 A fragments in registers, B a tile of 64 rows read MN-major (its rows
+// are the reduction index). P·V, dS·K, Pᵀ·dO and dSᵀ·Q.
+template <int DP>
+__device__ __forceinline__ void issue_rs_mn(float (&acc)[DP / 2], const uint32_t (&a)[4][4],
+                                            const bf16* b_tile) {
+  const uint64_t b = hopper::make_desc<DP>(b_tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hopper::wgmma_rs_mn<DP>(acc, a[kk], hopper::desc_add(b, kk * 16 * DP * 2));
+  }
+}
+
+// -- forward ------------------------------------------------------------------
 
 // What the forward's softmax needs to mask one thread's two rows of an S
 // tile: the global position of row g (row g + 8 is 8 further), the lane's
@@ -374,19 +245,6 @@ __device__ __forceinline__ void fwd_softmax(float (&sc)[NC][32], float (&m)[2], 
   }
 }
 
-// P (f32, accumulator layout) to the bf16 A fragments of P·V, 16 keys each:
-// the accumulator layout of a 64 x 16 slice is the A operand's layout.
-template <int NC>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[NC * 4][4], const float (&sc)[NC][32]) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pa[c * 4 + jj][e] = pack_bf16(sc[c][8 * jj + 2 * e], sc[c][8 * jj + 2 * e + 1]);
-}
-
 // S (64 x kFwdKeys) = Q·Kᵀ for one warpgroup: its Q rows (descriptor dq) and
 // a K tile, both K-major, in chunks of 64 keys.
 template <int DP>
@@ -400,19 +258,6 @@ __device__ __forceinline__ void fwd_issue_s(float (&sc)[kFwdKeys / 64][32], uint
       hopper::wgmma_ss_n64(sc[c], hopper::desc_add(dq, kk * 32),
                            hopper::desc_add(dk, c * 64 * DP * 2 + kk * 32), kk);
     }
-  }
-  hopper::wgmma_commit();
-}
-
-// O += P·V for one warpgroup: P from registers, the V tile MN-major.
-template <int DP>
-__device__ __forceinline__ void fwd_issue_pv(float (&acc)[DP / 2],
-                                             const uint32_t (&pa)[kFwdKeys / 16][4],
-                                             const bf16* v_tile) {
-  const uint64_t dv = hopper::make_desc<DP>(v_tile);
-#pragma unroll
-  for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-    hopper::wgmma_rs_mn<DP>(acc, pa[kk], hopper::desc_add(dv, kk * 16 * DP * 2));
   }
   hopper::wgmma_commit();
 }
@@ -431,7 +276,8 @@ __device__ __forceinline__ void fwd_step(int kt, float (&sc)[kFwdKeys / 64][32],
   mbar_wait(&full[s], (kt / kFwdStages) & 1);
   wgmma_fence();
   fwd_issue_s<DP>(sc, dq, sk + s * kFwdKeys * DP);
-  fwd_issue_pv<DP>(acc, pa, sv + prev * kFwdKeys * DP);
+  issue_rs_mn<DP>(acc, pa, sv + prev * kFwdKeys * DP);
+  wgmma_commit();
   wgmma_wait<1>();  // S done, P·V may still run
   fence_regs(sc);
   float alpha[2];
@@ -443,11 +289,9 @@ __device__ __forceinline__ void fwd_step(int kt, float (&sc)[kFwdKeys / 64][32],
   if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[prev]);
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-  pack_p(pa, sc);
+  pack_a(pa, sc[0]);
 }
 
-// -- forward ------------------------------------------------------------------
-//
 // Replaces _fwd_kernel of edl_tpu/ops/flash_attention.py.
 // Bound on the H100: at head_dim 64 it does 4·D = 256 FLOPs per visible
 // (query, key) pair against 8·D bytes per row moved, so a 1024-token causal
@@ -531,14 +375,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_kernel(
 
     mbar_wait(q_full, 0);
     const uint64_t dq = make_desc<DP>(sq + wg * 64 * DP);
-    // Tiles [0, n_open) need no mask: each key0 is at most both the last key0
-    // of a tile wholly visible to this warpgroup's rows and of a tile wholly
-    // inside Sk. The masked tiles (the diagonal, the ragged edge) come last.
-    int last_open = Sk - kFwdKeys;
-    const int last_visible = q_offset + wg_row0 - k_offset - kFwdKeys + 1;
-    if (causal && last_visible < last_open) last_open = last_visible;
-    int n_open = last_open < 0 ? 0 : last_open / kFwdKeys + 1;
-    if (n_open > n_kt) n_open = n_kt;
+    const int n_open = open_key_tiles(n_kt, Sk, wg_row0, q_offset, k_offset, causal);
 
     // Software pipeline inside the warpgroup: while the tensor cores run
     // O += P·V of tile kt - 1, the softmax of tile kt runs on S. The code
@@ -555,7 +392,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_kernel(
       } else {
         fwd_softmax<true>(sc, m, l, alpha, 0, rows);
       }
-      pack_p(pa, sc);
+      pack_a(pa, sc[0]);
     }
     for (int kt = 1; kt < n_open; ++kt) {
       fwd_step<DP, false>(kt, sc, pa, acc, m, l, dq, sk, sv, full, empty, rows);
@@ -565,7 +402,8 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_kernel(
     }
     if (n_kt > 0) {
       wgmma_fence();
-      fwd_issue_pv<DP>(acc, pa, sv + (n_kt - 1) % kFwdStages * kFwdKeys * DP);
+      issue_rs_mn<DP>(acc, pa, sv + (n_kt - 1) % kFwdStages * kFwdKeys * DP);
+      wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(pa);
@@ -599,42 +437,209 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_kernel(
   }
 }
 
-// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (64 keys x kDkvRows queries) for one warpgroup:
-// its K and V rows (descriptors dkd, dvd) and a Q and a dO tile, all K-major.
-template <int DP>
-__device__ __forceinline__ void dkv_issue_s(float (&st)[32], float (&dpt)[32], uint64_t dkd,
-                                            uint64_t dvd, const bf16* q_tile,
-                                            const bf16* do_tile) {
-  const uint64_t dqd = hopper::make_desc<DP>(q_tile), dod = hopper::make_desc<DP>(do_tile);
+// -- backward: dQ -------------------------------------------------------------
+
+// What dq's probabilities need for one thread's two query rows (g and g + 8
+// of its warp's 16): the global position of row g, the lane's column pair t,
+// each row's lse (times log2 e) and delta, and the request.
+struct DqRows {
+  int qpos, t, Sk, causal, k_offset;
+  float scale, scale_log2, lse_log2[2], delta[2];
+};
+
+// dS = P ∘ (dP − delta) · scale in place of dp, with P = 2^(S·scale·log2 e −
+// lse·log2 e) from sc (Q·Kᵀ of keys key0 + ...); masked entries are exactly 0
+// through their validity, never through the score (a row that sees no key
+// has lse = -1e30, where the exponent overflows). Unless kMasked, every entry
+// is visible and no mask is evaluated. Branch-free, so it can run while a
+// wgmma is in flight.
+template <bool kMasked>
+__device__ __forceinline__ void dq_probs(const float (&sc)[32], float (&dp)[32], int key0,
+                                         const DqRows& q) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    hopper::wgmma_ss_n64(st, hopper::desc_add(dkd, kk * 32), hopper::desc_add(dqd, kk * 32), kk);
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const int key = key0 + (i >> 2) * 8 + 2 * q.t + (i & 1);
+    const bool ok =
+        !kMasked || (key < q.Sk && (!q.causal || q.k_offset + key <= q.qpos + 8 * r));
+    const float p = ok ? hopper::exp2_approx(sc[i] * q.scale_log2 - q.lse_log2[r]) : 0.f;
+    dp[i] = p * (dp[i] - q.delta[r]) * q.scale;
   }
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    hopper::wgmma_ss_n64(dpt, hopper::desc_add(dvd, kk * 32), hopper::desc_add(dod, kk * 32), kk);
-  }
-  hopper::wgmma_commit();
 }
 
-// dK += dSᵀ·Q and dV += Pᵀ·dO for one warpgroup: Pᵀ and dSᵀ from registers,
-// the Q and dO tiles MN-major.
-template <int DP>
-__device__ __forceinline__ void dkv_issue_grads(float (&dk)[DP / 2], float (&dv)[DP / 2],
-                                                const uint32_t (&pa)[kDkvRows / 16][4],
-                                                const uint32_t (&da)[kDkvRows / 16][4],
-                                                const bf16* q_tile, const bf16* do_tile) {
-  const uint64_t dqd = hopper::make_desc<DP>(q_tile), dod = hopper::make_desc<DP>(do_tile);
-#pragma unroll
-  for (int kk = 0; kk < kDkvRows / 16; ++kk) {
-    hopper::wgmma_rs_mn<DP>(dv, pa[kk], hopper::desc_add(dod, kk * 16 * DP * 2));
-  }
-#pragma unroll
-  for (int kk = 0; kk < kDkvRows / 16; ++kk) {
-    hopper::wgmma_rs_mn<DP>(dk, da[kk], hopper::desc_add(dqd, kk * 16 * DP * 2));
-  }
-  hopper::wgmma_commit();
+// One step of a consumer warpgroup's pipeline at key tile kt >= 1: issue
+// S = Q·K_ktᵀ and dP = dO·V_ktᵀ, then dQ += dS_(kt-1)·K_(kt-1); form dS_kt
+// while that product runs, release tile kt - 1's stage and pack dS_kt.
+template <int DP, bool kMasked>
+__device__ __forceinline__ void dq_step(int kt, float (&sc)[32], float (&dp)[32],
+                                        uint32_t (&da)[4][4], float (&acc)[DP / 2], uint64_t dqd,
+                                        uint64_t dod, const bf16* sk, const bf16* sv,
+                                        uint64_t* full, uint64_t* empty, const DqRows& rows) {
+  using namespace hopper;
+  const int s = kt % kDqStages, prev = (kt - 1) % kDqStages;
+  mbar_wait(&full[s], (kt / kDqStages) & 1);
+  wgmma_fence();
+  issue_abt_pair<DP>(sc, dp, dqd, dod, sk + s * kDqKeys * DP, sv + s * kDqKeys * DP);
+  issue_rs_mn<DP>(acc, da, sk + prev * kDqKeys * DP);
+  wgmma_commit();
+  wgmma_wait<1>();  // S and dP done, dS·K may still run
+  fence_regs(sc);
+  fence_regs(dp);
+  dq_probs<kMasked>(sc, dp, kt * kDqKeys, rows);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(da);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[prev]);
+  pack_a(da, dp);
 }
+
+// Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py.
+// Bound on the H100: 6·D FLOPs per visible pair (S, dP and dS·K products)
+// against 10·D bytes per row (q, k, v, dO in, dQ out): at the slice's shape
+// about as much bytes time as FLOP time (~19-20 µs each). Design: the
+// forward's dataflow. One block owns 128 query rows of one (batch, head),
+// the heaviest query tiles launched first; each consumer warpgroup owns 64 of
+// them and keeps their lse (times log2 e) and delta in registers. The
+// producer loads the Q and dO tiles once and streams 64-key K and V tiles by
+// TMA through a 4-stage ring. S = Q·Kᵀ and dP = dO·Vᵀ are wgmma with both
+// operands in shared memory; dS is formed in registers (masked only on tiles
+// that cross the warpgroup's diagonal or the ragged edge), rounded to bf16
+// and fed as the register operand of dQ += dS·K, with the same K tile read
+// MN-major. The warpgroup issues S and dP of tile kt together with dS·K of
+// tile kt - 1 and forms dS of tile kt while that product runs. dQ stays in
+// f32 registers and is written once: each block owns its output rows, so
+// there are no atomics and the sums are deterministic. Both warpgroups wait
+// on and release every stage the producer fills, also where their rows see
+// no key of it; a block that sees no key loads nothing and writes dQ = 0.
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+    int H, int Sq, int Sk, int D, int q_offset, int k_offset, float scale, float scale_log2,
+    int causal) {
+  using namespace hopper;
+  constexpr int kQBytes = kDqRows * DP * 2, kKVBytes = kDqKeys * DP * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sdo = reinterpret_cast<bf16*>(smem + kQBytes);
+  bf16* sk = reinterpret_cast<bf16*>(smem + 2 * kQBytes);
+  bf16* sv = reinterpret_cast<bf16*>(smem + 2 * kQBytes + kDqStages * kKVBytes);
+  uint64_t* qdo_full =
+      reinterpret_cast<uint64_t*>(smem + 2 * kQBytes + 2 * kDqStages * kKVBytes);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int n_qt = (Sq + kDqRows - 1) / kDqRows;
+  const int BH = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - blockIdx.x / BH;  // the last query tiles carry the most keys
+  const int bh = blockIdx.x % BH, b = bh / H, h = bh % H;
+  const int q0 = qt * kDqRows;
+  // the key tiles that the block's last kTile rows see
+  const int n_kt = key_tiles(Sk, q0 + kDqRows - kTile, q_offset, k_offset, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers * 128 && n_kt > 0) {  // one thread issues every load
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tdo);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(qdo_full, 2 * kQBytes);
+      tma_load_4d(sq, &tq, qdo_full, 0, h, q0, b);
+      tma_load_4d(sdo, &tdo, qdo_full, 0, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kDqStages;
+        mbar_wait(&empty[s], ((kt / kDqStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
+        tma_load_4d(sk + s * kDqKeys * DP, &tk, &full[s], 0, h, kt * kDqKeys, b);
+        tma_load_4d(sv + s * kDqKeys * DP, &tv, &full[s], 0, h, kt * kDqKeys, b);
+      }
+    }
+  } else {  // consumer warpgroup wg: query rows q0 + 64·wg ...
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int wg_row0 = q0 + wg * 64;
+    const int row0 = wg_row0 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's first row
+    DqRows rows = {q_offset + row0 + g, t, Sk, causal, k_offset, scale, scale_log2,
+                   {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // rows at or beyond Sq stay finite and are never written
+      const int row = row0 + g + 8 * r;
+      if (row < Sq) {
+        rows.lse_log2[r] = lse[(long long)bh * Sq + row] * kLog2e;
+        rows.delta[r] = delta[(long long)bh * Sq + row];
+      }
+    }
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+    if (n_kt > 0) {
+      float sc[32], dp[32];  // S and dP, then dS in dp: f32, accumulator layout
+      uint32_t da[4][4];     // dS in bf16: the A fragments of dS·K
+      mbar_wait(qdo_full, 0);
+      const uint64_t dqd = make_desc<DP>(sq + wg * 64 * DP);
+      const uint64_t dod = make_desc<DP>(sdo + wg * 64 * DP);
+      const int n_open = open_key_tiles(n_kt, Sk, wg_row0, q_offset, k_offset, causal);
+
+      // The code between a wgmma's issue and its wait has no branch: the mask
+      // is a template parameter of each loop, not a runtime test.
+      mbar_wait(&full[0], 0);
+      wgmma_fence();
+      issue_abt_pair<DP>(sc, dp, dqd, dod, sk, sv);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (n_open > 0) {
+        dq_probs<false>(sc, dp, 0, rows);
+      } else {
+        dq_probs<true>(sc, dp, 0, rows);
+      }
+      pack_a(da, dp);
+      for (int kt = 1; kt < n_open; ++kt) {
+        dq_step<DP, false>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full, empty, rows);
+      }
+      for (int kt = n_open > 1 ? n_open : 1; kt < n_kt; ++kt) {
+        dq_step<DP, true>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full, empty, rows);
+      }
+      wgmma_fence();
+      issue_rs_mn<DP>(acc, da, sk + (n_kt - 1) % kDqStages * kDqKeys * DP);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(da);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row >= Sq) continue;
+      const long long base = (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < D) {
+          *reinterpret_cast<__nv_bfloat162*>(dq + base + d) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// -- backward: dK and dV ------------------------------------------------------
 
 // What dkv's probabilities need to mask one thread's two key rows of a
 // transposed tile: the global position of key row g (row g + 8 is 8 further),
@@ -663,22 +668,6 @@ __device__ __forceinline__ void dkv_probs(float (&st)[32], float (&dpt)[32], con
   }
 }
 
-// Pᵀ and dSᵀ (f32, accumulator layout) to bf16 A fragments, 16 queries each.
-__device__ __forceinline__ void pack_pt(uint32_t (&pa)[kDkvRows / 16][4],
-                                        uint32_t (&da)[kDkvRows / 16][4], const float (&st)[32],
-                                        const float (&dpt)[32]) {
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      pa[jj][e] = pack_bf16(st[8 * jj + 2 * e], st[8 * jj + 2 * e + 1]);
-      da[jj][e] = pack_bf16(dpt[8 * jj + 2 * e], dpt[8 * jj + 2 * e + 1]);
-    }
-  }
-}
-
-// -- backward: dK and dV ------------------------------------------------------
-//
 // Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py.
 // Bound on the H100: 8·D FLOPs per visible pair (Sᵀ, dPᵀ, dV and dK products)
 // against 12·D bytes per row: FLOP-bound at the slice's shape (~26 µs against
@@ -789,7 +778,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkv_kernel(
       const bf16* do_tile = sdo + s * kDkvRows * DP;
       mbar_wait(&full[s], (it / kDkvStages) & 1);
       wgmma_fence();
-      dkv_issue_s<DP>(st, dpt, dkd, dvd, q_tile, do_tile);
+      issue_abt_pair<DP>(st, dpt, dkd, dvd, q_tile, do_tile);
       wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
@@ -798,9 +787,12 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkv_kernel(
       } else {
         dkv_probs<false>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
       }
-      pack_pt(pa, da, st, dpt);
+      pack_a(pa, st);
+      pack_a(da, dpt);
       wgmma_fence();
-      dkv_issue_grads<DP>(dk_acc, dv_acc, pa, da, q_tile, do_tile);
+      issue_rs_mn<DP>(dv_acc, pa, do_tile);
+      issue_rs_mn<DP>(dk_acc, da, q_tile);
+      wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
       fence_regs(dk_acc);
@@ -831,25 +823,23 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkv_kernel(
 
 // -- launchers ----------------------------------------------------------------
 
-template <int DP>
-constexpr size_t tiles_smem() {
-  return 2 * kTile * (DP + kPad) * sizeof(bf16);
-}
-// The dq kernel stays under the 48 KB of static shared memory a launch may
-// take without cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, ...).
-static_assert(tiles_smem<64>() <= 48 * 1024, "shared memory");
-
-// Shared memory of the Hopper kernels, with 1024 bytes of slack for alignment.
+// Shared memory of the kernels, with 1024 bytes of slack for alignment.
 template <int DP>
 constexpr size_t fwd_smem() {
   return 1024 + (kFwdRows + 2 * kFwdStages * kFwdKeys) * DP * 2 + (1 + 2 * kFwdStages) * 8;
+}
+template <int DP>
+constexpr size_t dq_smem() {
+  return 1024 + (2 * kDqRows + 2 * kDqStages * kDqKeys) * DP * 2 + (1 + 2 * kDqStages) * 8;
 }
 template <int DP>
 constexpr size_t dkv_smem() {
   return 1024 + (2 * kDkvKeys + 2 * kDkvStages * kDkvRows) * DP * 2 +
          2 * kDkvStages * kDkvRows * sizeof(float) + (1 + 2 * kDkvStages) * 8;
 }
-static_assert(fwd_smem<64>() <= 227 * 1024 && dkv_smem<64>() <= 227 * 1024, "shared memory");
+static_assert(fwd_smem<64>() <= 227 * 1024 && dq_smem<64>() <= 227 * 1024 &&
+                  dkv_smem<64>() <= 227 * 1024,
+              "shared memory");
 
 // The padded head dim a kernel is compiled for: D a multiple of 8, 8 <= D <= 64
 // (TMA moves rows of 16-byte multiples).
@@ -928,11 +918,18 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
                    const float* lse, const float* delta, void* dq, int B, int H, int Sq, int Sk,
                    int D, Strides qs, Strides ks, Strides vs, int q_offset, int k_offset,
                    float scale, int causal, cudaStream_t stream) {
-  const int blocks = B * H * ((Sq + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<DP><<<blocks, kThreads, tiles_smem<DP>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, D, qs, ks,
-      vs, q_offset, k_offset, scale, causal);
+  const Strides os = {(long long)Sq * H * D, (long long)H * D, D};  // dO: contiguous
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t rc = allow_smem(flash_bwd_dq_kernel<DP>, dq_smem<DP>());
+  if (rc == cudaSuccess) rc = view_map<DP>(&tq, q, B, Sq, H, D, qs, kDqRows);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tdo, dout, B, Sq, H, D, os, kDqRows);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tk, k, B, Sk, H, D, ks, kDqKeys);
+  if (rc == cudaSuccess) rc = view_map<DP>(&tv, v, B, Sk, H, D, vs, kDqKeys);
+  if (rc != cudaSuccess) return rc;
+  const int blocks = B * H * ((Sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_kernel<DP><<<blocks, kWsThreads, dq_smem<DP>(), stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, D, q_offset, k_offset,
+      scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 

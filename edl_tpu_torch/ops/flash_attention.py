@@ -39,8 +39,8 @@ __all__ = ["flash_attention"]
 _NEG_INF = -1e30
 
 #: the kernels' tile, fixed when the CUDA source is compiled: the rows one
-#: warpgroup owns in the forward and dkv kernels (wgmma's 64-row M), the query
-#: tile that dkv streams, and the dq kernel's query and key tiles
+#: warpgroup owns in every kernel (wgmma's 64-row M), the key tile that the
+#: forward and dq kernels stream and the query tile that dkv streams
 TILE = 64
 
 #: the largest head dim the kernels are compiled for (multiples of 8)
@@ -226,17 +226,18 @@ def _fwd_kernel(q, k, v, *, scale, causal, q_offset, k_offset, out_dtype):
 
 
 def _bwd_args(q, k, v, do, lse, delta):
+    """The backward kernels' inputs, checked: (q, k, v, dO, lse, delta)
+    with dO, lse and delta contiguous."""
     _check_kernel_inputs(q, k, v)
     if do.dtype != torch.bfloat16 or do.shape != q.shape:
         raise NotImplementedError(
             f"dO is {do.dtype} {tuple(do.shape)}; the kernels take a bf16 dO "
             f"of q's shape {tuple(q.shape)}")
-    return do.contiguous(), lse.contiguous(), delta.contiguous()
+    return q, k, v, do.contiguous(), lse.contiguous(), delta.contiguous()
 
 
-def _bwd_dq_kernel(q, k, v, do, lse, delta, *, scale, causal, q_offset,
+def _launch_bwd_dq(q, k, v, do, lse, delta, *, scale, causal, q_offset,
                    k_offset):
-    do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
     B, Sq, H, D = q.shape
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     rc = _kernels().edl_flash_bwd_dq(
@@ -249,9 +250,8 @@ def _bwd_dq_kernel(q, k, v, do, lse, delta, *, scale, causal, q_offset,
     return dq
 
 
-def _bwd_dkv_kernel(q, k, v, do, lse, delta, *, scale, causal, q_offset,
+def _launch_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal, q_offset,
                     k_offset):
-    do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
     B, Sq, H, D = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -265,9 +265,18 @@ def _bwd_dkv_kernel(q, k, v, do, lse, delta, *, scale, causal, q_offset,
     return dk, dv
 
 
+def _bwd_dq_kernel(q, k, v, do, lse, delta, **opts):
+    return _launch_bwd_dq(*_bwd_args(q, k, v, do, lse, delta), **opts)
+
+
+def _bwd_dkv_kernel(q, k, v, do, lse, delta, **opts):
+    return _launch_bwd_dkv(*_bwd_args(q, k, v, do, lse, delta), **opts)
+
+
 def _bwd_kernel(q, k, v, do, lse, delta, **opts):
-    dq = _bwd_dq_kernel(q, k, v, do, lse, delta, **opts)
-    return (dq, *_bwd_dkv_kernel(q, k, v, do, lse, delta, **opts))
+    """Both backward kernels, on inputs checked once."""
+    args = _bwd_args(q, k, v, do, lse, delta)
+    return (_launch_bwd_dq(*args, **opts), *_launch_bwd_dkv(*args, **opts))
 
 
 def _route(x: torch.Tensor, plain, kernel):

@@ -86,3 +86,43 @@ def test_head_dims_off_the_compiled_set_are_rejected(D):
 def test_non_unit_stride_along_the_head_dim_is_rejected():
     x = torch.zeros((1, 16, 2, 128), dtype=torch.bfloat16)[..., ::2]
     assert "unit stride" in _problem(x, x)
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The backward wrappers with the card's parts stubbed: the input check
+    (which needs CUDA tensors) and the two launches record their calls."""
+    calls = []
+    monkeypatch.setattr(fa, "_check_kernel_inputs", lambda q, k, v: calls.append("check"))
+    monkeypatch.setattr(fa, "_launch_bwd_dq",
+                        lambda *args, **opts: calls.append("dq") or "dq")
+    monkeypatch.setattr(fa, "_launch_bwd_dkv",
+                        lambda *args, **opts: calls.append("dkv") or ("dk", "dv"))
+    return calls
+
+
+OPTS = dict(scale=1.0, causal=True, q_offset=0, k_offset=0)
+
+
+def _bwd_inputs(do_dtype=torch.bfloat16):
+    x = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16)
+    stats = torch.zeros((1, 2, 8))
+    return x, x, x, x.to(do_dtype), stats, stats
+
+
+def test_backward_checks_its_inputs_once(launches):
+    assert fa._bwd_kernel(*_bwd_inputs(), **OPTS) == ("dq", "dk", "dv")
+    assert launches == ["check", "dq", "dkv"]
+
+
+def test_each_backward_wrapper_checks_its_inputs(launches):
+    assert fa._bwd_dq_kernel(*_bwd_inputs(), **OPTS) == "dq"
+    assert fa._bwd_dkv_kernel(*_bwd_inputs(), **OPTS) == ("dk", "dv")
+    assert launches == ["check", "dq", "check", "dkv"]
+
+
+@pytest.mark.parametrize("wrapper", ["_bwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"])
+def test_backward_rejects_a_do_that_is_not_bf16(launches, wrapper):
+    with pytest.raises(NotImplementedError, match="bf16 dO"):
+        getattr(fa, wrapper)(*_bwd_inputs(torch.float32), **OPTS)
+    assert launches == ["check"]

@@ -89,14 +89,22 @@ def test_global_offsets_and_lse_match_jax(q_off, k_off):
     np.testing.assert_allclose(tl, jl, **F32_FWD)
 
 
-@pytest.mark.parametrize("through_lse", [False, True])
-def test_gradients_match_jax(through_lse):
+@pytest.mark.parametrize("S,q_off,k_off,through_lse", [
+    pytest.param(160, 16, 8, False, id="False"),
+    pytest.param(160, 16, 8, True, id="True"),
+    # queries 0-199 see no key (a whole 128-row dq block of the CUDA kernel
+    # and one warpgroup of the next), and keys 100-299 are seen by none
+    pytest.param(300, 0, 200, True, id="no_key_block"),
+])
+def test_gradients_match_jax(S, q_off, k_off, through_lse):
     """dq, dk, dv with offsets and a ragged sequence; with ``through_lse`` the
-    loss also reads lse, so its cotangent reaches the backward's delta."""
+    loss also reads lse, so its cotangent reaches the backward's delta.
+    Queries that see no key get dq = 0 and keys that no query sees get
+    dk = dv = 0, exactly."""
     rng = np.random.default_rng(3)
-    q, k, v = rand_qkv(rng, 1, 160, 2, 16)
-    w = rng.standard_normal((1, 2, 160)).astype(np.float32)
-    kw = dict(causal=True, q_offset=16, k_offset=8)
+    q, k, v = rand_qkv(rng, 1, S, 2, 16)
+    w = rng.standard_normal((1, 2, S)).astype(np.float32)
+    kw = dict(causal=True, q_offset=q_off, k_offset=k_off)
 
     def jloss(q, k, v):
         if not through_lse:
@@ -113,6 +121,11 @@ def test_gradients_match_jax(through_lse):
     want, got = both_grads(jloss, tloss, q, k, v)
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a, b, **F32_GRAD, err_msg=f"d{name}")
+    pos = np.arange(S)
+    valid = (k_off + pos)[None, :] <= (q_off + pos)[:, None]
+    no_key, unseen = ~valid.any(1), ~valid.any(0)
+    assert (got[0][:, no_key] == 0).all()
+    assert (got[1][:, unseen] == 0).all() and (got[2][:, unseen] == 0).all()
 
 
 def test_bfloat16_values_and_gradients():
