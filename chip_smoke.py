@@ -30,7 +30,7 @@ phase that fails raises, and the script exits non-zero without its last line:
    host time a call (and the whole backward's, inputs checked once), its
    plain version's time, one library call's (timed both ways) and the
    card's bound.
-4. The slice: the GPT-2-small-width transformer LM (12 layers, d_model 768,
+4. The LM: the GPT-2-small-width transformer LM (12 layers, d_model 768,
    seq 1024, vocab 32000, batch 8) trained by the ``Trainer`` with Adam at lr
    3e-4 on one repeated synthetic batch. Losses must be finite and fall, and
    each kernel's launch count over the timed steps must be 12 x steps. Then
@@ -38,8 +38,27 @@ phase that fails raises, and the script exits non-zero without its last line:
 5. The same width at depth 2, one step through the kernels and one through
    the plain attention path from the same weights: loss and every gradient
    compared.
-6. One JSON line ``{"kernels": [...]}``.
-7. The last line: ``{"ok": true, "device": {...}}``.
+6. CTR, the flagship, at its published width (tables of 1000192 rows,
+   embed 10, MLP 400-400-400) and batch 8192, trained with adagrad at lr
+   0.05: a finite, falling loss; the padded table rows and a sample of rows
+   no id reaches bit for bit unchanged; step ms, samples/s, MFU, peak
+   memory and the profiled step's busy share and top device ops.
+7. CTR on the card against the port on the CPU: the same state_dict and a
+   batch of 1024, the loss and each param's update after one adagrad step.
+8. fit_a_line, word2vec, MNIST and ResNet-50 (224 px, batch 64) at their
+   default widths, 10 timed steps each: a finite, falling loss and the same
+   numbers as CTR's.
+9. The LM of phase 4 with ``remat=True``: the flash forward launched twice
+   a block (fwd 240, dq 120, dkv 120 over the timed steps), lower peak
+   memory and the same losses as phase 4's.
+10. One JSON line ``{"kernels": [...]}`` and one ``{"zoo": [...]}`` (a row
+    per model, the remat LM included).
+11. The last line: ``{"ok": true, "device": {...}}``.
+
+Every step time here is the host clock around one ``train_step`` and a
+``torch.cuda.synchronize()``: the median of the timed steps after
+``WARMUP_STEPS`` steps. MFU is `edl_tpu_torch.tools.mfu`'s: the model's
+analytic FLOPs over the card's dense bf16 peak.
 """
 
 from __future__ import annotations
@@ -92,6 +111,35 @@ SLICE = dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072, seq_len=1024,
 BATCH = 8
 STEPS = 10
 WARMUP_STEPS = 2
+#: the remat LM against the remat-off LM from the same seed and batch: the
+#: recompute runs the same kernels on the same inputs, so each step's loss
+#: agrees to this relative error
+TOL_REMAT_LOSS = 1e-5
+
+#: CTR at its published width (`models/ctr.py`): sparse dim 1000001, padded
+#: to a multiple of 256, and the benchmark's batch
+CTR_BATCH = 8192
+CTR_PADDED_ROWS = 1000192
+#: rows of each table that no id of the batch reaches, sampled and held bit
+#: for bit over the run, besides the padded rows
+UNTOUCHED_ROWS = 4096
+#: CTR on the card against the port on the CPU, one batch of PARITY_BATCH:
+#: both run the MLP in bf16 with their own roundings (cuBLAS against the
+#: CPU's), and the table gradient's duplicate ids add up in another order on
+#: the card (atomics). The loss's relative error, and each param's update
+#: after one adagrad step as a relative norm error; the LM's tolerances
+PARITY_BATCH = 1024
+TOL_CTR_LOSS = 2e-2
+TOL_CTR_UPDATE = 5e-2
+#: the other zoo models at their default widths: (batch, optimizer, lr)
+ZOO = {
+    "fit_a_line": (1024, "sgd", 0.1),
+    "word2vec": (1024, "adam", 1e-2),
+    "mnist": (256, "adam", 1e-3),
+    "resnet50": (64, "adam", 1e-3),
+}
+#: device ops listed per profiled step
+TOP_OPS = 10
 #: launches in a row for the back-to-back kernel and library timings
 BACK_TO_BACK = 10
 
@@ -500,94 +548,105 @@ def phase_kernels(device):
     return results
 
 
+class Run:
+    """One model trained by the ``Trainer`` on one placed synthetic batch
+    (made with numpy from ``seed``): `start` builds it, `timed` runs it."""
+
+    def __init__(self, label: str, model, config, batch_size: int, device, seed: int = 0):
+        import numpy as np
+
+        from edl_tpu_torch.runtime import Trainer
+
+        self.label, self.model, self.config = label, model, config
+        self.batch_size, self.device = batch_size, device
+        self.trainer = Trainer(model, device=device, config=config)
+        self.state = self.trainer.init_state()
+        self.host_batch = model.synthetic_batch(np.random.default_rng(seed), batch_size)
+        self.batch = self.trainer.place_batch(self.host_batch)
+
+    def step(self) -> None:
+        import torch
+
+        self.state, _ = self.trainer.train_step(self.state, self.batch)
+        torch.cuda.synchronize()
+
+    def timed(self, reset_counts=None) -> dict:
+        """``WARMUP_STEPS`` steps, then ``STEPS`` timed steps (host clock around
+        each step and a synchronise), peak memory over the timed steps.
+        ``reset_counts`` runs just before the timed steps. Requires a finite,
+        falling loss; prints and returns the zoo row."""
+        import torch
+
+        from edl_tpu_torch.tools.mfu import mfu_fields
+
+        for _ in range(WARMUP_STEPS):
+            self.state, loss = self.trainer.train_step(self.state, self.batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(self.device)
+        allocs = torch.cuda.memory_stats(self.device).get("num_device_alloc", 0)
+        if reset_counts is not None:
+            reset_counts()
+        losses, step_s = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            self.state, loss = self.trainer.train_step(self.state, self.batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        require(all(math.isfinite(x) for x in losses), f"{self.label}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"{self.label}: loss did not fall: {losses}")
+        # cudaMalloc calls of the caching allocator in the timed steps
+        allocs = torch.cuda.memory_stats(self.device).get("num_device_alloc", 0) - allocs
+        step = statistics.median(step_s)
+        acc = mfu_fields(self.model, self.batch_size, 1.0 / step, device=self.device)
+        n_params = sum(p.numel() for p in self.state.params.parameters())
+        cfg = self.config
+        self.row = dict(
+            name=self.label, model=self.model.name, params=n_params, batch=self.batch_size,
+            optimizer=cfg.optimizer, learning_rate=cfg.learning_rate, steps=STEPS,
+            step_ms=step * 1e3, samples_per_s=self.batch_size / step,
+            model_flops=acc["model_flops"], tflops_per_sec=acc["tflops_per_sec"],
+            mfu=acc["mfu"], peak_tflops=acc["peak_tflops"],
+            peak_memory_gib=torch.cuda.max_memory_allocated(self.device) / 2**30,
+            device_allocs_in_timed_steps=allocs, losses=losses, loss_first=losses[0],
+            loss_last=losses[-1])
+        print(f"{self.label}: {n_params / 1e6:.2f} M params, batch {self.batch_size}, "
+              f"{cfg.optimizer} lr {cfg.learning_rate}: step {step * 1e3:.3f} ms (median of "
+              f"{STEPS}), {self.batch_size / step:.0f} samples/s, MFU "
+              + (f"{acc['mfu']:.5f} of {acc['peak_tflops']:.0f} TFLOP/s"
+                 if acc["mfu"] is not None else "not measured (no peak for this card)")
+              + f" ({acc['tflops_per_sec']:.3f} TFLOP/s), peak memory "
+              f"{self.row['peak_memory_gib']:.3f} GiB ({allocs} cudaMalloc in the timed steps), "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+        return self.row
+
+    def profile(self, groups: dict) -> list:
+        """One more step under the profiler (`profile_step`); its busy share
+        and top device ops go into the row. Returns the kernel events."""
+        kernels, summary = profile_step(self.step, self.row["step_ms"], groups, self.label)
+        self.row.update(summary)
+        return kernels
+
+
 def phase_slice(device) -> tuple:
     """Train the GPT-2-small-width LM through the Trainer; returns the launch
-    counts of the timed steps and the profiled step's device ms a launch of
-    each flash kernel."""
-    import numpy as np
-    import torch
-
+    counts of the timed steps, the profiled step's device ms a launch of each
+    flash kernel, and the zoo row."""
     from edl_tpu_torch.models.transformer import TransformerConfig, make_model
-    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+    from edl_tpu_torch.runtime import TrainerConfig
 
     fa = _flash_module()
     cfg = TransformerConfig(flash=True, **SLICE)
-    model = make_model(cfg)
-    trainer = Trainer(model, device=device,
-                      config=TrainerConfig(optimizer="adam", learning_rate=3e-4, seed=0))
-    state = trainer.init_state()
-    n_params = sum(p.numel() for p in state.params.parameters())
-    batch = trainer.place_batch(model.synthetic_batch(np.random.default_rng(0), BATCH))
-    for _ in range(WARMUP_STEPS):
-        state, loss = trainer.train_step(state, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-
-    fa.reset_launches()
-    losses, step_s = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        state, loss = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    run = Run("transformer", make_model(cfg), TrainerConfig(
+        optimizer="adam", learning_rate=3e-4, seed=0), BATCH, device)
+    row = run.timed(reset_counts=fa.reset_launches)
     launches = dict(fa.LAUNCHES)
-
-    require(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
-    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     want = cfg.n_layers * STEPS
     require(all(n == want for n in launches.values()),
             f"launch counts {launches}, want {want} each (12 layers x {STEPS} steps)")
-    step = statistics.median(step_s)
-    tokens = BATCH * cfg.seq_len
-    print(f"slice: {n_params / 1e6:.1f} M params, batch {BATCH} x {cfg.seq_len}, "
-          f"losses {[round(x, 4) for x in losses]}")
-    print(f"slice: step {step * 1e3:.2f} ms (median of {STEPS}), "
-          f"{tokens / step:.0f} tokens/s, MFU "
-          f"{model.flops_per_step(BATCH) / step / PEAK_BF16_FLOPS:.4f} of "
-          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, peak memory "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, "
-          f"launches {launches}")
-    return launches, profile_step(trainer, state, batch, step * 1e3)
-
-
-def profile_step(trainer, state, batch, step_ms: float) -> dict:
-    """Where one step's device time goes, by CUDA kernel (torch.profiler),
-    and the device's busy share: of the profiled step's own wall time (the
-    profiler slows the host) and of the median unprofiled step. Returns each
-    flash kernel's device ms a launch in that step (empty if not measured)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side user annotations (Optimizer.step#...) span kernels counted
-    # on their own, so only real kernels are summed
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    total_us = sum(e.self_device_time_total for e in kernels)
-    if total_us == 0:
-        print("profile: device time not measured (the profiler saw no CUDA kernel)")
-        return {}
-    groups = {"flash attention kernels": 0.0, "bf16 matmuls": 0.0,
-              "f32 matmuls (TF32 off)": 0.0, "other": 0.0}
-    for e in kernels:
-        name = e.key.lower()
-        group = ("flash attention kernels" if any(k in name for k in FLASH_NAMES) else
-                 "f32 matmuls (TF32 off)" if "sgemm" in name or "f32f32_f32f32" in name else
-                 "bf16 matmuls" if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet"))
-                 else "other")
-        groups[group] += e.self_device_time_total
-    print(f"profile: one step, {total_us / 1e3:.2f} ms of kernels; device busy "
-          f"{total_us / 1e3 / wall_ms:.1%} of this step's {wall_ms:.2f} ms, "
-          f"{total_us / 1e3 / step_ms:.1%} of the median step; " + ", ".join(
-              f"{g} {us / 1e3:.2f} ms ({us / total_us:.1%})" for g, us in groups.items()))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+    print(f"slice: batch {BATCH} x {cfg.seq_len}, {BATCH * cfg.seq_len / row['step_ms'] * 1e3:.0f} "
+          f"tokens/s, launches {launches}")
+    kernels = run.profile(LM_GROUPS)
     in_step = {}
     for kname, (fn, _) in DESIGNS.items():
         hits = [e for e in kernels if fn in e.key]
@@ -596,7 +655,245 @@ def profile_step(trainer, state, batch, step_ms: float) -> dict:
             in_step[kname] = sum(e.self_device_time_total for e in hits) / 1e3 / n
     print("profile: flash kernels' device ms a launch in the step: " + ", ".join(
         f"{k} {ms:.4f}" for k, ms in in_step.items()))
-    return in_step
+    row.update(config="GPT-2-small width " + json.dumps(SLICE), remat=False, launches=launches)
+    return launches, in_step, row
+
+
+#: kernel groups of the profile, by a substring of the kernel's name, first
+#: match wins
+LM_GROUPS = {
+    "flash attention kernels": FLASH_NAMES,
+    "f32 matmuls (TF32 off)": ("sgemm", "f32f32_f32f32"),
+    "bf16 matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
+}
+ZOO_GROUPS = {
+    "table lookup (gather, sort, segment sums)": (
+        "embedding", "indexing", "index_select", "gather", "sum_and_scatter",
+        "compute_grad_weight", "partial_segment", "radixsort"),
+    "convolutions (cuDNN, layout changes included)": (
+        "conv", "wgrad", "dgrad", "fprop", "winograd", "nchwtonhwc", "nhwctonchw",
+        "nhwcaddpadding"),
+    "matmuls": ("gemm", "gemv", "xmma", "cutlass", "nvjet", "dot_kernel"),
+    "group norm": ("rowwisemoments", "computeinternalgradients", "gammabeta",
+                   "groupnorm", "group_norm"),
+    "dtype casts and copies": ("copy_kernel",),
+    "foreach optimizer updates": ("multi_tensor_apply",),
+}
+
+
+def profile_step(step, step_ms: float, groups: dict, label: str) -> tuple:
+    """Where one step's device time goes, by CUDA kernel (torch.profiler),
+    and the device's busy share: of the profiled step's own wall time (the
+    profiler slows the host) and of the median unprofiled step ``step_ms``.
+    Returns (the kernel events, empty if not measured; the summary)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side user annotations (Optimizer.step#...) span kernels counted
+    # on their own, so only real kernels are summed
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us == 0:
+        print(f"profile {label}: device time not measured (the profiler saw no CUDA kernel)")
+        return [], {"device_busy_share": None, "top_device_ops": None}
+    by_group = dict.fromkeys([*groups, "other"], 0.0)
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for g, keys in groups.items() if any(k in name for k in keys)),
+                     "other")
+        by_group[group] += e.self_device_time_total
+    busy = total_us / 1e3 / step_ms
+    print(f"profile {label}: one step, {total_us / 1e3:.3f} ms of kernels, "
+          f"{sum(e.count for e in kernels)} launches; device busy "
+          f"{total_us / 1e3 / wall_ms:.1%} of this step's {wall_ms:.3f} ms, "
+          f"{busy:.1%} of the median step; " + ", ".join(
+              f"{g} {us / 1e3:.3f} ms ({us / total_us:.1%})" for g, us in by_group.items()))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP_OPS]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+    return kernels, {
+        "device_kernel_ms": total_us / 1e3, "device_busy_share": busy,
+        "device_ms_by_group": {g: us / 1e3 for g, us in by_group.items()},
+        "top_device_ops": [{"op": e.key[:110], "ms": e.self_device_time_total / 1e3,
+                            "count": e.count} for e in top]}
+
+
+def phase_ctr(device) -> dict:
+    """The slice's main path: CTR at its full published width through the
+    Trainer with adagrad; padded and untouched table rows must not move."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.runtime import TrainerConfig
+
+    fa = _flash_module()
+    t0 = time.perf_counter()
+    run = Run("ctr", ctr.MODEL, TrainerConfig(optimizer="adagrad", learning_rate=0.05,
+                                              seed=0), CTR_BATCH, device)
+    module = run.state.params
+    setup_s = time.perf_counter() - t0
+    # rows no id of the batch reaches: the padded ones, and a sample of real ones
+    seen = np.unique(run.host_batch["sparse"])
+    unseen = np.setdiff1d(np.arange(ctr.SPARSE_DIM), seen)
+    sample = torch.from_numpy(np.random.default_rng(1).choice(unseen, UNTOUCHED_ROWS,
+                                                              replace=False)).to(device)
+    tables = {name: getattr(module, name) for name in ("deep_table", "wide_table")}
+    before = {name: (t[ctr.SPARSE_DIM:].detach().clone(), t[sample].detach().clone())
+              for name, t in tables.items()}
+    row = run.timed(reset_counts=fa.reset_launches)
+    flash_launches = dict(fa.LAUNCHES)
+    for name, t in tables.items():
+        require(t.shape[0] == CTR_PADDED_ROWS, f"{name} has {t.shape[0]} rows, want "
+                                               f"{CTR_PADDED_ROWS}")
+        pad, untouched = before[name]
+        require(torch.equal(t[ctr.SPARSE_DIM:].detach(), pad),
+                f"padded rows of {name} changed in training")
+        require(torch.equal(t[sample].detach(), untouched),
+                f"rows of {name} that no id reaches changed in training")
+    print(f"ctr: tables of {CTR_PADDED_ROWS} rows (sparse dim {ctr.SPARSE_DIM}), "
+          f"{len(seen)} distinct ids in the batch of {CTR_BATCH} x {ctr.NUM_SPARSE}; "
+          f"after {WARMUP_STEPS + STEPS} steps the {CTR_PADDED_ROWS - ctr.SPARSE_DIM} padded "
+          f"rows and {UNTOUCHED_ROWS} sampled rows no id reaches are bit for bit unchanged "
+          f"in both tables; set-up {setup_s:.2f} s; flash launches {flash_launches}")
+    run.profile(ZOO_GROUPS)
+    row["table_backward_ms"] = time_table_backward(module.deep_table, run.batch["sparse"])
+    row.update(config=f"sparse dim {ctr.SPARSE_DIM} (tables {CTR_PADDED_ROWS} x "
+                      f"{ctr.EMBED_DIM} and x 1), MLP {list(ctr.HIDDEN)}",
+               distinct_ids=int(len(seen)), padded_rows_unchanged=True,
+               untouched_rows_checked=UNTOUCHED_ROWS, flash_launches=flash_launches)
+    return row
+
+
+def time_table_backward(table, ids) -> dict:
+    """The deep table's lookup at the step's ids, forward and backward to a
+    dense table gradient, by each route PyTorch offers (CUDA events, one
+    call at a time): the port's ``F.embedding``, ``table[ids]`` (index_put
+    with accumulate) and `dedup_gather` (sort, segment-sum, one
+    ``index_add_`` a row). Each gradient must agree with the port's."""
+    import torch
+    import torch.nn.functional as F
+
+    from edl_tpu_torch.parallel.embedding import dedup_gather
+
+    t = table.detach().requires_grad_()
+    cot = torch.randn(ids.shape + (t.shape[1],), generator=torch.Generator(
+        device=t.device).manual_seed(3), device=t.device)
+    routes = {
+        "F.embedding (the port's)": lambda: torch.autograd.grad(F.embedding(ids, t), t, cot),
+        "table[ids]": lambda: torch.autograd.grad(t[ids], t, cot),
+        "dedup_gather": lambda: torch.autograd.grad(
+            dedup_gather(t, ids.reshape(-1)), t, cot.reshape(-1, t.shape[1])),
+    }
+    (want,) = routes["F.embedding (the port's)"]()
+    out = {}
+    for name, fn in routes.items():
+        (got,) = fn()
+        err = ((got - want).norm() / want.norm()).item()
+        require(err <= 1e-5, f"the table gradient through {name} is off the port's by {err:.3e}")
+        out[name] = time_ms(fn, reps=10, warmup=2)
+    print(f"ctr table lookup, forward and backward ({ids.numel()} ids into {t.shape[0]} x "
+          f"{t.shape[1]}): " + ", ".join(f"{n} {ms:.3f} ms" for n, ms in out.items()))
+    return out
+
+
+def phase_ctr_cpu_parity(device) -> dict:
+    """CTR at full table width on the card against the port on the CPU: the
+    same state_dict and batch, the loss, and each param's update after one
+    adagrad step."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+
+    cfg = TrainerConfig(optimizer="adagrad", learning_rate=0.05)
+    host_batch = ctr.MODEL.synthetic_batch(np.random.default_rng(1), PARITY_BATCH)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        trainer = Trainer(ctr.MODEL, device=device if where == "cuda" else "cpu", config=cfg)
+        state = trainer.init_state(torch.Generator().manual_seed(1))
+        if where == "cpu":
+            state.params.load_state_dict(runs["cuda"]["init"])
+        init = {k: v.detach().cpu().clone() for k, v in state.params.state_dict().items()}
+        state, loss = trainer.train_step(state, trainer.place_batch(host_batch))
+        runs[where] = dict(init=init, loss=float(loss), after={
+            k: v.detach().cpu() for k, v in state.params.state_dict().items()})
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    errs = {}
+    for name, want in cpu["after"].items():
+        step_cpu, step_gpu = want - cpu["init"][name], gpu["after"][name] - gpu["init"][name]
+        errs[name] = ((step_gpu - step_cpu).norm() / step_cpu.norm()).item()
+    worst = max(errs, key=errs.get)
+    print(f"ctr card vs CPU (batch {PARITY_BATCH}, tables {CTR_PADDED_ROWS} rows): loss card "
+          f"{gpu['loss']:.7f} CPU {cpu['loss']:.7f} (rel {loss_rel:.3e}, tolerance "
+          f"{TOL_CTR_LOSS}); one adagrad step's update, rel norm err: " + ", ".join(
+              f"{n} {e:.3e}" for n, e in errs.items()) + f" (tolerance {TOL_CTR_UPDATE})")
+    require(loss_rel <= TOL_CTR_LOSS, f"CTR loss on the card off the CPU's by {loss_rel:.3e}")
+    require(all(math.isfinite(e) and e <= TOL_CTR_UPDATE for e in errs.values()),
+            f"CTR updates on the card off the CPU's: {errs}")
+    return {"batch": PARITY_BATCH, "loss_rel": loss_rel, "loss_tolerance": TOL_CTR_LOSS,
+            "update_rel_norm": errs, "worst": worst, "update_tolerance": TOL_CTR_UPDATE}
+
+
+def phase_zoo(device) -> list:
+    """The other four models at their default widths, each on one placed
+    batch through the Trainer."""
+    from edl_tpu_torch import models
+    from edl_tpu_torch.runtime import TrainerConfig
+
+    rows = []
+    for name, (batch, optimizer, lr) in ZOO.items():
+        model = models.get(name)
+        run = Run(name, model, TrainerConfig(optimizer=optimizer, learning_rate=lr, seed=0),
+                  batch, device)
+        row = run.timed()
+        run.profile(ZOO_GROUPS)
+        row["config"] = (json.dumps(dataclasses.asdict(model.config)) if model.config
+                         else "default")
+        rows.append(row)
+        # free this model before the next is built: a run's peak memory
+        # starts from what is still allocated when its timed steps begin
+        del run
+    return rows
+
+
+def phase_remat(device, off: dict) -> dict:
+    """The LM of phase 4 with ``remat=True``, from the same seed and batch:
+    the same losses, less memory, and the flash forward run twice a block."""
+    from edl_tpu_torch.models.transformer import TransformerConfig, make_model
+    from edl_tpu_torch.runtime import TrainerConfig
+
+    fa = _flash_module()
+    cfg = TransformerConfig(flash=True, remat=True, **SLICE)
+    run = Run("transformer (remat)", make_model(cfg), TrainerConfig(
+        optimizer="adam", learning_rate=3e-4, seed=0), BATCH, device)
+    row = run.timed(reset_counts=fa.reset_launches)
+    launches = dict(fa.LAUNCHES)
+    want = {"fwd": 2 * cfg.n_layers * STEPS, "bwd_dq": cfg.n_layers * STEPS,
+            "bwd_dkv": cfg.n_layers * STEPS}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(row["losses"], off["losses"]))
+    print(f"remat: step {row['step_ms']:.3f} ms against {off['step_ms']:.3f} ms without remat "
+          f"({row['step_ms'] / off['step_ms'] - 1:+.1%}); peak memory "
+          f"{row['peak_memory_gib']:.3f} against {off['peak_memory_gib']:.3f} GiB; losses "
+          f"within {loss_rel:.3e} rel of the remat-off run's (tolerance {TOL_REMAT_LOSS}); "
+          f"launches {launches}, want {want}")
+    require(launches == want, f"remat launch counts {launches}, want {want}")
+    require(row["peak_memory_gib"] < off["peak_memory_gib"],
+            "remat does not lower the peak memory")
+    require(loss_rel <= TOL_REMAT_LOSS, f"remat losses off the remat-off run's by {loss_rel:.3e}")
+    run.profile(LM_GROUPS)
+    row.update(config="GPT-2-small width " + json.dumps(SLICE), remat=True,
+               launches=launches, loss_rel_to_remat_off=loss_rel,
+               step_ms_remat_off=off["step_ms"], peak_memory_gib_remat_off=off["peak_memory_gib"])
+    return row
 
 
 def phase_step_parity(device) -> None:
@@ -641,12 +938,18 @@ def main(argv) -> int:
     if "--kernels" in argv:
         print(json.dumps({"kernels": list(kernels.values())}))
         return 0
-    launches, in_step = phase_slice(device)
+    launches, in_step, lm = phase_slice(device)
     phase_step_parity(device)
+    ctr_row = phase_ctr(device)
+    ctr_row["cpu_parity"] = phase_ctr_cpu_parity(device)
+    others = phase_zoo(device)
+    remat = phase_remat(device, lm)
     for name, row in kernels.items():
         row["launches"] = launches[name]
+        row["launches_remat"] = remat["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
     import torch
 
     # count: the devices this run uses

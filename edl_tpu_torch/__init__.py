@@ -5,10 +5,13 @@ imports neither JAX nor anything of `edl_tpu`, and keeps its own copy of
 what it needs. It mirrors the reference's layout, so each counterpart sits
 at the same path:
 
-  models/    the model bundle and the transformer LM (`models.transformer`)
+  models/    the model bundle and the zoo: fit_a_line, mnist, word2vec, ctr,
+             resnet and the transformer LM
   ops/       hand-written CUDA kernels for Hopper and their plain versions
-  parallel/  attention over the sequence axis (one shard for now)
-  runtime/   the single-device Trainer
+  parallel/  attention over the sequence axis and embedding tables (one
+             shard for now)
+  runtime/   the single-device Trainer and its optimizers
+  tools/     FLOP and MFU accounting
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no device named they raise.

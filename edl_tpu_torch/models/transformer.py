@@ -13,9 +13,13 @@ Dtypes follow the JAX package: f32 params; bf16 residual stream and matmuls
 cross-entropy. GELU is the tanh form (``jax.nn.gelu`` defaults to
 ``approximate=True``) and RMSNorm's eps is 1e-6 inside the rsqrt.
 
+``remat=True`` checkpoints each block (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint`` at block granularity): the forward keeps
+only each block's input, and the backward runs the block's forward again,
+the flash forward kernel included, before its backward.
+
 Raise ``NotImplementedError`` until a later slice: mixture-of-experts FFNs
-(``moe_experts > 0``), ``remat``, and any sequence, tensor or pipeline axis
-above 1.
+(``moe_experts > 0``) and any sequence, tensor or pipeline axis above 1.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from edl_tpu_torch.device import DeviceLike, resolve_device
 from edl_tpu_torch.models.base import Model
@@ -53,7 +58,7 @@ class TransformerConfig:
     pipeline_schedule: str = "gpipe"
     #: virtual stage chunks per pipe rank (>1 only with "1f1b-interleaved")
     virtual_stages: int = 1
-    #: per-block rematerialization; raises until a later slice
+    #: per-block rematerialization (activation checkpointing)
     remat: bool = False
     #: attention through the flash kernels (`edl_tpu_torch.ops.
     #: flash_attention`) instead of the dense O(S^2) oracle
@@ -84,8 +89,6 @@ def _check(cfg: TransformerConfig, axes: Optional[Mapping[str, int]]) -> None:
             f"'1f1b-interleaved', got {cfg.pipeline_schedule!r}")
     if cfg.moe_experts > 0:
         raise NotImplementedError("mixture-of-experts FFNs are not ported yet")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
     for axis in (cfg.seq_axis, cfg.tp_axis, cfg.pp_axis):
         if (axes or {}).get(axis, 1) > 1:
             raise NotImplementedError(
@@ -180,7 +183,9 @@ class TransformerLM(nn.Module):
         S = tokens.shape[1]
         x = (self.embed[tokens] + self.pos[:S]).to(torch.bfloat16)
         for block in self.blocks:
-            x = block(x)
+            # blocks draw no randomness, so there is no RNG state to replay
+            x = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+                 if self.cfg.remat else block(x))
         # tail: final norm, f32 LM head, mean token cross-entropy (f32)
         h = _rmsnorm(x, self.lnf).float()
         logits = h @ self.head

@@ -1,3 +1,4 @@
-"""Parallel layers of the port. For now: attention over the sequence axis on
-one shard (`ring_attention`); the ring across shards waits for a later slice.
+"""Parallel layers of the port. For now, on one shard: attention over the
+sequence axis (`ring_attention`) and row-sharded embedding tables
+(`embedding`); the ring and the lookups across shards wait for later slices.
 """

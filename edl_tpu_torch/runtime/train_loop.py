@@ -12,8 +12,7 @@ step returns a state that shares them with the one it was given.
 
 Raise ``NotImplementedError`` until a later slice: ``wire_transport``,
 ``shard_opt_state``, ``grad_sync="reduce_scatter"``,
-``grad_accum_microbatches > 1``, ``pipeline_depth > 0`` and the
-``"adagrad"`` optimizer (its optax form comes with the CTR model).
+``grad_accum_microbatches > 1`` and ``pipeline_depth > 0``.
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ class TrainState(NamedTuple):
 @dataclass
 class TrainerConfig:
     learning_rate: float = 1e-3
-    optimizer: str = "adam"  # "adam" | "sgd" | "adagrad" (not yet ported)
+    optimizer: str = "adam"  # "adam" | "sgd" | "adagrad"
     momentum: float = 0.0
     grad_clip_norm: float = 0.0
     #: one mesh axis or a hierarchy tuple; one device for now
@@ -79,20 +78,64 @@ def _check(cfg: TrainerConfig) -> None:
             raise NotImplementedError(f"{name} is not ported yet")
 
 
+class OptaxAdagrad(torch.optim.Optimizer):
+    """``optax.adagrad(lr)``: ``scale_by_rss(initial_accumulator_value=0.1,
+    eps=1e-7)`` followed by ``-lr``. Each step, for every element:
+
+        acc <- acc + g^2                      (acc starts at 0.1)
+        p   <- p - lr * g * rsqrt(acc + 1e-7)
+
+    optax writes the factor as ``where(acc > 0, rsqrt(acc + eps), 0)``; acc
+    starts at 0.1 and only grows, so the ``where`` always takes the rsqrt.
+    ``torch.optim.Adagrad`` is another formula (acc from 0, ``sqrt(acc) +
+    1e-10``). The update is dense, as optax's is: a whole embedding table,
+    padded rows included, and a row whose gradient is 0 keeps its value.
+    A param whose ``grad`` is None is skipped, which is the same as a zero
+    gradient. ``state[p]["sum_of_squares"]`` is optax's ``ScaleByRssState``."""
+
+    INITIAL_ACCUMULATOR = 0.1
+    EPS = 1e-7
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["sum_of_squares"] = torch.full_like(
+                    p, self.INITIAL_ACCUMULATOR, memory_format=torch.preserve_format)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            accs = [self.state[p]["sum_of_squares"] for p in params]
+            torch._foreach_addcmul_(accs, grads, grads)
+            scaled = torch._foreach_add(accs, self.EPS)
+            torch._foreach_rsqrt_(scaled)
+            torch._foreach_mul_(scaled, grads)
+            torch._foreach_add_(params, scaled, alpha=-group["lr"])
+        return loss
+
+
 def _make_optimizer(cfg: TrainerConfig, params) -> torch.optim.Optimizer:
-    """optax's adam and sgd: ``torch.optim.Adam`` has optax.adam's formula
-    (b1 0.9, b2 0.999, eps 1e-8 added after the sqrt, bias-corrected), and
-    ``torch.optim.SGD``'s momentum buffer starts from the first gradient as
-    optax's trace does from zeros."""
+    """optax's adam, sgd and adagrad: ``torch.optim.Adam`` has optax.adam's
+    formula (b1 0.9, b2 0.999, eps 1e-8 added after the sqrt,
+    bias-corrected), ``torch.optim.SGD``'s momentum buffer starts from the
+    first gradient as optax's trace does from zeros, and `OptaxAdagrad` is
+    optax.adagrad written out."""
     if cfg.optimizer == "adam":
         return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999),
                                 eps=1e-8)
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=cfg.learning_rate, momentum=cfg.momentum)
     if cfg.optimizer == "adagrad":
-        raise NotImplementedError(
-            "adagrad is not ported yet: optax's accumulator starts at 0.1 where "
-            "torch.optim.Adagrad's starts at 0")
+        return OptaxAdagrad(params, lr=cfg.learning_rate)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
@@ -201,4 +244,5 @@ class Trainer:
         return state, metrics
 
 
-__all__ = ["Trainer", "TrainerConfig", "TrainState", "clip_by_global_norm"]
+__all__ = ["OptaxAdagrad", "Trainer", "TrainerConfig", "TrainState",
+           "clip_by_global_norm"]

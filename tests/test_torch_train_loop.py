@@ -3,7 +3,8 @@
 Two kinds of check:
 
 - the optimizers and ``clip_by_global_norm`` on the same f32 params and
-  gradients as optax: exact formulas, to 1e-6;
+  gradients as optax: exact formulas, to 1e-6 (adagrad, 5 steps with a
+  leaf whose gradient is always 0: measured within 3 f32 ulps, 9e-8);
 - the transformer trained 3 steps by each Trainer from the same weights
   (carried across by `params_from_jax`) and batch, on a one-device mesh on
   the JAX side: losses to rel 1e-3 (measured ~3e-5). Params after SGD with
@@ -28,7 +29,8 @@ from edl_tpu.runtime.train_loop import _make_optimizer as jax_optimizer
 from edl_tpu_torch.models import transformer as torch_tf
 from edl_tpu_torch.models.convert import params_from_jax
 from edl_tpu_torch.runtime import Trainer, TrainerConfig
-from edl_tpu_torch.runtime.train_loop import _make_optimizer, clip_by_global_norm
+from edl_tpu_torch.runtime.train_loop import (OptaxAdagrad, _make_optimizer,
+                                              clip_by_global_norm)
 
 CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=8, d_ff=64, seq_len=16)
 STEPS = 3
@@ -72,6 +74,41 @@ def test_optimizer_and_clip_match_optax(kw):
     for a, b in zip(tp, jp):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
                                    rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("clip", [0.0, 1.0], ids=["adagrad", "adagrad_clip"])
+def test_adagrad_matches_optax_with_a_zero_gradient_leaf(clip):
+    """optax.adagrad (accumulator from 0.1, rsqrt(acc + 1e-7)), clipping
+    first as optax.chain does; a leaf whose gradient is 0 keeps its value
+    and its accumulator stays at 0.1."""
+    steps, shapes = 5, [(4, 3), (5,), (2, 2)]
+    rng = np.random.default_rng(1)
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes[:2]]
+             + [np.zeros(shapes[2], np.float32)] for _ in range(steps)]
+    kw = dict(optimizer="adagrad", learning_rate=0.05, grad_clip_norm=clip)
+
+    opt = jax_optimizer(JaxConfig(**kw))
+    jp = [jnp.asarray(p) for p in params]
+    state = opt.init(jp)
+    for g in grads:
+        updates, state = opt.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, updates)
+
+    cfg = TrainerConfig(**kw)
+    tp = [torch.tensor(p, requires_grad=True) for p in params]
+    topt = _make_optimizer(cfg, tp)
+    assert isinstance(topt, OptaxAdagrad)
+    for g in grads:
+        for p, x in zip(tp, g):
+            p.grad = torch.from_numpy(x.copy())
+        if cfg.grad_clip_norm > 0:
+            clip_by_global_norm([p.grad for p in tp], cfg.grad_clip_norm)
+        topt.step()
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
+    assert torch.equal(tp[2].detach(), torch.from_numpy(params[2]))
+    assert torch.equal(topt.state[tp[2]]["sum_of_squares"], torch.full(shapes[2], 0.1))
 
 
 def test_clip_passes_gradients_under_the_norm_unchanged():
@@ -137,7 +174,7 @@ def test_options_outside_the_slice_raise(override, error):
         Trainer(model, device="cpu", config=TrainerConfig(**override))
 
 
-@pytest.mark.parametrize("optimizer,error", [("adagrad", NotImplementedError),
+@pytest.mark.parametrize("optimizer,error", [("adamw", ValueError),
                                              ("lamb", ValueError)])
 def test_unported_optimizers_raise(optimizer, error):
     trainer = Trainer(torch_tf.make_model(torch_tf.TransformerConfig(**CFG)),

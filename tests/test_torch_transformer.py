@@ -10,6 +10,7 @@ attention oracle) agree to 1e-6 / 2e-5.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +31,10 @@ LOSS_RTOL = 2e-2
 GRAD_REL_NORM = 5e-2
 
 
-def jax_setup(flash: bool, seed: int = 0):
+def jax_setup(flash: bool, seed: int = 0, remat: bool = False):
     """(JAX model, its params on a one-device mesh, the mesh)."""
     mesh = build_mesh(MeshSpec({"data": 1}), jax.devices()[:1])
-    model = jax_tf.make_model(jax_tf.TransformerConfig(flash=flash, **CFG))
+    model = jax_tf.make_model(jax_tf.TransformerConfig(flash=flash, remat=remat, **CFG))
     return model, model.init(jax.random.PRNGKey(seed), mesh), mesh
 
 
@@ -42,21 +43,21 @@ def jax_placed(model, mesh, batch):
         mesh, model.batch_spec(mesh)[k])) for k, v in batch.items()}
 
 
-def torch_module(flash: bool, params) -> torch_tf.TransformerLM:
-    module = torch_tf.TransformerLM(torch_tf.TransformerConfig(flash=flash, **CFG),
-                                    device="cpu")
+def torch_module(flash: bool, params, remat: bool = False) -> torch_tf.TransformerLM:
+    module = torch_tf.TransformerLM(
+        torch_tf.TransformerConfig(flash=flash, remat=remat, **CFG), device="cpu")
     module.load_state_dict(params_from_jax(jax.device_get(params)))
     return module
 
 
 @pytest.mark.parametrize("flash", [True, False])
-def test_loss_and_grads_match_jax(flash):
-    jm, params, mesh = jax_setup(flash)
+def test_loss_and_grads_match_jax(flash, remat=False):
+    jm, params, mesh = jax_setup(flash, remat=remat)
     batch = jm.synthetic_batch(np.random.default_rng(0), 4)
     step = jax.jit(jax.value_and_grad(lambda p, b: jm.loss_fn(p, b, mesh)))
     jl, jg = step(params, jax_placed(jm, mesh, batch))
 
-    module = torch_module(flash, params)
+    module = torch_module(flash, params, remat=remat)
     loss = module({k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
     assert loss.dtype == torch.float32
@@ -65,6 +66,36 @@ def test_loss_and_grads_match_jax(flash):
     for name, p in module.named_parameters():
         err = ((p.grad - want[name]).norm() / want[name].norm()).item()
         assert err <= GRAD_REL_NORM, (name, err)
+
+
+def test_remat_loss_and_grads_match_the_jax_remat_model():
+    test_loss_and_grads_match_jax(flash=True, remat=True)
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_remat_gives_the_same_loss_and_grads_and_reruns_attention(flash, monkeypatch):
+    fa = importlib.import_module("edl_tpu_torch.ops.flash_attention")
+    calls = []
+    plain_fwd = fa._fwd_reference
+    monkeypatch.setattr(fa, "_fwd_reference",
+                        lambda *a, **kw: calls.append(1) or plain_fwd(*a, **kw))
+    _, params, _ = jax_setup(flash=True, seed=2)
+    batch = {k: torch.from_numpy(v) for k, v in torch_tf.synthetic_batch(
+        torch_tf.TransformerConfig(**CFG), np.random.default_rng(1), 4).items()}
+    results = {}
+    for remat in (False, True):
+        calls.clear()
+        module = torch_module(flash, params, remat=remat)
+        loss = module(batch)
+        loss.backward()
+        results[remat] = (loss.detach(), {n: p.grad for n, p in module.named_parameters()},
+                          len(calls))
+    (l0, g0, n0), (l1, g1, n1) = results[False], results[True]
+    assert torch.equal(l0, l1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+    if flash:  # the attention forward runs once a block, and again under remat
+        assert (n0, n1) == (CFG["n_layers"], 2 * CFG["n_layers"])
 
 
 def test_rmsnorm_and_gelu_match_jax_in_f32():
@@ -124,7 +155,7 @@ def test_params_from_jax_fills_every_param_with_its_shape():
 
 @pytest.mark.parametrize("override,error", [
     (dict(moe_experts=4), NotImplementedError),
-    (dict(remat=True), NotImplementedError),
+    (dict(moe_experts=2, moe_top_k=2), NotImplementedError),
     (dict(pipeline_schedule="zigzag"), ValueError),
     (dict(virtual_stages=2), ValueError),
 ])
@@ -145,4 +176,4 @@ def test_zoo_get_and_resolve():
     model = torch_models.resolve("transformer", CFG)
     assert model.config == torch_tf.TransformerConfig(**CFG)
     with pytest.raises(KeyError):
-        torch_models.get("ctr")
+        torch_models.get("vgg16")
