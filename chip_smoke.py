@@ -51,9 +51,21 @@ phase that fails raises, and the script exits non-zero without its last line:
 9. The LM of phase 4 with ``remat=True``: the flash forward launched twice
    a block (fwd 240, dq 120, dkv 120 over the timed steps), lower peak
    memory and the same losses as phase 4's.
-10. One JSON line ``{"kernels": [...]}`` and one ``{"zoo": [...]}`` (a row
-    per model, the remat LM included).
-11. The last line: ``{"ok": true, "device": {...}}``.
+10. Serve (`edl_tpu_torch.serving`): phase 4's LM, exported right after
+    its run, served by an ``LMServingReplica`` on the card to 16 streams in
+    three staggered waves (four through HTTP ``/generate``), each to its
+    full token count; its decode held against a re-prefill per token on the
+    card (tokens and K/V cache), which must reject a planted fault (the new
+    K/V written one slot late), and against the port's prefill on the CPU;
+    prefill and decode step times, tokens/s, TTFT and a profiled window of
+    decode steps. Then phase 6's CTR, exported right after its run, served
+    by a ``ServingReplica`` to 512 single-row requests (16 through HTTP
+    ``/predict``), with version 2 (two more adagrad steps) exported
+    mid-traffic and swapped in with no failed request; every answer against
+    the module's ``predict``. The serving path launches no flash kernel.
+11. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+    per model, the remat LM included) and one ``{"serve": {...}}``.
+12. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -70,6 +82,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
@@ -631,7 +644,7 @@ class Run:
 def phase_slice(device) -> tuple:
     """Train the GPT-2-small-width LM through the Trainer; returns the launch
     counts of the timed steps, the profiled step's device ms a launch of each
-    flash kernel, and the zoo row."""
+    flash kernel, the zoo row and the trained state."""
     from edl_tpu_torch.models.transformer import TransformerConfig, make_model
     from edl_tpu_torch.runtime import TrainerConfig
 
@@ -656,7 +669,7 @@ def phase_slice(device) -> tuple:
     print("profile: flash kernels' device ms a launch in the step: " + ", ".join(
         f"{k} {ms:.4f}" for k, ms in in_step.items()))
     row.update(config="GPT-2-small width " + json.dumps(SLICE), remat=False, launches=launches)
-    return launches, in_step, row
+    return launches, in_step, row, run.state
 
 
 #: kernel groups of the profile, by a substring of the kernel's name, first
@@ -724,9 +737,10 @@ def profile_step(step, step_ms: float, groups: dict, label: str) -> tuple:
                             "count": e.count} for e in top]}
 
 
-def phase_ctr(device) -> dict:
+def phase_ctr(device) -> tuple:
     """The slice's main path: CTR at its full published width through the
-    Trainer with adagrad; padded and untouched table rows must not move."""
+    Trainer with adagrad; padded and untouched table rows must not move.
+    Returns the zoo row and the run."""
     import numpy as np
     import torch
 
@@ -768,7 +782,7 @@ def phase_ctr(device) -> dict:
                       f"{ctr.EMBED_DIM} and x 1), MLP {list(ctr.HIDDEN)}",
                distinct_ids=int(len(seen)), padded_rows_unchanged=True,
                untouched_rows_checked=UNTOUCHED_ROWS, flash_launches=flash_launches)
-    return row
+    return row, run
 
 
 def time_table_backward(table, ids) -> dict:
@@ -928,6 +942,643 @@ def phase_step_parity(device) -> None:
             f"depth-2 grads off: {grads}")
 
 
+# -- the serve phase -----------------------------------------------------------
+
+#: the LM tier at GPT-2-small width (phase 4's LM): batch and seq buckets, and
+#: a KV pool of 1024 blocks of 16 tokens (604 MB at 36,864 B a token: room for
+#: 16 streams at 1024)
+SERVE_BATCH_BUCKETS = (1, 4, 8)
+SERVE_SEQ_BUCKETS = (128, 256, 512, 1024)
+SERVE_KV_BLOCKS, SERVE_KV_BLOCK_TOKENS = 1024, 16
+#: 16 streams from seed 0 (prompts of 16-512 tokens, 32-64 new tokens),
+#: admitted in waves of 6, 5 and 5 (each wave once the one before decodes);
+#: the last 4 through HTTP /generate
+SERVE_PROMPT_TOKENS = (16, 512)
+SERVE_NEW_TOKENS = (32, 64)
+SERVE_WAVES = (6, 5, 5)
+SERVE_HTTP_STREAMS = 4
+#: streams held against a re-prefill per token on the card (the first 4), and
+#: against the port's prefill on the CPU (the 2 shortest prompts)
+CONSISTENCY_STREAMS = 4
+CPU_STREAMS = 2
+#: the engine's K/V cache against the prefill's K/V of the same sequence
+#: (relative norm): decode and prefill round their bf16 activations at the
+#: same places but sum the f32 attention in another order
+TOL_SERVE_KV = 1e-2
+#: a greedy token may differ from its reference (teacher forced on the same
+#: tokens) only where the reference's top logit exceeds the token's logit by
+#: at most this many logit units: a near tie that rounding noise may flip.
+#: Twice the largest difference of the card's and the CPU's logits over the
+#: same sequences (0.028 of logits up to 3.5 in a first run on an H100): a
+#: flip needs both logits to move toward each other
+TOL_NEAR_TIE = 6e-2
+#: timed shapes: prefill (batch, seq) and decode (batch, capacity)
+PREFILL_TIMED = ((1, 128), (8, 512))
+DECODE_TIMED = ((1, 256), (1, 1024), (8, 256), (8, 1024))
+#: the profiled window of the live engine: decode steps at the largest
+#: buckets (8, capacity 1024), from 8 streams of PROFILE_PROMPT tokens and 64
+#: new tokens each
+PROFILE_DECODE_STEPS = 16
+PROFILE_PROMPT = 700
+PROFILE_NEW_TOKENS = 64
+#: the batch tier: CTR at full width, 512 single-row requests from seed 5 by
+#: 32 client threads; every 32nd through HTTP /predict; version 2 exported
+#: once 128 are answered, and the last 128 sent once it serves
+CTR_SERVE_BUCKETS = (1, 8, 32, 256)
+CTR_REQUESTS = 512
+CTR_HTTP_EVERY = 32
+CTR_SWAP_AFTER = 128
+CTR_POST_SWAP = 128
+CTR_CLIENTS = 32
+#: a served answer against the module's predict on all 512 rows at once
+#: (cuBLAS picks other kernels at other batch sizes; the MLP is bf16):
+#: `tests/test_torch_ctr.py`'s logit tolerance, |d| <= abs + rel * |want|
+TOL_CTR_SERVE_ABS, TOL_CTR_SERVE_REL = 2e-3, 2e-2
+#: the share of rows whose version-1 and version-2 answers lie outside each
+#: other's tolerance must be at least this, or the swap check has no teeth
+#: (an answer of version 1 on such a row fails the check against version 2)
+CTR_VERSIONS_APART = 0.5
+
+
+def wait_for(cond, timeout_s: float, msg: str) -> None:
+    """Poll ``cond`` every 5 ms (a cheap read: the engine and the dispatcher
+    share the interpreter with this thread) until it holds."""
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        require(time.monotonic() < deadline, msg)
+        time.sleep(0.005)
+
+
+def _post(url: str, payload: dict, timeout: float = 600.0) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _quantiles(xs) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99)),
+            "n": len(xs)}
+
+
+def export_lm(state, root: str) -> dict:
+    """Export phase 4's trained LM with the port's ``save_inference_model``
+    (versioned), as a trainer publishes for a serving replica."""
+    import os
+
+    from edl_tpu_torch.runtime.export import save_inference_model
+
+    directory = os.path.join(root, "lm")
+    t0 = time.perf_counter()
+    save_inference_model(directory, "transformer", state, config={**SLICE, "flash": True},
+                         step=state.step, versioned=True)
+    seconds = time.perf_counter() - t0
+    print(f"serve: exported phase 4's LM (step {state.step}) in {seconds:.3f} s")
+    return {"dir": directory, "step": state.step, "export_s": seconds}
+
+
+def stage_ctr_versions(run, root: str) -> dict:
+    """Export phase 6's CTR as version 1 (versioned layout), then take two
+    more adagrad steps on new batches: version 2, kept on the host for the
+    serve phase to export mid-traffic. Both versions' state_dicts are kept on
+    the host as the references of the answers."""
+    import os
+
+    import numpy as np
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.runtime.export import save_inference_model
+
+    directory = os.path.join(root, "ctr")
+
+    def host_state():
+        return {k: v.detach().cpu().clone() for k, v in run.state.params.state_dict().items()}
+
+    t0 = time.perf_counter()
+    save_inference_model(directory, "ctr", run.state, step=run.state.step, versioned=True)
+    seconds = time.perf_counter() - t0
+    v1 = {"step": run.state.step, "state": host_state()}
+    for seed in (11, 12):
+        batch = run.trainer.place_batch(ctr.MODEL.synthetic_batch(np.random.default_rng(seed),
+                                                                  CTR_BATCH))
+        run.state, _ = run.trainer.train_step(run.state, batch)
+    v2 = {"step": run.state.step, "state": host_state()}
+    print(f"serve: exported phase 6's CTR as version 1 (step {v1['step']}) in {seconds:.3f} s; "
+          f"version 2 is step {v2['step']}")
+    return {"dir": directory, 1: v1, 2: v2, "export_s": seconds}
+
+
+def _teacher_forced(module, prompts, generated) -> list:
+    """The reference of each stream's greedy tokens: for token j, the
+    prefill of prompt + generated[:j] (the streams of a step batched, right
+    padded to a seq bucket), its f32 logits at the last position. Returns per
+    stream (logits (n, V), and K and V (L, len, H, Dh) of its last prefill,
+    which covers every cached position)."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models import transformer
+    from edl_tpu_torch.serving.batcher import pad_token_rows, pick_seq_bucket
+
+    out = [{"logits": []} for _ in prompts]
+    device = module.embed.device
+    for j in range(max(len(g) for g in generated)):
+        live = [i for i, g in enumerate(generated) if j < len(g)]
+        seqs = [np.concatenate([prompts[i], np.asarray(generated[i][:j], np.int32)])
+                for i in live]
+        seq_bucket = pick_seq_bucket(max(len(q) for q in seqs), SERVE_SEQ_BUCKETS)
+        tokens, lengths = pad_token_rows(seqs, len(seqs), seq_bucket)
+        with torch.no_grad():
+            x, k, v = transformer._prefill_forward(module, torch.from_numpy(tokens).to(device))
+            last = torch.from_numpy(lengths.astype(np.int64) - 1).to(device)
+            h = x[torch.arange(len(live), device=device), last]
+            logits = transformer._rmsnorm(h, module.lnf).float() @ module.head
+        for r, i in enumerate(live):
+            out[i]["logits"].append(logits[r])
+            if j == len(generated[i]) - 1:
+                out[i]["k"] = k[:, r, :lengths[r]]
+                out[i]["v"] = v[:, r, :lengths[r]]
+    for o in out:
+        o["logits"] = torch.stack(o["logits"])
+    return out
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _token_check(logits, tokens) -> dict:
+    """Greedy ``tokens`` against reference ``logits`` (n, V): the positions
+    where they differ, and the reference's margin there (its top logit less
+    the token's)."""
+    import torch
+
+    t = torch.as_tensor(tokens, device=logits.device)
+    top = logits.max(dim=-1).values
+    margin = top - logits.gather(1, t[:, None].long())[:, 0]
+    differ = logits.argmax(dim=-1) != t
+    return {"positions": len(tokens), "differ": int(differ.sum()),
+            "worst_margin": float(margin[differ].max()) if differ.any() else 0.0}
+
+
+def check_cache_consistency(replica, prompts, budgets) -> dict:
+    """The engine's decode against a re-prefill of the grown sequence per
+    token on the card: tokens (near ties allowed) and the stream's K/V cache
+    against the last prefill's K/V. Then the same streams with the planted
+    fault — the new K/V written one slot late — which the check must reject."""
+    import contextlib
+    from unittest import mock
+
+    from edl_tpu_torch.serving import LMServingReplica
+
+    caches = {}
+    retire = LMServingReplica._retire
+
+    def capturing(self, s, outcome):
+        caches[s.id] = (s.k[:, :s.length].clone(), s.v[:, :s.length].clone())
+        retire(self, s, outcome)
+
+    def one_slot_late(s, k, v):
+        s.k[:, s.length + 1] = k
+        s.v[:, s.length + 1] = v
+
+    def run(fault: bool) -> dict:
+        caches.clear()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(LMServingReplica, "_retire", capturing))
+            if fault:
+                stack.enter_context(mock.patch.object(LMServingReplica, "_append_kv",
+                                                      staticmethod(one_slot_late)))
+            handles = [replica.submit(p, max_new_tokens=int(b)) for p, b in zip(prompts, budgets)]
+            outs = []
+            for h in handles:
+                try:
+                    outs.append(h.result(timeout=600))
+                except (RuntimeError, IndexError) as e:  # the fault may write past the cache
+                    return {"ok": False, "raised": repr(e)}
+        generated = [o["tokens"] for o in outs]
+        refs = _teacher_forced(replica._art.module, prompts, generated)
+        streams = []
+        for prompt, h, g, ref in zip(prompts, handles, generated, refs):
+            k, v = caches[h.stream_id]
+            kv = {"k": _rel(k, ref["k"]), "v": _rel(v, ref["v"])}
+            streams.append({"prompt_tokens": len(prompt), **_token_check(ref["logits"], g),
+                            "kv_rel_norm": kv})
+        ok = all(s["worst_margin"] <= TOL_NEAR_TIE and max(s["kv_rel_norm"].values()) <= TOL_SERVE_KV
+                 for s in streams)
+        return {"ok": ok, "streams": streams}
+
+    good = run(fault=False)
+    fault = run(fault=True)
+    print(f"serve cache check ({len(prompts)} streams against a re-prefill per token): "
+          f"{json.dumps(good)}; with the K/V written one slot late: {json.dumps(fault)}")
+    require(good["ok"], f"the engine's decode is off a re-prefill per token: {good}")
+    require(not fault["ok"], "the cache check passes the planted one-slot-late fault")
+    return {"as_built": good, "kv_one_slot_late": fault}
+
+
+def _lm_traffic(replica, prompts, budgets) -> dict:
+    """The 16 streams in staggered waves; returns their results (by index),
+    the wall time, and each direct stream's submit time and id."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n, first_http = len(prompts), len(prompts) - SERVE_HTTP_STREAMS
+    handles, http, submitted = {}, {}, {}
+
+    def emitted():
+        return sum(replica.instruments.tokens.value(phase=p) for p in ("prefill", "decode"))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=SERVE_HTTP_STREAMS) as pool:
+        i = 0
+        for w, size in enumerate(SERVE_WAVES):
+            before = emitted()
+            for j in range(i, min(i + size, n)):
+                if j >= first_http:
+                    http[j] = pool.submit(_post, replica.url + "/generate", {
+                        "prompt": prompts[j].tolist(), "max_new_tokens": int(budgets[j])})
+                else:
+                    submitted[j] = time.time()
+                    handles[j] = replica.submit(prompts[j], max_new_tokens=int(budgets[j]))
+            i += size
+            if w < len(SERVE_WAVES) - 1:
+                # the next wave joins a decode batch that is already running
+                wait_for(lambda: emitted() >= before + 4 * size, 600, f"wave {w} never decoded")
+        results = {j: h.result(timeout=600) for j, h in handles.items()}
+        results.update({j: f.result(timeout=600) for j, f in http.items()})
+    return {"results": [results[j] for j in range(n)], "wall_s": time.perf_counter() - t0,
+            "submitted": submitted, "ids": {j: h.stream_id for j, h in handles.items()}}
+
+
+def _device_ms(fn) -> tuple:
+    """(device kernel ms, launches) of one call of ``fn`` under
+    ``torch.profiler``, after a warm-up call; (None, None) when the profiler
+    sees no CUDA kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    if not kernels:
+        return None, None
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def time_lm_steps(module, cfg, device) -> dict:
+    """One prefill and one decode step at the timed shapes: the time of one
+    call at a time (CUDA events, so the host's launches show in it), and
+    the device's kernel time and launches in one profiled call. Decode runs
+    on a full cache of random K/V."""
+    import torch
+
+    from edl_tpu_torch.models import transformer
+
+    prefill = transformer.make_prefill_step(cfg)
+    decode = transformer.make_decode_step(cfg)
+    gen = torch.Generator(device=device).manual_seed(4)
+    L, H, Dh = transformer.lm_cache_shape(cfg)
+    calls = {}
+    for b, s in PREFILL_TIMED:
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=device,
+                               dtype=torch.int32)
+        lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+        calls[f"prefill_{b}x{s}"] = lambda t=tokens, n=lengths: prefill(module, t, n)
+    for b, c in DECODE_TIMED:
+        k, v = (torch.randn((L, b, c, H, Dh), generator=gen, device=device).to(torch.bfloat16)
+                for _ in range(2))
+        tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=device,
+                               dtype=torch.int32)
+        lengths = torch.full((b,), c - 1, dtype=torch.int32, device=device)
+        calls[f"decode_{b}x{c}"] = lambda k=k, v=v, t=tokens, n=lengths: decode(module, k, v, t, n)
+    out = {}
+    for name, fn in calls.items():
+        kernel_ms, launches = _device_ms(fn)
+        out[name] = {"ms": time_ms(fn, reps=10, warmup=2), "device_kernel_ms": kernel_ms,
+                     "launches": launches}
+    print("serve step times (one call at a time; device kernel ms and launches of one call): "
+          + ", ".join(f"{name} {r['ms']:.4f} ms ({r['device_kernel_ms']} ms, {r['launches']})"
+                      for name, r in out.items()))
+    return out
+
+
+def profile_decode_window(replica, cfg) -> dict:
+    """``torch.profiler`` over PROFILE_DECODE_STEPS decode steps of the live
+    engine at the largest buckets (8, capacity 1024): device busy share and
+    launches a step. The busy share is also given against the median
+    unprofiled step of the same streams (the engine's spans after the
+    window)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    bucket, capacity = SERVE_BATCH_BUCKETS[-1], SERVE_SEQ_BUCKETS[-1]
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, PROFILE_PROMPT).astype(np.int32)
+               for _ in range(bucket)]
+    handles = [replica.submit(p, max_new_tokens=PROFILE_NEW_TOKENS) for p in prompts]
+
+    def steps():
+        return replica.instruments.decode_steps.value(bucket=str(bucket),
+                                                      seq_bucket=str(capacity))
+
+    wait_for(lambda: steps() >= 2, 600, "the profiled streams never decoded")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        c0, t0 = steps(), time.perf_counter()
+        wait_for(lambda: steps() >= c0 + PROFILE_DECODE_STEPS, 600, "decode stalled")
+        wall_ms, n = (time.perf_counter() - t0) * 1e3, steps() - c0
+    t_end = time.time()
+    for h in handles:
+        h.result(timeout=600)
+    spans = [sp.seconds * 1e3 for sp in replica.tracer.find(name="lm_decode_step")
+             if sp.start > t_end and sp.attrs.get("bucket") == bucket
+             and sp.attrs.get("seq_bucket") == capacity]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us == 0:
+        print("serve profile: device time not measured (the profiler saw no CUDA kernel)")
+        return {"device_busy_share": None, "launches_per_step": None}
+    launches = sum(e.count for e in kernels)
+    step_ms = statistics.median(spans) if spans else None
+    out = {"steps": n, "window_ms": wall_ms, "kernel_ms_per_step": total_us / 1e3 / n,
+           "launches_per_step": launches / n,
+           "device_busy_share": total_us / 1e3 / wall_ms,
+           "unprofiled_step_ms": step_ms,
+           "device_busy_share_unprofiled": (total_us / 1e3 / n / step_ms) if step_ms else None,
+           "top_device_ops": [{"op": e.key[:110], "ms_per_step": e.self_device_time_total / 1e3 / n,
+                               "count_per_step": e.count / n}
+                              for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP_OPS]]}
+    print(f"serve profile: {n} decode steps at bucket {bucket}, capacity {capacity}: "
+          f"{out['kernel_ms_per_step']:.4f} ms of kernels and {out['launches_per_step']:.1f} "
+          f"launches a step; device busy {out['device_busy_share']:.1%} of the profiled "
+          f"window" + (f", {out['device_busy_share_unprofiled']:.1%} of the median unprofiled "
+                       f"step ({step_ms:.4f} ms)" if step_ms else ""))
+    for op in out["top_device_ops"]:
+        print(f"  {op['ms_per_step']:8.4f} ms x{op['count_per_step']:<6.1f} {op['op']}")
+    return out
+
+
+def check_card_against_cpu(lm_dir, card_module, prompts, generated) -> dict:
+    """The card's greedy tokens of the given streams, teacher forced through
+    the port's prefill on the CPU from the same artifact: a token may differ
+    only at a near tie of the CPU's logits. Also the largest difference of
+    the card's and the CPU's logits over the same sequences."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models import transformer
+    from edl_tpu_torch.runtime.export import load_inference_model
+
+    cpu = load_inference_model(lm_dir, device="cpu").module
+    out = []
+    for prompt, g in zip(prompts, generated):
+        seq = torch.from_numpy(np.concatenate([prompt, np.asarray(g[:-1], np.int32)]))[None]
+        cpu_logits = transformer.prefill_logits(cpu, seq)[0, len(prompt) - 1:]
+        card_logits = transformer.prefill_logits(card_module, seq.to(card_module.embed.device))
+        card_logits = card_logits[0, len(prompt) - 1:].cpu()
+        out.append({"prompt_tokens": len(prompt), **_token_check(cpu_logits, g),
+                    "max_abs_logit_diff": float((card_logits - cpu_logits).abs().max()),
+                    "max_abs_logit": float(cpu_logits.abs().max())})
+    ok = all(s["worst_margin"] <= TOL_NEAR_TIE for s in out)
+    print(f"serve card vs CPU ({len(out)} streams, teacher forced): {json.dumps(out)}; "
+          f"near-tie positions {sum(s['differ'] for s in out)} (tolerance {TOL_NEAR_TIE})")
+    require(ok, f"the card's tokens are off the CPU's beyond near ties: {out}")
+    return {"streams": out, "near_tie_positions": sum(s["differ"] for s in out),
+            "tolerance": TOL_NEAR_TIE}
+
+
+def serve_lm(device, lm: dict) -> dict:
+    """The LM tier on the card (see phase 10 in the module docstring)."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.obs.http import scrape_metrics
+    from edl_tpu_torch.obs.metrics import MetricsRegistry, parse_prometheus
+    from edl_tpu_torch.obs.tracing import Tracer
+    from edl_tpu_torch.serving import LMServingConfig, LMServingReplica
+    from edl_tpu_torch.serving.__main__ import REQUIRED_LM_FAMILIES
+
+    fa = _flash_module()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    replica = LMServingReplica(LMServingConfig(
+        model_dir=lm["dir"], batch_buckets=SERVE_BATCH_BUCKETS, seq_buckets=SERVE_SEQ_BUCKETS,
+        kv_blocks=SERVE_KV_BLOCKS, kv_block_tokens=SERVE_KV_BLOCK_TOKENS, port=0,
+        name="chip-lm", request_timeout_s=600.0, device=str(device)),
+        registry=MetricsRegistry(), tracer=Tracer(component="serving")).start()
+    start_s = time.perf_counter() - t0
+    try:
+        cfg, module = replica._model_cfg, replica._art.module
+        n = sum(SERVE_WAVES)
+        rng = np.random.default_rng(0)
+        plens = rng.integers(SERVE_PROMPT_TOKENS[0], SERVE_PROMPT_TOKENS[1] + 1, n)
+        budgets = rng.integers(SERVE_NEW_TOKENS[0], SERVE_NEW_TOKENS[1] + 1, n)
+        prompts = [rng.integers(0, cfg.vocab_size, k).astype(np.int32) for k in plens]
+        fa.reset_launches()
+        traffic = _lm_traffic(replica, prompts, budgets)
+        flash_launches = dict(fa.LAUNCHES)
+        # the JAX package's serving path runs dense f32 attention, not flash
+        require(not any(flash_launches.values()),
+                f"the serving path launched flash kernels: {flash_launches}")
+        results = traffic["results"]
+        short = [j for j, r in enumerate(results)
+                 if len(r["tokens"]) != budgets[j] or r["finish_reason"] != "length"]
+        require(not short, f"LM streams {short} ended short of their token counts")
+        unwarmed = replica.jit_cache_size()
+        require(unwarmed == 0, f"{unwarmed} LM dispatch shapes were not warmed")
+        families = parse_prometheus(scrape_metrics(replica.url))
+        missing = [f for f in REQUIRED_LM_FAMILIES if f not in families]
+        require(not missing, f"missing LM metric families: {missing}")
+        status = replica.status()
+        require(status["completed"] == n and status["rejected"] == 0
+                and status["kv"]["used_blocks"] == 0, f"LM replica status: {status}")
+        prefill_end = {sp.attrs["stream"]: sp.end for sp in replica.tracer.find(name="lm_prefill")}
+        ttft = [prefill_end[traffic["ids"][j]] - t for j, t in traffic["submitted"].items()]
+        decode_spans = {}
+        for sp in replica.tracer.find(name="lm_decode_step"):
+            key = f"{sp.attrs['bucket']}x{sp.attrs['seq_bucket']}"
+            decode_spans.setdefault(key, []).append(sp.seconds * 1e3)
+        tokens = sum(len(r["tokens"]) for r in results)
+        row = {"streams": n, "http_streams": SERVE_HTTP_STREAMS, "waves": list(SERVE_WAVES),
+               "prompt_tokens": plens.tolist(), "new_tokens": budgets.tolist(),
+               "start_s": start_s, "export_s": lm["export_s"], "artifact_step": lm["step"],
+               "tokens": tokens, "wall_s": traffic["wall_s"],
+               "tokens_per_s": tokens / traffic["wall_s"],
+               "ttft_s": _quantiles(ttft),
+               "engine_decode_step_ms": {k: _quantiles(v) for k, v in sorted(decode_spans.items())},
+               "kv_peak_blocks": status["kv"]["peak_blocks_used"],
+               "flash_launches": flash_launches, "unwarmed_shapes": unwarmed}
+        print(f"serve LM: {n} streams ({SERVE_HTTP_STREAMS} over HTTP), {tokens} tokens in "
+              f"{traffic['wall_s']:.3f} s ({row['tokens_per_s']:.1f} tokens/s), TTFT p50 "
+              f"{row['ttft_s']['p50']:.4f} s p99 {row['ttft_s']['p99']:.4f} s (direct streams), "
+              f"replica start {start_s:.2f} s, KV peak {row['kv_peak_blocks']} blocks, flash "
+              f"launches {flash_launches}; engine decode step ms by (bucket x capacity): "
+              + json.dumps(row["engine_decode_step_ms"]))
+        row["cache_consistency"] = check_cache_consistency(
+            replica, prompts[:CONSISTENCY_STREAMS], budgets[:CONSISTENCY_STREAMS])
+        row["profile"] = profile_decode_window(replica, cfg)
+    finally:
+        replica.stop()
+    row["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    # timed with the replica stopped: no engine or HTTP thread shares the host
+    row["step_ms"] = time_lm_steps(module, cfg, device)
+    shortest = sorted(range(n), key=lambda j: plens[j])[:CPU_STREAMS]
+    row["card_vs_cpu"] = check_card_against_cpu(
+        lm["dir"], module, [prompts[j] for j in shortest],
+        [results[j]["tokens"] for j in shortest])
+    return row
+
+
+def serve_ctr(device, staged: dict) -> dict:
+    """The batch tier on the card (see phase 10 in the module docstring)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.obs.http import scrape_metrics
+    from edl_tpu_torch.obs.metrics import MetricsRegistry, parse_prometheus
+    from edl_tpu_torch.obs.tracing import Tracer
+    from edl_tpu_torch.runtime.export import save_inference_model
+    from edl_tpu_torch.serving import ServingConfig, ServingReplica
+    from edl_tpu_torch.serving.__main__ import REQUIRED_FAMILIES
+
+    batch = ctr.MODEL.synthetic_batch(np.random.default_rng(5), CTR_REQUESTS)
+    rows = [{"dense": batch["dense"][i], "sparse": batch["sparse"][i]}
+            for i in range(CTR_REQUESTS)]
+    want = {}
+    for v in (1, 2):
+        module = ctr.MODEL.build(device=device)
+        module.load_state_dict(staged[v]["state"])
+        with torch.no_grad():
+            want[v] = module.predict({k: torch.from_numpy(batch[k]).to(device)
+                                      for k in ("dense", "sparse")}).cpu().numpy()
+        del module
+
+    def close(got, v):
+        return abs(got - want[v]) <= TOL_CTR_SERVE_ABS + TOL_CTR_SERVE_REL * abs(want[v])
+
+    apart = float(np.mean(~close(want[1], 2)))
+    require(apart >= CTR_VERSIONS_APART, f"versions 1 and 2 answer apart on only {apart:.1%} of "
+                                         "the rows: the swap check would have no teeth")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    replica = ServingReplica(ServingConfig(
+        model_dir=staged["dir"], buckets=CTR_SERVE_BUCKETS, max_batch_delay_s=0.002, port=0,
+        version_poll_s=0.05, name="chip-ctr", request_timeout_s=600.0, device=str(device)),
+        registry=MetricsRegistry(), tracer=Tracer(component="serving")).start()
+    start_s = time.perf_counter() - t0
+    answers, latency, sent = [None] * CTR_REQUESTS, [None] * CTR_REQUESTS, [None] * CTR_REQUESTS
+    errors, done, lock, publish_s = [], [0], threading.Lock(), []
+
+    def one(i):
+        sent[i] = time.time()
+        try:
+            if i % CTR_HTTP_EVERY == 0:
+                reply = _post(replica.url + "/predict", {"features": {
+                    k: rows[i][k].tolist() for k in ("dense", "sparse")}})
+                answers[i] = float(reply["outputs"])
+            else:
+                answers[i] = float(replica.predict(rows[i]))
+        except Exception as e:  # every failure is counted and fails the phase below
+            errors.append((i, repr(e)))
+        latency[i] = time.time() - sent[i]
+        with lock:
+            done[0] += 1
+
+    def publish():
+        wait_for(lambda: done[0] >= CTR_SWAP_AFTER, 600, "CTR traffic stalled")
+        t = time.perf_counter()
+        save_inference_model(staged["dir"], "ctr", staged[2]["state"], step=staged[2]["step"],
+                             versioned=True)
+        publish_s.append(time.perf_counter() - t)
+
+    try:
+        first = range(CTR_REQUESTS - CTR_POST_SWAP)
+        publisher = threading.Thread(target=publish)
+        publisher.start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=CTR_CLIENTS) as pool:
+            list(pool.map(one, first))
+        first_wall = time.perf_counter() - t0
+        publisher.join(timeout=600)
+        wait_for(lambda: replica.status()["model_step"] == staged[2]["step"], 600,
+                 "version 2 never swapped in")
+        swapped = time.time()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=CTR_CLIENTS) as pool:
+            list(pool.map(one, range(CTR_REQUESTS - CTR_POST_SWAP, CTR_REQUESTS)))
+        second_wall = time.perf_counter() - t0
+        status = replica.status()
+        unwarmed = replica.jit_cache_size()
+        families = parse_prometheus(scrape_metrics(replica.url))
+        swap_span = replica.tracer.find(name="model_swap")
+    finally:
+        replica.stop()
+    require(not errors and status["errors"] == 0 and status["rejected"] == 0,
+            f"CTR requests failed: {errors[:4]} {status}")
+    require(status["completed"] == CTR_REQUESTS, f"CTR replica status: {status}")
+    require(status["swaps"] == 1 and status["model_step"] == staged[2]["step"],
+            f"the swap did not land: {status}")
+    require(unwarmed == 0, f"{unwarmed} CTR dispatch shapes were not warmed")
+    missing = [f for f in REQUIRED_FAMILIES if f not in families]
+    require(not missing, f"missing metric families: {missing}")
+    got = np.asarray(answers)
+    post = np.asarray([sent[i] > swapped for i in range(CTR_REQUESTS)])
+    # each answer is version 1's or version 2's: the nearer, within tolerance
+    by2 = np.abs(got - want[2]) < np.abs(got - want[1])
+    ok = np.where(by2, close(got, 2), close(got, 1))
+    require(bool(ok.all()), f"CTR answers off both versions' predict at rows "
+                            f"{np.flatnonzero(~ok)[:8].tolist()}")
+    require(bool((by2 & close(got, 2))[post].all()),
+            "CTR answers after the swap are not version 2's")
+    err = {v: float(np.max(np.abs(got[sel] - want[v][sel]))) if sel.any() else None
+           for v, sel in ((1, ~by2), (2, by2))}
+    row = {"requests": CTR_REQUESTS, "http_requests": len(range(0, CTR_REQUESTS, CTR_HTTP_EVERY)),
+           "buckets": list(CTR_SERVE_BUCKETS), "clients": CTR_CLIENTS, "start_s": start_s,
+           "versions_apart_share": apart,
+           "export_s": staged["export_s"], "publish_s": publish_s[0],
+           "versions": [staged[1]["step"], staged[2]["step"]],
+           "answered_by": {"1": int((~by2).sum()), "2": int(by2.sum()),
+                           "after_swap": int(post.sum())},
+           "max_abs_err": err, "tolerance": {"abs": TOL_CTR_SERVE_ABS, "rel": TOL_CTR_SERVE_REL},
+           "swap_s": swap_span[0].seconds if swap_span else None,
+           "latency_s": _quantiles([x for x in latency]),
+           "requests_per_s": CTR_REQUESTS / (first_wall + second_wall),
+           "bucket_hits": status["bucket_hits"], "failed": len(errors),
+           "unwarmed_shapes": unwarmed,
+           "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+    print(f"serve CTR: {CTR_REQUESTS} requests ({row['http_requests']} over HTTP), 0 failed, "
+          f"{row['requests_per_s']:.1f} requests/s, latency p50 {row['latency_s']['p50'] * 1e3:.3f} "
+          f"ms p99 {row['latency_s']['p99'] * 1e3:.3f} ms; swap to step {staged[2]['step']} in "
+          f"{row['swap_s']} s, answered by version 1 / 2: {row['answered_by']}; max abs err "
+          f"{err}; bucket hits {status['bucket_hits']}")
+    return row
+
+
+def phase_serve(device, lm: dict, ctr_staged: dict) -> dict:
+    """The serving tier on the card: the LM tier, then the batch tier."""
+    t0 = time.perf_counter()
+    out = {"lm": serve_lm(device, lm)}
+    t1 = time.perf_counter()
+    out["ctr"] = serve_ctr(device, ctr_staged)
+    out["seconds"] = {"lm": t1 - t0, "ctr": time.perf_counter() - t1}
+    print(f"serve: LM tier {t1 - t0:.1f} s, CTR tier {out['seconds']['ctr']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     device = phase_device()
     sass = phase_build()
@@ -938,18 +1589,28 @@ def main(argv) -> int:
     if "--kernels" in argv:
         print(json.dumps({"kernels": list(kernels.values())}))
         return 0
-    launches, in_step, lm = phase_slice(device)
-    phase_step_parity(device)
-    ctr_row = phase_ctr(device)
-    ctr_row["cpu_parity"] = phase_ctr_cpu_parity(device)
-    others = phase_zoo(device)
-    remat = phase_remat(device, lm)
+    with tempfile.TemporaryDirectory(prefix="edl-serve-") as serve_root:
+        launches, in_step, lm, lm_state = phase_slice(device)
+        # exported as its run ends, as a trainer publishes; the state is then
+        # freed, so the later phases' peak memory does not hold it
+        lm_export = export_lm(lm_state, serve_root)
+        del lm_state
+        phase_step_parity(device)
+        ctr_row, ctr_run = phase_ctr(device)
+        ctr_staged = stage_ctr_versions(ctr_run, serve_root)
+        del ctr_run
+        ctr_row["cpu_parity"] = phase_ctr_cpu_parity(device)
+        others = phase_zoo(device)
+        remat = phase_remat(device, lm)
+        serve = phase_serve(device, lm_export, ctr_staged)
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
+        row["launches_serve"] = serve["lm"]["flash_launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
+    print(json.dumps({"serve": serve}))
     import torch
 
     # count: the devices this run uses
