@@ -45,13 +45,29 @@ phase that fails raises, and the script exits non-zero without its last line:
    memory and the profiled step's busy share and top device ops.
 7. CTR on the card against the port on the CPU: the same state_dict and a
    batch of 1024, the loss and each param's update after one adagrad step.
-8. fit_a_line, word2vec, MNIST and ResNet-50 (224 px, batch 64) at their
+8. The data path (``data_path``): CTR at phase 6's width and batch, fed
+   from 4 shard files (the port's ``write_shard``) through an
+   ``InProcessCoordinator``, ``LeaseReader(prefetch=True)`` and
+   ``FileShardSource(shuffle_seed=1)`` into a Trainer with wire transport
+   and ``pipeline_depth=2``: every lease completed, none pending. Then three
+   arms from the same weights on the same batches, interleaved: raw
+   transport synchronous, wire synchronous, wire with depth 2. The wire arms
+   must agree bit for bit (if a probe finds the card's embedding backward
+   deterministic; else to ``TOL_NONDETERMINISTIC``), raw within
+   ``TOL_RAW_WIRE``; the card's decode must equal the host's. Each arm's
+   samples/s, placement time a step and profiled busy share, and the wire
+   bytes a step. Arm (c) saves a checkpoint mid-run and trains on; a fresh
+   Trainer restores it and its next two losses must equal the run's. Then
+   the LM of phase 4 with ``grad_accum_microbatches=4`` against 1 from the
+   same weights: first loss, every gradient, four times the flash launches
+   a step, lower peak memory, step times.
+9. fit_a_line, word2vec, MNIST and ResNet-50 (224 px, batch 64) at their
    default widths, 10 timed steps each: a finite, falling loss and the same
    numbers as CTR's.
-9. The LM of phase 4 with ``remat=True``: the flash forward launched twice
-   a block (fwd 240, dq 120, dkv 120 over the timed steps), lower peak
-   memory and the same losses as phase 4's.
-10. Serve (`edl_tpu_torch.serving`): phase 4's LM, exported right after
+10. The LM of phase 4 with ``remat=True``: the flash forward launched
+    twice a block (fwd 240, dq 120, dkv 120 over the timed steps), lower
+    peak memory and the same losses as phase 4's.
+11. Serve (`edl_tpu_torch.serving`): phase 4's LM, exported right after
     its run, served by an ``LMServingReplica`` on the card to 16 streams in
     three staggered waves (four through HTTP ``/generate``), each to its
     full token count; its decode held against a re-prefill per token on the
@@ -63,9 +79,10 @@ phase that fails raises, and the script exits non-zero without its last line:
     ``/predict``), with version 2 (two more adagrad steps) exported
     mid-traffic and swapped in with no failed request; every answer against
     the module's ``predict``. The serving path launches no flash kernel.
-11. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
-    per model, the remat LM included) and one ``{"serve": {...}}``.
-12. The last line: ``{"ok": true, "device": {...}}``.
+12. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+    per model, the remat LM included), one ``{"serve": {...}}`` and one
+    ``{"data_path": {...}}``.
+13. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -942,6 +959,387 @@ def phase_step_parity(device) -> None:
             f"depth-2 grads off: {grads}")
 
 
+# -- the data path phase ---------------------------------------------------------
+
+#: file-fed CTR through leases: shards of DATA_SHARD_BATCHES x CTR_BATCH rows
+DATA_SHARDS = 4
+DATA_SHARD_BATCHES = 4
+#: the arms (raw sync, wire sync, wire pipelined), interleaved: rounds of
+#: DATA_ROUND_STEPS steps each, the first round a warm-up left out of the
+#: throughput; then DATA_PROFILE_STEPS steps of each under the profiler
+DATA_ROUNDS = 4
+DATA_ROUND_STEPS = 8
+DATA_PROFILE_STEPS = 4
+DATA_DEPTH = 2
+#: a diagnostic fourth arm: (c) run with the interpreter's thread switch
+#: interval at this many seconds instead of its default 5 ms, to see how much
+#: of the pipelined arm's time is the pump and the step waiting for the GIL
+DATA_SWITCH_INTERVAL = 1e-4
+#: arm (c) saves a checkpoint after this many steps of its first round and
+#: trains on; a restored Trainer then takes the next two steps
+CKPT_AT = 3
+#: raw against wire transport: the runs differ only by the bf16 rounding of
+#: the dense features (the deep MLP casts them to bf16 in both; the wide
+#: path's f32 dense product sees the rounded values), about 1e-5 of the loss
+#: over 12 steps at this width on the CPU; the bound leaves 100x
+TOL_RAW_WIRE = 1e-3
+#: the wire arms (sync and pipelined) run the same ops on the same batches
+#: and must agree bit for bit when the card's embedding backward is
+#: deterministic (probed first); otherwise within this relative bound
+TOL_NONDETERMINISTIC = 1e-5
+#: gradient accumulation at GPT-2-small width (phase 4's LM): N microbatches
+#: against N = 1 from the same weights and batch. The first loss to 1e-3
+#: relative; each leaf's gradient to TOL_STEP_GRAD relative norm (bf16
+#: matmuls over batches of 2 against 8 round in other places; 2.5e-3 at
+#: most at d_model 128 on the CPU)
+ACCUM = 4
+TOL_ACCUM_LOSS = 1e-3
+ACCUM_TIMED = 3
+
+
+def _embedding_backward_deterministic(table, ids) -> bool:
+    """Whether the card's ``F.embedding`` backward gives the same table
+    gradient twice on the same ids and cotangent."""
+    import torch
+    import torch.nn.functional as F
+
+    t = table.detach().requires_grad_()
+    cot = torch.randn(ids.shape + (t.shape[1],), generator=torch.Generator(
+        device=t.device).manual_seed(3), device=t.device)
+    grads = [torch.autograd.grad(F.embedding(ids, t), t, cot)[0] for _ in range(2)]
+    return bool(torch.equal(grads[0], grads[1]))
+
+
+def data_path_files(device, root: str) -> dict:
+    """CTR fed from shard files through coordinator leases: the port's
+    ``write_shard``, ``InProcessCoordinator``, ``LeaseReader(prefetch=True)``
+    over ``FileShardSource(shuffle_seed=1)`` and a Trainer with wire transport
+    and pipelined placement. Every lease must end completed."""
+    import os
+
+    import numpy as np
+
+    from edl_tpu_torch.coordinator import InProcessCoordinator
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+    from edl_tpu_torch.runtime.data import (FileShardSource, LeaseReader, shard_names,
+                                            write_shard)
+
+    shards = shard_names("ctr", DATA_SHARDS)
+    rows = DATA_SHARD_BATCHES * CTR_BATCH
+    rng = np.random.default_rng(21)
+    t0 = time.perf_counter()
+    for name in shards:
+        write_shard(root, name, ctr.MODEL.synthetic_batch(rng, rows))
+    write_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(os.path.join(root, f"{n}.npz")) for n in shards)
+    coord = InProcessCoordinator(task_lease_sec=600.0)
+    client = coord.client("trainer-0")
+    client.register()
+    client.add_tasks(shards)
+    reader = LeaseReader(client, FileShardSource(root, CTR_BATCH, shuffle_seed=1),
+                         prefetch=True)
+    trainer = Trainer(ctr.MODEL, device=device, config=TrainerConfig(
+        optimizer="adagrad", learning_rate=0.05, seed=0, wire_transport=True,
+        pipeline_depth=DATA_DEPTH))
+    state, m = trainer.run(trainer.init_state(), iter(reader))
+    status = client.status()
+    steps = int(m["steps"])
+    print(f"data_path files: {DATA_SHARDS} shards of {rows} rows written in {write_s:.2f} s "
+          f"({disk / 1e6:.1f} MB compressed); {steps} steps through leases, prefetch, wire and "
+          f"depth {DATA_DEPTH}: {m['samples_per_sec']:.0f} samples/s, place "
+          f"{m['place_seconds'] / max(steps, 1) * 1e3:.3f} ms a step, loss mean "
+          f"{m['mean_loss']:.5f} final {m['final_loss']:.5f}; completed {reader.completed}; "
+          f"coordinator {status}")
+    require(steps == DATA_SHARDS * DATA_SHARD_BATCHES,
+            f"file-fed run took {steps} steps, want {DATA_SHARDS * DATA_SHARD_BATCHES}")
+    require(sorted(reader.completed) == shards and reader.exhausted,
+            f"leases not all completed: {reader.completed}")
+    require((status["done"], status["leased"], status["queued"]) == (DATA_SHARDS, 0, 0),
+            f"coordinator still holds work: {status}")
+    require(math.isfinite(m["final_loss"]) and m["final_loss"] < m["mean_loss"],
+            f"file-fed loss not finite and falling: {m}")
+    return dict(shards=DATA_SHARDS, rows_per_shard=rows, write_s=write_s, disk_bytes=disk,
+                steps=steps, samples_per_s=m["samples_per_sec"],
+                place_ms_per_step=m["place_seconds"] / steps * 1e3,
+                final_loss=m["final_loss"], mean_loss=m["mean_loss"],
+                completed=list(reader.completed), status=status)
+
+
+def data_path_arms(device, root: str, ctr_row: dict) -> dict:
+    """Raw sync, wire sync and wire pipelined CTR from the same weights on
+    the same batches, interleaved; arm (c) saves a checkpoint mid-run that a
+    fresh Trainer restores. Returns the arms' figures and checks."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+    from edl_tpu_torch.runtime.checkpoint import STATE_FILE, Checkpointer
+
+    rng = np.random.default_rng(22)
+    batches = [ctr.MODEL.synthetic_batch(rng, CTR_BATCH)
+               for _ in range(DATA_ROUNDS * DATA_ROUND_STEPS)]
+    arms = {"a_raw_sync": (False, 0), "b_wire_sync": (True, 0),
+            "c_wire_pipelined": (True, DATA_DEPTH),
+            "d_wire_pipelined_switch_100us": (True, DATA_DEPTH)}
+    switch = {"d_wire_pipelined_switch_100us": DATA_SWITCH_INTERVAL}
+
+    def run_arm(k, state, chunk, depth):
+        """``Trainer.run`` of arm ``k`` over ``chunk``: (state, metrics)."""
+        default = sys.getswitchinterval()
+        sys.setswitchinterval(switch.get(k, default))
+        try:
+            return trainers[k].run(state, iter(chunk), pipeline_depth=depth)
+        finally:
+            sys.setswitchinterval(default)
+
+    def trainer_for(wire: bool):
+        return Trainer(ctr.MODEL, device=device, config=TrainerConfig(
+            optimizer="adagrad", learning_rate=0.05, seed=0, wire_transport=wire))
+
+    trainers = {k: trainer_for(w) for k, (w, _) in arms.items()}
+    states = {k: t.init_state() for k, t in trainers.items()}  # the same weights
+    deterministic = _embedding_backward_deterministic(
+        states["b_wire_sync"].params.deep_table,
+        torch.from_numpy(batches[0]["sparse"]).to(device))
+    rounds = {k: [] for k in arms}
+    ck = Checkpointer(os.path.join(root, "ckpt"))
+    ckpt = {}
+    for r in range(DATA_ROUNDS):
+        chunk = batches[r * DATA_ROUND_STEPS:(r + 1) * DATA_ROUND_STEPS]
+        order = list(arms) if r % 2 == 0 else list(arms)[::-1]
+        for k in order:
+            _, depth = arms[k]
+            if r == 0 and k == "c_wire_pipelined":
+                # save mid-run and train on at once: the next steps update
+                # the params in place while the writer may still run
+                states[k], _ = run_arm(k, states[k], chunk[:CKPT_AT], depth)
+                t0 = time.perf_counter()
+                ck.save(states[k].step, states[k])
+                ckpt["save_blocking_ms"] = (time.perf_counter() - t0) * 1e3
+                ckpt["step"] = states[k].step
+                after = []
+                for b in chunk[CKPT_AT:CKPT_AT + 2]:
+                    states[k], m1 = run_arm(k, states[k], [b], depth)
+                    after.append(m1["final_loss"])
+                states[k], m2 = run_arm(k, states[k], chunk[CKPT_AT + 2:], depth)
+                ckpt["uninterrupted_losses"] = after
+                m = dict(m2, seconds=float("nan"), place_seconds=float("nan"))
+            else:
+                states[k], m = run_arm(k, states[k], chunk, depth)
+            rounds[k].append(m)
+    ck.wait()
+    ckpt["durable_s"] = ck.durable_seconds
+    ckpt["bytes"] = os.path.getsize(os.path.join(ck.directory, str(ckpt["step"]), STATE_FILE))
+    fresh = trainer_for(True)
+    restored = fresh.init_state(torch.Generator().manual_seed(7))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ck.restore(restored)
+    torch.cuda.synchronize()
+    ckpt["restore_s"] = time.perf_counter() - t0
+    resumed = []
+    for b in batches[CKPT_AT:CKPT_AT + 2]:
+        restored, m = fresh.run(restored, iter([b]), pipeline_depth=DATA_DEPTH)
+        resumed.append(m["final_loss"])
+    ckpt["resumed_losses"] = resumed
+    ck.close()
+    del fresh, restored
+
+    # (b), (c) and (d): the same ops on the same batches
+    pairs = list(zip(ckpt["uninterrupted_losses"], ckpt["resumed_losses"]))
+    param_diff = 0.0
+    for k in ("c_wire_pipelined", "d_wire_pipelined_switch_100us"):
+        pairs += [(x["final_loss"], y["final_loss"]) for x, y in
+                  zip(rounds["b_wire_sync"], rounds[k])]
+        pairs += [(x["mean_loss"], y["mean_loss"]) for x, y in
+                  zip(rounds["b_wire_sync"][1:], rounds[k][1:])]
+        param_diff = max([param_diff] + [
+            (a.detach() - b.detach()).abs().max().item() for a, b in
+            zip(states["b_wire_sync"].params.parameters(), states[k].params.parameters())])
+    loss_diff = max(abs(x - y) / abs(y) for x, y in pairs)
+    if deterministic:
+        require(loss_diff == 0 and param_diff == 0,
+                f"wire sync, wire pipelined and the resumed run differ: losses rel "
+                f"{loss_diff:.3e}, params abs {param_diff:.3e} (the embedding backward is "
+                f"deterministic, so they must agree bit for bit)")
+    else:
+        require(loss_diff <= TOL_NONDETERMINISTIC,
+                f"wire arms / resumed run differ by {loss_diff:.3e} rel "
+                f"(tolerance {TOL_NONDETERMINISTIC}, nondeterministic embedding backward)")
+    # (a) and (b): the bf16 rounding of the dense features
+    raw_wire = max(abs(x[key] - y[key]) / abs(x[key])
+                   for x, y in zip(rounds["a_raw_sync"], rounds["b_wire_sync"])
+                   for key in ("final_loss", "mean_loss"))
+    require(raw_wire <= TOL_RAW_WIRE,
+            f"raw and wire transport differ by {raw_wire:.3e} rel (tolerance {TOL_RAW_WIRE})")
+    for k in arms:
+        require(all(math.isfinite(m["final_loss"]) for m in rounds[k]), f"{k}: non-finite loss")
+
+    # the decoded batch on the card against the plain decode on the host
+    codec = trainers["b_wire_sync"]._codec
+    host_batch = batches[-1]
+    encoded = codec.encode(host_batch)
+    on_card = codec.decode({k: v.to(device) for k, v in encoded.items()})
+    on_host = codec.decode(encoded)
+    for k in on_host:
+        require(torch.equal(on_card[k].cpu(), on_host[k]),
+                f"{k}: the card's decode differs from the host's")
+        if k != "dense":
+            require(torch.equal(on_host[k], torch.from_numpy(host_batch[k])),
+                    f"{k}: the int decode is not exact")
+    raw_bytes = sum(v.nbytes for v in host_batch.values())
+    wire_bytes = codec.wire_bytes(host_batch)
+
+    figures = {}
+    for k, (wire, depth) in arms.items():
+        timed = rounds[k][1:]
+        steps = sum(m["steps"] for m in timed)
+        seconds = sum(m["seconds"] for m in timed)
+        step_ms = seconds / steps * 1e3
+
+        def profiled(k=k, depth=depth):
+            states[k], _ = run_arm(k, states[k], batches[:DATA_PROFILE_STEPS], depth)
+            torch.cuda.synchronize()
+
+        _, summary = profile_step(profiled, step_ms * DATA_PROFILE_STEPS, ZOO_GROUPS,
+                                  f"data_path {k} ({DATA_PROFILE_STEPS} steps)")
+        figures[k] = dict(
+            wire_transport=wire, pipeline_depth=depth, steps=steps,
+            switch_interval_s=switch.get(k, sys.getswitchinterval()),
+            samples_per_s=CTR_BATCH * steps / seconds, step_ms=step_ms,
+            place_ms_per_step=sum(m["place_seconds"] for m in timed) / steps * 1e3,
+            device_busy_share=summary["device_busy_share"],
+            device_kernel_ms_per_step=(summary["device_kernel_ms"] / DATA_PROFILE_STEPS
+                                       if summary["device_busy_share"] is not None else None),
+            round_samples_per_s=[CTR_BATCH * m["steps"] / m["seconds"] for m in timed])
+        print(f"data_path arm {k}: {figures[k]['samples_per_s']:.0f} samples/s "
+              f"({step_ms:.3f} ms a step over {steps} steps in {len(timed)} interleaved "
+              f"rounds), place {figures[k]['place_ms_per_step']:.3f} ms a step, busy "
+              f"{summary['device_busy_share']}")
+    print(f"data_path: wire {wire_bytes} bytes a step against raw {raw_bytes} "
+          f"({wire_bytes / raw_bytes:.3f}); embedding backward deterministic: "
+          f"{deterministic}; wire sync vs pipelined (both) vs resumed: losses rel "
+          f"{loss_diff:.3e}, "
+          f"params abs {param_diff:.3e}; raw vs wire {raw_wire:.3e} rel (tolerance "
+          f"{TOL_RAW_WIRE}); decode on the card equals the host's bit for bit")
+    print(f"data_path checkpoint: save at step {ckpt['step']} blocked "
+          f"{ckpt['save_blocking_ms']:.3f} ms, durable after {ckpt['durable_s']:.3f} s, "
+          f"{ckpt['bytes'] / 1e6:.1f} MB, restore {ckpt['restore_s']:.3f} s; steps "
+          f"{CKPT_AT + 1}-{CKPT_AT + 2}: uninterrupted {ckpt['uninterrupted_losses']}, "
+          f"resumed {ckpt['resumed_losses']}")
+    return dict(
+        arms=figures, wire_bytes_per_step=wire_bytes, raw_bytes_per_step=raw_bytes,
+        embedding_backward_deterministic=deterministic,
+        wire_arms_loss_rel_diff=loss_diff, wire_arms_param_abs_diff=param_diff,
+        raw_vs_wire_loss_rel=raw_wire, tol_raw_wire=TOL_RAW_WIRE,
+        tol_nondeterministic=None if deterministic else TOL_NONDETERMINISTIC,
+        decode_card_equals_host=True, checkpoint=ckpt,
+        ctr_phase_step_ms=ctr_row["step_ms"],
+        ctr_phase_busy_share=ctr_row.get("device_busy_share"))
+
+
+def data_path_grad_accum(device) -> dict:
+    """Phase 4's LM at GPT-2-small width with ``grad_accum_microbatches=ACCUM``
+    against 1, from the same weights and batch: first loss, gradients,
+    flash launches per step, peak memory and step time."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, make_model
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+
+    fa = _flash_module()
+    model = make_model(TransformerConfig(flash=True, **SLICE))
+    batch = model.synthetic_batch(np.random.default_rng(0), BATCH)
+    out, grads = {}, None
+    for n in (1, ACCUM):
+        trainer = Trainer(model, device=device, config=TrainerConfig(
+            optimizer="adam", learning_rate=3e-4, seed=0, grad_accum_microbatches=n))
+        state = trainer.init_state()
+        placed = trainer.place_batch(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        fa.reset_launches()
+        state, loss = trainer.train_step(state, placed)
+        first = float(loss)
+        per_step = dict(fa.LAUNCHES)
+        g = {k: p.grad.detach().cpu().clone() for k, p in state.params.named_parameters()}
+        if grads is None:
+            grads = g
+            grad_err = None
+        else:
+            grad_err = {k: ((g[k] - grads[k]).norm() / grads[k].norm()).item() for k in g}
+        state, _ = trainer.train_step(state, placed)  # warm-up
+        times = []
+        for _ in range(ACCUM_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = trainer.train_step(state, placed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = dict(fa.LAUNCHES)
+        step_ms = statistics.median(times) * 1e3
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+
+        def one_step(trainer=trainer, placed=placed):
+            nonlocal state
+            state, _ = trainer.train_step(state, placed)
+            torch.cuda.synchronize()
+
+        _, summary = profile_step(one_step, step_ms, LM_GROUPS,
+                                  f"data_path LM, {n} microbatch(es)")
+        out[n] = dict(first_loss=first, step_ms=step_ms, peak_memory_gib=peak,
+                      launches_first_step=per_step, launches=launches,
+                      steps=2 + ACCUM_TIMED, last_loss=float(loss), grad_rel_err=grad_err,
+                      device_busy_share=summary["device_busy_share"],
+                      device_kernel_ms=summary.get("device_kernel_ms"))
+        del trainer, state, placed, loss
+        torch.cuda.empty_cache()
+    one, acc = out[1], out[ACCUM]
+    loss_rel = abs(acc["first_loss"] - one["first_loss"]) / abs(one["first_loss"])
+    worst = max(acc["grad_rel_err"], key=acc["grad_rel_err"].get)
+    print(f"data_path grad accumulation at GPT-2-small width, batch {BATCH}: N={ACCUM} "
+          f"first loss {acc['first_loss']:.6f} against N=1 {one['first_loss']:.6f} (rel "
+          f"{loss_rel:.3e}); worst gradient {worst} rel norm {acc['grad_rel_err'][worst]:.3e} "
+          f"(tolerance {TOL_STEP_GRAD}); flash launches a step {acc['launches_first_step']} "
+          f"against {one['launches_first_step']}; step {acc['step_ms']:.3f} against "
+          f"{one['step_ms']:.3f} ms; peak memory {acc['peak_memory_gib']:.3f} against "
+          f"{one['peak_memory_gib']:.3f} GiB")
+    require(loss_rel <= TOL_ACCUM_LOSS, f"N={ACCUM} first loss off N=1's by {loss_rel:.3e}")
+    require(all(math.isfinite(e) and e <= TOL_STEP_GRAD for e in acc["grad_rel_err"].values()),
+            f"N={ACCUM} gradients off N=1's: {acc['grad_rel_err']}")
+    for k, n1 in one["launches_first_step"].items():
+        require(n1 == SLICE["n_layers"] and acc["launches_first_step"][k] == ACCUM * n1,
+                f"flash launches a step: N={ACCUM} {acc['launches_first_step']}, N=1 "
+                f"{one['launches_first_step']}")
+        require(acc["launches"][k] == ACCUM * SLICE["n_layers"] * acc["steps"],
+                f"{k}: {acc['launches'][k]} launches over {acc['steps']} steps of N={ACCUM}")
+    require(acc["peak_memory_gib"] < one["peak_memory_gib"],
+            f"N={ACCUM} peak memory {acc['peak_memory_gib']:.3f} GiB is not under N=1's")
+    require(math.isfinite(acc["last_loss"]) and acc["last_loss"] < acc["first_loss"],
+            f"N={ACCUM} loss not finite and falling")
+    return dict(microbatches=ACCUM, batch=BATCH, first_loss_rel=loss_rel,
+                tol_first_loss=TOL_ACCUM_LOSS, worst_grad=worst,
+                worst_grad_rel_err=acc["grad_rel_err"][worst], tol_grad=TOL_STEP_GRAD,
+                n1={k: v for k, v in one.items() if k != "grad_rel_err"},
+                accum={k: v for k, v in acc.items() if k != "grad_rel_err"},
+                launches=acc["launches"])
+
+
+def phase_data_path(device, ctr_row: dict) -> dict:
+    """CTR's production input path at full width, checkpoints, and
+    gradient accumulation on the LM; returns the ``data_path`` line."""
+    with tempfile.TemporaryDirectory(prefix="edl-data-") as root:
+        files = data_path_files(device, root)
+        arms = data_path_arms(device, root, ctr_row)
+    grad_accum = data_path_grad_accum(device)
+    return dict(files=files, **arms, grad_accum=grad_accum)
+
+
 # -- the serve phase -----------------------------------------------------------
 
 #: the LM tier at GPT-2-small width (phase 4's LM): batch and seq buckets, and
@@ -1600,6 +1998,7 @@ def main(argv) -> int:
         ctr_staged = stage_ctr_versions(ctr_run, serve_root)
         del ctr_run
         ctr_row["cpu_parity"] = phase_ctr_cpu_parity(device)
+        data_path = phase_data_path(device, ctr_row)
         others = phase_zoo(device)
         remat = phase_remat(device, lm)
         serve = phase_serve(device, lm_export, ctr_staged)
@@ -1607,10 +2006,12 @@ def main(argv) -> int:
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
         row["launches_serve"] = serve["lm"]["flash_launches"][name]
+        row["launches_data_path"] = data_path["grad_accum"]["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"data_path": data_path}))
     import torch
 
     # count: the devices this run uses

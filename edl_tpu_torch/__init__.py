@@ -5,14 +5,18 @@ imports neither JAX nor anything of `edl_tpu`, and keeps its own copy of
 what it needs. It mirrors the reference's layout, so each counterpart sits
 at the same path:
 
+  coordinator/ copies of the JAX package's coordinator client, in-process
+             twin and native-server manager (the same binary)
   models/    the model bundle and the zoo: fit_a_line, mnist, word2vec, ctr,
              resnet and the transformer LM (with its serving steps)
   obs/       the metrics registry, span tracing and `/metrics` over HTTP
   ops/       hand-written CUDA kernels for Hopper and their plain versions
   parallel/  attention over the sequence axis and embedding tables (one
              shard for now)
-  runtime/   the single-device Trainer and its optimizers, and the serving
-             export (the JAX package's artifact format)
+  runtime/   the single-device Trainer, its optimizers and one-device
+             options (wire transport, gradient accumulation, pipelined
+             placement), the lease-driven data path, checkpoints (the port's
+             own format) and the serving export (the JAX package's format)
   serving/   batch and continuous-batching LM serving replicas, router,
              HTTP frontend and autoscaler signals
   tools/     FLOP and MFU accounting

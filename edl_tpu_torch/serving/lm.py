@@ -524,18 +524,26 @@ class LMServingReplica:
         return True
 
     def _decode_chunk(self, chunk: List[_Stream], capacity: int) -> None:
+        # The groups were snapshotted under the lock, and an eviction since
+        # then took some members and dropped their caches: keep the members
+        # still active, with their caches read under the lock.
+        with self._lock:
+            module = self._art.module
+            device = self._art.device
+            chunk = [s for s in chunk if s.id in self._active]
+            caches = [(s.k, s.v) for s in chunk]
+        if not chunk:
+            return
         n = len(chunk)
         bucket = pick_bucket(n, self.config.batch_buckets)
         self._note_shape("decode", bucket, capacity)
         t0 = time.time()
         try:
-            with self._lock:
-                module = self._art.module
-                device = self._art.device
             pads = [self._pads[capacity]] * (bucket - n)
             # the (L, bucket, C, H, Dh) operands, gathered on the device
-            k_batch = torch.stack([s.k for s in chunk] + pads, dim=1)
-            v_batch = torch.stack([s.v for s in chunk] + pads, dim=1)
+            k_batch = torch.stack([k for k, _ in caches] + pads, dim=1)
+            v_batch = torch.stack([v for _, v in caches] + pads, dim=1)
+            del caches
             tokens = np.zeros((bucket,), dtype=np.int32)
             lengths = np.zeros((bucket,), dtype=np.int32)
             for i, s in enumerate(chunk):

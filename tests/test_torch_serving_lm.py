@@ -492,3 +492,40 @@ def test_lm_replica_raises_without_cuda_unless_the_cpu_is_asked_for(lm_artifact)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         replica.start()
     assert not replica.started
+
+
+def _decode_steps(replica) -> float:
+    samples = replica.registry.snapshot()["edl_lm_decode_steps_total"]["samples"]
+    return sum(s["value"] for s in samples)
+
+
+def test_eviction_between_decode_chunks_fails_no_step(lm_replica_factory, caplog):
+    """An eviction while a decode round is between its capacity groups: the
+    round's later chunk must drop the evicted members (whose caches are
+    gone) instead of stacking a missing cache, so no decode step fails, and
+    the engine goes on counting decode steps for new streams."""
+    replica = lm_replica_factory(seq_buckets=(16, 32), default_max_new_tokens=8)
+    decode, evicted = replica._decode, []
+
+    def evict_mid_round(*args):
+        with replica._lock:
+            groups = {s.capacity for s in replica._active.values()}
+        if not evicted and len(groups) == 2:
+            evicted.extend(replica.evict_streams())  # the 32-token group waits
+        return decode(*args)
+
+    replica._decode = evict_mid_round
+    rng = np.random.default_rng(3)
+    short = replica.submit(rng.integers(1, 60, size=4), max_new_tokens=8)
+    long = replica.submit(rng.integers(1, 60, size=20), max_new_tokens=8)
+    wait_s = time.monotonic() + 60
+    while not evicted and time.monotonic() < wait_s:
+        time.sleep(0.01)
+    assert {s["stream_id"] for s in evicted} == {short.stream_id, long.stream_id}
+    assert not short.done() and not long.done()  # the router owns them now
+    steps = _decode_steps(replica)
+    out = replica.submit(rng.integers(1, 60, size=6), max_new_tokens=5).result(timeout=60)
+    assert len(out["tokens"]) == 5
+    assert _decode_steps(replica) >= steps + 4
+    failed = [r.getMessage() for r in caplog.records if "failed" in r.getMessage()]
+    assert not failed, failed
