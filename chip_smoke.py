@@ -35,6 +35,16 @@ phase that fails raises, and the script exits non-zero without its last line:
    3e-4 on one repeated synthetic batch. Losses must be finite and fall, and
    each kernel's launch count over the timed steps must be 12 x steps. Then
    one more step under ``torch.profiler``: its device time by kernel.
+   Then the ``moe`` phase: the same LM with 8 experts at capacity factor
+   1.25, in two arms from one seed (top-1 without aux, top-2 with aux
+   0.01). A no-grad forward before the first step gives each layer's
+   dropped share and aux and layer 0's input ``h``; on that ``h`` the index
+   form of the MoE FFN is held against its einsum form (slot buffers and
+   output bit for bit, aux and gradients within tolerance), and in the
+   top-2 arm the check must reject a planted fault (a second choice served
+   ahead of a first choice). Then the timed steps (12 launches of each
+   flash kernel a step, a finite, falling loss), a profiled step split by
+   MoE function, and the einsum form's steps timed as a diagnostic.
 5. The same width at depth 2, one step through the kernels and one through
    the plain attention path from the same weights: loss and every gradient
    compared.
@@ -80,8 +90,8 @@ phase that fails raises, and the script exits non-zero without its last line:
     mid-traffic and swapped in with no failed request; every answer against
     the module's ``predict``. The serving path launches no flash kernel.
 12. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
-    per model, the remat LM included), one ``{"serve": {...}}`` and one
-    ``{"data_path": {...}}``.
+    per model, the remat LM included), one ``{"serve": {...}}``, one
+    ``{"data_path": {...}}`` and one ``{"moe": {...}}``.
 13. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
@@ -92,6 +102,7 @@ analytic FLOPs over the card's dense bf16 peak.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -711,10 +722,11 @@ ZOO_GROUPS = {
 }
 
 
-def profile_step(step, step_ms: float, groups: dict, label: str) -> tuple:
+def profile_step(step, step_ms: float, groups: dict, label: str, on_profile=None) -> tuple:
     """Where one step's device time goes, by CUDA kernel (torch.profiler),
     and the device's busy share: of the profiled step's own wall time (the
     profiler slows the host) and of the median unprofiled step ``step_ms``.
+    ``on_profile(prof, total_us)``, if given, returns more summary fields.
     Returns (the kernel events, empty if not measured; the summary)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -747,11 +759,14 @@ def profile_step(step, step_ms: float, groups: dict, label: str) -> tuple:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP_OPS]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
-    return kernels, {
+    summary = {
         "device_kernel_ms": total_us / 1e3, "device_busy_share": busy,
         "device_ms_by_group": {g: us / 1e3 for g, us in by_group.items()},
         "top_device_ops": [{"op": e.key[:110], "ms": e.self_device_time_total / 1e3,
                             "count": e.count} for e in top]}
+    if on_profile is not None:
+        summary.update(on_profile(prof, total_us))
+    return kernels, summary
 
 
 def phase_ctr(device) -> tuple:
@@ -957,6 +972,326 @@ def phase_step_parity(device) -> None:
     require(rel <= TOL_STEP_LOSS, f"depth-2 loss off by {rel:.3e}")
     require(all(math.isfinite(e) and e <= TOL_STEP_GRAD for e in grads.values()),
             f"depth-2 grads off: {grads}")
+
+
+# -- the MoE phase ---------------------------------------------------------------
+
+#: the mixture-of-experts LM at phase 4's width (`bench_lm.py` with
+#: EDL_LM_MOE=8): 8 experts at capacity factor 1.25, in two arms from one
+#: seed: switch top-1 without aux (bench_lm.py) and GShard top-2 with
+#: `examples/lm/train.py`'s aux weight 0.01
+MOE = dict(moe_experts=8, moe_capacity_factor=1.25)
+MOE_ARMS = {
+    "top1": dict(moe_top_k=1, moe_aux_weight=0.0),
+    "top2": dict(moe_top_k=2, moe_aux_weight=0.01),
+}
+#: index form against einsum form on one layer's h: the slot buffers and
+#: the forward output equal bit for bit (each slot holds one token row; each
+#: output sums at most k exact bf16 products in f32, rounded once), the aux
+#: to TOL_MOE_AUX, and each gradient (h, router, w_up, b_up, w_down, b_down)
+#: to TOL_MOE_GRAD as a relative norm error (the gates' cotangents sum their
+#: D products in another order in each form, so a bf16 rounding of one can
+#: differ)
+TOL_MOE_AUX = 1e-6
+TOL_MOE_GRAD = 1e-2
+#: the cotangent of the aux in that check
+MOE_CT_AUX = 0.7
+#: the planted fault's capacity factor: low enough that some expert drops
+#: second choices while it keeps first choices
+MOE_FAULT_CF = 0.5
+#: steps of the einsum form, timed as a diagnostic after one warm-up step
+MOE_EINSUM_STEPS = 3
+#: profiler ranges put around the MoE functions in the profiled step -> group
+MOE_RANGES = {"moe:router": "router", "moe:experts": "experts (bmm, bias, GELU)",
+              "moe:ffn": "dispatch and combine"}
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Set attributes of a module for the length of a with block."""
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def moe_probe(module, batch) -> dict:
+    """A no-grad forward of the MoE LM on the batch, before its first step:
+    each layer's dropped share of the choices and aux, and layer 0's input
+    ``h`` to the MoE FFN."""
+    import torch
+
+    from edl_tpu_torch.models import transformer as tf
+
+    kept, auxes, hs = [], [], []
+    real_route, real_ffn = tf._moe_route, tf._moe_ffn
+
+    def route(cfg, tok, router, capacity):
+        r = real_route(cfg, tok, router, capacity)
+        kept.append(r.keep.float().mean())
+        auxes.append(r.aux)
+        return r
+
+    def ffn(cfg, h, blk):
+        hs.append(h.detach().clone())
+        return real_ffn(cfg, h, blk)
+
+    with patched(tf, _moe_route=route, _moe_ffn=ffn), torch.no_grad():
+        module(batch)
+    dropped = [1.0 - float(x) for x in kept]
+    return {"h": hs[0], "dropped_share_by_layer": dropped,
+            "dropped_share": sum(dropped) / len(dropped),
+            "aux_by_layer": [float(a) for a in auxes]}
+
+
+def _moe_forms(cfg, h, blk, ct, route=None) -> dict:
+    """Index form and einsum form on ``h`` with the cotangent ``ct``: each
+    form's slot buffer, output, aux and gradients. ``route``, if given,
+    replaces the routing of the index form only (a planted fault)."""
+    import torch
+
+    from edl_tpu_torch.models import transformer as tf
+
+    out = {}
+    for name, form, fault in (("index", tf._moe_ffn, route),
+                              ("einsum", tf._moe_ffn_reference, None)):
+        slots = []
+        real_experts = tf._moe_experts
+
+        def experts(s, b):
+            slots.append(s.detach().clone())
+            return real_experts(s, b)
+
+        with patched(tf, _moe_experts=experts, _moe_route=fault or tf._moe_route):
+            blk.zero_grad(set_to_none=True)
+            hh = h.detach().clone().requires_grad_()
+            o, aux = form(cfg, hh, blk)
+            ((o * ct).sum() + aux * MOE_CT_AUX).backward()
+        grads = {"h": hh.grad, **{n: getattr(blk, n).grad for n in
+                                  ("router", "w_up", "b_up", "w_down", "b_down")}}
+        out[name] = (slots[0], o.detach(), aux.detach(), grads)
+    blk.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return out
+
+
+def _forms_agree(forms) -> dict:
+    """`_moe_forms`'s two forms held to each other: slots and output equal,
+    aux within TOL_MOE_AUX, gradients within TOL_MOE_GRAD."""
+    import torch
+
+    (si, oi, ai, gi), (se, oe, ae, ge) = forms["index"], forms["einsum"]
+    grads = {n: ((gi[n].float() - ge[n].float()).norm() / ge[n].float().norm()).item()
+             for n in ge}
+    res = {"slots_equal": torch.equal(si, se), "out_equal": torch.equal(oi, oe),
+           "out_max_abs": (oi - oe).abs().max().item(), "aux_abs": (ai - ae).abs().item(),
+           "grad_rel_norm": grads}
+    res["ok"] = (res["slots_equal"] and res["out_equal"] and res["aux_abs"] <= TOL_MOE_AUX
+                 and all(math.isfinite(e) and e <= TOL_MOE_GRAD for e in grads.values()))
+    return res
+
+
+def _priority_fault(real_route):
+    """A routing fault: one dropped second choice takes the slot of a kept
+    first choice of the same expert, so a token's second choice is served
+    ahead of another token's first choice; the gates follow the swap."""
+    import torch
+
+    def route(cfg, tok, router, capacity):
+        r = real_route(cfg, tok, router, capacity)
+        k, T = r.gate.shape
+        keep, expert = r.keep.tolist(), r.expert.tolist()
+        firsts = {expert[i]: i for i in range(T) if keep[i]}
+        i2 = next(i for i in range(T, k * T) if not keep[i] and expert[i] in firsts)
+        i1 = firsts[expert[i2]]
+        slot = r.slot.clone()
+        slot[i1], slot[i2] = r.slot[i2], r.slot[i1]
+        keep = slot < capacity
+        raw = r.probs.gather(1, r.expert.view(k, T).t()).t()  # (k, T)
+        gate = raw * keep.view(k, T).float()
+        gate = gate / torch.clamp(gate.sum(dim=0, keepdim=True), min=1e-9)
+        return r._replace(slot=slot, keep=keep, gate=gate)
+
+    return route
+
+
+def check_moe_forms(cfg, h, blk, plant: bool) -> dict:
+    """The index form against the einsum form on the card, on one layer's
+    real ``h``: slot buffers, output, aux and gradients. With ``plant``,
+    then at MOE_FAULT_CF: the comparison passes unplanted and rejects a
+    second choice served ahead of a first choice."""
+    import torch
+
+    from edl_tpu_torch.models import transformer as tf
+
+    gen = torch.Generator(device=h.device).manual_seed(5)
+    ct = torch.randn(h.shape, generator=gen, device=h.device)
+    res = _forms_agree(_moe_forms(cfg, h, blk, ct))
+    print(f"moe forms k={cfg.moe_top_k}: slots equal {res['slots_equal']}, out equal "
+          f"{res['out_equal']} (max abs {res['out_max_abs']:.3e}), aux abs {res['aux_abs']:.3e}, "
+          f"grad rel norm " + ", ".join(f"{n} {e:.3e}" for n, e in res["grad_rel_norm"].items()))
+    require(res["ok"], f"MoE index form off its einsum form: {res}")
+    if plant:
+        tight = dataclasses.replace(cfg, moe_capacity_factor=MOE_FAULT_CF)
+        clean = _forms_agree(_moe_forms(tight, h, blk, ct))
+        planted = _forms_agree(_moe_forms(tight, h, blk, ct,
+                                          route=_priority_fault(tf._moe_route)))
+        print(f"moe planted fault (cf {MOE_FAULT_CF}): unplanted ok {clean['ok']}; planted ok "
+              f"{planted['ok']} (slots equal {planted['slots_equal']}, out equal "
+              f"{planted['out_equal']}, out max abs {planted['out_max_abs']:.3e})")
+        require(clean["ok"], f"MoE forms disagree at cf {MOE_FAULT_CF}: {clean}")
+        require(not planted["ok"] and not planted["out_equal"],
+                "the MoE comparison passed a second choice served ahead of a first choice")
+        res["planted_fault"] = {"capacity_factor": MOE_FAULT_CF, "clean_ok": clean["ok"],
+                                "rejected": not planted["ok"],
+                                "out_max_abs": planted["out_max_abs"]}
+    return res
+
+
+def moe_device_groups(prof, total_us: float) -> dict:
+    """The profiled MoE step's kernel time by MoE function, from the
+    profiler's op tree: a kernel belongs to the innermost MOE_RANGES range
+    around the op that launched it in the forward, and in the backward to
+    the range of the forward op whose autograd node it runs (matched by
+    sequence number). The flash kernels go by their names, and the rest of
+    the step's kernel time ``total_us`` is the last group."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def forward_group(e):
+        while e is not None:
+            if e.name in MOE_RANGES:
+                return MOE_RANGES[e.name]
+            e = e.cpu_parent
+        return None
+
+    by_seq = {}
+    for e in events:
+        group = forward_group(e)
+        if group is not None and e.sequence_nr >= 0:
+            by_seq.setdefault(e.sequence_nr, group)
+    us = dict.fromkeys(MOE_RANGES.values(), 0.0)
+    for e in events:
+        if not e.kernels:
+            continue
+        group, node = forward_group(e), e
+        while group is None and node is not None:
+            if node.name.startswith("autograd::engine::evaluate_function"):
+                group = by_seq.get(node.sequence_nr)
+                break
+            node = node.cpu_parent
+        if group is not None:
+            us[group] += sum(k.duration for k in e.kernels
+                             if not any(f in k.name for f in FLASH_NAMES))
+    flash = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and any(f in e.key for f in FLASH_NAMES))
+    us = {"flash attention kernels": flash, **us,
+          "the rest": total_us - flash - sum(us.values())}
+    print("profile moe: " + ", ".join(f"{g} {t / 1e3:.3f} ms ({t / total_us:.1%})"
+                                      for g, t in us.items()))
+    return {"moe_device_ms": {g: t / 1e3 for g, t in us.items()}}
+
+
+def profile_moe_step(run) -> None:
+    """`Run.profile` with the MoE functions inside profiler ranges."""
+    from torch.profiler import record_function
+
+    from edl_tpu_torch.models import transformer as tf
+
+    def ranged(name, fn):
+        def wrapper(*args):
+            with record_function(name):
+                return fn(*args)
+        return wrapper
+
+    ranges = {"_moe_route": "moe:router", "_moe_experts": "moe:experts", "_moe_ffn": "moe:ffn"}
+    with patched(tf, **{fn: ranged(name, getattr(tf, fn)) for fn, name in ranges.items()}):
+        _, summary = profile_step(run.step, run.row["step_ms"], LM_GROUPS, run.label,
+                                  on_profile=moe_device_groups)
+    run.row.update(summary)
+
+
+def time_einsum_form(run) -> dict:
+    """Diagnostic, not the main path: steps with `_moe_ffn_reference` (the
+    one-hot einsums) in place of the index form, timed as `Run.timed` times."""
+    import torch
+
+    from edl_tpu_torch.models import transformer as tf
+
+    with patched(tf, _moe_ffn=tf._moe_ffn_reference):
+        run.step()
+        torch.cuda.reset_peak_memory_stats(run.device)
+        times, losses = [], []
+        for _ in range(MOE_EINSUM_STEPS):
+            t0 = time.perf_counter()
+            run.state, loss = run.trainer.train_step(run.state, run.batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    require(all(math.isfinite(x) for x in losses), f"einsum-form losses {losses}")
+    return {"step_ms": statistics.median(times) * 1e3,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(run.device) / 2**30,
+            "steps": MOE_EINSUM_STEPS}
+
+
+def phase_moe(device, dense: dict) -> dict:
+    """The MoE LM at phase 4's width, both arms from one seed: the probe at
+    the first step, the forms check on layer 0's h, the timed steps (12
+    launches of each flash kernel a step), a profiled step and the einsum
+    form's diagnostic steps. ``dense`` is phase 4's row."""
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, make_model
+    from edl_tpu_torch.runtime import TrainerConfig
+
+    fa = _flash_module()
+    out = {"config": "GPT-2-small width " + json.dumps({**SLICE, **MOE}), "batch": BATCH,
+           "dense_step_ms": dense["step_ms"], "dense_mfu": dense["mfu"],
+           "dense_peak_memory_gib": dense["peak_memory_gib"], "arms": {}}
+    launches_total = dict.fromkeys(fa.LAUNCHES, 0)
+    for name, arm in MOE_ARMS.items():
+        cfg = TransformerConfig(flash=True, **SLICE, **MOE, **arm)
+        run = Run(f"transformer moe {name}", make_model(cfg), TrainerConfig(
+            optimizer="adam", learning_rate=3e-4, seed=0), BATCH, device)
+        probe = moe_probe(run.state.params, run.batch)
+        aux_term = cfg.moe_aux_weight / cfg.n_layers * sum(probe["aux_by_layer"])
+        print(f"moe {name}: dropped share at the first step {probe['dropped_share']:.4f} "
+              f"(by layer {[round(x, 4) for x in probe['dropped_share_by_layer']]}); aux "
+              f"{[round(x, 4) for x in probe['aux_by_layer']]}, its loss term {aux_term:.6f}")
+        require(all(math.isfinite(a) for a in probe["aux_by_layer"]), "non-finite MoE aux")
+        if cfg.moe_aux_weight > 0:
+            require(math.isfinite(aux_term) and aux_term > 0, f"aux term {aux_term}")
+        forms = check_moe_forms(cfg, probe.pop("h"), run.state.params.blocks[0],
+                                plant=cfg.moe_top_k > 1)
+        row = run.timed(reset_counts=fa.reset_launches)
+        launches = dict(fa.LAUNCHES)
+        want = cfg.n_layers * STEPS
+        require(all(n == want for n in launches.values()),
+                f"moe {name}: launch counts {launches}, want {want} each")
+        for k, n in launches.items():
+            launches_total[k] += n
+        tokens_s = BATCH * cfg.seq_len / row["step_ms"] * 1e3
+        print(f"moe {name}: step {row['step_ms']:.3f} ms against the dense {dense['step_ms']:.3f} "
+              f"ms ({row['step_ms'] / dense['step_ms']:.3f}x), {tokens_s:.0f} tokens/s, MFU "
+              f"{row['mfu']}, peak {row['peak_memory_gib']:.3f} GiB, launches {launches}")
+        profile_moe_step(run)
+        einsum = time_einsum_form(run)
+        print(f"moe {name}: einsum form (diagnostic) {einsum['step_ms']:.3f} ms a step against "
+              f"{row['step_ms']:.3f} (+{einsum['step_ms'] - row['step_ms']:.3f} ms), peak "
+              f"{einsum['peak_memory_gib']:.3f} GiB")
+        row.update(probe, arm=arm, tokens_per_s=tokens_s, aux_term_first_step=aux_term,
+                   launches=launches, forms=forms, einsum_form=einsum)
+        out["arms"][name] = row
+        del run
+        torch.cuda.empty_cache()
+    out["launches"] = launches_total
+    return out
 
 
 # -- the data path phase ---------------------------------------------------------
@@ -1993,6 +2328,7 @@ def main(argv) -> int:
         # freed, so the later phases' peak memory does not hold it
         lm_export = export_lm(lm_state, serve_root)
         del lm_state
+        moe = phase_moe(device, lm)
         phase_step_parity(device)
         ctr_row, ctr_run = phase_ctr(device)
         ctr_staged = stage_ctr_versions(ctr_run, serve_root)
@@ -2007,11 +2343,13 @@ def main(argv) -> int:
         row["launches_remat"] = remat["launches"][name]
         row["launches_serve"] = serve["lm"]["flash_launches"][name]
         row["launches_data_path"] = data_path["grad_accum"]["launches"][name]
+        row["launches_moe"] = moe["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"data_path": data_path}))
+    print(json.dumps({"moe": moe}))
     import torch
 
     # count: the devices this run uses

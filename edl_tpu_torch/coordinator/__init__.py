@@ -11,12 +11,12 @@ port's client talks to the same binary, found and built at the same path.
   use if the toolchain is present).
 - ``InProcessCoordinator`` — pure-Python twin of the C++ state machine for
   hermetic tests and single-host runs.
-- ``RetryPolicy`` — typed retries in the client.
+- ``RetryPolicy`` / ``OutboxClient`` — outage resilience: typed retries in
+  the client, buffered side effects + degraded-mode reads in the worker.
 - ``CoordinatorSupervisor`` — keeps a native coordinator process alive,
   restarting it with the same state_file + run_id.
-
-The outbox (buffered side effects in an outage) and the watch stream wait
-for a later slice.
+- ``watch.EpochWatch`` — the membership-epoch push stream, with a pull
+  fallback.
 """
 
 from edl_tpu_torch.coordinator.client import (
@@ -24,6 +24,7 @@ from edl_tpu_torch.coordinator.client import (
     CoordinatorTimeout, CoordinatorUnreachable,
 )
 from edl_tpu_torch.coordinator.inprocess import InProcessCoordinator
+from edl_tpu_torch.coordinator.outbox import Outbox, OutboxClient
 from edl_tpu_torch.coordinator.retry import RetryPolicy
 from edl_tpu_torch.coordinator.server import CoordinatorServer, CoordinatorSupervisor
 
@@ -36,5 +37,7 @@ __all__ = [
     "CoordinatorServer",
     "CoordinatorSupervisor",
     "InProcessCoordinator",
+    "Outbox",
+    "OutboxClient",
     "RetryPolicy",
 ]

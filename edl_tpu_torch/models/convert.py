@@ -13,7 +13,9 @@ make a serving artifact written by either package load in the other
 - The transformer (`params_from_jax`): the JAX package stacks every block
   param on a leading layer dim, ``blocks.wqkv`` (L, D, 3, H, Dh) and so on;
   the port keeps one module per layer, so the stack is split into
-  ``blocks.{i}.{name}`` with the per-layer shapes unchanged.
+  ``blocks.{i}.{name}`` with the per-layer shapes unchanged. A block has
+  the dense FFN's leaves (`BLOCK_PARAMS`) or the mixture of experts'
+  (`MOE_BLOCK_PARAMS`), as the keys present say.
 - The other five (`tree_params_from_jax`): a dict key becomes a name, a list
   index a numbered submodule (CTR's ``mlp``, ResNet's ``blocks``), and
   tables, padded rows included, carry across whole. A 4-D leaf is a conv
@@ -33,6 +35,21 @@ import torch
 
 #: per-layer block params of the dense transformer, in module order
 BLOCK_PARAMS = ("ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "win", "bin", "wout", "bout")
+#: per-layer block params of the mixture-of-experts transformer, in module order
+MOE_BLOCK_PARAMS = ("ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "router", "w_up", "b_up",
+                    "w_down", "b_down")
+
+
+def block_params(names) -> tuple:
+    """The block param set, dense or MoE, that ``names`` (a block's leaf
+    names) hold whole. Both sets whole, or neither, raises ``KeyError``."""
+    names = set(names)
+    whole = [want for want in (BLOCK_PARAMS, MOE_BLOCK_PARAMS) if names >= set(want)]
+    if len(whole) != 1:
+        raise KeyError(f"block params {sorted(names)} must hold exactly one of the "
+                       f"dense set {list(BLOCK_PARAMS)} and the MoE set "
+                       f"{list(MOE_BLOCK_PARAMS)}")
+    return whole[0]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -46,11 +63,8 @@ def _tensor(a) -> torch.Tensor:
 def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """JAX params {embed, pos, blocks: {name: (L, ...)}, lnf, head} -> state_dict."""
     blocks = tree["blocks"]
-    missing = set(BLOCK_PARAMS) - set(blocks)
-    if missing:
-        raise KeyError(f"JAX block params lack {sorted(missing)} (a dense FFN "
-                       f"transformer has {list(BLOCK_PARAMS)})")
-    n_layers = {np.shape(blocks[name])[0] for name in BLOCK_PARAMS}
+    names = block_params(blocks)
+    n_layers = {np.shape(blocks[name])[0] for name in names}
     if len(n_layers) != 1:
         raise ValueError(f"block params disagree on the layer count: {n_layers}")
 
@@ -58,7 +72,7 @@ def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     out["embed"] = _tensor(tree["embed"])
     out["pos"] = _tensor(tree["pos"])
     for i in range(n_layers.pop()):
-        for name in BLOCK_PARAMS:
+        for name in names:
             out[f"blocks.{i}.{name}"] = _tensor(blocks[name][i])
     out["lnf"] = _tensor(tree["lnf"])
     out["head"] = _tensor(tree["head"])
@@ -97,12 +111,13 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The transformer's state_dict -> JAX params {embed, pos, blocks: {name:
     (L, ...)}, lnf, head}: the inverse of `params_from_jax`."""
     n_layers = sum(1 for k in state_dict if k.startswith("blocks.") and k.endswith(".ln1"))
+    names = block_params(k.split(".", 2)[2] for k in state_dict if k.startswith("blocks.0."))
     return {
         "embed": _host(state_dict["embed"]),
         "pos": _host(state_dict["pos"]),
         "blocks": {name: _host(torch.stack([state_dict[f"blocks.{i}.{name}"].detach()
                                             for i in range(n_layers)]))
-                   for name in BLOCK_PARAMS},
+                   for name in names},
         "lnf": _host(state_dict["lnf"]),
         "head": _host(state_dict["head"]),
     }

@@ -1,8 +1,9 @@
 """Decoder-only transformer LM: the port of `edl_tpu.models.transformer`.
 
 The single-device training path: `TransformerConfig` with all its fields,
-the dense decoder block, the full forward and mean token cross-entropy (the
-JAX ``_kernel``'s no-pipe path and ``tail_loss``), plus `synthetic_batch`,
+the decoder block with a dense or a mixture-of-experts FFN, the full forward
+and mean token cross-entropy with the MoE load-balance aux term (the JAX
+``_kernel``'s no-pipe path and ``tail_loss``), plus `synthetic_batch`,
 the FLOP and KV-cache accounting, `make_model` and `MODEL`; and the serving
 path's prefill and single-token decode (`make_prefill_step`,
 `make_decode_step`). The JAX package's scan over the stacked block params
@@ -19,15 +20,26 @@ counterpart of ``jax.checkpoint`` at block granularity): the forward keeps
 only each block's input, and the backward runs the block's forward again,
 the flash forward kernel included, before its backward.
 
-Raise ``NotImplementedError`` until a later slice: mixture-of-experts FFNs
-(``moe_experts > 0``) and any sequence, tensor or pipeline axis above 1.
+The MoE FFN (`_moe_ffn`) computes the JAX package's ``_moe_ffn`` at one
+expert shard: top-1 switch or top-k GShard routing (`_moe_route`), capacity
+slots numbered over all first choices before any second choice, and the
+load-balance aux from the first choices. Where the JAX package dispatches
+and combines with a (k*T, E, C) one-hot and two einsums, `_moe_ffn` copies
+each kept token row into its slot of an (E, C, D) buffer and gathers each
+token's k slots back, times its bf16 gate, summed in f32 and rounded once:
+each slot holds one token or zeros and each token reads at most k slots, so
+the function is the same. `_moe_ffn_reference` keeps the einsum form as its
+plain version.
+
+Raise ``NotImplementedError`` until a later slice: any sequence, tensor,
+pipeline or expert axis above 1 (ROADMAP queue A item 5).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,11 +76,18 @@ class TransformerConfig:
     #: attention through the flash kernels (`edl_tpu_torch.ops.
     #: flash_attention`) instead of the dense O(S^2) oracle
     flash: bool = True
-    #: mixture-of-experts FFN; anything above 0 raises until a later slice
+    #: mixture-of-experts FFN: >0 replaces every block's dense FFN with
+    #: ``moe_experts`` experts; 0 = dense FFN
     moe_experts: int = 0
+    #: expert capacity = ceil(moe_top_k * tokens / moe_experts * this)
     moe_capacity_factor: float = 1.25
+    #: experts per token: 1 = switch routing, >1 = GShard with renormalized
+    #: gates (every first choice outranks any second choice for capacity)
     moe_top_k: int = 1
+    #: the expert mesh axis; above 1 raises until a later slice
     expert_axis: str = "expert"
+    #: weight of the switch load-balance aux (E * sum_e f_e * p_e a layer,
+    #: averaged over the layers); 0 = off
     moe_aux_weight: float = 0.0
 
     @property
@@ -88,13 +107,17 @@ def _check(cfg: TransformerConfig, axes: Optional[Mapping[str, int]]) -> None:
         raise ValueError(
             f"virtual_stages={cfg.virtual_stages} requires pipeline_schedule="
             f"'1f1b-interleaved', got {cfg.pipeline_schedule!r}")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("mixture-of-experts FFNs are not ported yet")
-    for axis in (cfg.seq_axis, cfg.tp_axis, cfg.pp_axis):
-        if (axes or {}).get(axis, 1) > 1:
+    axes = axes or {}
+    E, ep = cfg.moe_experts, axes.get(cfg.expert_axis, 1)
+    if E > 0 and E % ep:
+        raise ValueError(f"moe_experts={E} must be divisible by ep={ep}")
+    if E > 0 and not 1 <= cfg.moe_top_k <= E:
+        raise ValueError(f"moe_top_k={cfg.moe_top_k} must be in [1, moe_experts={E}]")
+    for axis in (cfg.seq_axis, cfg.tp_axis, cfg.pp_axis, cfg.expert_axis):
+        if axes.get(axis, 1) > 1:
             raise NotImplementedError(
-                f"axis {axis!r} of size {axes[axis]}: sequence, tensor and "
-                f"pipeline parallelism are not ported yet")
+                f"axis {axis!r} of size {axes[axis]}: sequence, tensor, pipeline "
+                f"and expert parallelism are not ported yet (ROADMAP queue A item 5)")
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -113,13 +136,16 @@ def _bf16(w: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One dense decoder block; params in the JAX package's per-layer shapes:
-    wqkv (D, 3, H, Dh), bqkv (3, H, Dh), wo (H, Dh, D), win (D, F), wout (F, D)."""
+    """One decoder block; params in the JAX package's per-layer shapes:
+    wqkv (D, 3, H, Dh), bqkv (3, H, Dh), wo (H, Dh, D), and a dense FFN's
+    win (D, F), wout (F, D) or, with ``moe_experts`` E > 0, the router
+    (D, E) and the experts' w_up (E, D, F), b_up (E, F), w_down (E, F, D),
+    b_down (E, D)."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
                  device: torch.device):
         super().__init__()
-        D, H, Dh, Fd = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+        D, H, Dh, Fd, E = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.moe_experts
         self.cfg = cfg
 
         def param(shape, std=None):
@@ -133,13 +159,21 @@ class Block(nn.Module):
         self.wo = param((H, Dh, D), math.sqrt(1.0 / D))
         self.bo = param((D,))
         self.ln2 = nn.Parameter(torch.ones(D, device=device))
-        self.win = param((D, Fd), math.sqrt(2.0 / D))
-        self.bin = param((Fd,))
-        self.wout = param((Fd, D), math.sqrt(1.0 / Fd))
-        self.bout = param((D,))
+        if E > 0:
+            self.router = param((D, E), 0.02)
+            self.w_up = param((E, D, Fd), math.sqrt(2.0 / D))
+            self.b_up = param((E, Fd))
+            self.w_down = param((E, Fd, D), math.sqrt(1.0 / Fd))
+            self.b_down = param((E, D))
+        else:
+            self.win = param((D, Fd), math.sqrt(2.0 / D))
+            self.bin = param((Fd,))
+            self.wout = param((Fd, D), math.sqrt(1.0 / Fd))
+            self.bout = param((D,))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, S, D) bf16 -> (B, S, D) bf16."""
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x: (B, S, D) bf16 -> (the block's output (B, S, D) bf16, the MoE
+        layer's load-balance aux as an f32 scalar, or None for a dense FFN)."""
         cfg = self.cfg
         B, S, D = x.shape
         H, Dh = cfg.n_heads, cfg.head_dim
@@ -153,9 +187,131 @@ class Block(nn.Module):
         out = attn.reshape(B, S, H * Dh) @ _bf16(self.wo).reshape(H * Dh, D)
         x = x + (out.float() + self.bo).to(torch.bfloat16)
         h = _rmsnorm(x, self.ln2)
+        if cfg.moe_experts > 0:
+            o, aux = _moe_ffn(cfg, h, self)  # o: f32 holding bf16 values; no bias
+            return x + o.to(torch.bfloat16), aux
         f = _gelu(h @ _bf16(self.win) + _bf16(self.bin))
         o = f @ _bf16(self.wout)
-        return x + (o.float() + self.bout).to(torch.bfloat16)
+        return x + (o.float() + self.bout).to(torch.bfloat16), None
+
+
+# -- mixture-of-experts FFN ----------------------------------------------------
+
+
+def _moe_capacity(cfg: TransformerConfig, n_tokens: int) -> int:
+    """Slots per expert, with the JAX package's float operations in its
+    order (another order can move the ceil at a boundary)."""
+    return max(1, math.ceil(cfg.moe_top_k * n_tokens / cfg.moe_experts
+                            * cfg.moe_capacity_factor))
+
+
+class MoERouting(NamedTuple):
+    """`_moe_route`'s decisions for T tokens and k choices each. Rows of the
+    (k*T,) fields are choice-major: row ``j * T + t`` is token t's (j+1)-th
+    choice."""
+    probs: torch.Tensor   # (T, E) f32 router softmax
+    expert: torch.Tensor  # (k*T,) int64 chosen expert
+    slot: torch.Tensor    # (k*T,) int64 capacity slot in that expert (may be >= C)
+    keep: torch.Tensor    # (k*T,) bool: the slot is below the capacity C
+    gate: torch.Tensor    # (k, T) f32: 0 for a dropped choice; renormalized if k > 1
+    aux: torch.Tensor     # () f32 load-balance aux
+
+
+def _moe_route(cfg: TransformerConfig, tok: torch.Tensor, router: torch.Tensor,
+               capacity: int) -> MoERouting:
+    """Routing shared by both forms of the MoE FFN (`edl_tpu/models/
+    transformer.py:333-372`): an f32 router, the k choices as successive
+    argmaxes (each masking the last choice out; ties go to the first
+    expert, as ``jnp.argmax`` breaks them), capacity slots numbered by a
+    cumsum over all first choices, then all second choices, tokens in
+    row-major (B, S) order, and the gates. At k = 1 the gate is the raw
+    router probability, the router's only gradient path besides the aux;
+    at k > 1 the kept gates are renormalized in f32 with a 1e-9 floor."""
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    probs = torch.softmax(tok.float() @ router, dim=-1)  # (T, E) f32
+    remaining = probs.detach()  # argmax has no gradient
+    experts, onehots, gates = [], [], []
+    for _ in range(k):
+        choice = torch.argmax(remaining, dim=-1)  # (T,)
+        oh = F.one_hot(choice, E)
+        experts.append(choice)
+        onehots.append(oh)
+        gates.append(probs.gather(1, choice[:, None])[:, 0])
+        remaining = remaining.masked_fill(oh.bool(), 0.0)
+    # switch load-balance aux on the first choices: E * sum_e f_e * p_e
+    aux = E * torch.sum(onehots[0].float().mean(dim=0) * probs.mean(dim=0))
+    expert = torch.cat(experts)  # (k*T,)
+    # each choice's rank among its expert's choices: one 1-D scan over the
+    # experts' runs of one-hots laid end to end (on CUDA a scan down the
+    # (k*T, E) columns runs each column serially: 1.4 ms a layer at T 8192)
+    seen = torch.cumsum(torch.cat(onehots).t().reshape(-1), dim=0).view(E, -1)
+    before = torch.cat([seen.new_zeros(1), seen[:-1, -1]])  # choices of earlier experts
+    slot = (seen - before[:, None]).gather(0, expert[None, :])[0] - 1
+    keep = slot < capacity
+    gate = torch.stack(gates) * keep.view(k, -1).float()  # (k, T)
+    if k > 1:
+        gate = gate / torch.clamp(gate.sum(dim=0, keepdim=True), min=1e-9)
+    return MoERouting(probs, expert, slot, keep, gate, aux)
+
+
+def _moe_experts(slots: torch.Tensor, blk: Block) -> torch.Tensor:
+    """The E expert FFNs over their (E, C, D) bf16 slots, bf16 throughout:
+    (slots @ w_up + b_up), tanh GELU, @ w_down + b_down."""
+    up = torch.bmm(slots, _bf16(blk.w_up)) + _bf16(blk.b_up)[:, None, :]
+    return torch.bmm(_gelu(up), _bf16(blk.w_down)) + _bf16(blk.b_down)[:, None, :]
+
+
+def _moe_ffn(cfg: TransformerConfig, h: torch.Tensor, blk: Block):
+    """The MoE FFN at one expert shard, index form: h (B, S, D) bf16 ->
+    (out (B, S, D) f32 holding bf16 values, aux f32 scalar).
+
+    Dispatch copies each kept choice's token row into its row of a zeroed
+    (E*C, D) slot buffer (a dropped choice writes a spare row that is cut
+    off); combine gathers each choice's slot row, scales it by the choice's
+    bf16 gate and sums a token's k rows in f32, rounded once to bf16.
+    Autograd gives the einsums' transposes: each slot's cotangent added
+    into its token, a bf16-rounded cotangent for each gate, and nothing to
+    an empty slot or a dropped choice. No (k*T, E, C) tensor is made, and
+    nothing waits on the device."""
+    B, S, D = h.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    C = _moe_capacity(cfg, T)
+    tok = h.reshape(T, D)
+    r = _moe_route(cfg, tok, blk.router, C)
+    dest = torch.where(r.keep, r.expert * C + r.slot, E * C)  # (k*T,)
+    slots = tok.new_zeros(E * C + 1, D).index_copy(
+        0, dest, tok.expand(k, T, D).reshape(k * T, D))[:E * C]
+    down = _moe_experts(slots.view(E, C, D), blk).reshape(E * C, D)
+    rows = down.index_select(0, torch.where(r.keep, dest, 0)).view(k, T, D)
+    out = (rows.float() * r.gate.to(torch.bfloat16).float()[..., None]).sum(dim=0)
+    return out.to(torch.bfloat16).float().reshape(B, S, D), r.aux
+
+
+def _moe_ffn_reference(cfg: TransformerConfig, h: torch.Tensor, blk: Block):
+    """The plain version of `_moe_ffn`: the JAX package's one-hot dispatch
+    and combine einsums (`edl_tpu/models/transformer.py:357-397`) over the
+    same routing. The combine's bf16 operands are multiplied and summed in
+    f32 and rounded once, as the JAX package's bf16 einsum accumulates; the
+    f32 einsum says so on any backend. It makes (k*T, E, C) tensors: a
+    test and diagnostic path, not the model's."""
+    B, S, D = h.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    C = _moe_capacity(cfg, T)
+    tok = h.reshape(T, D)
+    r = _moe_route(cfg, tok, blk.router, C)
+    pos = torch.where(F.one_hot(r.expert, E).bool(), r.slot[:, None], -1)  # (k*T, E)
+    keep = (pos >= 0) & (pos < C)
+    dispatch_all = (F.one_hot(torch.clamp(pos, 0, C - 1), C).to(torch.bfloat16)
+                    * keep[..., None].to(torch.bfloat16))  # (k*T, E, C)
+    dispatch = dispatch_all.view(k, T, E, C).sum(dim=0)  # (T, E, C)
+    combine = (dispatch_all.view(k, T, E, C)
+               * r.gate.to(torch.bfloat16)[:, :, None, None]).sum(dim=0)
+    slots = torch.einsum("tec,td->ecd", dispatch, tok)  # (E, C, D)
+    down = _moe_experts(slots, blk)
+    out = torch.einsum("ecd,tec->td", down.float(), combine.float())
+    return out.to(torch.bfloat16).float().reshape(B, S, D), r.aux
 
 
 class TransformerLM(nn.Module):
@@ -183,14 +339,21 @@ class TransformerLM(nn.Module):
         tokens, targets = batch["tokens"].long(), batch["targets"].long()
         S = tokens.shape[1]
         x = (self.embed[tokens] + self.pos[:S]).to(torch.bfloat16)
+        aux_sum = None  # the MoE layers' aux, summed in layer order in f32
         for block in self.blocks:
             # blocks draw no randomness, so there is no RNG state to replay
-            x = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
-                 if self.cfg.remat else block(x))
+            x, aux = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+                      if self.cfg.remat else block(x))
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
         # tail: final norm, f32 LM head, mean token cross-entropy (f32)
         h = _rmsnorm(x, self.lnf).float()
         logits = h @ self.head
-        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+        if aux_sum is not None and self.cfg.moe_aux_weight > 0:
+            # a per-layer mean: the weight over n_layers times the sum
+            loss = loss + self.cfg.moe_aux_weight / self.cfg.n_layers * aux_sum
+        return loss
 
 
 def synthetic_batch(cfg: TransformerConfig, rng: np.random.Generator, batch_size: int):

@@ -313,7 +313,10 @@ def test_the_slice_on_the_cpu_matches_the_jax_trainer(tmp_path):
               pipeline_depth=2)
 
     def lease(mod, coordinator):
-        coord = coordinator(task_lease_sec=30.0)
+        # The readers send no heartbeat, and both clients register before
+        # the JAX run: at the default 10 s TTL a loaded host could drop the
+        # port's member mid-run, requeue its leases and replay a shard.
+        coord = coordinator(task_lease_sec=30.0, heartbeat_ttl_sec=600.0)
         client = coord.client("trainer-0")
         client.register()
         client.add_tasks(shards)

@@ -154,8 +154,8 @@ def test_params_from_jax_fills_every_param_with_its_shape():
 
 
 @pytest.mark.parametrize("override,error", [
-    (dict(moe_experts=4), NotImplementedError),
-    (dict(moe_experts=2, moe_top_k=2), NotImplementedError),
+    (dict(moe_experts=4, moe_top_k=5), ValueError),
+    (dict(moe_experts=4, moe_top_k=0), ValueError),
     (dict(pipeline_schedule="zigzag"), ValueError),
     (dict(virtual_stages=2), ValueError),
 ])
@@ -164,7 +164,7 @@ def test_options_outside_the_slice_raise(override, error):
         torch_tf.make_model(torch_tf.TransformerConfig(**CFG, **override))
 
 
-@pytest.mark.parametrize("axis", ["seq", "model", "pipe"])
+@pytest.mark.parametrize("axis", ["seq", "model", "pipe", "expert"])
 def test_parallel_axes_above_one_raise(axis):
     with pytest.raises(NotImplementedError):
         torch_tf.TransformerLM(torch_tf.TransformerConfig(**CFG), device="cpu",
