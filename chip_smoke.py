@@ -89,10 +89,29 @@ phase that fails raises, and the script exits non-zero without its last line:
     ``/predict``), with version 2 (two more adagrad steps) exported
     mid-traffic and swapped in with no failed request; every answer against
     the module's ``predict``. The serving path launches no flash kernel.
-12. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+12. Data parallelism (``dp``): (a) an NCCL process group at world 1,
+    formed by the port's ``distributed_init`` against an
+    ``InProcessCoordinator``, and over it a ``Mesh``; phase 4's LM and
+    phase 6's CTR each trained from seed 0 on one batch by the one-device
+    Trainer and by the mesh Trainer with ``shard_opt_state`` in both
+    grad_sync modes (2 warm-up and 5 timed steps and a profiled step an
+    arm): losses, params and moments bit for bit against the one-device
+    run (CTR: if the card's embedding backward is deterministic), 60
+    launches of each flash kernel in each mesh arm's timed steps, each
+    arm's step time, peak memory and busy share, and ``data_plane()`` for
+    8 ranks (analytic). (b) Two ranks on the one card over gloo with CUDA
+    tensors, one process each (``chip_smoke.py --dp-rank R JOB``): both
+    rows at world 2 (CTR's tables 500096 rows a rank), the same global
+    batch, in both modes; every rank's losses equal, within
+    ``TOL_DP_LOSS`` of (a)'s one-device losses, the two modes' params
+    equal; CTR exported from both ranks (rank 0 writes) and served on one
+    device against the ranks' own predict; a checkpoint saved at world 2
+    and restored bit for bit. A rank that fails fails the phase.
+13. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
     per model, the remat LM included), one ``{"serve": {...}}``, one
-    ``{"data_path": {...}}`` and one ``{"moe": {...}}``.
-13. The last line: ``{"ok": true, "device": {...}}``.
+    ``{"data_path": {...}}``, one ``{"moe": {...}}`` and one ``{"dp":
+    {...}}``.
+14. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -2312,7 +2331,471 @@ def phase_serve(device, lm: dict, ctr_staged: dict) -> dict:
     return out
 
 
+# -- dp: data parallelism and ZeRO-1 over torch.distributed ---------------------
+
+#: phase dp's steps an arm: warm-up, then timed (the median is the step time)
+DP_WARMUP = 2
+DP_TIMED = 5
+#: part (b): two ranks on the one card over gloo with CUDA tensors (found to
+#: work in torch 2.11: all_reduce, all_gather_into_tensor and
+#: reduce_scatter_tensor), at world 2 against part (a)'s one-device run at
+#: the same global batch from the same weights. The MLP's and the LM's bf16
+#: weight gradients are summed over each rank's half of the batch and
+#: rounded to bf16 before the cross-rank sum, so the losses move off the
+#: one-device run by bf16 rounding compounded over the steps: relative bound
+DP_WORLD = 2
+TOL_DP_LOSS = 2e-2
+#: the CTR export of part (b) served on one device against the ranks' own
+#: collective predict on the same rows (bf16 MLPs over 4096 against 8192
+#: rows may take other cuBLAS tilings): relative norm bound of the logits
+TOL_DP_PREDICT = 1e-2
+#: data_plane() is printed for a mesh of this many ranks (analytic)
+DP_PLANE_WORLD = 8
+DP_RANK_TIMEOUT = 900
+#: make_model kwargs of the dp phase's CTR (None: the published width,
+#: ``ctr.MODEL``); its export's manifest names them
+DP_CTR_CONFIG = None
+
+
+def _dp_ctr():
+    from edl_tpu_torch.models import ctr
+
+    return ctr.make_model(**DP_CTR_CONFIG) if DP_CTR_CONFIG else ctr.MODEL
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_rows() -> dict:
+    """name -> (model, TrainerConfig kwargs, global batch): the LM of phase 4
+    and the CTR of phase 6."""
+    from edl_tpu_torch.models.transformer import TransformerConfig, make_model
+
+    return {
+        "transformer": (make_model(TransformerConfig(flash=True, **SLICE)),
+                        dict(optimizer="adam", learning_rate=3e-4, seed=0), BATCH),
+        "ctr": (_dp_ctr(), dict(optimizer="adagrad", learning_rate=0.05, seed=0),
+                CTR_BATCH),
+    }
+
+
+def _moments(trainer, state) -> dict:
+    """{param name: {moment: tensor}} of ``state``'s optimizer, on the device."""
+    opt = state.opt_state
+    if trainer.mesh is None:
+        pairs = list(state.params.named_parameters())
+    else:
+        pairs = [(leaf.name, leaf.opt_param)
+                 for leaf in trainer.layout_for(state.params).leaves]
+    return {name: {k: v for k, v in opt.state[p].items() if k != "step"}
+            for name, p in pairs}
+
+
+def dp_arm(label, model, config, host_batch, device, mesh=None, counts=None) -> dict:
+    """One Trainer (on ``mesh`` or one device) from seed 0 on one placed
+    batch: ``DP_WARMUP`` + ``DP_TIMED`` steps, host clock around each step
+    and a synchronise; then one profiled step. ``counts`` (reset, read)
+    brackets the timed steps. Returns its losses, times, peak memory above
+    what was allocated before it, and its final params and moments copied
+    to the host; its state is freed."""
+    import torch
+
+    from edl_tpu_torch.parallel.sharding import shard_batch
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    trainer = Trainer(model, mesh=mesh, config=TrainerConfig(**config), device=device)
+    state = trainer.init_state()
+    local = host_batch if mesh is None else shard_batch(host_batch, mesh,
+                                                        trainer.config.batch_axis)
+    batch = trainer.place_batch(local)
+    losses, times = [], []
+    for i in range(DP_WARMUP + DP_TIMED):
+        if counts is not None and i == DP_WARMUP:
+            counts[0]()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = counts[1]() if counts is not None else None
+    peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    step_ms = statistics.median(times[DP_WARMUP:]) * 1e3
+    require(all(math.isfinite(x) for x in losses), f"dp {label}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"dp {label}: loss did not fall: {losses}")
+    box = {"state": state}
+
+    def step():
+        box["state"], _ = trainer.train_step(box["state"], batch)
+        torch.cuda.synchronize()
+
+    _, summary = profile_step(step, step_ms, LM_GROUPS if model.name == "transformer"
+                              else ZOO_GROUPS, f"dp {label}")
+    state = box["state"]
+    extra = {}
+    if model.name == "ctr" and mesh is None:
+        extra["deterministic"] = _embedding_backward_deterministic(
+            state.params.deep_table, batch["sparse"].long())
+    print(f"dp {label}: step {step_ms:.3f} ms (median of {DP_TIMED}), peak memory "
+          f"{peak:.3f} GiB, losses {losses[0]:.6f} -> {losses[-1]:.6f}"
+          + (f", flash launches {launches}" if launches else ""))
+    host = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+    params = {n: host(p) for n, p in state.params.named_parameters()}
+    moments = {n: {k: host(v) for k, v in m.items()}
+               for n, m in _moments(trainer, state).items()}
+    del trainer, state, batch, box
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, peak_memory_gib=peak, launches=launches,
+                params=params, moments=moments,
+                device_busy_share=summary.get("device_busy_share"),
+                device_kernel_ms=summary.get("device_kernel_ms"), **extra)
+
+
+def _same(a: dict, b: dict) -> list:
+    """Names whose tensors differ (bit for bit) between two {name: tensor}."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def dp_world1(device) -> dict:
+    """Part (a): the process group formed by the port's `distributed_init`
+    against an `InProcessCoordinator`, NCCL at world 1; each row through
+    the one-device Trainer and the mesh Trainer (``shard_opt_state``) in
+    both grad_sync modes, from the same weights on the same batch: losses,
+    params and moments bit for bit. Returns the rows' figures, the flash
+    launches of the mesh arms' timed steps, and data_plane() at world 8."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch.coordinator import InProcessCoordinator
+    from edl_tpu_torch.launcher.launch import LaunchContext
+    from edl_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+    from edl_tpu_torch.runtime.distributed import distributed_init
+
+    fa = _flash_module()
+    coord = InProcessCoordinator(heartbeat_ttl_sec=600)
+    ident = distributed_init(LaunchContext(num_trainers=1), coord.client("chip-smoke"),
+                             backend="nccl", host="127.0.0.1", port=_free_port(),
+                             timeout=300)
+    require(ident is not None and dist.get_backend() == "nccl"
+            and dist.get_world_size() == 1, f"dp: no NCCL process group ({ident})")
+    print(f"dp: process group up through distributed_init: {dist.get_backend()}, rank "
+          f"{ident.process_id} of {ident.num_processes} via {ident.init_method}")
+    out = {"process_group": {"backend": dist.get_backend(), "world": 1,
+                             "init_method": ident.init_method}, "rows": {}}
+    launches = dict.fromkeys(fa.LAUNCHES, 0)
+    try:
+        mesh = build_mesh(MeshSpec({"data": 1}))
+        for name, (model, cfg, batch) in dp_rows().items():
+            host = model.synthetic_batch(np.random.default_rng(0), batch)
+            arms = {"one_device": dp_arm(f"{name} one-device", model, cfg, host, device)}
+            for sync in ("psum", "reduce_scatter"):
+                counts = None
+                if name == "transformer":
+                    def read():
+                        got = dict(fa.LAUNCHES)
+                        for k, n in got.items():
+                            launches[k] += n
+                        return got
+                    counts = (fa.reset_launches, read)
+                arms[sync] = dp_arm(f"{name} mesh {sync}", model,
+                                    dict(cfg, shard_opt_state=True, grad_sync=sync),
+                                    host, device, mesh=mesh, counts=counts)
+                if counts is not None:
+                    want = model.config.n_layers * DP_TIMED
+                    require(all(n == want for n in arms[sync]["launches"].values()),
+                            f"dp {name} {sync}: flash launches {arms[sync]['launches']}, "
+                            f"want {want} each")
+            ref = arms["one_device"]
+            deterministic = ref.get("deterministic", True)
+            row = {"deterministic_embedding_backward": deterministic, "arms": {}}
+            for arm, r in arms.items():
+                row["arms"][arm] = {k: r[k] for k in ("losses", "step_ms", "peak_memory_gib",
+                                                      "device_busy_share", "device_kernel_ms",
+                                                      "launches")}
+                if arm == "one_device":
+                    continue
+                if deterministic:
+                    require(r["losses"] == ref["losses"],
+                            f"dp {name} {arm}: losses {r['losses']} != one-device {ref['losses']}")
+                    bad = _same(r["params"], ref["params"])
+                    require(not bad, f"dp {name} {arm}: params differ from one-device: {bad[:5]}")
+                    bad = [p for p in r["moments"] if _same(r["moments"][p], ref["moments"][p])]
+                    require(not bad, f"dp {name} {arm}: moments differ: {bad[:5]}")
+                    held = "bit for bit"
+                else:
+                    err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref["losses"]))
+                    require(err <= TOL_NONDETERMINISTIC,
+                            f"dp {name} {arm}: losses off one-device by {err:.3e}")
+                    held = f"losses within {err:.2e} (embedding backward nondeterministic)"
+                row["arms"][arm]["held"] = held
+                row["arms"][arm]["overhead_vs_one_device"] = r["step_ms"] / ref["step_ms"] - 1
+                print(f"dp {name} {arm} at world 1 against one device: {held}; step "
+                      f"{r['step_ms']:.3f} against {ref['step_ms']:.3f} ms "
+                      f"({r['step_ms'] / ref['step_ms'] - 1:+.1%}), peak "
+                      f"{r['peak_memory_gib']:.3f} against {ref['peak_memory_gib']:.3f} GiB")
+            # analytic: the module's data plane on a mesh of 8 ranks
+            module = model.build(device="cpu", generator=torch.Generator().manual_seed(0))
+            plane = Trainer(model, mesh=Mesh(["data"], [DP_PLANE_WORLD], 0, DP_PLANE_WORLD),
+                            config=TrainerConfig(**cfg, shard_opt_state=True),
+                            device="cpu").data_plane(module)
+            row["data_plane_world8_analytic"] = {k: plane[k] for k in (
+                "grad_sync", "sharded_bytes", "replicated_bytes", "grad_bytes_per_step",
+                "param_bytes_per_step", "bytes_per_step", "collective_seconds", "n_buckets")}
+            print(f"dp {name}: data_plane() at world {DP_PLANE_WORLD} (analytic, not "
+                  f"measured; seconds from data-sheet NVLink rates): "
+                  + json.dumps(row["data_plane_world8_analytic"]))
+            out["rows"][name] = row
+            del arms, ref, module
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = launches
+    return out
+
+
+def dp_rank_main(job_path: str, rank: int) -> int:
+    """Part (b), one rank: ``python3 chip_smoke.py --dp-rank R JOB``. Both
+    rows at world 2 on the one card over gloo with CUDA tensors, in both
+    grad_sync modes; CTR's export and a checkpoint round trip. Writes its
+    figures to ``JOB.rank<R>.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from edl_tpu_torch.parallel.sharding import shard_batch
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+
+    with open(job_path) as f:
+        job = json.load(f)
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=job["init"], world_size=DP_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT))
+    out = {"rows": {}}
+    fa = _flash_module()
+    try:
+        mesh = build_mesh(MeshSpec({"data": DP_WORLD}))
+        for name, (model, cfg, batch) in dp_rows().items():
+            host = model.synthetic_batch(np.random.default_rng(0), batch)
+            row, params = {}, {}
+            for sync in ("psum", "reduce_scatter"):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                trainer = Trainer(model, mesh=mesh, config=TrainerConfig(
+                    **cfg, shard_opt_state=True, grad_sync=sync), device=device)
+                state = trainer.init_state()
+                placed = trainer.place_batch(shard_batch(host, mesh))
+                fa.reset_launches()
+                losses, times = [], []
+                for _ in range(DP_WARMUP + DP_TIMED):
+                    t0 = time.perf_counter()
+                    state, loss = trainer.train_step(state, placed)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(float(loss))
+                moments = _moments(trainer, state)
+                row[sync] = {"losses": losses, "launches": dict(fa.LAUNCHES),
+                             "step_ms": statistics.median(times[DP_WARMUP:]) * 1e3,
+                             "peak_memory_gib": (torch.cuda.max_memory_allocated(device)
+                                                 - base) / 2**30,
+                             # the optimizer's moments this rank holds, and
+                             # what it would hold whole (counted, not timed)
+                             "moment_bytes": sum(t.numel() * t.element_size()
+                                                 for m in moments.values()
+                                                 for t in m.values()),
+                             "moment_bytes_whole": sum(
+                                 len(m) * math.prod(leaf.full_shape(mesh))
+                                 * leaf.param.element_size()
+                                 for leaf, m in zip(trainer.layout_for(state.params).leaves,
+                                                    moments.values())),
+                             "local_rows": {n: int(p.shape[0]) for n, p in
+                                            state.params.named_parameters()
+                                            if n in trainer.param_spec()}}
+                del moments
+                params[sync] = {n: p.detach().clone() for n, p in
+                                state.params.named_parameters()}
+                if name == "ctr" and sync == "reduce_scatter":
+                    row["export"] = dp_export(trainer, state, job, mesh)
+                    row["checkpoint"] = dp_checkpoint(trainer, state, job, model, cfg, sync,
+                                                      device)
+                del trainer, state, placed
+                torch.cuda.empty_cache()
+            diff = max((params["psum"][n] - params["reduce_scatter"][n]).abs().max().item()
+                       for n in params["psum"])
+            row["psum_vs_reduce_scatter_max_abs"] = diff
+            out["rows"][name] = row
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job_path}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dp_export(trainer, state, job, mesh) -> dict:
+    """CTR exported from both ranks (rank 0 writes), and the ranks' own
+    collective predict on the export batch's rows (rank 0 keeps them)."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.parallel.collective import gather_dim
+    from edl_tpu_torch.parallel.sharding import shard_batch
+    from edl_tpu_torch.runtime import save_inference_model
+
+    t0 = time.perf_counter()
+    save_inference_model(job["export_dir"], "ctr", state, config=DP_CTR_CONFIG,
+                         step=int(state.step), mesh=mesh)
+    seconds = time.perf_counter() - t0
+    host = _dp_ctr().synthetic_batch(np.random.default_rng(9), CTR_BATCH)
+    local = trainer.place_batch(shard_batch(host, mesh))
+    with torch.no_grad():
+        logits = state.params.predict(local)
+    whole = gather_dim(logits.contiguous(), mesh.group("data")).cpu()
+    if mesh.rank == 0:
+        torch.save(whole, job["export_dir"] + ".logits.pt")
+    return {"seconds": seconds}
+
+
+def dp_checkpoint(trainer, state, job, model, cfg, sync, device) -> dict:
+    """Save at world 2 (gathered, rank 0 writes), restore into a fresh
+    mesh Trainer: every rank's params and moments bit for bit."""
+    import torch.distributed as dist
+
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+    from edl_tpu_torch.runtime.checkpoint import Checkpointer
+
+    ck = Checkpointer(job["ckpt_dir"], trainer=trainer)
+    t0 = time.perf_counter()
+    ck.save(int(state.step), state)
+    save_s = time.perf_counter() - t0
+    ck.wait()
+    dist.barrier()
+    fresh = Trainer(model, mesh=trainer.mesh, config=TrainerConfig(
+        **cfg, shard_opt_state=True, grad_sync=sync), device=device)
+    t0 = time.perf_counter()
+    restored = Checkpointer(job["ckpt_dir"], trainer=fresh).restore(fresh.init_state())
+    restore_s = time.perf_counter() - t0
+    params = dict(state.params.named_parameters())
+    bad = _same(params, dict(restored.params.named_parameters()))
+    mine, theirs = _moments(trainer, state), _moments(fresh, restored)
+    bad += [p for p in mine if _same(mine[p], theirs[p])]
+    require(not bad and restored.step == state.step,
+            f"dp checkpoint at world 2: restore differs in {bad[:5]}")
+    return {"save_s": save_s, "restore_s": restore_s, "bit_for_bit": True}
+
+
+def dp_world2(device, world1: dict) -> dict:
+    """Part (b): two ranks on the one card over gloo (`dp_rank_main`, one
+    process a rank); each rank's failure fails the run. Their losses
+    against part (a)'s one-device losses, the two modes' params against
+    each other (tolerance 0: each sum is of two terms), the export served
+    on one device against the ranks' predict."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.runtime import load_inference_model
+
+    with tempfile.TemporaryDirectory(prefix="edl-dp-") as root:
+        job = os.path.join(root, "job.json")
+        with open(job, "w") as f:
+            json.dump({"init": f"file://{root}/rendezvous", "device": str(device),
+                       "export_dir": os.path.join(root, "export"),
+                       "ckpt_dir": os.path.join(root, "ckpt")}, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, __file__, "--dp-rank", str(r), job])
+                 for r in range(DP_WORLD)]
+        try:
+            codes = [p.wait(timeout=DP_RANK_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        require(codes == [0] * DP_WORLD, f"dp world 2: ranks exited {codes}")
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(f"{job}.rank{r}.json") as f:
+                ranks.append(json.load(f))
+        served = load_inference_model(os.path.join(root, "export"), device=device)
+        host = _dp_ctr().synthetic_batch(np.random.default_rng(9), CTR_BATCH)
+        want = torch.load(os.path.join(root, "export.logits.pt"))
+        got = served.predict({k: v for k, v in host.items() if k != "label"}).float().cpu()
+        predict_err = ((got - want).norm() / want.norm()).item()
+    out = {"seconds": seconds, "rows": {}}
+    for name, row in ranks[0]["rows"].items():
+        one = world1["rows"][name]["arms"]["one_device"]["losses"]
+        for r, rank in enumerate(ranks):
+            for sync in ("psum", "reduce_scatter"):
+                require(rank["rows"][name][sync]["losses"] == row[sync]["losses"],
+                        f"dp world 2 {name} {sync}: rank {r}'s losses differ from rank 0's")
+        errs = {sync: max(abs(a - b) / abs(b) for a, b in zip(row[sync]["losses"], one))
+                for sync in ("psum", "reduce_scatter")}
+        for sync, err in errs.items():
+            require(err <= TOL_DP_LOSS, f"dp world 2 {name} {sync}: losses off the one-device "
+                                        f"run by {err:.3e} (bound {TOL_DP_LOSS})")
+        diff = max(rank["rows"][name]["psum_vs_reduce_scatter_max_abs"] for rank in ranks)
+        require(diff == 0.0, f"dp world 2 {name}: psum and reduce_scatter params differ "
+                             f"by {diff:.3e}")
+        out["rows"][name] = {"loss_rel_err_vs_one_device": errs,
+                             "psum_vs_reduce_scatter_max_abs": diff,
+                             **{k: v for k, v in row.items()
+                                if k not in ("psum_vs_reduce_scatter_max_abs",)}}
+        print(f"dp world 2 {name} (gloo, two ranks on one card): step "
+              f"{row['psum']['step_ms']:.3f} ms psum, {row['reduce_scatter']['step_ms']:.3f} ms "
+              f"reduce_scatter; losses off one device by {errs['psum']:.2e} / "
+              f"{errs['reduce_scatter']:.2e}; modes' params max diff {diff}; "
+              f"local rows {row['psum']['local_rows']}; a rank's peak memory "
+              f"{row['psum']['peak_memory_gib']:.3f} / "
+              f"{row['reduce_scatter']['peak_memory_gib']:.3f} GiB; its moments "
+              f"{row['psum']['moment_bytes'] / 2**20:.1f} MiB of "
+              f"{row['psum']['moment_bytes_whole'] / 2**20:.1f} MiB whole (ZeRO-1)")
+    require(predict_err <= TOL_DP_PREDICT,
+            f"dp world 2: the export served on one device is off the ranks' predict by "
+            f"{predict_err:.3e}")
+    ctr_row = out["rows"]["ctr"]
+    ctr_row["export"]["served_vs_ranks_predict_rel"] = predict_err
+    print(f"dp world 2: CTR export written by rank 0 in {ctr_row['export']['seconds']:.3f} s, "
+          f"served on one device within {predict_err:.2e} of the ranks' predict; checkpoint "
+          f"save {ctr_row['checkpoint']['save_s']:.3f} s, restore "
+          f"{ctr_row['checkpoint']['restore_s']:.3f} s, bit for bit; {seconds:.1f} s in all")
+    return out
+
+
+def phase_dp(device) -> dict:
+    """The dp phase: part (a) NCCL at world 1, part (b) two gloo ranks."""
+    world1 = dp_world1(device)
+    world2 = dp_world2(device, world1)
+    return {"world1": world1, "world2": world2, "launches": world1["launches"]}
+
+
+
 def main(argv) -> int:
+    if "--dp-rank" in argv:  # one rank of the dp phase's part (b)
+        i = argv.index("--dp-rank")
+        return dp_rank_main(argv[i + 2], int(argv[i + 1]))
     device = phase_device()
     sass = phase_build()
     kernels = phase_kernels(device)
@@ -2338,18 +2821,21 @@ def main(argv) -> int:
         others = phase_zoo(device)
         remat = phase_remat(device, lm)
         serve = phase_serve(device, lm_export, ctr_staged)
+    dp = phase_dp(device)
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
         row["launches_serve"] = serve["lm"]["flash_launches"][name]
         row["launches_data_path"] = data_path["grad_accum"]["launches"][name]
         row["launches_moe"] = moe["launches"][name]
+        row["launches_dp"] = dp["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"data_path": data_path}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"dp": dp}))
     import torch
 
     # count: the devices this run uses

@@ -7,7 +7,12 @@ functions over a params pytree; in PyTorch the params live in an
 
 - ``build(device=None, generator=None)`` -> ``nn.Module`` with its params on
   ``device``, drawn from the ``torch.Generator`` given; calling the module on
-  a batch of tensors returns the scalar training loss.
+  a batch of tensors returns the scalar training loss, the mean over the
+  batch it is given. A model that shards params or checks axes takes
+  ``mesh=`` too (`parallel.mesh.Mesh`).
+- ``param_spec(mesh)`` (optional) -> ``{param name: mesh axis}`` for the
+  params row-sharded over an axis (dim 0); every other param is
+  replicated. The JAX package's ``param_spec`` as the Trainer reads it.
 - ``synthetic_batch(rng, batch_size)`` -> host-side numpy batch for tests and
   benchmarks, the same arrays as the JAX package's for the same ``rng``.
 - ``predict(module, batch)`` (optional) -> the model's inference outputs,
@@ -39,6 +44,9 @@ class Model:
     predict: Optional[Callable] = None
     #: the structured config the model was built from
     config: Optional[Any] = None
+    #: optional (mesh) -> {param name: mesh axis} of the params row-sharded
+    #: over an axis; None or an absent name: replicated
+    param_spec: Optional[Callable] = None
     #: optional analytic (batch_size) -> train-step model FLOPs: matmul FLOPs
     #: only (2*M*N*K per matmul), causal attention halved, backward = 2x
     #: forward, recompute excluded: the numerator of model FLOPs utilization

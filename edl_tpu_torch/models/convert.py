@@ -23,6 +23,12 @@ make a serving artifact written by either package load in the other
 
 The reverse re-stacks the transformer's ``blocks.{i}.*`` to (L, ...), turns
 numbered submodules back into lists and OIHW back into HWIO.
+
+On a mesh of ranks (`parallel.mesh.Mesh`) a param that the model's
+``param_spec`` row-shards over an axis is held in shards: `shard_state_dict`
+cuts a full state_dict (from JAX params, numpy, or a checkpoint) to this
+rank's rows ``[r*L, (r+1)*L)``, ``r`` its index on the axis, and
+`gather_state_dict` puts every rank's rows back together (a collective).
 """
 
 from __future__ import annotations
@@ -166,3 +172,45 @@ PARAMS_TO_JAX = {
     "mnist": tree_params_to_jax,
     "resnet": tree_params_to_jax,
 }
+
+
+def shard_state_dict(state_dict: Mapping[str, Any], spec: Mapping[str, str], mesh
+                     ) -> "OrderedDict[str, torch.Tensor]":
+    """A full state_dict (tensors or numpy arrays) cut to this rank's part
+    on ``mesh``: each param in ``spec`` ({name: axis}) keeps rows
+    ``[r*L, (r+1)*L)``, ``r`` this rank's index on its axis and ``L`` the
+    rows over the axis's size; the others stay whole. Tensors of their own."""
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name, v in state_dict.items():
+        t = v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+        axis = spec.get(name)
+        if axis is not None and mesh is not None:
+            n = mesh.axis_size(axis)
+            if t.shape[0] % n:
+                raise ValueError(f"{name}: {t.shape[0]} rows do not split over {n} "
+                                 f"{axis!r} shards")
+            rows = t.shape[0] // n
+            r = mesh.axis_index(axis)
+            t = t[r * rows:(r + 1) * rows]
+        out[name] = t.to("cpu", copy=True)
+    return out
+
+
+def gather_state_dict(state_dict: Mapping[str, torch.Tensor], spec: Mapping[str, str],
+                      mesh) -> "OrderedDict[str, torch.Tensor]":
+    """Every rank's rows of the params in ``spec`` put back together, in
+    rank order on each param's axis; the others as they are. A collective:
+    every rank of ``mesh`` must call it with the same names. Returns full
+    host tensors of their own (``.numpy()`` gives the JAX package's
+    arrays) on every rank."""
+    from edl_tpu_torch.parallel.collective import gather_dim
+
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name, t in state_dict.items():
+        t = t.detach()
+        axis = spec.get(name)
+        group = None if mesh is None or axis is None else mesh.group(axis)
+        if group is not None:
+            t = gather_dim(t.contiguous(), group, 0)
+        out[name] = t.to("cpu", copy=True)
+    return out

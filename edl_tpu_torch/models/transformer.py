@@ -31,8 +31,13 @@ each slot holds one token or zeros and each token reads at most k slots, so
 the function is the same. `_moe_ffn_reference` keeps the einsum form as its
 plain version.
 
-Raise ``NotImplementedError`` until a later slice: any sequence, tensor,
-pipeline or expert axis above 1 (ROADMAP queue A item 5).
+On a `parallel.mesh.Mesh` the LM trains data-parallel: every param is
+replicated, each rank's batch slice is sharded over ``batch_axis``, and the
+module's loss is its slice's mean; the Trainer takes the mean over the
+batch axes, as the JAX loss ``pmean``s over them, so the objective is the
+mean over the global batch. Raise ``NotImplementedError`` until a later
+slice: any sequence, tensor, pipeline or expert axis above 1 (ROADMAP
+queue A item 5).
 """
 
 from __future__ import annotations
@@ -578,8 +583,9 @@ def make_model(cfg: Optional[TransformerConfig] = None, **overrides) -> Model:
     _check(cfg, None)
     return Model(
         name="transformer",
-        build=lambda device=None, generator=None: TransformerLM(
-            cfg, device=device, generator=generator),
+        build=lambda device=None, generator=None, mesh=None: TransformerLM(
+            cfg, device=device, generator=generator,
+            axes=None if mesh is None else mesh.shape),
         synthetic_batch=lambda rng, bs: synthetic_batch(cfg, rng, bs),
         label_keys=("targets",),
         config=cfg,

@@ -1,17 +1,29 @@
 """Row-sharded embedding tables: the port of `edl_tpu.parallel.embedding`.
 
 The JAX package keeps a large sparse table (CTR's 1e6+1 rows) as one array
-row-sharded over a mesh axis, and a lookup is a `shard_map` collective. This
-slice ports the one-shard case: the table is one tensor on one device and a
-lookup is ``table[ids]``, whose backward is a scatter-add into a dense table
-gradient, as XLA's is. The lookup is written ``F.embedding(ids, table)``:
-the same gather, whose CUDA backward sorts the ids and adds up each row's
-duplicates as one segment. The backward of ``table[ids]`` (index_put with
-accumulate) walks every duplicate of a row in one thread, which CTR's
-heavy-tailed ids make slow (`PERF.md` has the times). The padded vocab is
-the JAX package's, so a table carries across whole (`models.convert`). The
-two lookups across shards raise until ROADMAP queue A item 4 (data
-parallelism over ``torch.distributed``) ports them.
+row-sharded over a mesh axis, and a lookup is a `shard_map` collective.
+Here each rank of a `parallel.mesh.Mesh` holds its ``padded_vocab / n``
+rows as one tensor, and a lookup runs the same collectives over the
+axis's process group (`parallel.collective`):
+
+- ids sharded on the same axis as the table (CTR's production path, on a
+  data-parallel mesh): all-gather the ids, look up the rows this rank owns
+  (offset ``index * local_rows``), zero the rest, then reduce-scatter so
+  each rank keeps its own batch slice. Backward: all-gather of the
+  cotangent, then the scatter-add into the local rows, so a row's
+  gradient is the sum over every rank's ids.
+- ids sharded on another axis (the table over ``expert``, say): each rank
+  looks up its own ids in its rows, zeroes the rest, and all-reduces over
+  the table's axis. The output is replicated over that axis, so the
+  cotangent passes back unchanged (the JAX transpose of that ``psum``).
+
+With one shard (no mesh, or a mesh whose table axis has size 1) a lookup
+is ``F.embedding(ids, table)``: the same gather as ``table[ids]``, whose
+CUDA backward sorts the ids and adds up each row's duplicates as one
+segment. The backward of ``table[ids]`` (index_put with accumulate) walks
+every duplicate of a row in one thread, which CTR's heavy-tailed ids make
+slow (`PERF.md` has the times). The padded vocab is the JAX package's,
+so a table carries across whole or in shards (`models.convert`).
 
 `dedup_gather` is the JAX package's opt-in gather whose backward adds up
 duplicate ids before it scatters: plain torch ops, as it is jnp there.
@@ -26,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from edl_tpu_torch.device import DeviceLike, resolve_device
+from edl_tpu_torch.parallel import collective
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -63,10 +76,10 @@ def dedup_gather(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
 class ShardedEmbedding:
     """Config, init and lookup for one row-sharded table.
 
-    vocab is padded so every shard holds the same row count. The JAX
-    package reads the shard count off a mesh axis (``shard_axis``); the port
-    takes the count itself, 1 by default. ``batch_axis`` names the axis the
-    ids are sharded on (may be the same)."""
+    vocab is padded so every shard holds the same row count. The shard
+    count is the size of ``shard_axis`` on the mesh a call is given (1
+    without one). ``batch_axis`` names the axis the ids are sharded on (may
+    be the same)."""
 
     vocab_size: int
     features: int
@@ -87,37 +100,64 @@ class ShardedEmbedding:
         # so rows still split evenly, at the cost of rescale-stable shapes
         return _round_up(self.vocab_size, n_shards * self.PAD_MULTIPLE)
 
+    def n_shards(self, mesh=None) -> int:
+        """The table's shard count on ``mesh``: its ``shard_axis``'s size."""
+        return 1 if mesh is None else mesh.axis_size(self.shard_axis)
+
     def init(self, generator: Optional[torch.Generator] = None,
              device: DeviceLike = None, scale: float = 0.01,
-             n_shards: int = 1) -> torch.Tensor:
-        """The padded table, normal * ``scale``, drawn from ``generator`` on
-        the host and placed on ``device``."""
+             n_shards: int = 1, mesh=None) -> torch.Tensor:
+        """The padded table, normal * ``scale``, drawn whole from
+        ``generator`` on the host; on a ``mesh`` this rank keeps its rows
+        ``[i*L, (i+1)*L)`` (``i`` its index on ``shard_axis``), so every
+        world size draws the same table and leaves the generator in the
+        same state. Placed on ``device``."""
         device = resolve_device(device)
-        table = torch.randn((self.padded_vocab(n_shards), self.features),
+        n = self.n_shards(mesh) if mesh is not None else n_shards
+        table = torch.randn((self.padded_vocab(n), self.features),
                             generator=generator, dtype=self.dtype) * scale
+        if mesh is not None and n > 1:
+            rows = table.shape[0] // n
+            i = mesh.axis_index(self.shard_axis)
+            table = table[i * rows:(i + 1) * rows].clone()
         return table.to(device)
 
-    def apply(self, table: torch.Tensor, ids: torch.Tensor,
-              n_shards: int = 1) -> torch.Tensor:
-        """Lookup: ids (...,) integer -> embeddings (..., features).
+    def apply(self, table: torch.Tensor, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+        """Lookup: ids (...,) integer -> embeddings (..., features); on a
+        ``mesh``, ``table`` is this rank's shard and ``ids`` its batch slice.
 
         Out-of-range ids must be clipped by the caller; padded rows hold real
-        values that no id reaches, so their gradient is 0."""
-        if n_shards == 1:
+        values that no id reaches, so their gradient is 0. More than one
+        shard needs the ``mesh``'s process groups to carry the lookup."""
+        n = self.n_shards(mesh)
+        if n == 1:
             return F.embedding(ids, table)  # table[ids]
+        if not mesh.distributed:
+            raise ValueError(f"a lookup into a table over {n} shards needs the "
+                             "Mesh whose process groups carry its collectives")
         flat = ids.reshape(-1)
         if self.shard_axis == self.batch_axis:
-            out = self._lookup_same_axis(table, flat, n_shards)
+            out = self._lookup_same_axis(mesh, table, flat)
         else:
-            out = self._lookup_cross_axis(table, flat, n_shards)
+            out = self._lookup_cross_axis(mesh, table, flat)
         return out.reshape(ids.shape + (self.features,))
 
-    def _lookup_same_axis(self, table, flat_ids, n_shards):
-        raise NotImplementedError(
-            f"a lookup into a table over {n_shards} shards, ids sharded on the "
-            "same axis, is not ported yet (ROADMAP queue A item 4)")
+    def _local_rows(self, mesh, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The rows of ``ids`` this rank owns, zeros for the others."""
+        local_rows = table.shape[0]
+        local = ids.long() - mesh.axis_index(self.shard_axis) * local_rows
+        hit = (local >= 0) & (local < local_rows)
+        rows = F.embedding(local.clamp(0, local_rows - 1), table)
+        return torch.where(hit[:, None], rows, rows.new_zeros(()))
 
-    def _lookup_cross_axis(self, table, flat_ids, n_shards):
-        raise NotImplementedError(
-            f"a lookup into a table over {n_shards} shards, ids sharded on "
-            "another axis, is not ported yet (ROADMAP queue A item 4)")
+    def _lookup_same_axis(self, mesh, table, flat_ids):
+        group = mesh.group(self.shard_axis)
+        # (B/n,) -> (B,): every rank answers every rank's queries
+        ids_all = collective.gather_dim(flat_ids.contiguous(), group)
+        contrib = self._local_rows(mesh, table, ids_all)
+        # each rank keeps its own batch slice, summed over the owners
+        return collective.reduce_scatter(contrib, group)
+
+    def _lookup_cross_axis(self, mesh, table, flat_ids):
+        contrib = self._local_rows(mesh, table, flat_ids)
+        return collective.all_reduce(contrib, mesh.group(self.shard_axis))

@@ -27,8 +27,16 @@ checkpoints; carrying JAX params across is `models.convert`'s job.
   propagates the error.
 - ``keep`` newest steps are kept; older ones are pruned after each write.
 
-The mesh helpers of the JAX module (``live_state_specs``,
-``abstract_like``, ``state_shardings``) wait for the multi-rank slice.
+On a mesh (``Checkpointer(..., trainer=mesh_trainer)``) a step is still
+one directory of whole tensors, the format above: ``save`` gathers every
+rank's table rows and ZeRO-1 moment shards (`Trainer.full_state`, a
+collective that every rank calls at the same step), and rank 0 writes.
+``restore`` reads the whole state on every rank, and each keeps its
+shards (`Trainer.load_full_state`): at the same world size bit for bit,
+at another one through the same code. The rescale protocol around a
+restore at another world size waits for ROADMAP queue A item 6, and the
+JAX module's mesh helpers (``live_state_specs``, ``abstract_like``,
+``state_shardings``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -67,9 +75,11 @@ def _map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], obj: Any) -> Any:
 class Checkpointer:
     """Checkpoints of one run under one directory."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, trainer: Optional[Any] = None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        #: the mesh Trainer whose states this saves (None: one device)
+        self.trainer = trainer if getattr(trainer, "mesh", None) is not None else None
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -79,9 +89,21 @@ class Checkpointer:
     # -- saving ----------------------------------------------------------------
 
     def save(self, step: int, state: TrainState, extra: Optional[dict] = None) -> None:
-        """Snapshot ``state`` and write it in the background as ``step``."""
+        """Snapshot ``state`` and write it in the background as ``step``. On
+        a mesh every rank must call it: the gather is collective, and rank 0
+        writes."""
         self.wait()
         t0 = time.perf_counter()
+        if self.trainer is not None:
+            snap = self.trainer.full_state(state)  # host copies of their own
+            if self.trainer.mesh.rank != 0:
+                return
+            extra = None if extra is None else json.loads(json.dumps(extra))
+            self._thread = threading.Thread(
+                target=self._write, args=(int(step), snap, extra, None, t0),
+                name="edl-checkpoint", daemon=True)
+            self._thread.start()
+            return
         # a copy of every tensor, detached from the live state, on its device
         snap = _map_tensors(lambda t: t.detach().clone(), {
             "step": int(state.step), "module": state.params.state_dict(),
@@ -168,13 +190,16 @@ class Checkpointer:
         # device while step counts stay where torch.optim keeps them
         saved = torch.load(os.path.join(self._step_dir(step), STATE_FILE),
                            map_location="cpu", weights_only=True)
+        if self.trainer is not None:
+            return self.trainer.load_full_state(state, saved)
         module.load_state_dict(saved["module"])
         opt.load_state_dict(saved["optimizer"])
         return TrainState(int(saved["step"]), module, opt)
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Load a step into ``state``'s module and optimizer, on the device
-        the module lives on; returns the state with the saved step count.
+        the module lives on; returns the state with the saved step count. On
+        a mesh each rank reads the step and keeps its shards.
 
         With ``step=None`` an unreadable newest step (a torn write) falls
         back to the one before it; an explicit ``step`` raises."""

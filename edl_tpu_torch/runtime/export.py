@@ -27,8 +27,12 @@ generation as grace for a reader holding an older manifest). The versioned
 layout puts each export in a ``v<step>`` directory and advances an atomic
 ``LATEST`` pointer only once the directory is complete.
 
-One device writes here; gathering shards across ranks arrives with the
-data-parallel slice.
+On a mesh of ranks (``mesh=``) the export is rank-collective, as the JAX
+package's ``_gather_host`` is: every rank reaches the gather at the same
+step, the row-sharded tables (the model's ``param_spec``) are put back
+together whole, and rank 0 writes. So a CTR trained at world 2 exports
+the same file layout as one trained on one device, and
+``load_inference_model`` of either package reads it.
 """
 
 from __future__ import annotations
@@ -158,11 +162,22 @@ def _state_dict(source: Any) -> Dict[str, torch.Tensor]:
     return module.state_dict()
 
 
-def _host_tree(model_ref: str, source: Any) -> Any:
+def _host_tree(model_ref: str, source: Any, config: Optional[Dict[str, Any]] = None,
+               mesh=None) -> Any:
     """The JAX package's params tree of ``source``, as CPU tensors of their
-    own (a later in-place update of the params does not reach them)."""
+    own (a later in-place update of the params does not reach them). On a
+    ``mesh`` the sharded params are gathered whole first: a collective,
+    which every rank must reach."""
     to_jax = PARAMS_TO_JAX.get(model_ref, tree_params_to_jax)
-    return to_jax(_state_dict(source))
+    state_dict = _state_dict(source)
+    if mesh is not None and mesh.distributed:
+        from edl_tpu_torch import models as zoo
+        from edl_tpu_torch.models.convert import gather_state_dict
+
+        model = zoo.resolve(model_ref, config or None)
+        spec = model.param_spec(mesh) if model.param_spec is not None else {}
+        state_dict = gather_state_dict(state_dict, spec, mesh)
+    return to_jax(state_dict)
 
 
 # -- writing -------------------------------------------------------------------
@@ -323,9 +338,11 @@ def save_inference_model(
     config: Optional[Dict[str, Any]] = None,
     step: Optional[int] = None,
     versioned: bool = False,
+    mesh=None,
 ) -> None:
     """Write the serving artifact of ``params`` (a module, a `TrainState`
-    or a state_dict) of zoo model ``model_ref``.
+    or a state_dict) of zoo model ``model_ref``. On a ``mesh`` every rank
+    calls it with its own params: they are gathered, and rank 0 writes.
 
     ``model_ref`` is the zoo module name (``"ctr"``, ``"transformer"``,
     ...); ``config`` the ``make_model`` kwargs that built the trained
@@ -333,8 +350,10 @@ def save_inference_model(
     writes each export to its own ``v<step>`` subdirectory and atomically
     advances the ``LATEST`` pointer (the layout the serving tier's swap
     watcher needs)."""
-    writer = _write_versioned if versioned else _write_artifact
-    writer(directory, model_ref, _host_tree(model_ref, params), config, step)
+    tree = _host_tree(model_ref, params, config, mesh)
+    if mesh is None or mesh.rank == 0:
+        writer = _write_versioned if versioned else _write_artifact
+        writer(directory, model_ref, tree, config, step)
 
 
 # -- reading -------------------------------------------------------------------
@@ -406,12 +425,18 @@ class PeriodicExporter:
     host, so later steps cannot reach it) and writes the files on a
     background thread, so the step loop pays only the device-to-host copy.
     A new export first waits for the previous write — bounded, and it
-    surfaces a failed write instead of losing it."""
+    surfaces a failed write instead of losing it.
+
+    On a ``mesh`` every rank calls it at every step, in lockstep: the
+    gather is collective, so the interval and the high-water mark (the
+    same on every rank) decide alone whether a step exports, and only rank
+    0 writes."""
 
     def __init__(self, directory: str, model_ref: str, interval: int,
                  config: Optional[Dict[str, Any]] = None,
-                 versioned: bool = False):
+                 versioned: bool = False, mesh=None):
         self.directory = directory
+        self.mesh = mesh
         self.model_ref = model_ref
         self.interval = max(1, int(interval))
         self.config = config
@@ -431,7 +456,10 @@ class PeriodicExporter:
         if step <= self._high_water or step % self.interval:
             return
         self._high_water = step
-        tree = _host_tree(self.model_ref, state)
+        # collective on every rank; discarded off the writer
+        tree = _host_tree(self.model_ref, state, self.config, self.mesh)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         self.wait()  # bounded; surfaces a failed previous write loudly
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=1,

@@ -24,20 +24,22 @@ nearest even as ``ml_dtypes``' ``astype`` is, with NaNs written as
 ``ml_dtypes`` writes them, so the encoded bits are the JAX package's. ``to_spec`` writes the same JSON as the JAX codec, so a spec
 either package publishes builds the same codec in the other.
 
-The JAX package's ``KVCodecChannel`` (codec agreement across processes over
-the coordinator KV) waits for the multi-process slice.
+`KVCodecChannel` agrees on one codec across the ranks of a mesh through
+the coordinator KV, with the JAX package's keys and JSON, so every rank
+decodes the same layout and no rank widens alone.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["WireCodec", "WireOverflowError", "WireRestartRequired"]
+__all__ = ["KVCodecChannel", "WireCodec", "WireOverflowError", "WireRestartRequired"]
 
 _U24_MAX = (1 << 24) - 1
 
@@ -233,9 +235,9 @@ class WireCodec:
 
 class WireRestartRequired(RuntimeError):
     """Multi-process codec agreement broke (a batch overflowed the
-    negotiated codec, or rank 0 died before publishing one): every process
-    must warm-restart and renegotiate. Raised by the multi-process slice;
-    kept here so callers catch the JAX package's names."""
+    negotiated codec, or rank 0 died before publishing one). Widening in
+    place would leave the peers decoding the old layout, so every process
+    must warm-restart and renegotiate: the gang restart a rescale takes."""
 
     def __init__(self, key: str, message: Optional[str] = None):
         super().__init__(
@@ -244,3 +246,67 @@ class WireRestartRequired(RuntimeError):
                "floor published — exit for gang warm-restart to renegotiate"
         )
         self.key = key
+
+
+class KVCodecChannel:
+    """Codec agreement for multi-process jobs, over the coordinator KV.
+
+    Every rank must decode the same layout, so the codec cannot be inferred
+    per rank from local batches (their ranges differ). Protocol, as in the
+    JAX package:
+
+    - rank 0 infers from its first batch, applies the persistent widen
+      floor, and publishes the spec under one key holding
+      ``{"epoch": N, "spec": ...}``: a rescale (new epoch, possibly a new
+      rank 0) renegotiates, and dead epochs never pile up in the KV;
+    - the other ranks poll that key for this epoch's spec, heartbeating;
+    - an overflow on ANY rank raises that key's width in the (epoch-less)
+      floor and asks for a gang warm-restart (`WireRestartRequired`); the
+      renegotiated codec starts from the floor, so the overflow cannot
+      recur (u8 -> u24 -> raw: at most two restarts per key, ever)."""
+
+    SPEC_KEY = "edl/wire_codec"
+    FLOOR_KEY = "edl/wire_floor"
+
+    def __init__(self, client, epoch: int):
+        self.client = client
+        self.epoch = int(epoch)
+
+    def floor(self) -> Dict[str, str]:
+        raw = self.client.kv_get(self.FLOOR_KEY)
+        return json.loads(raw) if raw else {}
+
+    def publish(self, codec: WireCodec) -> WireCodec:
+        """Rank 0: pin the (floored) codec for this epoch; returns it."""
+        floored = codec.apply_floor(self.floor())
+        self.client.kv_put(self.SPEC_KEY,
+                           json.dumps({"epoch": self.epoch, "spec": floored.to_spec()}))
+        return floored
+
+    def fetch(self, timeout: float = 60.0) -> WireCodec:
+        """Ranks > 0: block until rank 0 publishes THIS epoch's codec,
+        heartbeating while polling (negotiation can outlast the heartbeat
+        TTL, and an evicted waiter would bump the epoch for nothing). A
+        timeout means rank 0 died before publishing: the gang restarts."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            raw = self.client.kv_get(self.SPEC_KEY)
+            if raw:
+                msg = json.loads(raw)
+                if int(msg.get("epoch", -1)) == self.epoch:
+                    return WireCodec.from_spec(msg["spec"])
+            self.client.heartbeat()
+            time.sleep(0.05)
+        raise WireRestartRequired(
+            "", message=f"no wire codec published for epoch {self.epoch} within "
+                        f"{timeout}s (rank 0 died pre-publish?) — exit for gang "
+                        "warm-restart")
+
+    def raise_floor(self, key: str, encoding: str) -> None:
+        """Record that ``key`` needs at least ``encoding`` before restarting.
+        Floors only widen and restarts re-apply them, so a lost concurrent
+        update costs at most one more restart for the other key."""
+        floor = self.floor()
+        if _WIDTH_ORDER.get(encoding, 0) > _WIDTH_ORDER.get(floor.get(key, "u8"), -1):
+            floor[key] = encoding
+            self.client.kv_put(self.FLOOR_KEY, json.dumps(floor, sort_keys=True))

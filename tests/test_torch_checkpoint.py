@@ -219,3 +219,59 @@ def test_restore_extra_reads_and_logs_a_failed_read(tmp_path, caplog):
         assert ck.restore_extra() is None
     assert any("restore_extra" in r.message for r in caplog.records)
     assert Checkpointer(str(tmp_path / "none")).restore_extra() is None
+
+
+# -- a checkpoint of two ranks ------------------------------------------------------
+
+DP_CASES = {
+    "adagrad_ctr": ("ctr", dict(sparse_dim=500),
+                    dict(optimizer="adagrad", learning_rate=0.05, shard_opt_state=True), 16),
+    "adam_lm": ("lm", LM_KW, dict(optimizer="adam", learning_rate=1e-2,
+                                  shard_opt_state=True, grad_sync="psum"), 4),
+}
+
+
+def test_checkpoint_saved_at_world_2_restores_bit_for_bit(tmp_path):
+    """On two gloo ranks (`torch_dp_worker`), CTR (tables row-sharded,
+    adagrad's accumulators sharded with them and over ZeRO-1) and the LM
+    (Adam's moments under ZeRO-1): a save at step 2, gathered whole and
+    written by rank 0, restored by a fresh mesh Trainer, gives every rank
+    its params, moments and step back, and the next two steps' losses and
+    params, bit for bit (tolerance 0). The step on disk is the one-device
+    format, whole tensors: a one-device Trainer restores it to the params
+    the ranks hold together."""
+    from torch_dp_worker import spawn_ranks
+
+    tasks, models = [], {}
+    for name, (kind, kw, cfg, batch) in sorted(DP_CASES.items()):
+        model = ctr.make_model(**kw) if kind == "ctr" else transformer.make_model(**kw)
+        models[name] = (model, cfg)
+        params = model.build(device="cpu", generator=torch.Generator().manual_seed(4))
+        tasks.append(("checkpoint", dict(
+            model=kind, model_kwargs=kw, config=cfg, axes={"data": 2},
+            params=params.state_dict(), batches=_batches(model, batch, 4), save_after=2,
+            dir=str(tmp_path / name))))
+    results = spawn_ranks(tmp_path, 2, tasks)
+    for i, name in enumerate(sorted(DP_CASES)):
+        for r, res in enumerate(results):
+            got = res[i]
+            assert got["restored"]["step"] == 2
+            assert got["resumed"] == got["run"], (name, r)
+            for key in ("module",):
+                for leaf, t in got["saved"][key].items():
+                    assert torch.equal(got["restored"][key][leaf], t), (name, r, leaf)
+            for leaf, moments in got["saved"]["moments"].items():
+                for k, t in moments.items():
+                    assert torch.equal(got["restored"]["moments"][leaf][k], t), (name, r, leaf, k)
+            for leaf, t in got["run_params"].items():
+                assert torch.equal(got["resumed_params"][leaf], t), (name, r, leaf)
+        model, cfg = models[name]
+        one = Trainer(model, device="cpu", config=TrainerConfig(**cfg))
+        state = Checkpointer(str(tmp_path / name)).restore(one.init_state())
+        assert state.step == 2
+        if name == "adagrad_ctr":
+            halves = [res[i]["saved"]["module"]["deep_table"] for res in results]
+            assert torch.equal(state.params.deep_table.detach(), torch.cat(halves))
+        for leaf, t in state.params.state_dict().items():
+            if leaf not in ("deep_table", "wide_table"):
+                assert torch.equal(t, results[0][i]["saved"]["module"][leaf]), (name, leaf)

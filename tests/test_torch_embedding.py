@@ -83,7 +83,13 @@ def test_dedup_gather_matches_the_jax_custom_vjp(case):
 
 @pytest.mark.parametrize("batch_axis", ["data", "expert"])
 def test_lookups_across_shards_raise(batch_axis):
+    """A lookup across shards runs its collectives over a mesh's process
+    groups (held against the JAX lookups in `tests/test_torch_dp.py`); on
+    a mesh without them it raises rather than look up one shard alone."""
+    from edl_tpu_torch.parallel.mesh import Mesh
+
     emb = ShardedEmbedding(VOCAB, FEATURES, shard_axis="data", batch_axis=batch_axis)
-    table = torch.zeros((emb.padded_vocab(2), FEATURES))
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        emb.apply(table, torch.zeros((2, 3), dtype=torch.int32), n_shards=2)
+    table = torch.zeros((emb.padded_vocab(2) // 2, FEATURES))
+    mesh = Mesh(["data", "expert"], [2, 2], 0, 4)  # its shape only: no process group
+    with pytest.raises(ValueError, match="needs the Mesh"):
+        emb.apply(table, torch.zeros((2, 3), dtype=torch.int32), mesh=mesh)

@@ -220,3 +220,50 @@ def test_periodic_exporter_interval_high_water_and_background_write(tmp_path):
     art = load_inference_model(d, device="cpu")
     # the export holds the params of its step, not of the later steps
     assert all(torch.equal(v, snapshots[4][k]) for k, v in art.module.state_dict().items())
+
+
+# -- the rank-collective export ---------------------------------------------------
+
+
+def test_ctr_exported_from_two_ranks_loads_in_the_jax_package(tmp_path):
+    """CTR's params, row-sharded over two gloo ranks (`torch_dp_worker`),
+    exported by the rank-collective `save_inference_model` (every rank
+    gathers, rank 0 writes): the artifact is leaf for leaf, bit for bit, the
+    JAX export of the same params from a 2-device mesh, and the JAX
+    package's ``load_inference_model`` predicts from it exactly as from its
+    own (tolerance 0). A `PeriodicExporter` at interval 2 called by both
+    ranks at steps 1-4 writes v2 and v4 from rank 0 only."""
+    from edl_tpu.parallel import MeshSpec, build_mesh
+    from edl_tpu.runtime import Trainer as JaxTrainer, TrainerConfig as JaxConfig
+    from torch_dp_worker import spawn_ranks
+
+    config = {"sparse_dim": 1000}
+    jm = jax_models.resolve("ctr", config)
+    mesh = build_mesh(MeshSpec({"data": 2}), jax.devices()[:2])
+    jstate = JaxTrainer(jm, mesh, JaxConfig(optimizer="adagrad")).init_state(
+        jax.random.PRNGKey(3))
+    params = jax.device_get(jstate.params)
+    case = dict(model="ctr", model_kwargs=config, config=dict(optimizer="adagrad"),
+                axes={"data": 2}, params=PARAMS_FROM_JAX["ctr"](params),
+                dir=str(tmp_path / "port"), periodic_dir=str(tmp_path / "periodic"))
+    results = spawn_ranks(tmp_path, 2, [("export", case)])
+    assert [r[0]["exports"] for r in results] == [2, 0]
+    assert artifact_version(str(tmp_path / "periodic"))[0] == 4
+    assert _versions(str(tmp_path / "periodic")) == ["v0000000002", "v0000000004"]
+
+    jax_export.save_inference_model(str(tmp_path / "jax"), "ctr", jstate.params,
+                                    config=config, step=1)
+    port_manifest, port_tree = read_artifact(str(tmp_path / "port"))
+    jax_manifest, jax_tree = read_artifact(str(tmp_path / "jax"))
+    assert port_manifest["leaves"] == jax_manifest["leaves"]
+    assert (port_manifest["model"], port_manifest["config"], port_manifest["step"]) == (
+        "ctr", config, 1)
+    for a, b in zip(jax.tree_util.tree_leaves(port_tree), jax.tree_util.tree_leaves(jax_tree)):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+    batch = jm.synthetic_batch(np.random.default_rng(0), 32)
+    inputs = {k: v for k, v in batch.items() if k != "label"}
+    from_port = jax_export.load_inference_model(str(tmp_path / "port"), mesh=mesh)
+    from_jax = jax_export.load_inference_model(str(tmp_path / "jax"), mesh=mesh)
+    np.testing.assert_array_equal(np.asarray(from_port.predict(inputs)),
+                                  np.asarray(from_jax.predict(inputs)))

@@ -180,15 +180,36 @@ def test_trainer_matches_jax_trainer(name):
 
 
 @pytest.mark.parametrize("override,error", [
-    (dict(shard_opt_state=True), NotImplementedError),
-    (dict(grad_sync="reduce_scatter"), NotImplementedError),
-    (dict(grad_sync="ring"), ValueError),
-    (dict(grad_accum_microbatches=0), ValueError),
+    # the explicit plane needs the ZeRO-1 layout, a ValueError in the JAX Trainer too
+    pytest.param(dict(grad_sync="reduce_scatter"), ValueError,
+                 id="reduce_scatter_without_zero-ValueError"),
+    pytest.param(dict(grad_sync="ring"), ValueError, id="override2-ValueError"),
+    pytest.param(dict(grad_accum_microbatches=0), ValueError, id="override3-ValueError"),
 ])
 def test_options_outside_the_slice_raise(override, error):
     model = torch_tf.make_model(torch_tf.TransformerConfig(**CFG))
     with pytest.raises(error):
         Trainer(model, device="cpu", config=TrainerConfig(**override))
+
+
+@pytest.mark.parametrize("grad_sync", ["auto", "reduce_scatter"])
+def test_zero1_options_on_one_device_step_as_the_plain_trainer(grad_sync):
+    """``shard_opt_state`` and the explicit plane on one device, as on a
+    one-device JAX mesh: nothing divides over one rank, so the step is the
+    plain Trainer's, bit for bit (tolerance 0)."""
+    model = torch_tf.make_model(torch_tf.TransformerConfig(**CFG))
+    batch = model.synthetic_batch(np.random.default_rng(0), 4)
+    zero = Trainer(model, device="cpu", config=TrainerConfig(
+        shard_opt_state=True, grad_sync=grad_sync))
+    plain = Trainer(model, device="cpu")
+    assert zero.grad_sync == "reduce_scatter"
+    a, b = zero.init_state(), plain.init_state()
+    for _ in range(2):
+        a, la = zero.train_step(a, zero.place_batch(batch))
+        b, lb = plain.train_step(b, plain.place_batch(batch))
+        assert torch.equal(la, lb)
+    for (name, x), y in zip(a.params.state_dict().items(), b.params.state_dict().values()):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("optimizer,error", [("adamw", ValueError),

@@ -188,3 +188,33 @@ def test_no_lossy_float_keys_stay_raw_and_exact():
     assert [codec.keys[k].encoding for k in ("x", "y", "label")] == ["bf16", "raw", "u8"]
     np.testing.assert_array_equal(codec.encode(example)["y"].numpy(), example["y"])
     assert JaxCodec.infer(example, no_lossy_keys=("y", "label")).to_spec() == codec.to_spec()
+
+
+def test_kv_codec_channel_agrees_across_two_ranks_and_an_overflow_raises_the_floor(tmp_path):
+    """CTR with wire transport on two gloo ranks (`torch_dp_worker`), the
+    codec agreed through a `KVCodecChannel` over the process group's store:
+    rank 0 infers and publishes, rank 1 fetches, and both hold the same
+    spec, which the JAX codec reads back unchanged (tolerance: none, equal
+    strings); both ranks step with it and report the same losses. Then a
+    batch whose u8 label overflows on rank 1 alone makes rank 1 raise the
+    label's floor to u24 and ask for the gang restart
+    (`WireRestartRequired`), while rank 0 places its batch; the next
+    epoch's channel reads the raised floor on both ranks."""
+    from torch_dp_worker import spawn_ranks
+
+    model = ctr.make_model(sparse_dim=1000)
+    params = model.build(device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    case = dict(model="ctr", model_kwargs=dict(sparse_dim=1000),
+                config=dict(optimizer="adagrad", learning_rate=0.05, wire_transport=True),
+                axes={"data": 2}, params=params.state_dict(),
+                batches=[model.synthetic_batch(rng, 32) for _ in range(2)])
+    results = [r[0] for r in spawn_ranks(tmp_path, 2, [("wire", case)])]
+    spec = results[0]["spec"]
+    assert results[1]["spec"] == spec
+    assert JaxCodec.from_spec(spec).to_spec() == spec
+    assert WireCodec.from_spec(spec).keys["label"].encoding == "u8"
+    assert results[0]["losses"] == results[1]["losses"]
+    assert all(np.isfinite(results[0]["losses"]))
+    assert [r["restart"] for r in results] == [None, "label"]
+    assert [r["floor"] for r in results] == [{"label": "u24"}] * 2
