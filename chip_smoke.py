@@ -107,11 +107,37 @@ phase that fails raises, and the script exits non-zero without its last line:
     equal; CTR exported from both ranks (rank 0 writes) and served on one
     device against the ranks' own predict; a checkpoint saved at world 2
     and restored bit for bit. A rank that fails fails the phase.
-13. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+13. Elasticity (``elastic``): (a) the ``ElasticWorker`` on the card
+    against an ``InProcessCoordinator``, its membership driven from
+    ``step_callback``: CTR at phase 6's width over 6 shards of 8 batches
+    (a second member registers after step 10 and leaves after step 30:
+    rescales 1 -> 2 and 2 -> 1), then phase 4's LM over 3 shards of 4
+    batches (a join after step 6). Each rescale must carry all eight
+    ``RESCALE_PHASES`` under its trace id and restore bit for bit the
+    state its barrier saved (params and moments); every shard done, none
+    queued or leased; finite, falling losses; the LM's flash launches 12 a
+    forward (its steps' and each warm-up's) and 12 a backward kernel a
+    step. Printed: each rescale's recovery and warm-up seconds, its
+    phases' seconds, the checkpoint's bytes and samples/s before and
+    after. (b) The CTR entry (``python -m edl_tpu_torch.examples.ctr.train
+    --dist-backend auto``) under two ``python -m edl_tpu_torch.launcher``
+    processes against the native ``CoordinatorServer`` (built with
+    ``make``): two ranks on the one card over gloo (4096 rows and 500096
+    table rows a rank, ZeRO-1 moments), a checkpoint a round; once one
+    covers a round, SIGTERM to rank 1's launcher. Rank 1 leaves at a round
+    boundary and exits 0, rank 0 exits 75 once and is relaunched, forms a
+    world-1 group (NCCL, as ``auto`` picks), restores the world-2
+    checkpoint and drains the queue: both launchers exit 0, every shard
+    done, the world-1 incarnation trains exactly the shards its restored
+    checkpoint lacked, and that checkpoint (hard-linked as it landed)
+    restores into a world-1 Trainer bit for bit. Printed: recovery (epoch
+    move to the world-1 incarnation's first round plan), each
+    incarnation's start-up, a world-2 round's and a world-1 step's time.
+14. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
     per model, the remat LM included), one ``{"serve": {...}}``, one
-    ``{"data_path": {...}}``, one ``{"moe": {...}}`` and one ``{"dp":
-    {...}}``.
-14. The last line: ``{"ok": true, "device": {...}}``.
+    ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
+    {...}}`` and one ``{"elastic": {...}}``.
+15. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -2791,6 +2817,488 @@ def phase_dp(device) -> dict:
     return {"world1": world1, "world2": world2, "launches": world1["launches"]}
 
 
+# -- the elastic phase ----------------------------------------------------------
+
+#: part (a): each row's queue (shards x batches of the row's batch), the
+#: checkpoint interval, and the steps after which the second member
+#: registers ("join") and leaves ("leave")
+EL_CTR_SHARDS, EL_CTR_BATCHES = 6, 8
+EL_LM_SHARDS, EL_LM_BATCHES = 3, 4
+EL_CKPT_INTERVAL = 5
+EL_CTR_SCRIPT = {10: "join", 30: "leave"}
+EL_LM_SCRIPT = {6: "join"}
+#: part (b): the queue (shards x batches of each rank's 4096 rows: the
+#: global batch of 8192 at world 2), the checkpoint interval (a round: one
+#: shard's batches on each rank), the watcher's poll period and the
+#: deadline of the part
+EL_MH_SHARDS, EL_MH_BATCHES, EL_MH_BATCH = 16, 4, CTR_BATCH // 2
+EL_MH_POLL_S = 0.02
+EL_MH_TIMEOUT = 420
+#: extra arguments of part (b)'s entry (none on the card)
+EL_MH_ENTRY_ARGS = ""
+
+
+class Membership:
+    """A membership script run from ``step_callback``: at the steps of
+    ``script`` a second member registers (and a thread follows the
+    rendezvous, as a trainer would) or leaves. Deterministic: it reacts to
+    steps, not to the wall clock."""
+
+    def __init__(self, coord, script: dict):
+        import threading
+
+        self.coord, self.script = coord, dict(script)
+        self.stop = threading.Event()
+        self.thread = self.client = None
+
+    def _follow(self, epoch):
+        while not self.stop.is_set():
+            reply = self.client.sync(epoch, timeout=5.0)
+            if reply.get("ok"):
+                break
+            epoch = reply.get("epoch", epoch)
+        while not self.stop.is_set():
+            hb = self.client.heartbeat()
+            if hb.get("ok") and hb["epoch"] != epoch:
+                epoch = hb["epoch"]
+                self.client.sync(epoch, timeout=5.0)
+            time.sleep(0.02)
+
+    def __call__(self, step, state):
+        import threading
+
+        action = self.script.pop(step, None)
+        if action == "join":
+            self.client = self.coord.client("trainer-1")
+            info = self.client.register()
+            self.thread = threading.Thread(target=self._follow, args=(info["epoch"],),
+                                           daemon=True)
+            self.thread.start()
+        elif action == "leave":
+            self.close()
+            self.client.leave()
+
+    def close(self):
+        self.stop.set()
+        if self.thread is not None:
+            self.thread.join(timeout=60)
+
+
+def _full_diff(got: dict, want: dict) -> list:
+    """The tensors of two `Trainer.full_state` dicts that differ (bit for
+    bit), by name."""
+    import torch
+
+    bad = [] if got["step"] == want["step"] else ["step"]
+    bad += [k for k, v in want["module"].items() if not torch.equal(got["module"][k], v)]
+    for i, per in want["optimizer"]["state"].items():
+        bad += [f"optimizer {i} {k}" for k, v in per.items()
+                if not torch.equal(got["optimizer"]["state"][i][k], v)]
+    return bad
+
+
+def _rates(marks, rescales, batch: int) -> list:
+    """samples/s of each world's run of steps (its first step, which pays
+    the recovery, left out): ``marks`` are (perf_counter, step) at each
+    step's callback, cut at each rescale's first step."""
+    cuts = [r.at_step for r in rescales]
+    segments, cur = [], []
+    for t, step in marks:
+        if cuts and step == cuts[0] and cur:
+            segments.append(cur)
+            cur = []
+            cuts.pop(0)
+        cur.append(t)
+    segments.append(cur)
+    return [(len(s) - 2) * batch / (s[-1] - s[1]) if len(s) > 2 else None for s in segments]
+
+
+def elastic_row(label, model, trainer_kw, batch, shards, per_shard, script, device,
+                counts=None) -> dict:
+    """Part (a) for one row: an `ElasticWorker` on the card against an
+    `InProcessCoordinator` under the membership ``script``; holds the
+    rescales, their phases, the queue, the losses and each restore against
+    its barrier's save; returns the row's figures."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.coordinator import InProcessCoordinator
+    from edl_tpu_torch.obs.tracing import RESCALE_PHASES, Tracer, rescale_timeline
+    from edl_tpu_torch.runtime import (ElasticConfig, ElasticWorker, SyntheticShardSource,
+                                       TrainerConfig)
+    from edl_tpu_torch.runtime.data import shard_names
+
+    coord = InProcessCoordinator(task_lease_sec=600.0, heartbeat_ttl_sec=600.0)
+    admin = coord.client("admin")
+    admin.add_tasks(shard_names(f"elastic-{label}", shards))
+    members = Membership(coord, script)
+    marks = []
+
+    def on_step(step, state):
+        marks.append((time.perf_counter(), step))  # the worker synced on the loss
+        members(step, state)
+
+    tracer = Tracer()
+    with tempfile.TemporaryDirectory(prefix=f"edl-elastic-{label}-") as root:
+        cfg = ElasticConfig(checkpoint_dir=root, checkpoint_interval=EL_CKPT_INTERVAL,
+                            heartbeat_interval=0.0, rescale_barrier_timeout=120.0,
+                            step_callback=on_step, trainer=TrainerConfig(**trainer_kw))
+        worker = ElasticWorker(model, coord.client("trainer-0"),
+                               SyntheticShardSource(model, batch, per_shard), cfg,
+                               device=device, tracer=tracer)
+        # the state each blocking save wrote (the latest), and each restore
+        # held against it bit for bit, params and moments
+        saved, restores = {}, []
+        save, restore = worker._checkpoint, worker._restore_or_init
+
+        def checkpoint(state, block=False):
+            save(state, block=block)
+            if block:
+                saved.clear()
+                saved[int(state.step)] = worker._trainer.full_state(state)
+
+        def restore_held(trainer, fresh):
+            state = restore(trainer, fresh)
+            step = int(state.step)
+            if worker._last_restore["source"] != "init":
+                want = saved.get(step)
+                require(want is not None, f"elastic {label}: restored step {step}, saved "
+                                          f"{sorted(saved)}")
+                bad = _full_diff(trainer.full_state(state), want)
+                require(not bad, f"elastic {label}: restored state off the barrier's save: "
+                                 f"{bad[:5]}")
+                restores.append({"step": step, "source": worker._last_restore["source"],
+                                 "checkpoint_bytes": os.path.getsize(
+                                     os.path.join(root, str(step), "state.pt"))})
+            return state
+
+        worker._checkpoint, worker._restore_or_init = checkpoint, restore_held
+        if counts is not None:
+            counts[0]()
+        t0 = time.perf_counter()
+        try:
+            metrics = worker.run()
+        finally:
+            members.close()
+        seconds = time.perf_counter() - t0
+        launches = counts[1]() if counts is not None else None
+        ckpt_bytes = os.path.getsize(os.path.join(root, str(worker.ckpt.latest_step()),
+                                                  "state.pt"))
+    st = admin.status()
+    require((st["done"], st["queued"], st["leased"]) == (shards, 0, 0),
+            f"elastic {label}: queue done/queued/leased {st['done']}/{st['queued']}/"
+            f"{st['leased']}, want {shards}/0/0")
+    losses = np.asarray(worker.losses)
+    require(bool(np.isfinite(losses).all()), f"elastic {label}: non-finite loss")
+    require(losses[-per_shard:].mean() < losses[0],
+            f"elastic {label}: loss did not fall: the first {losses[0]:.4f}, the last "
+            f"shard's {losses[-per_shard:]}")
+    joins = sum(1 for a in script.values() if a == "join")
+    leaves = sum(1 for a in script.values() if a == "leave")
+    want = [(1, 2)] * joins + [(2, 1)] * leaves
+    got = [(r.from_world, r.to_world) for r in worker.rescales]
+    require(got == want, f"elastic {label}: rescales {got}, want {want}")
+    require(len(restores) == len(want), f"elastic {label}: {len(restores)} restores held "
+                                         f"for {len(want)} rescales")
+    timeline = rescale_timeline(tracer.spans)
+    ids = [tid for tid, t in timeline.items() if "drain" in t["phases"]]
+    require(len(ids) == len(want), f"elastic {label}: rescale traces {ids}")
+    rates = _rates(marks, worker.rescales, batch)
+    events = []
+    for i, (r, tid) in enumerate(zip(worker.rescales, sorted(ids))):
+        phases = timeline[tid]["phases"]
+        missing = [p for p in RESCALE_PHASES if p not in phases]
+        require(not missing, f"elastic {label} {tid}: phases missing: {missing}")
+        events.append({
+            "trace_id": tid, "at_step": r.at_step, "from_world": r.from_world,
+            "to_world": r.to_world, "recovery_seconds": r.recovery_seconds,
+            "compile_seconds": r.compile_seconds, "layout": r.layout,
+            "phase_seconds": {p: phases[p]["seconds"] for p in RESCALE_PHASES},
+            "wall_seconds": timeline[tid]["wall_seconds"],
+            "restore_source": restores[i]["source"],
+            "checkpoint_bytes": restores[i]["checkpoint_bytes"],
+            "samples_per_s_before": rates[i], "samples_per_s_after": rates[i + 1]})
+        print(f"elastic {label}: rescale {r.from_world} -> {r.to_world} at step "
+              f"{r.at_step}: recovery {r.recovery_seconds:.3f} s (warm-up "
+              f"{r.compile_seconds:.3f} s beside it), restored bit for bit from a "
+              f"{restores[i]['checkpoint_bytes'] / 2**20:.1f} MiB checkpoint; phases "
+              + ", ".join(f"{p} {phases[p]['seconds']:.3f}" for p in RESCALE_PHASES)
+              + f" s; samples/s {rates[i] or 0:.0f} before, {rates[i + 1] or 0:.0f} after")
+    row = {"label": label, "batch": batch, "shards": shards, "batches_a_shard": per_shard,
+           "steps": worker.steps_done, "seconds": seconds, "rescales": events,
+           "losses_first_last": [float(losses[0]), float(losses[-1])],
+           "checkpoint_bytes": ckpt_bytes, "metric_keys": sorted(metrics),
+           "max_recovery_seconds": metrics["max_recovery_seconds"]}
+    if launches is not None:
+        row["launches"] = launches
+    print(f"elastic {label}: {worker.steps_done} steps over {shards} shards (every "
+          f"shard done, none queued or leased) in {seconds:.1f} s; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; checkpoint {ckpt_bytes / 2**20:.1f} MiB")
+    return row
+
+
+def elastic_rows(device) -> dict:
+    """Part (a): CTR at its published width (a join after step 10, a leave
+    after step 30) and the GPT-2-small-width LM (a join after step 6),
+    each through the `ElasticWorker` on the card. The LM row counts the
+    flash kernels' launches: 12 a forward (the steps' and each rescale's
+    warm-up forward) and 12 of each backward kernel a step."""
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, make_model
+
+    fa = _flash_module()
+    out = {"ctr": elastic_row("ctr", _dp_ctr(),
+                              dict(optimizer="adagrad", learning_rate=0.05), CTR_BATCH,
+                              EL_CTR_SHARDS, EL_CTR_BATCHES, EL_CTR_SCRIPT, device)}
+    torch.cuda.empty_cache()
+    cfg = TransformerConfig(flash=True, **SLICE)
+    lm = elastic_row("lm", make_model(cfg), dict(optimizer="adam", learning_rate=3e-4),
+                     BATCH, EL_LM_SHARDS, EL_LM_BATCHES, EL_LM_SCRIPT, device,
+                     counts=(fa.reset_launches, lambda: dict(fa.LAUNCHES)))
+    warm = sum(1 for r in lm["rescales"] if r["compile_seconds"] > 0)
+    want = {"fwd": cfg.n_layers * (lm["steps"] + warm), "bwd_dq": cfg.n_layers * lm["steps"],
+            "bwd_dkv": cfg.n_layers * lm["steps"]}
+    require(lm["launches"] == want, f"elastic lm: flash launches {lm['launches']}, want "
+                                    f"{want} ({lm['steps']} steps, {warm} warm-up forwards)")
+    out["lm"] = lm
+    torch.cuda.empty_cache()
+    return out
+
+
+class CheckpointWatch:
+    """Part (b)'s observer, on a thread: the coordinator's epoch, queue,
+    rank 0's process-group address (published once an incarnation has
+    started and settled its rank) and round plans (each epoch's first plan:
+    its incarnation's first round, which its first step follows at once)
+    with their wall times, and every
+    checkpoint step rank 0 writes, hard-linked as it lands (the
+    Checkpointer prunes all but the newest three)."""
+
+    def __init__(self, client, ckpt_dir: str, snap_dir: str):
+        import threading
+
+        self.client, self.ckpt_dir, self.snap_dir = client, ckpt_dir, snap_dir
+        self.epochs = {}      # epoch -> first seen (time.time())
+        self.addresses = {}   # epoch -> rank 0's process-group address first seen
+        self.rounds = {}      # (epoch, round) -> first seen
+        self.snapshots = {}   # step -> path of its state.pt's link
+        self.status = {}
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import os
+
+        from edl_tpu_torch.runtime.distributed import PG_ADDRESS_KEY
+
+        while not self.stop.is_set():
+            now = time.time()
+            st = self.client.status()
+            self.status = st
+            epoch = int(st["epoch"])
+            self.epochs.setdefault(epoch, now)
+            for e in list(self.epochs):
+                if e not in self.addresses and self.client.kv_get(f"{PG_ADDRESS_KEY}/{e}"):
+                    self.addresses[e] = now
+                # the next plans not seen yet (rank 0 deletes a plan once a
+                # later round's collective proves every rank read it)
+                r = 1 + max((rr for (ee, rr) in self.rounds if ee == e), default=-1)
+                for k in range(r, r + 3):
+                    if self.client.kv_get(f"edl/mh_round/{e}/{k}"):
+                        self.rounds[(e, k)] = now
+            if os.path.isdir(self.ckpt_dir):
+                for name in os.listdir(self.ckpt_dir):
+                    src = os.path.join(self.ckpt_dir, name, "state.pt")
+                    if name.isdigit() and int(name) not in self.snapshots:
+                        dst = os.path.join(self.snap_dir, f"{name}.pt")
+                        try:
+                            os.link(src, dst)
+                        except FileNotFoundError:
+                            continue  # pruned or not complete yet
+                        self.snapshots[int(name)] = dst
+            time.sleep(EL_MH_POLL_S)
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=10)
+
+
+def _log_time(text: str, marker: str):
+    """The wall time (time.time()) of the launcher's log line holding
+    ``marker``: the logging module's ``asctime`` in local time."""
+    import datetime
+
+    for line in text.splitlines():
+        if marker in line:
+            stamp = " ".join(line.split()[:2])
+            return datetime.datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    return None
+
+
+def elastic_multihost(device) -> dict:
+    """Part (b): the CTR entry under two launchers (`MultiHostWorker`, two
+    ranks on the one card over gloo, tables 500096 rows a rank,
+    ``shard_opt_state``), the native coordinator, a SIGTERM to rank 1's
+    launcher once a collective checkpoint covers a round: rank 1 leaves,
+    rank 0 exits 75, its launcher relaunches it, and it forms a world-1
+    group (NCCL), restores the world-2 checkpoint and drains the queue."""
+    import os
+    import signal
+
+    import torch
+
+    from edl_tpu_torch.coordinator import CoordinatorServer
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.parallel.mesh import local_mesh
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+    from edl_tpu_torch.runtime.data import shard_names
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    n, per = EL_MH_SHARDS, EL_MH_BATCHES
+    sparse = (DP_CTR_CONFIG or {}).get("sparse_dim", ctr.SPARSE_DIM)
+    entry = (f"{sys.executable} -m edl_tpu_torch.examples.ctr.train --dist-backend auto "
+             f"--zero1 --batch-size {EL_MH_BATCH} --batches-per-shard {per} "
+             f"--sparse-feature-dim {sparse} {EL_MH_ENTRY_ARGS}").strip()
+    with tempfile.TemporaryDirectory(prefix="edl-elastic-mh-") as root:
+        ckpt, snap = os.path.join(root, "ckpt"), os.path.join(root, "snap")
+        os.makedirs(snap)
+        procs = {}
+        with CoordinatorServer(task_lease_sec=600.0, heartbeat_ttl_sec=60.0) as server:
+            admin = server.client("admin")
+            admin.add_tasks(shard_names("criteo", n))
+            admin.kv_put("edl/expected_world", "2")
+            watch = CheckpointWatch(server.client("chip-smoke-watch"), ckpt, snap)
+
+            def launch(name):
+                env = {**os.environ, "PYTHONPATH": repo,
+                       "EDL_COORDINATOR_ENDPOINT": server.address,
+                       "EDL_PORT": str(server.port), "EDL_NUM_TRAINERS": "2",
+                       "EDL_ENTRY": entry, "EDL_POD_NAME": name, "EDL_JOB_NAME": "chip-smoke",
+                       "EDL_CHECKPOINT_DIR": ckpt, "EDL_CHECKPOINT_INTERVAL": str(per),
+                       "EDL_TERMINATION_LOG": os.path.join(root, f"term-{name}")}
+                files = [open(os.path.join(root, f"{name}.{k}"), "w") for k in ("out", "err")]
+                procs[name] = (time.time(), subprocess.Popen(
+                    [sys.executable, "-m", "edl_tpu_torch.launcher", "start_trainer"],
+                    env=env, cwd=repo, stdout=files[0], stderr=files[1],
+                    start_new_session=True))
+
+            deadline = time.monotonic() + EL_MH_TIMEOUT
+
+            def until(cond, what):
+                while not cond():
+                    require(time.monotonic() < deadline, f"elastic multihost: {what}")
+                    require(all(p.poll() is None for _, p in procs.values()),
+                            f"elastic multihost: a launcher exited early ({what})")
+                    time.sleep(EL_MH_POLL_S)
+
+            try:
+                launch("w0")
+                until(lambda: len(admin.members()) >= 1, "w0 never registered")
+                launch("w1")  # registers second: rank 1
+                until(lambda: int(watch.status.get("done", 0)) >= 2,
+                      "no collective checkpoint covered a round")
+                admin.kv_put("edl/expected_world", "1")
+                t_term = time.time()
+                procs["w1"][1].send_signal(signal.SIGTERM)
+                for name in ("w1", "w0"):
+                    p = procs[name][1]
+                    p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                st = admin.status()
+            finally:
+                watch.close()
+                for _, p in procs.values():
+                    if p.poll() is None:  # the launcher and the entry it runs
+                        os.killpg(p.pid, signal.SIGKILL)
+                        p.wait()
+        logs = {name: {k: open(os.path.join(root, f"{name}.{k}")).read()
+                       for k in ("out", "err")} for name in procs}
+        codes = {name: p.returncode for name, (_, p) in procs.items()}
+        require(codes == {"w0": 0, "w1": 0},
+                f"elastic multihost: launchers exited {codes}:\n"
+                + "\n".join(f"{k}: {v['err'][-3000:]}" for k, v in logs.items()))
+        marker = "entry requested rescale restart (exit 75)"
+        restarts = {name: log["err"].count(marker) for name, log in logs.items()}
+        require(restarts == {"w0": 1, "w1": 0},
+                f"elastic multihost: exit-75 relaunches {restarts}, want w0 once")
+        final = json.loads([line for line in logs["w0"]["out"].splitlines()
+                            if line.startswith("{")][-1])
+        require(final["world"] == 1.0, f"elastic multihost: final world {final['world']}")
+        require((st["done"], st["queued"], st["leased"]) == (n, 0, 0),
+                f"elastic multihost: queue done/queued/leased {st['done']}/{st['queued']}/"
+                f"{st['leased']}")
+        last = max(int(s) for s in os.listdir(ckpt) if s.isdigit())
+        steps1 = int(final["steps"])
+        restored = last - steps1
+        require(restored in watch.snapshots and restored > 0 and restored % per == 0,
+                f"elastic multihost: restored step {restored} (final {last}, world-1 steps "
+                f"{steps1}); snapshots {sorted(watch.snapshots)}")
+        covered = 2 * restored // per  # two shards a round at world 2
+        require(steps1 == (n - covered) * per,
+                f"elastic multihost: the world-1 incarnation trained {steps1} steps, want "
+                f"{(n - covered) * per}: the {n - covered} shards the step-{restored} "
+                "checkpoint lacks")
+        # the world-1 restore of the world-2 checkpoint, through the same
+        # code as the relaunched rank's (`load_full_state` on a world-1 mesh)
+        saved = torch.load(watch.snapshots[restored], map_location="cpu", weights_only=True)
+        trainer = Trainer(_dp_ctr(), local_mesh(), TrainerConfig(optimizer="adagrad",
+                                                                learning_rate=0.05),
+                          device=device)
+        state = trainer.load_full_state(trainer.init_state(), saved)
+        bad = _full_diff(trainer.full_state(state), saved)
+        require(not bad, f"elastic multihost: world-1 restore off the world-2 checkpoint: "
+                         f"{bad[:5]}")
+        del state, trainer
+        torch.cuda.empty_cache()
+
+    epochs = sorted(watch.epochs.items())
+    moved = [(e, t) for e, t in epochs if t >= t_term]
+    require(moved, "elastic multihost: no epoch move after the SIGTERM")
+    e_after, t_move = moved[0]
+    first_round = {e: t for (e, r), t in watch.rounds.items() if r == 0}
+    e_before = max(e for e, t in epochs if t < t_term)
+    relaunch = _log_time(logs["w0"]["err"], "restart=1")
+    rounds = sorted(t for (e, r), t in watch.rounds.items() if e == e_before)
+    out = {
+        "shards": n, "batches_a_shard": per, "batch_a_rank": EL_MH_BATCH,
+        "launcher_codes": codes, "exit_75_relaunches": restarts,
+        "restored_step": restored, "shards_covered": covered,
+        "world1_steps": steps1, "world1_step_ms": final["seconds"] / steps1 * 1e3,
+        "recovery_s": first_round[e_after] - t_move,
+        "startup_s": {"world2": first_round[e_before] - procs["w1"][0],
+                      "world1": first_round[e_after] - relaunch},
+        # start-up split at rank 0's published process-group address: the
+        # interpreter, imports and rendezvous before it; the group, the
+        # model, the restore and the first plan after it
+        "to_group_address_s": {"world2": watch.addresses[e_before] - procs["w1"][0],
+                               "world1": watch.addresses[e_after] - relaunch},
+        "world2_round_s": statistics.median(b - a for a, b in zip(rounds, rounds[1:])),
+    }
+    print(f"elastic multihost: two ranks (one card, --dist-backend auto) trained "
+          f"{covered} shards by step {restored}; SIGTERM to rank 1; rank 0 exited 75 once "
+          f"and came back at world 1: recovery {out['recovery_s']:.2f} s (epoch move -> the world-1 "
+          f"incarnation's first round, its first step right after); start-up "
+          f"{out['startup_s']['world2']:.2f} s (world 2, rank 1's launcher -> first round; "
+          f"{out['to_group_address_s']['world2']:.2f} s of it to the group's address) "
+          f"and {out['startup_s']['world1']:.2f} s (relaunch -> first round; "
+          f"{out['to_group_address_s']['world1']:.2f} s to the address); a world-2 "
+          f"round ({per} steps and a checkpoint) {out['world2_round_s']:.2f} s; world 1 "
+          f"{out['world1_step_ms']:.1f} ms a step (checkpoints included) over {steps1} "
+          f"steps; every shard done, only the {n - covered} uncommitted replayed; the "
+          "world-1 restore equals the world-2 checkpoint bit for bit")
+    return out
+
+
+def phase_elastic(device) -> dict:
+    """The elastic phase: part (a) the `ElasticWorker` rows on the card,
+    part (b) the `MultiHostWorker` through the launcher."""
+    rows = elastic_rows(device)
+    return {"rows": rows, "multihost": elastic_multihost(device),
+            "launches": rows["lm"]["launches"]}
+
 
 def main(argv) -> int:
     if "--dp-rank" in argv:  # one rank of the dp phase's part (b)
@@ -2822,6 +3330,7 @@ def main(argv) -> int:
         remat = phase_remat(device, lm)
         serve = phase_serve(device, lm_export, ctr_staged)
     dp = phase_dp(device)
+    elastic = phase_elastic(device)
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
@@ -2829,6 +3338,7 @@ def main(argv) -> int:
         row["launches_data_path"] = data_path["grad_accum"]["launches"][name]
         row["launches_moe"] = moe["launches"][name]
         row["launches_dp"] = dp["launches"][name]
+        row["launches_elastic"] = elastic["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
@@ -2836,6 +3346,7 @@ def main(argv) -> int:
     print(json.dumps({"data_path": data_path}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"dp": dp}))
+    print(json.dumps({"elastic": elastic}))
     import torch
 
     # count: the devices this run uses

@@ -5,18 +5,24 @@ imports neither JAX nor anything of `edl_tpu`, and keeps its own copy of
 what it needs. It mirrors the reference's layout, so each counterpart sits
 at the same path:
 
+  ckpt_plane/ the memory-resident checkpoint plane: peer-replicated ZeRO-1
+             shards in the JAX package's blob format
   coordinator/ copies of the JAX package's coordinator client, in-process
              twin and native-server manager (the same binary)
+  examples/  the training entries (CTR, the LM) the launcher execs
   models/    the model bundle and the zoo: fit_a_line, mnist, word2vec, ctr,
              resnet and the transformer LM (with its serving steps)
   obs/       the metrics registry, span tracing and `/metrics` over HTTP
   ops/       hand-written CUDA kernels for Hopper and their plain versions
-  parallel/  attention over the sequence axis and embedding tables (one
-             shard for now)
-  runtime/   the single-device Trainer, its optimizers and one-device
-             options (wire transport, gradient accumulation, pipelined
+  parallel/  the mesh of ranks, its collectives and batch sharding,
+             embedding tables across shards, and attention over the
+             sequence axis (one shard for now)
+  runtime/   the Trainer on one device or a mesh of ranks, its optimizers
+             and options (wire transport, gradient accumulation, pipelined
              placement), the lease-driven data path, checkpoints (the port's
-             own format) and the serving export (the JAX package's format)
+             own format), the serving export (the JAX package's format) and
+             elasticity: the elastic and multi-process workers, the
+             fault-tolerance policy and the straggler detector
   serving/   batch and continuous-batching LM serving replicas, router,
              HTTP frontend and autoscaler signals
   tools/     FLOP and MFU accounting

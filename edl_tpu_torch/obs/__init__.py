@@ -1,18 +1,22 @@
-"""The telemetry plane the serving tier needs: copies of `edl_tpu.obs`.
+"""The telemetry plane of the workers and the serving tier: copies of
+`edl_tpu.obs`.
 
 - :mod:`edl_tpu_torch.obs.metrics` — the metrics registry, Prometheus text
   exposition and its parser.
-- :mod:`edl_tpu_torch.obs.tracing` — the span recorder.
+- :mod:`edl_tpu_torch.obs.tracing` — the span recorder, the rescale
+  trace id (the membership epoch) and the timeline stitcher.
 - :mod:`edl_tpu_torch.obs.http` — `/metrics`, `/healthz` and `/spans` on a
   stdlib HTTP server, and `scrape_metrics`.
-- :mod:`edl_tpu_torch.obs.instruments` — the batch and LM serving
-  instrument sets, with the JAX package's family names.
+- :mod:`edl_tpu_torch.obs.instruments` — the worker, checkpoint-plane,
+  preemption, fault-tolerance-policy and serving instrument sets, with the
+  JAX package's family names.
 
 Stdlib-only: importing it loads no torch.
 """
 
 from edl_tpu_torch.obs.http import MetricsServer, ObsRequestHandler, scrape_metrics
-from edl_tpu_torch.obs.instruments import LMServeInstruments, ServeInstruments
+from edl_tpu_torch.obs.instruments import (LMServeInstruments, ServeInstruments,
+                                           WorkerInstruments)
 from edl_tpu_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -21,7 +25,8 @@ from edl_tpu_torch.obs.metrics import (
     get_registry,
     parse_prometheus,
 )
-from edl_tpu_torch.obs.tracing import Span, Tracer, get_tracer
+from edl_tpu_torch.obs.tracing import (Span, Tracer, get_tracer, load_spans,
+                                      rescale_timeline, rescale_trace_id)
 
 __all__ = [
     "Counter",
@@ -34,8 +39,12 @@ __all__ = [
     "ServeInstruments",
     "Span",
     "Tracer",
+    "WorkerInstruments",
     "get_registry",
     "get_tracer",
+    "load_spans",
     "parse_prometheus",
+    "rescale_timeline",
+    "rescale_trace_id",
     "scrape_metrics",
 ]

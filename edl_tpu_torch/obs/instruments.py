@@ -1,21 +1,38 @@
-"""The serving tier's instrument sets: the `ServeInstruments` and
-`LMServeInstruments` halves of `edl_tpu.obs.instruments`.
+"""Shared instrument sets for the runtime's moving parts: a copy of
+`edl_tpu.obs.instruments`.
 
 The metric *names* live here, once, and are the JAX package's letter for
-letter (``edl_serve_*``, ``edl_lm_*``): its autoscaler and router scrape
-them, so a renamed family would break the controller. Creation is
-get-or-create against the registry, so a second replica in one process
-reuses the same instruments.
+letter: `ElasticWorker` and `MultiHostWorker` record into the same
+``edl_worker_*`` families (with the checkpoint plane's, the preemption
+plane's and the fault-tolerance policy's), and the serving replicas into
+``edl_serve_*`` and ``edl_lm_*``. Dashboards, the `/metrics` scrape and the
+JAX package's autoscaler and router read them, so a renamed family would
+break them. Creation is get-or-create against the registry, so a second
+worker or replica in one process reuses the same instruments.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 from edl_tpu_torch.obs.metrics import MetricsRegistry, get_registry
 
-__all__ = ["ServeInstruments", "LMServeInstruments", "SERVE_LATENCY_BUCKETS",
+__all__ = ["WorkerInstruments", "FTPolicyInstruments", "ServeInstruments",
+           "LMServeInstruments", "CkptPlaneInstruments", "PreemptInstruments",
+           "OUTAGE_BUCKETS", "SERVE_LATENCY_BUCKETS", "NOTICE_BUCKETS",
            "TOKEN_LATENCY_BUCKETS"]
+
+#: outage-duration buckets: sub-second blips through multi-minute storms.
+#: The default latency buckets top out at 60 s — exactly where the park
+#: decision gets interesting — so outages get their own scale.
+OUTAGE_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                  120.0, 300.0, 600.0)
+
+#: notice-to-drained buckets: spot notices run 25-120 s, and a healthy
+#: drain (evacuate + replan + shrink) should finish in single-digit
+#: seconds — the interesting resolution is "how much notice was left".
+NOTICE_BUCKETS = (0.5, 1.0, 2.5, 5.0, 10.0, 20.0, 30.0, 45.0, 60.0, 120.0)
 
 #: request-latency buckets: the serving SLO lives in the 1 ms - 1 s band
 #: (queue wait + pad + device step), far below the default latency
@@ -31,6 +48,120 @@ SERVE_LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
 #: per *token*, not per request.
 TOKEN_LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                          0.1, 0.25, 0.5, 1.0, 2.5)
+
+
+class WorkerInstruments:
+    """The worker-side sensor suite: heartbeat latency, outbox depth,
+    degraded-mode time, epoch observations, rescales, parks."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        r = registry if registry is not None else get_registry()
+        self.heartbeat_latency = r.histogram(
+            "edl_worker_heartbeat_latency_seconds",
+            "coordinator heartbeat round-trip time (dedicated beats only; "
+            "coalesced beats cost no RPC and record no latency)",
+        )
+        self.heartbeats = r.counter(
+            "edl_worker_heartbeats_total",
+            "heartbeat observations, by transport path",
+            labelnames=("path",),  # dedicated | coalesced
+        )
+        self.outbox_depth = r.gauge(
+            "edl_worker_outbox_depth",
+            "mutations buffered for replay (degraded mode)",
+        )
+        self.degraded_seconds = r.gauge(
+            "edl_worker_degraded_seconds",
+            "seconds of the CURRENT coordinator outage (0 while reachable)",
+        )
+        self.outage_seconds_total = r.gauge(
+            "edl_worker_outage_seconds_total",
+            "cumulative seconds spent with the coordinator unreachable",
+        )
+        self.outage_duration = r.histogram(
+            "edl_worker_outage_duration_seconds",
+            "per-incident coordinator outage lengths (the distribution the "
+            "adaptive fault-tolerance policy sizes its wait window from; "
+            "the running-total gauge loses exactly this)",
+            buckets=OUTAGE_BUCKETS,
+        )
+        self.epoch = r.gauge(
+            "edl_worker_epoch",
+            "membership epoch this worker last adopted",
+        )
+        self.epoch_observations = r.counter(
+            "edl_worker_epoch_observations_total",
+            "membership epoch adoptions (register / rescale / outage rejoin)",
+        )
+        self.epoch_notify_latency = r.histogram(
+            "edl_worker_epoch_notify_latency_seconds",
+            "delay between a pushed epoch notification arriving on the "
+            "watch stream and the worker loop consuming it (watch-based "
+            "discovery only; pull rounds never record here)",
+        )
+        self.epoch_notifies = r.counter(
+            "edl_worker_epoch_notifies_total",
+            "pushed epoch notifications consumed from the watch stream",
+        )
+        self.pulls_suppressed = r.counter(
+            "edl_worker_epoch_pulls_suppressed_total",
+            "dedicated pull rounds skipped because a healthy watch "
+            "subscription already covers epoch discovery",
+        )
+        self.rescales = r.counter(
+            "edl_worker_rescales_total",
+            "completed elastic rescales (first post-rescale step done)",
+        )
+        self.parks = r.counter(
+            "edl_worker_parks_total",
+            "times the outage budget expired and the worker checkpointed and parked",
+        )
+        self.steps = r.counter(
+            "edl_worker_steps_total",
+            "optimizer steps completed by this process",
+        )
+
+    # -- convenience recorders -------------------------------------------------
+
+    def timed_heartbeat(self, client):
+        """``client.heartbeat()`` with latency + path accounting."""
+        t0 = time.perf_counter()
+        reply = client.heartbeat()
+        self.heartbeat_latency.observe(time.perf_counter() - t0)
+        self.heartbeats.inc(path="dedicated")
+        return reply
+
+    def note_coalesced_heartbeat(self) -> None:
+        self.heartbeats.inc(path="coalesced")
+
+    def note_outage_state(self, client) -> None:
+        """Refresh degraded-mode gauges from an OutboxClient-surface client.
+        Safe on plain clients (missing surface reads as healthy)."""
+        outage_seconds = getattr(client, "outage_seconds", None)
+        self.degraded_seconds.set(
+            float(outage_seconds()) if callable(outage_seconds) else 0.0
+        )
+        outbox = getattr(client, "outbox", None)
+        self.outbox_depth.set(float(len(outbox)) if outbox is not None else 0.0)
+        total = getattr(client, "outage_total_seconds", None)
+        if isinstance(total, (int, float)):
+            self.outage_seconds_total.set(
+                float(total)
+                + (float(outage_seconds()) if callable(outage_seconds) else 0.0)
+            )
+
+    def note_epoch(self, epoch: int) -> None:
+        self.epoch.set(float(epoch))
+        self.epoch_observations.inc()
+
+    def note_epoch_notify(self, latency_seconds: float) -> None:
+        """One pushed epoch notification consumed ``latency_seconds`` after
+        it arrived on the watch stream."""
+        self.epoch_notifies.inc()
+        self.epoch_notify_latency.observe(max(0.0, latency_seconds))
+
+    def note_pull_suppressed(self) -> None:
+        self.pulls_suppressed.inc()
 
 
 class ServeInstruments:
@@ -182,4 +313,147 @@ class LMServeInstruments:
             "warm-up time per (phase, batch bucket, seq bucket): one run "
             "on a zero batch, paid before the first request",
             labelnames=("phase", "bucket", "seq_bucket"),
+        )
+
+
+class CkptPlaneInstruments:
+    """The memory-resident checkpoint plane's sensor suite: how far behind
+    the durable checkpoint the peer replicas run, how many bytes ride the
+    wire, and — the fallback-ladder audit — which source each restore was
+    served from (peer memory vs blob store)."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        r = registry if registry is not None else get_registry()
+        self.replication_lag = r.gauge(
+            "edl_ckpt_plane_replication_lag_seconds",
+            "seconds the last shard replication took end-to-end (host "
+            "gather + serialize + wire); the window in which a worker loss "
+            "would find the plane one step stale",
+        )
+        self.replicated_bytes = r.counter(
+            "edl_ckpt_plane_replicated_bytes_total",
+            "shard bytes pushed to the coordinator's memory-resident store",
+        )
+        self.replications = r.counter(
+            "edl_ckpt_plane_replications_total",
+            "shard replications completed (one per covered checkpoint)",
+        )
+        self.restores = r.counter(
+            "edl_ckpt_plane_restores_total",
+            "state restores by source: 'peer' = assembled from the plane "
+            "in memory, 'blob' = fell back to the durable Checkpointer",
+            labelnames=("source",),
+        )
+        self.restore_bytes = r.counter(
+            "edl_ckpt_plane_restore_bytes_total",
+            "restore bytes served, by source (peer vs blob)",
+            labelnames=("source",),
+        )
+
+
+class PreemptInstruments:
+    """The preemption plane's sensor suite: advance-notice revocations and
+    the straggler detector that feeds the same drain path. One scrape
+    answers "did we beat the deadline, and what did it cost?"."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        r = registry if registry is not None else get_registry()
+        self.notices = r.counter(
+            "edl_preempt_notices_total",
+            "advance-notice revocation frames consumed, by reason "
+            "(spot/maintenance/straggler/...)",
+            labelnames=("reason",),
+        )
+        self.notice_remaining = r.gauge(
+            "edl_preempt_notice_remaining_seconds",
+            "seconds left on the most recently consumed notice when the "
+            "policy decided (negative = decided after the deadline)",
+        )
+        self.notice_to_drained = r.histogram(
+            "edl_preempt_notice_to_drained_seconds",
+            "notice-arrival to drain-complete latency per revocation "
+            "(evacuate + replan + shrink; must sit under the notice window)",
+            buckets=NOTICE_BUCKETS,
+        )
+        self.evictions = r.counter(
+            "edl_preempt_evictions_total",
+            "workers drained out through the revocation path, by trigger "
+            "(revocation = scheduler notice, straggler = slow-host evict)",
+            labelnames=("trigger",),
+        )
+        self.steps_lost = r.counter(
+            "edl_preempt_steps_lost_total",
+            "optimizer steps re-trained because a revocation beat the "
+            "drain (0 is the contract for any notice >= the drain cost)",
+        )
+        self.straggler_ratio = r.gauge(
+            "edl_straggler_step_ratio",
+            "trailing-window per-host step-time quantile over the fleet "
+            "median (1.0 = keeping pace; the eviction trigger compares "
+            "this against its threshold for consecutive windows)",
+            labelnames=("host",),
+        )
+        self.straggler_breaches = r.counter(
+            "edl_straggler_breaches_total",
+            "windows in which a host's step-time quantile breached the "
+            "eviction threshold (hysteresis counts these, not raw steps)",
+            labelnames=("host",),
+        )
+        self.straggler_evictions = r.counter(
+            "edl_straggler_evictions_total",
+            "hosts evicted by the straggler detector (always also counted "
+            "in edl_preempt_evictions_total{trigger=straggler})",
+        )
+
+
+class FTPolicyInstruments:
+    """The fault-tolerance policy engine's audit surface: which mode was
+    chosen, how often, and the live inputs the choice was computed from.
+    One scrape answers "why did this worker park?"."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        r = registry if registry is not None else get_registry()
+        self.decisions = r.counter(
+            "edl_ft_policy_decisions_total",
+            "recovery-mode decisions taken, by mode",
+            labelnames=("mode",),  # wait | reconnect | warm_restart | park
+        )
+        self.mode = r.gauge(
+            "edl_ft_policy_mode",
+            "last decided recovery mode "
+            "(0=wait 1=reconnect 2=warm_restart 3=park)",
+        )
+        self.incidents = r.counter(
+            "edl_ft_policy_incidents_total",
+            "coordinator-outage incidents the policy adjudicated",
+        )
+        self.park_threshold = r.gauge(
+            "edl_ft_policy_park_threshold_seconds",
+            "escalation threshold (frozen per incident; the static budget "
+            "until min_history incidents close)",
+        )
+        self.outage_quantile = r.gauge(
+            "edl_ft_policy_outage_quantile_seconds",
+            "residual quantile of the closed-incident outage durations",
+        )
+        self.checkpoint_cost = r.gauge(
+            "edl_ft_policy_checkpoint_cost_seconds",
+            "EMA of measured durable-checkpoint cost (park break-even input)",
+        )
+        self.restep_cost = r.gauge(
+            "edl_ft_policy_restep_cost_seconds",
+            "live cost of re-training steps since the last durable "
+            "checkpoint (steps x step-seconds EMA)",
+        )
+        self.failure_rate = r.gauge(
+            "edl_ft_policy_failure_rate_per_min",
+            "closed incidents per minute over the trailing window "
+            "(storm detector input)",
+        )
+        self.restore_cost = r.gauge(
+            "edl_ft_policy_restore_cost_seconds",
+            "EMA of measured restore cost by source (peer = checkpoint "
+            "plane, blob = durable store); the break-even the policy's "
+            "restore_source() and park pricing read",
+            labelnames=("source",),
         )

@@ -30,13 +30,16 @@ checkpoints; carrying JAX params across is `models.convert`'s job.
 On a mesh (``Checkpointer(..., trainer=mesh_trainer)``) a step is still
 one directory of whole tensors, the format above: ``save`` gathers every
 rank's table rows and ZeRO-1 moment shards (`Trainer.full_state`, a
-collective that every rank calls at the same step), and rank 0 writes.
+collective that every rank calls at the same step), and rank 0 writes. A
+mesh of one rank and no process group (`parallel.mesh.local_mesh`) holds
+every tensor whole, so its ``save`` takes the one-device path: a clone on
+the device, the host copy on the writer's thread.
 ``restore`` reads the whole state on every rank, and each keeps its
 shards (`Trainer.load_full_state`): at the same world size bit for bit,
-at another one through the same code. The rescale protocol around a
-restore at another world size waits for ROADMAP queue A item 6, and the
-JAX module's mesh helpers (``live_state_specs``, ``abstract_like``,
-``state_shardings``) have no counterpart here.
+at another one through the same code (the elastic workers' rescale,
+`runtime.elastic` and `runtime.multihost`). The JAX module's mesh helpers
+(``live_state_specs``, ``abstract_like``, ``state_shardings``) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ class Checkpointer:
         writes."""
         self.wait()
         t0 = time.perf_counter()
-        if self.trainer is not None:
+        if self.trainer is not None and self.trainer.mesh.distributed:
             snap = self.trainer.full_state(state)  # host copies of their own
             if self.trainer.mesh.rank != 0:
                 return

@@ -22,8 +22,9 @@ Bring-up protocol (per process), as in the JAX package:
    stale member's lease still holds a rank >= world,
 3. rank 0 publishes its address under the epoch-scoped key; peers poll it.
 
-A process group's world size is fixed at init: a rescale re-forms it
-(queue A item 6 of ROADMAP.md ports the rescale around it).
+A process group's world size is fixed at init: a rescale exits the
+process (`runtime.multihost.MultiHostWorker`), and the relaunched entry
+forms the group at the new world.
 """
 
 from __future__ import annotations

@@ -504,6 +504,9 @@ class Trainer:
         self._layouts: "weakref.WeakKeyDictionary[nn.Module, _MeshLayout]" = \
             weakref.WeakKeyDictionary()
         self._data_plane: Optional[Dict[str, Any]] = None
+        #: per-step wall-seconds hook (the elastic workers feed the
+        #: fault-tolerance policy's step-cost EMA from it); None: no timing
+        self.step_cost_cb: Optional[Callable[[float], None]] = None
 
     # -- state -----------------------------------------------------------------
 
@@ -707,7 +710,38 @@ class Trainer:
         encoded the batch travels with it, so a widening while batches are
         in flight (`DevicePrefetcher`) does not re-route them."""
         placed = self.place_batch(batch)
-        return placed, self._step_callable(placed)
+        fn = self._step_callable(placed)
+        cb = self.step_cost_cb
+        if cb is None:
+            return placed, fn
+
+        def timed(state: TrainState, b: Dict[str, torch.Tensor]):
+            t0 = time.perf_counter()
+            out_state, loss = fn(state, b)
+            float(loss)  # the step's wall time includes its device work
+            cb(time.perf_counter() - t0)
+            return out_state, loss
+
+        return placed, timed
+
+    def warm_compile(self, state: TrainState,
+                     host_batch_shapes: Dict[str, Tuple[Tuple[int, ...], Any]]) -> float:
+        """Pay before the first step what that step would pay lazily: the
+        JAX Trainer AOT-compiles its step here; eager PyTorch has no
+        executable, so this runs one forward under ``torch.no_grad()`` on
+        zeros of the host batch's shapes (``{key: (shape, numpy dtype)}``),
+        raw, not wire-encoded. That loads the flash kernels' library
+        (`ops._build`) and the library handles the forward creates (cuBLAS,
+        cuDNN). Returns the wall seconds. The forward only reads the params,
+        so it may overlap a restore into the same state; on a mesh whose
+        model issues collectives in its forward every rank must call it."""
+        t0 = time.perf_counter()
+        batch = {k: torch.as_tensor(np.zeros(shape, dtype)).to(self.device)
+                 for k, (shape, dtype) in host_batch_shapes.items()}
+        with torch.no_grad():
+            loss = state.params(batch)
+        float(loss)
+        return time.perf_counter() - t0
 
     # -- stepping --------------------------------------------------------------
 
