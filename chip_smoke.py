@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one CUDA device:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time
+    python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
 
 It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order; a
 phase that fails raises, and the script exits non-zero without its last line:
@@ -25,7 +26,11 @@ phase that fails raises, and the script exits non-zero without its last line:
    element;
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
-   slice's shape; then each kernel's time at the slice's shape (``ms``: one
+   slice's shape; then the ring's per-hop engine on one card: the slice's
+   q, k, v cut into 2 and 4 blocks, each query block's offset hops
+   through the kernels with ``return_lse=True`` merged by the ring's
+   ``merge_hops``, output and gradients against the plain full causal
+   attention; then each kernel's time at the slice's shape (``ms``: one
    call at a time; ``ms_back_to_back``: ten launches in a row), its wrapper's
    host time a call (and the whole backward's, inputs checked once), its
    plain version's time, one library call's (timed both ways) and the
@@ -133,11 +138,29 @@ phase that fails raises, and the script exits non-zero without its last line:
     restores into a world-1 Trainer bit for bit. Printed: recovery (epoch
     move to the world-1 incarnation's first round plan), each
     incarnation's start-up, a world-2 round's and a world-1 step's time.
-14. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+14. Model parallelism (``mp``): phase 4's LM at its full width trained
+    by the mesh Trainer on ranks that share the one card, one process a
+    rank over gloo with CUDA tensors (``chip_smoke.py --mp-rank R JOB``):
+    (a) ``{"seq": 2}``, the flash ring; (b) ``{"model": 2}``; (c)
+    ``{"pipe": 2}`` GPipe, (d) 1F1B and (e) interleaved 1F1B (v 2), each
+    at 4 microbatches; (f) ``{"expert": 2}``, the MoE phase's arm B (8
+    experts, top-2, aux 0.01); (g) ``{"seq": 2, "model": 2}`` on four
+    ranks. Each arm from the seed-0 params of a one-device run on the same
+    global batch, one warm-up and three timed steps: every rank's losses
+    equal and within ``TOL_MP_LOSS`` of the one-device Trainer's, each
+    leaf's first-step gradient (a rank's part, after the reductions)
+    within ``TOL_MP_GRAD`` of the one-device gradient's part, and each
+    step's flash launches on each rank exactly the arm's count
+    (`mp_expected_launches`: in (a) 2 hops x 12 layers of the forward, and
+    twice that of each backward kernel, which a hop's f32 dO runs twice).
+    Printed: each rank's step time and peak memory, rank 0's busy share
+    from one profiled step, and ``data_plane()`` (analytic). A rank that
+    fails fails the phase.
+15. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
     per model, the remat LM included), one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
-    {...}}`` and one ``{"elastic": {...}}``.
-15. The last line: ``{"ok": true, "device": {...}}``.
+    {...}}``, one ``{"elastic": {...}}`` and one ``{"mp": {...}}``.
+16. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -236,6 +259,22 @@ KERNELS = {  # name -> (plain version, TPU kernel it replaces)
 }
 SOURCE = "edl_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+#: the ring's hop counts held on one card: the merged (out, lse) of this many
+#: offset hops against the plain full attention (1: one kernel call on the
+#: whole sequence, the baseline)
+MERGED_HOPS = (1, 2, 4)
+#: the merged hops' gradients against the plain full attention's: here the
+#: backward's delta comes from the kernels' own forward output, not the
+#: plain one as in the cases above, so the forward's error (the o check:
+#: 2.7e-3 of a row) enters dS on every key of a row, and where a row's dq
+#: nearly cancels (down to the ROW_FLOOR clamp) that is a few 1e-2 of it:
+#: one kernel call on the whole sequence measured dq at 3.13e-2 of a row and
+#: 3.86e-2 of an element on an H100 (PERF.md). Bounds for that composed
+#: path, and the ring's decomposition may add at most a quarter to the
+#: one-call baseline's error
+TOL_COMPOSED_ROW = 5e-2
+TOL_COMPOSED_ELEM = 2**-4
+COMPOSED_HOPS_OVER_ONE = 1.25
 #: kernel -> (its function in the library, the design it is built on)
 DESIGNS = {
     "fwd": ("flash_fwd_kernel", "wgmma+TMA, PR 2"),
@@ -505,6 +544,132 @@ def check_planted_faults(fa, gen, device) -> None:
             require(not _passes(err), f"the {n} check passes the planted fault {label}")
 
 
+def _plain_full(fa, q, k, v, ct, opts) -> dict:
+    """The plain versions on the whole sequence, as `flash_attention(...,
+    return_lse=True)` runs them on the CPU: the f32 out, and dq, dk, dv for
+    the cotangent ``ct`` of the out, its bf16 part and its remainder each
+    through the plain backward."""
+    import torch
+
+    o, lse = fa._fwd_reference(q, k, v, out_dtype=torch.float32, **opts)
+    hi, delta = fa._backward_inputs(q, o, ct, lse.new_zeros(lse.shape))
+    lo, delta_lo = fa._backward_inputs(q, o, ct - hi.float(), lse.new_zeros(lse.shape))
+    parts = [fa._bwd_reference(q, k, v, d, lse, dl, **opts) for d, dl in ((hi, delta),
+                                                                          (lo, delta_lo))]
+    return dict(o=o, **{n: (a.float() + b.float()).to(a.dtype)
+                        for n, a, b in zip(("dq", "dk", "dv"), *parts)})
+
+
+def check_merged_hops(fa, gen, device) -> None:
+    """The ring's per-hop engine on one card: at the slice's shape, the
+    queries and keys cut into ``n`` blocks (1, 2 and 4), each query block's
+    hops through the kernels with their global offsets and
+    ``return_lse=True``, in the ring's order, merged by the ring's own
+    `merge_hops`; the merged output, and dq, dk and dv for the loss sum(out
+    * ct), against the plain full causal attention (the plain versions on
+    the whole sequence, `_plain_full`), row by row and element by element:
+    the output within the kernel tolerances, the gradients within the
+    composed path's (``TOL_COMPOSED_*``), and 2 and 4 hops within a quarter
+    more than one call's error. Each backward kernel call of those runs
+    (every hop, the bf16 part of dO and its remainder) is also held against
+    the plain backward given the same inputs, the kernel forward's own o and
+    lse and the delta made from them, at the kernel tolerances: what the
+    composed bounds allow is then the forward's error carried through delta,
+    not a fault of the backward kernels on the f32-out path. Launches made
+    here are not the main path's."""
+    from unittest import mock
+
+    import torch
+
+    from edl_tpu_torch.parallel.ring_attention import merge_hops
+
+    B, S, _, H, D = CASES[0][1]
+    opts = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=0, k_offset=0)
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=device)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    ct = torch.randn((B, S, H, D), generator=gen, device=device)
+    with torch.no_grad():
+        want = _plain_full(fa, q, k, v, ct, opts)
+    one = {}
+    kernel = fa._bwd_kernel
+    for n in MERGED_HOPS:
+        s = S // n
+        outs, calls = [], []
+
+        def recorded(*args, **kw):
+            out = kernel(*args, **kw)
+            calls.append((args, kw, out))
+            return out
+
+        for i in range(n):
+            qi = q[:, i * s:(i + 1) * s]
+            acc = None
+            for h in range(n):  # the ring's order: the local block first
+                j = (i - h) % n
+                blk = fa.flash_attention(qi, k[:, j * s:(j + 1) * s], v[:, j * s:(j + 1) * s],
+                                         causal=True, scale=opts["scale"], q_offset=i * s,
+                                         k_offset=j * s, return_lse=True)
+                acc = blk if acc is None else merge_hops(acc, blk)
+            outs.append(acc[0])
+        o = torch.cat(outs, dim=1)
+        with mock.patch.object(fa, "_bwd_kernel", recorded):
+            got = dict(zip(("dq", "dk", "dv"),
+                           torch.autograd.grad((o * ct).sum(), (q, k, v))))
+        got["o"] = o.detach()
+        check_hop_backward_calls(fa, n, calls)
+        errs = {name: _compare(got[name], want[name]) for name in ("o", "dq", "dk", "dv")}
+        print(f"merged hops: {n} offset hop(s) a query block at {(B, S, H, D)}, against "
+              f"the plain full attention: " + "; ".join(f"{x} {_fmt(e)}"
+                                                       for x, e in errs.items()))
+        for name, e in errs.items():
+            require(bool(torch.isfinite(got[name]).all()), f"merged {n} hops: non-finite {name}")
+            if name == "o":
+                require(_passes(e), f"merged {n} hops: o off the plain full attention: "
+                                    f"{_fmt(e)} (tolerances: row {TOL_ROW}, elem {TOL_ELEM})")
+                continue
+            bounds = {"row": TOL_COMPOSED_ROW, "elem": TOL_COMPOSED_ELEM}
+            if n == 1:
+                one[name] = e
+            for metric, bound in bounds.items():
+                if n > 1:  # the decomposition adds little to one call's error
+                    bound = min(bound, max({"row": TOL_ROW, "elem": TOL_ELEM}[metric],
+                                           COMPOSED_HOPS_OVER_ONE * one[name][metric]))
+                require(e[metric] <= bound,
+                        f"merged {n} hops: {name} {metric} {e[metric]:.3e} off the plain "
+                        f"full attention (bound {bound:.3e})")
+
+
+def check_hop_backward_calls(fa, n, calls) -> None:
+    """Each backward kernel call recorded on the merged-hops path against the
+    plain backward on the same (q, k, v, dO, lse, delta): outputs the plain
+    version makes zero (a hop whose keys no query sees) exactly zero, the
+    rest within TOL_ROW / TOL_ELEM."""
+    import torch
+
+    require(len(calls) == 2 * n * n, f"merged {n} hops: {len(calls)} backward calls, "
+                                     f"expected {2 * n * n} (two a hop)")
+    worst = {}
+    for args, kw, out in calls:
+        want = fa._bwd_reference(*args, **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), out, want):
+            if not bool(w.any()):
+                require(not bool(g.any()), f"merged {n} hops: a hop that sees no key "
+                                           f"gave a nonzero {name}")
+                continue
+            e = _compare(g, w)
+            require(_passes(e), f"merged {n} hops: a backward call's {name} off the plain "
+                                f"backward on the same inputs: {_fmt(e)} "
+                                f"(tolerances: row {TOL_ROW}, elem {TOL_ELEM})")
+            for metric, x in e.items():
+                worst[(name, metric)] = max(worst.get((name, metric), 0.0), x)
+    print(f"merged hops: {n} offset hop(s), {len(calls)} backward calls, each against "
+          f"the plain backward on its own inputs (the kernel forward's o and lse): " +
+          "; ".join(f"{x} " + " ".join(f"{m} {worst[(x, m)]:.3e}"
+                                      for m in ("abs", "row", "elem") if (x, m) in worst)
+                    for x in ("dq", "dk", "dv")))
+    torch.cuda.synchronize()
+
+
 def phase_kernels(device):
     """Every kernel against its plain version on every case, and the check
     against planted faults; returns per-kernel worst errors (each with the
@@ -561,6 +726,7 @@ def phase_kernels(device):
                         worst[kname][metric] = (x, f"{name} {n}")
 
     check_planted_faults(fa, gen, device)
+    check_merged_hops(fa, gen, device)
 
     # -- timings at the slice's shape
     name, shape, causal, qo, ko, ret_lse, fused = CASES[0]
@@ -3300,10 +3466,302 @@ def phase_elastic(device) -> dict:
             "launches": rows["lm"]["launches"]}
 
 
+# -- mp: model parallelism of the LM on one card --------------------------------
+
+#: the arms, each at the slice's width: (label, mesh axes, config overrides).
+#: Ranks share the one card, one process each, over gloo with CUDA tensors
+#: (NCCL refuses two ranks on one GPU)
+MP_M = 4
+#: the MoE arm: phase 4's moe arm B (8 experts, capacity factor 1.25, top-2,
+#: aux 0.01), its experts over two ranks, the tokens whole on both
+MP_MOE = dict(MOE, moe_top_k=2, moe_aux_weight=0.01)
+MP_ARMS = (
+    ("a_seq2_flash_ring", {"seq": 2}, {}),
+    ("b_model2", {"model": 2}, {}),
+    ("c_pipe2_gpipe", {"pipe": 2}, dict(microbatches=MP_M)),
+    ("d_pipe2_1f1b", {"pipe": 2}, dict(pipeline_schedule="1f1b", microbatches=MP_M)),
+    ("e_pipe2_interleaved", {"pipe": 2}, dict(pipeline_schedule="1f1b-interleaved",
+                                              virtual_stages=2, microbatches=MP_M)),
+    ("f_expert2_top2", {"expert": 2}, MP_MOE),
+    ("g_seq2_model2", {"seq": 2, "model": 2}, {}),
+)
+#: steps an arm: warm-up, then timed (the median is the step time)
+MP_WARMUP, MP_TIMED = 1, 3
+#: each arm's losses against the one-device Trainer's from the same seed-0
+#: params on the same global batch: the ring merges f32 hop outputs where
+#: one device's kernel rounds once, the TP psums add f32 partial products in
+#: another order and cuBLAS tiles the narrower matmuls otherwise, so the
+#: bf16 residual stream moves by rounding and Adam compounds it over the
+#: steps. Measured on an H100: at most 2.23e-4 (arm f, MoE: capacity and aux
+#: per device group) and 7.8e-5 in the dense arms; a tensor-parallel psum
+#: left out after wo moves the losses by 1.7e-3 at the CPU tests' size
+#: (PERF.md), so the bound sits between the two
+TOL_MP_LOSS = 1e-3
+#: each leaf's first-step gradient (this rank's part, after the Trainer's
+#: reductions) against the one-device gradient's same part: relative norm
+#: error, the depth-2 step parity's bound (TOL_STEP_GRAD: bf16 rounding at
+#: other places through 12 layers)
+TOL_MP_GRAD = 5e-2
+MP_RANK_TIMEOUT = 900
+
+
+def _mp_config(overrides: dict):
+    from edl_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(flash=True, **SLICE, **overrides)
+
+
+def mp_expected_launches(axes: dict, cfg) -> dict:
+    """Flash launches a step on each rank: every layer the rank holds runs
+    each kernel once a hop (``seq`` hops) and a microbatch; the 1F1B
+    schedules run each stage's forward twice (the F-phase and the
+    B-phase's recompute); a ring hop's f32 dO runs each backward kernel
+    twice (its bf16 part and the remainder, `_Flash.backward`)."""
+    pp, sp = axes.get("pipe", 1), axes.get("seq", 1)
+    per = cfg.n_layers // pp * sp * ((cfg.microbatches or pp) if pp > 1 else 1)
+    twice = pp > 1 and cfg.pipeline_schedule in ("1f1b", "1f1b-interleaved")
+    bwd = per * (2 if sp > 1 else 1)
+    return {"fwd": per * (2 if twice else 1), "bwd_dq": bwd, "bwd_dkv": bwd}
+
+
+def mp_references(device, root: str) -> dict:
+    """The one-device Trainer from seed 0 on the global batch, for the dense
+    LM and the MoE arm's: the losses of ``MP_WARMUP + MP_TIMED`` steps, and
+    the first step's gradients saved to ``root`` for the ranks."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models.transformer import make_model
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+
+    out = {}
+    for kind, overrides in (("dense", {}), ("moe", MP_MOE)):
+        model = make_model(_mp_config(overrides))
+        trainer = Trainer(model, config=TrainerConfig(optimizer="adam", learning_rate=3e-4,
+                                                      seed=0), device=device)
+        state = trainer.init_state()
+        batch = trainer.place_batch(model.synthetic_batch(np.random.default_rng(0), BATCH))
+        losses = []
+        for i in range(MP_WARMUP + MP_TIMED):
+            state, loss = trainer.train_step(state, batch)
+            losses.append(float(loss))
+            if i == 0:
+                path = os.path.join(root, f"grads_{kind}.pt")
+                torch.save({n: p.grad.detach().float().cpu()
+                            for n, p in state.params.named_parameters()}, path)
+        require(all(math.isfinite(x) for x in losses), f"mp reference {kind}: {losses}")
+        out[kind] = {"losses": losses, "grads": path}
+        print(f"mp reference ({kind}, one device): losses {losses}")
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_rank_main(job_path: str, rank: int) -> int:
+    """One rank of the mp phase: ``python3 chip_smoke.py --mp-rank R JOB``.
+    Each of the job's arms from seed 0 on the global batch (this rank's
+    rows and sequence chunk): ``MP_WARMUP + MP_TIMED`` steps, each step's
+    flash launches counted on this rank, the first step's gradients held
+    against the one-device ones, then one profiled step (rank 0 records
+    it). Writes its figures to ``JOB.rank<R>.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch.models.convert import _cut
+    from edl_tpu_torch.models.transformer import make_model
+    from edl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from edl_tpu_torch.parallel.sharding import shard_batch
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+
+    with open(job_path) as f:
+        job = json.load(f)
+    device = torch.device(job["device"])
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=job["init"], world_size=job["world"],
+                            rank=rank, timeout=datetime.timedelta(seconds=MP_RANK_TIMEOUT))
+    fa = _flash_module()
+    arms = {name: (axes, kw) for name, axes, kw in MP_ARMS}
+    out = {"arms": {}}
+    try:
+        for name in job["arms"]:
+            axes, kw = arms[name]
+            cfg = _mp_config(kw)
+            model = make_model(cfg)
+            mesh = build_mesh(MeshSpec(dict(axes)))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            trainer = Trainer(model, mesh, TrainerConfig(optimizer="adam", learning_rate=3e-4,
+                                                         seed=0), device=device)
+            state = trainer.init_state()
+            host = model.synthetic_batch(np.random.default_rng(0), BATCH)
+            placed = trainer.place_batch(shard_batch(host, mesh, trainer.config.batch_axis,
+                                                     specs=model.batch_spec(mesh)))
+            ref = torch.load(job["grads"]["moe" if cfg.moe_experts else "dense"], mmap=True)
+            losses, times, launches, grad_err = [], [], [], {}
+            for i in range(MP_WARMUP + MP_TIMED):
+                fa.reset_launches()
+                t0 = time.perf_counter()
+                state, loss = trainer.train_step(state, placed)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                launches.append(dict(fa.LAUNCHES))
+                losses.append(float(loss))
+                if i == 0:
+                    for leaf in trainer.layout_for(state.params).leaves:
+                        want = _cut(ref[leaf.name], leaf.shards, mesh, leaf.name).to(device)
+                        g = leaf.opt_param.grad.float()
+                        grad_err[leaf.name] = ((g - want).norm() / want.norm()).item()
+                        del want
+            step_ms = statistics.median(times[MP_WARMUP:]) * 1e3
+            box = {"state": state}
+
+            def step():
+                box["state"], _ = trainer.train_step(box["state"], placed)
+                torch.cuda.synchronize()
+
+            summary = {}
+            if rank == 0:
+                _, summary = profile_step(step, step_ms, LM_GROUPS, f"mp {name} rank 0")
+            else:
+                step()
+            plane = trainer.data_plane(box["state"])
+            worst = max(grad_err, key=grad_err.get)
+            out["arms"][name] = {
+                "losses": losses, "step_ms": step_ms, "times_ms": [t * 1e3 for t in times],
+                "launches": launches,
+                "peak_memory_gib": (torch.cuda.max_memory_allocated(device) - base) / 2**30,
+                "grad_rel_err_max": grad_err[worst], "grad_rel_err_worst_leaf": worst,
+                "device_busy_share": summary.get("device_busy_share"),
+                "device_kernel_ms": summary.get("device_kernel_ms"),
+                "data_plane": {k: plane[k] for k in ("grad_sync", "replicated_bytes",
+                                                     "sharded_bytes", "grad_bytes_per_step",
+                                                     "bytes_per_step")},
+                "stash": dict(box["state"].params.pipeline_stats)}
+            del trainer, state, placed, box, ref
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(f"{job_path}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mp_world(device, world: int, arms: list, refs: dict, root: str) -> list:
+    """``world`` rank processes on the one card (`mp_rank_main`) running
+    ``arms`` in order; any rank's failure fails the phase. Returns each
+    rank's figures."""
+    import os
+
+    job = os.path.join(root, f"job{world}.json")
+    with open(job, "w") as f:
+        json.dump({"init": f"file://{root}/rendezvous{world}", "device": str(device),
+                   "world": world, "arms": arms,
+                   "grads": {k: r["grads"] for k, r in refs.items()}}, f)
+    procs = [subprocess.Popen([sys.executable, __file__, "--mp-rank", str(r), job])
+             for r in range(world)]
+    try:
+        codes = [p.wait(timeout=MP_RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(codes == [0] * world, f"mp world {world}: ranks exited {codes}")
+    ranks = []
+    for r in range(world):
+        with open(f"{job}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def phase_mp(device) -> dict:
+    """The mp phase: every arm of ``MP_ARMS`` (arms a-f on two ranks, g on
+    four), each against the one-device references. Returns the arms'
+    figures and rank 0's flash launches over the timed steps of all arms."""
+    import os
+
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="edl-mp-") as root:
+        refs = mp_references(device, root)
+        torch.cuda.empty_cache()
+        by_world = {}
+        for name, axes, _ in MP_ARMS:
+            by_world.setdefault(math.prod(axes.values()), []).append(name)
+        ranks = {world: mp_world(device, world, arms, refs, root)
+                 for world, arms in by_world.items()}
+        for world in ranks:
+            for r in range(world):
+                os.remove(os.path.join(root, f"job{world}.json.rank{r}.json"))
+    out = {"arms": {}, "launches": {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0},
+           "tolerance": {"loss_rel": TOL_MP_LOSS, "grad_rel_norm": TOL_MP_GRAD}}
+    for name, axes, kw in MP_ARMS:
+        world = math.prod(axes.values())
+        rows = [rank["arms"][name] for rank in ranks[world]]
+        cfg = _mp_config(kw)
+        ref = refs["moe" if cfg.moe_experts else "dense"]["losses"]
+        want = mp_expected_launches(axes, cfg)
+        for r, row in enumerate(rows):
+            require(row["losses"] == rows[0]["losses"],
+                    f"mp {name}: rank {r}'s losses {row['losses']} differ from rank 0's "
+                    f"{rows[0]['losses']}")
+            require(all(math.isfinite(x) for x in row["losses"]), f"mp {name}: {row['losses']}")
+            for i, got in enumerate(row["launches"]):
+                require(got == want, f"mp {name}: rank {r} step {i} flash launches {got}, "
+                                     f"want {want}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(rows[0]["losses"], ref))
+        grad_err = max(row["grad_rel_err_max"] for row in rows)
+        require(loss_err <= TOL_MP_LOSS, f"mp {name}: losses off one device by "
+                                         f"{loss_err:.3e} (bound {TOL_MP_LOSS})")
+        require(grad_err <= TOL_MP_GRAD, f"mp {name}: first-step gradients off one device "
+                                         f"by {grad_err:.3e} (bound {TOL_MP_GRAD})")
+        for k in out["launches"]:
+            out["launches"][k] += sum(step[k] for step in rows[0]["launches"][MP_WARMUP:])
+        out["arms"][name] = {
+            "axes": axes, "world": world, "config": kw, "losses": rows[0]["losses"],
+            "loss_rel_err_vs_one_device": loss_err, "grad_rel_err_vs_one_device": grad_err,
+            "grad_worst_leaf": max(rows, key=lambda x: x["grad_rel_err_max"])[
+                "grad_rel_err_worst_leaf"],
+            "step_ms": [row["step_ms"] for row in rows],
+            "peak_memory_gib": [row["peak_memory_gib"] for row in rows],
+            "device_busy_share_rank0": rows[0]["device_busy_share"],
+            "device_kernel_ms_rank0": rows[0]["device_kernel_ms"],
+            "flash_launches_per_step_and_rank": want,
+            "data_plane_analytic": rows[0]["data_plane"],
+            "stash": [row["stash"] for row in rows]}
+        busy = rows[0]["device_busy_share"]
+        print(f"mp {name} {axes} (world {world}, gloo on one card): step "
+              + " / ".join(f"{row['step_ms']:.1f}" for row in rows) + " ms by rank; "
+              f"losses {rows[0]['losses'][0]:.6f} -> {rows[0]['losses'][-1]:.6f}, off one "
+              f"device by {loss_err:.2e}; first-step gradients off by {grad_err:.2e}; peak "
+              + " / ".join(f"{row['peak_memory_gib']:.2f}" for row in rows) + " GiB; busy "
+              + ("not measured" if busy is None else f"{busy:.1%}") + " (rank 0); flash "
+              f"launches {want} a step and rank; data_plane() (analytic): "
+              f"{rows[0]['data_plane']['bytes_per_step'] / 1e6:.1f} MB a step over the batch "
+              f"axes, {rows[0]['data_plane']['replicated_bytes'] / 1e6:.1f} MB of "
+              f"replicated params")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mp: {len(MP_ARMS)} arms in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     if "--dp-rank" in argv:  # one rank of the dp phase's part (b)
         i = argv.index("--dp-rank")
         return dp_rank_main(argv[i + 2], int(argv[i + 1]))
+    if "--mp-rank" in argv:  # one rank of the mp phase
+        i = argv.index("--mp-rank")
+        return mp_rank_main(argv[i + 2], int(argv[i + 1]))
     device = phase_device()
     sass = phase_build()
     kernels = phase_kernels(device)
@@ -3312,6 +3770,13 @@ def main(argv) -> int:
         row["sass"] = {f"DP{dp}": ops for dp, ops in sorted(sass[fn].items())}
     if "--kernels" in argv:
         print(json.dumps({"kernels": list(kernels.values())}))
+        return 0
+    if "--mp" in argv:  # the kernels and the mp phase only
+        mp = phase_mp(device)
+        for name, row in kernels.items():
+            row["launches_mp"] = mp["launches"][name]
+        print(json.dumps({"kernels": list(kernels.values())}))
+        print(json.dumps({"mp": mp}))
         return 0
     with tempfile.TemporaryDirectory(prefix="edl-serve-") as serve_root:
         launches, in_step, lm, lm_state = phase_slice(device)
@@ -3331,6 +3796,7 @@ def main(argv) -> int:
         serve = phase_serve(device, lm_export, ctr_staged)
     dp = phase_dp(device)
     elastic = phase_elastic(device)
+    mp = phase_mp(device)
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
@@ -3339,6 +3805,7 @@ def main(argv) -> int:
         row["launches_moe"] = moe["launches"][name]
         row["launches_dp"] = dp["launches"][name]
         row["launches_elastic"] = elastic["launches"][name]
+        row["launches_mp"] = mp["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
@@ -3347,6 +3814,7 @@ def main(argv) -> int:
     print(json.dumps({"moe": moe}))
     print(json.dumps({"dp": dp}))
     print(json.dumps({"elastic": elastic}))
+    print(json.dumps({"mp": mp}))
     import torch
 
     # count: the devices this run uses

@@ -1,24 +1,35 @@
 """Transformer LM elastic trainer: the port of `examples/lm/train.py`.
 
 Run as ``python -m edl_tpu_torch.examples.lm.train``. The argparse surface
-is the JAX entry's, plus ``--dist-backend`` and ``--device`` (see the CTR
+is the JAX entry's, plus ``--pipeline-schedule 1f1b-interleaved`` with
+``--virtual-stages``, ``--dist-backend`` and ``--device`` (see the CTR
 entry). Mesh axes come from ``EDL_MESH_AXES`` (the controller's env
-protocol) or ``--axes``; the port trains data-parallel (and with
-``--zero1``, ZeRO-1): a ``seq``, ``model``, ``pipe`` or ``expert`` axis
-above 1 raises ``NotImplementedError`` (ROADMAP.md queue A item 5). Runs
-standalone (no env): spawns an in-process coordinator and trains the whole
-queue on the card with an `ElasticWorker`; in cloud mode a
-`MultiHostWorker` per rank.
+protocol) or ``--axes``. Runs standalone (no env): spawns an in-process
+coordinator and trains the whole queue on the card with an
+`ElasticWorker`; in cloud mode a `MultiHostWorker` per rank.
+
+A ``seq``, ``model``, ``pipe`` or ``expert`` axis above 1 trains on a mesh
+of ranks: standalone, the entry starts one process a rank on this host
+(the axes' product of them, a ``torch.distributed`` group over a
+``file://`` rendezvous: gloo when the ranks share the card or run on the
+CPU, NCCL when each has a card of its own), every rank trains the whole
+queue's batches in order with the mesh Trainer, and rank 0 prints the
+metrics. The elastic workers do not rescale such meshes yet (ROADMAP.md
+queue A item 9): in cloud mode they raise.
 
     python -m edl_tpu_torch.examples.lm.train --seq-len 512 --remat --zero1
+    python -m edl_tpu_torch.examples.lm.train --axes '{"seq": 2, "model": 2}' \
+        --seq-len 512 --remat
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import tempfile
+import time
 from typing import List, Optional
 
 from edl_tpu_torch.examples._common import cloud_bring_up
@@ -47,9 +58,12 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--remat", action="store_true",
                    help="per-block activation rematerialization")
     p.add_argument("--pipeline-schedule", default="gpipe",
-                   choices=("gpipe", "1f1b"),
+                   choices=("gpipe", "1f1b", "1f1b-interleaved"),
                    help="microbatch schedule on the pipe axis: gpipe "
-                        "(default) or the O(pp)-activation 1f1b")
+                        "(default), the O(pp)-activation 1f1b, or "
+                        "1f1b-interleaved with --virtual-stages chunks a rank")
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   help="chunks a pipe rank holds (1f1b-interleaved)")
     p.add_argument("--microbatches", type=int, default=None,
                    help="pipeline microbatches (default: pipe size)")
     p.add_argument("--zero1", action="store_true",
@@ -89,6 +103,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         seq_len=args.seq_len, remat=args.remat,
         pipeline_schedule=args.pipeline_schedule,
         microbatches=args.microbatches,
+        virtual_stages=args.virtual_stages,
         moe_experts=moe,
         moe_aux_weight=aux,
         # tokens shard over the expert axis too (the efficient layout)
@@ -98,6 +113,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         print("note: load-balance aux loss disabled on pipelined meshes")
     source = SyntheticShardSource(model, batch_size=args.batch_size,
                                   batches_per_shard=args.batches_per_shard)
+    if axes and not os.environ.get("EDL_COORDINATOR_ENDPOINT"):
+        metrics = mesh_run(args, model.config, axes, ctx)
+        print(json.dumps({k: round(v, 4) for k, v in metrics.items()}))
+        return
 
     ident = None
     device = args.device
@@ -135,6 +154,72 @@ def main(argv: Optional[List[str]] = None) -> None:
                                mesh_axes=axes or None)
     metrics = worker.run()
     print(json.dumps({k: round(v, 4) for k, v in metrics.items()}))
+
+
+def mesh_run(args, config, axes, ctx) -> dict:
+    """Standalone training on a mesh of ranks (see the module docstring):
+    one process a rank on this host; returns rank 0's metrics."""
+    import torch
+    import torch.multiprocessing as mp
+
+    world = math.prod(axes.values())
+    with tempfile.TemporaryDirectory(prefix="edl-lm-mesh-") as root:
+        mp.spawn(_mesh_rank, args=(world, args, config, axes, ctx.data_shards, root),
+                 nprocs=world, join=True)
+        return torch.load(os.path.join(root, "metrics.pt"))
+
+
+def _mesh_rank(rank: int, world: int, args, config, axes, data_shards, root: str) -> None:
+    """One rank of `mesh_run`: the mesh Trainer over every shard of every
+    pass, in order, each rank cutting its part of each global batch."""
+    import torch
+    import torch.distributed as dist
+
+    from edl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from edl_tpu_torch.parallel.sharding import shard_batch
+    from edl_tpu_torch.runtime.train_loop import Trainer
+
+    device = args.device
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass --device cpu to "
+                               "train on the CPU")
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    backend = args.dist_backend
+    if backend == "auto":
+        backend = ("nccl" if device != "cpu" and world <= torch.cuda.device_count()
+                   else "gloo")
+    dist.init_process_group(backend, init_method=f"file://{root}/rendezvous",
+                            world_size=world, rank=rank)
+    model = transformer.make_model(config)
+    source = SyntheticShardSource(model, batch_size=args.batch_size,
+                                  batches_per_shard=args.batches_per_shard)
+    try:
+        mesh = build_mesh(MeshSpec(dict(axes)))
+        trainer = Trainer(model, mesh, TrainerConfig(
+            optimizer="adam", learning_rate=args.learning_rate,
+            shard_opt_state=args.zero1, batch_axis=model.config.batch_axis),
+            device=device)
+        state = trainer.init_state()
+        specs = model.batch_spec(mesh)
+        shards = data_shards or shard_names("lm", args.shards)
+        losses, samples, t0 = [], 0, time.perf_counter()
+        for task in pass_tasks(shards, int(args.num_passes)):
+            for batch in source.read(task):
+                local = shard_batch(batch, mesh, trainer.config.batch_axis, specs=specs)
+                state, loss = trainer.train_step(state, trainer.place_batch(local))
+                losses.append(float(loss))
+                samples += len(batch["tokens"])
+        seconds = time.perf_counter() - t0
+        if rank == 0:
+            torch.save({"steps": float(len(losses)), "final_loss": losses[-1],
+                        "mean_loss": sum(losses) / len(losses),
+                        "samples_per_sec": samples / seconds, "seconds": seconds,
+                        "world": float(world)}, os.path.join(root, "metrics.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

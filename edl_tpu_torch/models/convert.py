@@ -24,11 +24,18 @@ make a serving artifact written by either package load in the other
 The reverse re-stacks the transformer's ``blocks.{i}.*`` to (L, ...), turns
 numbered submodules back into lists and OIHW back into HWIO.
 
+A JAX checkpoint of the interleaved pipeline stores its stacked block rows
+in the chunk-major order of `parallel.pipeline.interleaved_layout`: pass
+that permutation as ``layout`` and row ``p`` becomes ``blocks.{perm[p]}``
+(the port names blocks by their logical layer), and back.
+
 On a mesh of ranks (`parallel.mesh.Mesh`) a param that the model's
-``param_spec`` row-shards over an axis is held in shards: `shard_state_dict`
-cuts a full state_dict (from JAX params, numpy, or a checkpoint) to this
-rank's rows ``[r*L, (r+1)*L)``, ``r`` its index on the axis, and
-`gather_state_dict` puts every rank's rows back together (a collective).
+``param_spec`` shards (`models.base.normalize_spec`) is held in parts:
+`shard_state_dict` cuts a full state_dict (from JAX params, numpy, or a
+checkpoint) to this rank's part, each split dim to the rank's slice
+``[r*L, (r+1)*L)`` (``r`` its index on the axis) and a param held whole by
+another index of an axis (a pipeline stage's layers) left out; and
+`gather_state_dict` puts every rank's parts back together (a collective).
 """
 
 from __future__ import annotations
@@ -66,20 +73,25 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    """JAX params {embed, pos, blocks: {name: (L, ...)}, lnf, head} -> state_dict."""
+def params_from_jax(tree: Mapping, layout=None) -> "OrderedDict[str, torch.Tensor]":
+    """JAX params {embed, pos, blocks: {name: (L, ...)}, lnf, head} ->
+    state_dict, blocks in logical layer order. ``layout``: the storage
+    permutation of the stacked rows (row p is logical layer ``layout[p]``;
+    None: the identity)."""
     blocks = tree["blocks"]
     names = block_params(blocks)
     n_layers = {np.shape(blocks[name])[0] for name in names}
     if len(n_layers) != 1:
         raise ValueError(f"block params disagree on the layer count: {n_layers}")
+    n = n_layers.pop()
+    row = np.arange(n) if layout is None else np.argsort(np.asarray(layout))
 
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     out["embed"] = _tensor(tree["embed"])
     out["pos"] = _tensor(tree["pos"])
-    for i in range(n_layers.pop()):
+    for i in range(n):
         for name in names:
-            out[f"blocks.{i}.{name}"] = _tensor(blocks[name][i])
+            out[f"blocks.{i}.{name}"] = _tensor(blocks[name][int(row[i])])
     out["lnf"] = _tensor(tree["lnf"])
     out["head"] = _tensor(tree["head"])
     return out
@@ -113,16 +125,18 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], layout=None) -> dict:
     """The transformer's state_dict -> JAX params {embed, pos, blocks: {name:
-    (L, ...)}, lnf, head}: the inverse of `params_from_jax`."""
+    (L, ...)}, lnf, head}: the inverse of `params_from_jax` (stacked rows in
+    the storage order ``layout``, None: logical order)."""
     n_layers = sum(1 for k in state_dict if k.startswith("blocks.") and k.endswith(".ln1"))
     names = block_params(k.split(".", 2)[2] for k in state_dict if k.startswith("blocks.0."))
+    order = range(n_layers) if layout is None else [int(i) for i in layout]
     return {
         "embed": _host(state_dict["embed"]),
         "pos": _host(state_dict["pos"]),
         "blocks": {name: _host(torch.stack([state_dict[f"blocks.{i}.{name}"].detach()
-                                            for i in range(n_layers)]))
+                                            for i in order]))
                    for name in names},
         "lnf": _host(state_dict["lnf"]),
         "head": _host(state_dict["head"]),
@@ -174,43 +188,116 @@ PARAMS_TO_JAX = {
 }
 
 
-def shard_state_dict(state_dict: Mapping[str, Any], spec: Mapping[str, str], mesh
+def _held_elsewhere(shards, mesh) -> bool:
+    """Whether a param with these shards is held whole by another index of
+    one of their axes (and so not by this rank)."""
+    return any(sh.dim is None and mesh.axis_size(sh.axis) > 1
+               and sh.index != mesh.axis_index(sh.axis) for sh in shards)
+
+
+def _cut(t: torch.Tensor, shards, mesh, name: str) -> torch.Tensor:
+    """This rank's slice of ``t`` on each split dim of ``shards``."""
+    for sh in shards:
+        n = mesh.axis_size(sh.axis) if sh.dim is not None else 1
+        if n > 1:
+            size = t.shape[sh.dim]
+            if size % n:
+                raise ValueError(f"{name}: dim {sh.dim} of size {size} does not split "
+                                 f"over {n} {sh.axis!r} shards")
+            t = t.narrow(sh.dim, mesh.axis_index(sh.axis) * (size // n), size // n)
+    return t
+
+
+def shard_state_dict(state_dict: Mapping[str, Any], spec: Mapping[str, Any], mesh
                      ) -> "OrderedDict[str, torch.Tensor]":
     """A full state_dict (tensors or numpy arrays) cut to this rank's part
-    on ``mesh``: each param in ``spec`` ({name: axis}) keeps rows
-    ``[r*L, (r+1)*L)``, ``r`` this rank's index on its axis and ``L`` the
-    rows over the axis's size; the others stay whole. Tensors of their own."""
+    on ``mesh``: each param in ``spec`` (a model's ``param_spec``, see
+    `models.base.normalize_spec`) keeps its slice of every split dim, and a
+    param held whole by another index of an axis is left out; the others
+    stay whole. Tensors of their own."""
+    from edl_tpu_torch.models.base import normalize_spec
+
+    spec = normalize_spec(spec)
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for name, v in state_dict.items():
         t = v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
-        axis = spec.get(name)
-        if axis is not None and mesh is not None:
-            n = mesh.axis_size(axis)
-            if t.shape[0] % n:
-                raise ValueError(f"{name}: {t.shape[0]} rows do not split over {n} "
-                                 f"{axis!r} shards")
-            rows = t.shape[0] // n
-            r = mesh.axis_index(axis)
-            t = t[r * rows:(r + 1) * rows]
+        shards = spec.get(name, ())
+        if mesh is not None and shards:
+            if _held_elsewhere(shards, mesh):
+                continue
+            t = _cut(t, shards, mesh, name)
         out[name] = t.to("cpu", copy=True)
     return out
 
 
-def gather_state_dict(state_dict: Mapping[str, torch.Tensor], spec: Mapping[str, str],
-                      mesh) -> "OrderedDict[str, torch.Tensor]":
-    """Every rank's rows of the params in ``spec`` put back together, in
-    rank order on each param's axis; the others as they are. A collective:
-    every rank of ``mesh`` must call it with the same names. Returns full
-    host tensors of their own (``.numpy()`` gives the JAX package's
-    arrays) on every rank."""
-    from edl_tpu_torch.parallel.collective import gather_dim
+def _gather_held(local: "OrderedDict[str, torch.Tensor]", held: Mapping[str, str],
+                 mesh) -> "OrderedDict[str, torch.Tensor]":
+    """The params held whole by one index of an axis (``held``: {name:
+    axis}), from every index of it: each index's names and shapes go round
+    as objects, then each tensor from its holder by broadcast (on the host
+    over gloo). Host tensors, in index order."""
+    import torch.distributed as dist
 
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for axis in dict.fromkeys(held.values()):
+        group = mesh.group(axis)
+        mine = [(n, tuple(local[n].shape), str(local[n].dtype))
+                for n, a in held.items() if a == axis]
+        if group is None:
+            for n, _, _ in mine:
+                out[n] = local[n].to("cpu", copy=True)
+            continue
+        lists = [None] * dist.get_world_size(group)
+        dist.all_gather_object(lists, mine, group=group)
+        gloo = dist.get_backend(group) == "gloo"
+        device = next(iter(local.values())).device if local else torch.device("cpu")
+        me = mesh.axis_index(axis)
+        for i, names in enumerate(lists):
+            src = mesh.neighbor(axis, i - me, wrap=False)
+            for n, shape, dtype in names:
+                if i == me:
+                    t = local[n].detach().contiguous()
+                    t = t.cpu() if gloo else t
+                else:
+                    t = torch.empty(shape, dtype=getattr(torch, dtype.split(".")[-1]),
+                                    device="cpu" if gloo else device)
+                dist.broadcast(t, src=src, group=group)
+                out[n] = t.to("cpu", copy=True)
+    return out
+
+
+def gather_state_dict(state_dict: Mapping[str, torch.Tensor], spec: Mapping[str, Any],
+                      mesh) -> "OrderedDict[str, torch.Tensor]":
+    """Every rank's parts of the params in ``spec`` put back together: each
+    split dim gathered in rank order on its axis, then the params held
+    whole by one index of an axis collected from every index; the others
+    as they are. A collective: every rank of ``mesh`` must call it, with
+    the same names up to the held ones. Returns full host tensors of their
+    own (``.numpy()`` gives the JAX package's arrays) on every rank: the
+    replicated and split params first, in ``state_dict``'s order, then the
+    held ones, in index order."""
+    from edl_tpu_torch.models.base import normalize_spec
+    from edl_tpu_torch.parallel.collective import gather_dim
+
+    spec = normalize_spec(spec)
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    held: "OrderedDict[str, str]" = OrderedDict()
+    whole: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for name, t in state_dict.items():
         t = t.detach()
-        axis = spec.get(name)
-        group = None if mesh is None or axis is None else mesh.group(axis)
-        if group is not None:
-            t = gather_dim(t.contiguous(), group, 0)
-        out[name] = t.to("cpu", copy=True)
+        for sh in spec.get(name, ()):
+            if mesh is None:
+                break
+            if sh.dim is None:
+                held[name] = sh.axis
+                continue
+            group = mesh.group(sh.axis)
+            if group is not None and mesh.axis_size(sh.axis) > 1:
+                t = gather_dim(t.contiguous(), group, sh.dim)
+        if name in held:
+            whole[name] = t
+        else:
+            out[name] = t.to("cpu", copy=True)
+    if held:
+        out.update(_gather_held(whole, held, mesh))
     return out

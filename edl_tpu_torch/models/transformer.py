@@ -31,13 +31,33 @@ each slot holds one token or zeros and each token reads at most k slots, so
 the function is the same. `_moe_ffn_reference` keeps the einsum form as its
 plain version.
 
-On a `parallel.mesh.Mesh` the LM trains data-parallel: every param is
-replicated, each rank's batch slice is sharded over ``batch_axis``, and the
-module's loss is its slice's mean; the Trainer takes the mean over the
-batch axes, as the JAX loss ``pmean``s over them, so the objective is the
-mean over the global batch. Raise ``NotImplementedError`` until a later
-slice: any sequence, tensor, pipeline or expert axis above 1 (ROADMAP
-queue A item 5).
+On a `parallel.mesh.Mesh` (``make_model(cfg).build(mesh=mesh)``, as the
+Trainer builds it) every mesh axis of the JAX package runs, alone or
+composed, as its ``shard_map`` kernel does on local shards:
+
+- ``data`` (``batch_axis``): each rank's batch rows;
+- ``seq``: each rank's sequence chunk (global positions for the position
+  embedding) and ring attention over the axis
+  (`parallel.ring_attention`), the flash kernels as its per-hop engine;
+- ``model``: Megatron tensor parallelism, local heads ``H/tp`` and local
+  ``d_ff/tp``, a `parallel.collective.psum` after ``wo`` and after
+  ``wout``;
+- ``pipe``: the rank builds only its stage's layers (contiguous, or
+  chunk-major under `parallel.pipeline.interleaved_layout`) and runs GPipe,
+  1F1B or interleaved 1F1B (`parallel.pipeline`), the MoE aux riding
+  every schedule;
+- ``expert``: each rank's experts, the (E, C, D) slot buffer's expert dim
+  split over the axis by `parallel.collective.all_to_all` after the
+  dispatch and put back before the combine (capacity per device group).
+
+Blocks are named by their logical layer (``blocks.{i}``) on every rank,
+so a stage's params carry their one-device names. `param_spec` gives
+each param's shards (`models.base.Shard`), and `grad_axes` is every mesh
+axis: the module returns its chunk's loss, the Trainer backpropagates it
+over the world size and sums each gradient over the axes its param is not
+sharded on, which is the JAX Trainer's gradient (the boundary rule of
+``shard_map``'s transpose for a ``P()`` loss, with ``psum`` transposed to
+``psum``).
 """
 
 from __future__ import annotations
@@ -54,6 +74,8 @@ from torch.utils.checkpoint import checkpoint
 
 from edl_tpu_torch.device import DeviceLike, resolve_device
 from edl_tpu_torch.models.base import Model
+from edl_tpu_torch.models.base import Shard
+from edl_tpu_torch.parallel.collective import all_to_all, psum
 from edl_tpu_torch.parallel.ring_attention import _ring_attention_local
 
 
@@ -72,7 +94,7 @@ class TransformerConfig:
     pp_axis: str = "pipe"
     #: microbatches for the pipeline schedule; None = stage count
     microbatches: Optional[int] = None
-    #: "gpipe", "1f1b" or "1f1b-interleaved"; pipelines wait for a later slice
+    #: "gpipe", "1f1b" or "1f1b-interleaved" (`parallel.pipeline`)
     pipeline_schedule: str = "gpipe"
     #: virtual stage chunks per pipe rank (>1 only with "1f1b-interleaved")
     virtual_stages: int = 1
@@ -89,7 +111,7 @@ class TransformerConfig:
     #: experts per token: 1 = switch routing, >1 = GShard with renormalized
     #: gates (every first choice outranks any second choice for capacity)
     moe_top_k: int = 1
-    #: the expert mesh axis; above 1 raises until a later slice
+    #: the mesh axis the experts are split over
     expert_axis: str = "expert"
     #: weight of the switch load-balance aux (E * sum_e f_e * p_e a layer,
     #: averaged over the layers); 0 = off
@@ -101,28 +123,107 @@ class TransformerConfig:
 
 
 def _check(cfg: TransformerConfig, axes: Optional[Mapping[str, int]]) -> None:
-    """The JAX package's config validation, plus what this slice leaves out."""
+    """The JAX package's config validation (``_init``), with its messages,
+    against the mesh's axis sizes ``axes`` (None: one device)."""
+    axes = axes or {}
+    size = lambda name: int(axes.get(name, 1))  # noqa: E731
+    tp = size(cfg.tp_axis)
+    if cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"n_heads={cfg.n_heads} and d_ff={cfg.d_ff} must be divisible by tp={tp}")
+    if cfg.seq_len % size(cfg.seq_axis):
+        raise ValueError(f"seq_len={cfg.seq_len} must be divisible by "
+                         f"sp={size(cfg.seq_axis)}")
+    n_pp = size(cfg.pp_axis)
+    if cfg.n_layers % n_pp:
+        raise ValueError(f"n_layers={cfg.n_layers} must be divisible by pp={n_pp}")
     if cfg.pipeline_schedule not in ("gpipe", "1f1b", "1f1b-interleaved"):
         raise ValueError(
             f"unknown pipeline_schedule {cfg.pipeline_schedule!r}; "
             "expected 'gpipe', '1f1b' or '1f1b-interleaved'")
-    if cfg.virtual_stages < 1:
-        raise ValueError(f"virtual_stages={cfg.virtual_stages} must be >= 1")
-    if cfg.virtual_stages > 1 and cfg.pipeline_schedule != "1f1b-interleaved":
+    v = cfg.virtual_stages
+    if v < 1:
+        raise ValueError(f"virtual_stages={v} must be >= 1")
+    if v > 1 and cfg.pipeline_schedule != "1f1b-interleaved":
         raise ValueError(
-            f"virtual_stages={cfg.virtual_stages} requires pipeline_schedule="
+            f"virtual_stages={v} requires pipeline_schedule="
             f"'1f1b-interleaved', got {cfg.pipeline_schedule!r}")
-    axes = axes or {}
-    E, ep = cfg.moe_experts, axes.get(cfg.expert_axis, 1)
+    if cfg.pipeline_schedule == "1f1b-interleaved" and n_pp > 1:
+        if cfg.n_layers % (n_pp * v):
+            raise ValueError(
+                f"n_layers={cfg.n_layers} must be divisible by "
+                f"pp*virtual_stages={n_pp * v} for the interleaved schedule")
+        if v > 1 and (cfg.microbatches or n_pp) % n_pp:
+            raise ValueError(
+                f"microbatches={cfg.microbatches} must be divisible by "
+                f"pp={n_pp} for the interleaved schedule (microbatches are "
+                f"injected in groups of pp)")
+    E, ep = cfg.moe_experts, size(cfg.expert_axis)
     if E > 0 and E % ep:
         raise ValueError(f"moe_experts={E} must be divisible by ep={ep}")
     if E > 0 and not 1 <= cfg.moe_top_k <= E:
         raise ValueError(f"moe_top_k={cfg.moe_top_k} must be in [1, moe_experts={E}]")
-    for axis in (cfg.seq_axis, cfg.tp_axis, cfg.pp_axis, cfg.expert_axis):
-        if axes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"axis {axis!r} of size {axes[axis]}: sequence, tensor, pipeline "
-                f"and expert parallelism are not ported yet (ROADMAP queue A item 5)")
+
+
+#: per-layer block params split over the tensor axis, and their dim (the
+#: JAX package's ``_block_spec`` less its leading layer dim)
+_TP_DIMS = {"wqkv": 2, "bqkv": 1, "wo": 0, "win": 1, "bin": 0, "wout": 0}
+#: the experts' params, split over the expert axis on their expert dim
+_EP_DIMS = {"w_up": 0, "b_up": 0, "w_down": 0, "b_down": 0}
+
+
+class _Place:
+    """Where this rank sits on the mesh for the LM: each parallel axis's
+    size, this rank's index on it and its process group (None at size 1)."""
+
+    def __init__(self, cfg: TransformerConfig, mesh):
+        self.mesh = mesh
+
+        def axis(name):
+            n = int(mesh.shape.get(name, 1))
+            return n, (mesh.axis_index(name) if n > 1 else 0), \
+                (mesh.group(name) if n > 1 else None)
+
+        self.tp, self.tp_index, self.tp_group = axis(cfg.tp_axis)
+        self.sp, self.sp_index, _ = axis(cfg.seq_axis)
+        self.pp, self.pp_index, _ = axis(cfg.pp_axis)
+        self.ep, self.ep_index, self.ep_group = axis(cfg.expert_axis)
+        if max(self.tp, self.sp, self.pp, self.ep) > 1 and not mesh.distributed:
+            raise ValueError(f"{mesh}: tensor, sequence, pipeline and expert axes above "
+                             "1 need a mesh over a process group (build_mesh)")
+        v = cfg.virtual_stages if cfg.pipeline_schedule == "1f1b-interleaved" else 1
+        #: chunks a rank holds, and the stacked storage order of the layers
+        self.v = v if self.pp > 1 else 1
+        self.layout = _layer_layout(cfg, self.pp)
+
+    def cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a per-layer block param drawn whole."""
+        for dims, n, i in ((_TP_DIMS, self.tp, self.tp_index),
+                           (_EP_DIMS, self.ep, self.ep_index)):
+            if name in dims and n > 1:
+                d = dims[name]
+                size = t.shape[d] // n
+                t = t.narrow(d, i * size, size)
+        return t.contiguous()
+
+    def layers(self) -> list:
+        """The logical layers this rank holds, in its execution order."""
+        L = len(self.layout)
+        per = L // self.pp
+        return [int(i) for i in self.layout[self.pp_index * per:(self.pp_index + 1) * per]]
+
+
+def _layer_layout(cfg: TransformerConfig, pp: int) -> np.ndarray:
+    """The stacked storage order of the layers: row p holds logical layer
+    ``layout[p]`` (`interleaved_layout` for the interleaved schedule over
+    a pipe axis, else the identity); pipe rank r holds rows ``[r*L/pp,
+    (r+1)*L/pp)``."""
+    from edl_tpu_torch.parallel.pipeline import interleaved_layout
+
+    v = cfg.virtual_stages
+    if cfg.pipeline_schedule == "1f1b-interleaved" and v > 1 and pp > 1:
+        return interleaved_layout(cfg.n_layers, pp, v)
+    return np.arange(cfg.n_layers)
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -148,56 +249,66 @@ class Block(nn.Module):
     b_down (E, D)."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, place: Optional[_Place] = None):
         super().__init__()
         D, H, Dh, Fd, E = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.moe_experts
         self.cfg = cfg
+        self.place = place
 
-        def param(shape, std=None):
+        def param(name, shape, std=None):
+            # drawn whole on the host (the generator's sequence is the
+            # one-device module's), then cut to this rank's part
             t = (torch.randn(shape, generator=generator) * std if std is not None
                  else torch.zeros(shape))
-            return nn.Parameter(t.to(device))
+            if place is not None:
+                t = place.cut(name, t)
+            setattr(self, name, nn.Parameter(t.to(device)))
 
         self.ln1 = nn.Parameter(torch.ones(D, device=device))
-        self.wqkv = param((D, 3, H, Dh), math.sqrt(1.0 / D))
-        self.bqkv = param((3, H, Dh))
-        self.wo = param((H, Dh, D), math.sqrt(1.0 / D))
-        self.bo = param((D,))
+        param("wqkv", (D, 3, H, Dh), math.sqrt(1.0 / D))
+        param("bqkv", (3, H, Dh))
+        param("wo", (H, Dh, D), math.sqrt(1.0 / D))
+        param("bo", (D,))
         self.ln2 = nn.Parameter(torch.ones(D, device=device))
         if E > 0:
-            self.router = param((D, E), 0.02)
-            self.w_up = param((E, D, Fd), math.sqrt(2.0 / D))
-            self.b_up = param((E, Fd))
-            self.w_down = param((E, Fd, D), math.sqrt(1.0 / Fd))
-            self.b_down = param((E, D))
+            param("router", (D, E), 0.02)
+            param("w_up", (E, D, Fd), math.sqrt(2.0 / D))
+            param("b_up", (E, Fd))
+            param("w_down", (E, Fd, D), math.sqrt(1.0 / Fd))
+            param("b_down", (E, D))
         else:
-            self.win = param((D, Fd), math.sqrt(2.0 / D))
-            self.bin = param((Fd,))
-            self.wout = param((Fd, D), math.sqrt(1.0 / Fd))
-            self.bout = param((D,))
+            param("win", (D, Fd), math.sqrt(2.0 / D))
+            param("bin", (Fd,))
+            param("wout", (Fd, D), math.sqrt(1.0 / Fd))
+            param("bout", (D,))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x: (B, S, D) bf16 -> (the block's output (B, S, D) bf16, the MoE
-        layer's load-balance aux as an f32 scalar, or None for a dense FFN)."""
-        cfg = self.cfg
+        layer's load-balance aux as an f32 scalar, or None for a dense FFN).
+        On a mesh: this rank's rows and sequence chunk, its heads and d_ff
+        columns (summed over the tensor axis after ``wo`` and ``wout``), its
+        experts."""
+        cfg, place = self.cfg, self.place
         B, S, D = x.shape
-        H, Dh = cfg.n_heads, cfg.head_dim
+        _, _, H, Dh = self.wqkv.shape  # this rank's heads
+        tp_group = place.tp_group if place is not None else None
         h = _rmsnorm(x, self.ln1)
         qkv = (h @ _bf16(self.wqkv).reshape(D, 3 * H * Dh)).reshape(B, S, 3, H, Dh) \
             + _bf16(self.bqkv)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = _ring_attention_local(q, k, v, seq_axis=cfg.seq_axis, n_shards=1,
-                                     causal=True, scale=1.0 / math.sqrt(Dh),
-                                     flash=cfg.flash)  # (B, S, H, Dh)
+        attn = _ring_attention_local(
+            q, k, v, seq_axis=cfg.seq_axis, n_shards=place.sp if place else 1,
+            causal=True, scale=1.0 / math.sqrt(Dh), flash=cfg.flash,
+            mesh=place.mesh if place else None)  # (B, S, H, Dh)
         out = attn.reshape(B, S, H * Dh) @ _bf16(self.wo).reshape(H * Dh, D)
-        x = x + (out.float() + self.bo).to(torch.bfloat16)
+        x = x + (psum(out.float(), tp_group) + self.bo).to(torch.bfloat16)
         h = _rmsnorm(x, self.ln2)
         if cfg.moe_experts > 0:
             o, aux = _moe_ffn(cfg, h, self)  # o: f32 holding bf16 values; no bias
             return x + o.to(torch.bfloat16), aux
         f = _gelu(h @ _bf16(self.win) + _bf16(self.bin))
         o = f @ _bf16(self.wout)
-        return x + (o.float() + self.bout).to(torch.bfloat16), None
+        return x + (psum(o.float(), tp_group) + self.bout).to(torch.bfloat16), None
 
 
 # -- mixture-of-experts FFN ----------------------------------------------------
@@ -267,8 +378,11 @@ def _moe_experts(slots: torch.Tensor, blk: Block) -> torch.Tensor:
 
 
 def _moe_ffn(cfg: TransformerConfig, h: torch.Tensor, blk: Block):
-    """The MoE FFN at one expert shard, index form: h (B, S, D) bf16 ->
-    (out (B, S, D) f32 holding bf16 values, aux f32 scalar).
+    """The MoE FFN, index form: h (B, S, D) bf16 -> (out (B, S, D) f32
+    holding bf16 values, aux f32 scalar). Over an expert axis the slot
+    buffer goes to the experts' ranks and back by `all_to_all` (the JAX
+    package's two ``all_to_all``s), the capacity that of this rank's T
+    tokens.
 
     Dispatch copies each kept choice's token row into its row of a zeroed
     (E*C, D) slot buffer (a dropped choice writes a spare row that is cut
@@ -286,8 +400,16 @@ def _moe_ffn(cfg: TransformerConfig, h: torch.Tensor, blk: Block):
     r = _moe_route(cfg, tok, blk.router, C)
     dest = torch.where(r.keep, r.expert * C + r.slot, E * C)  # (k*T,)
     slots = tok.new_zeros(E * C + 1, D).index_copy(
-        0, dest, tok.expand(k, T, D).reshape(k * T, D))[:E * C]
-    down = _moe_experts(slots.view(E, C, D), blk).reshape(E * C, D)
+        0, dest, tok.expand(k, T, D).reshape(k * T, D))[:E * C].view(E, C, D)
+    group = blk.place.ep_group if blk.place is not None else None
+    if group is not None:
+        # expert-major -> device-major: this rank keeps its E/ep experts'
+        # slots from every rank, side by side on the slot dim
+        slots = all_to_all(slots, group, 0, 1)  # (E/ep, ep*C, D)
+    down = _moe_experts(slots, blk)
+    if group is not None:
+        down = all_to_all(down, group, 1, 0)  # back to (E, C, D)
+    down = down.reshape(E * C, D)
     rows = down.index_select(0, torch.where(r.keep, dest, 0)).view(k, T, D)
     out = (rows.float() * r.gate.to(torch.bfloat16).float()[..., None]).sum(dim=0)
     return out.to(torch.bfloat16).float().reshape(B, S, D), r.aux
@@ -299,7 +421,7 @@ def _moe_ffn_reference(cfg: TransformerConfig, h: torch.Tensor, blk: Block):
     same routing. The combine's bf16 operands are multiplied and summed in
     f32 and rounded once, as the JAX package's bf16 einsum accumulates; the
     f32 einsum says so on any backend. It makes (k*T, E, C) tensors: a
-    test and diagnostic path, not the model's."""
+    test and diagnostic path at one expert shard, not the model's."""
     B, S, D = h.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = B * S
@@ -322,43 +444,163 @@ def _moe_ffn_reference(cfg: TransformerConfig, h: torch.Tensor, blk: Block):
 class TransformerLM(nn.Module):
     """Token and position embeddings, ``n_layers`` blocks, final RMSNorm and
     LM head. Calling it on ``{"tokens", "targets"}`` ((B, S) integer tensors)
-    returns the mean next-token cross-entropy, f32."""
+    returns the mean next-token cross-entropy, f32.
+
+    ``mesh`` (a `parallel.mesh.Mesh`): this rank's part of the model (see
+    the module docstring); its loss is the mean over its own rows and
+    sequence chunk. Given the whole sequence, a rank cuts its chunk itself."""
 
     def __init__(self, cfg: TransformerConfig, *, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None,
-                 axes: Optional[Mapping[str, int]] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
-        _check(cfg, axes)
+        _check(cfg, None if mesh is None else mesh.shape)
         device = resolve_device(device)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         D, V = cfg.d_model, cfg.vocab_size
         self.cfg = cfg
+        self.place = _Place(cfg, mesh) if mesh is not None else None
+        #: ``max_stash`` of the last 1F1B schedule run (`parallel.pipeline`)
+        self.pipeline_stats: dict = {}
         self.embed = nn.Parameter((torch.randn((V, D), generator=g) * 0.02).to(device))
         self.pos = nn.Parameter(
             (torch.randn((cfg.seq_len, D), generator=g) * 0.02).to(device))
-        self.blocks = nn.ModuleList(Block(cfg, g, device) for _ in range(cfg.n_layers))
+        if self.place is None:
+            self.blocks = nn.ModuleList(Block(cfg, g, device) for _ in range(cfg.n_layers))
+        else:
+            # every layer is drawn, in order, so the generator gives each the
+            # one-device module's params; a rank keeps its stage's, named by
+            # their logical layer, in its execution order
+            mine = set(self.place.layers())
+            drawn = {}
+            for i in range(cfg.n_layers):
+                blk = Block(cfg, g, device if i in mine else torch.device("cpu"),
+                            self.place)
+                if i in mine:
+                    drawn[i] = blk
+            self.blocks = nn.ModuleList()
+            for i in self.place.layers():
+                self.blocks.add_module(str(i), drawn[i])
         self.lnf = nn.Parameter(torch.ones(D, device=device))
         self.head = nn.Parameter((torch.randn((D, V), generator=g) * 0.02).to(device))
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        tokens, targets = batch["tokens"].long(), batch["targets"].long()
-        S = tokens.shape[1]
-        x = (self.embed[tokens] + self.pos[:S]).to(torch.bfloat16)
-        aux_sum = None  # the MoE layers' aux, summed in layer order in f32
-        for block in self.blocks:
+    def full_param_names(self) -> list:
+        """The one-device module's param names, in its ``named_parameters``
+        order (its own params first, then the blocks'): the order a whole
+        optimizer state numbers them in."""
+        leaves = MOE_LEAVES if self.cfg.moe_experts > 0 else DENSE_LEAVES
+        return (["embed", "pos", "lnf", "head"]
+                + [f"blocks.{i}.{n}" for i in range(self.cfg.n_layers) for n in leaves])
+
+    def _run_blocks(self, blocks, x: torch.Tensor):
+        """``blocks`` in order on x: (output, the MoE layers' aux summed in
+        f32, or None)."""
+        aux_sum = None
+        for block in blocks:
             # blocks draw no randomness, so there is no RNG state to replay
             x, aux = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
                       if self.cfg.remat else block(x))
             if aux is not None:
                 aux_sum = aux if aux_sum is None else aux_sum + aux
-        # tail: final norm, f32 LM head, mean token cross-entropy (f32)
+        return x, aux_sum
+
+    def _tail(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Final norm, f32 LM head, mean token cross-entropy (f32)."""
         h = _rmsnorm(x, self.lnf).float()
         logits = h @ self.head
-        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
-        if aux_sum is not None and self.cfg.moe_aux_weight > 0:
-            # a per-layer mean: the weight over n_layers times the sum
-            loss = loss + self.cfg.moe_aux_weight / self.cfg.n_layers * aux_sum
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        cfg, place = self.cfg, self.place
+        tokens, targets = batch["tokens"].long(), batch["targets"].long()
+        sp_index = 0
+        if place is not None and place.sp > 1:
+            sp_index = place.sp_index
+            if tokens.shape[1] == cfg.seq_len:  # the whole sequence: cut the chunk
+                S = cfg.seq_len // place.sp
+                tokens = tokens[:, sp_index * S:(sp_index + 1) * S]
+                targets = targets[:, sp_index * S:(sp_index + 1) * S]
+        S = tokens.shape[1]
+        pos = sp_index * S + torch.arange(S, device=tokens.device)  # global positions
+        x = (self.embed[tokens] + self.pos[pos]).to(torch.bfloat16)
+        use_aux = cfg.moe_experts > 0 and cfg.moe_aux_weight > 0
+        # a per-layer mean: the weight over n_layers times the sum
+        aux_w = cfg.moe_aux_weight / cfg.n_layers if use_aux else 0.0
+        if place is not None and place.pp > 1:
+            return self._pipelined(x, targets, use_aux, aux_w)
+        x, aux_sum = self._run_blocks(self.blocks, x)
+        loss = self._tail(x, targets)
+        if use_aux and aux_sum is not None:
+            loss = loss + aux_w * aux_sum
         return loss
+
+    def _pipelined(self, x, targets, use_aux: bool, aux_w: float) -> torch.Tensor:
+        """The pipe path (the JAX ``_kernel``'s): 1F1B, plain or interleaved,
+        with the tail inside the schedule; or GPipe, its output broadcast to
+        every stage and the tail after it."""
+        from edl_tpu_torch.parallel import pipeline
+
+        cfg, place = self.cfg, self.place
+        M = cfg.microbatches or place.pp
+        blocks = list(self.blocks)
+
+        def staged(bs, h):
+            h, aux = self._run_blocks(bs, h)
+            if not use_aux:
+                return h
+            return h, aux if aux is not None else torch.zeros((), device=h.device)
+
+        if cfg.pipeline_schedule in ("1f1b", "1f1b-interleaved"):
+            lc = len(blocks) // place.v
+            chunks = [blocks[k * lc:(k + 1) * lc] for k in range(place.v)]
+            return pipeline.pipeline_train_1f1b(
+                lambda k, h: staged(chunks[k], h), self._tail, place.mesh, cfg.pp_axis,
+                M, place.v, aux_w, [[p for b in c for p in b.parameters()] for c in chunks],
+                [self.lnf, self.head], x, targets, stats=self.pipeline_stats)
+        out = pipeline._pipeline_local(lambda h: staged(blocks, h), x, mesh=place.mesh,
+                                       pipe_axis=cfg.pp_axis, n_stages=place.pp,
+                                       microbatches=M, stage_aux=use_aux)
+        x, aux = out if use_aux else (out, None)
+        loss = self._tail(x, targets)
+        return loss + aux_w * aux if use_aux else loss
+
+
+def param_spec(cfg: TransformerConfig, mesh) -> Dict[str, Tuple[Shard, ...]]:
+    """{param name: its shards} on ``mesh`` (JAX ``_block_spec`` per layer):
+    every block param over the pipe axis is held by the stage that runs its
+    layer; ``wqkv``, ``bqkv``, ``wo``, ``win``, ``bin``, ``wout`` split over
+    the tensor axis; the experts over the expert axis. The embeddings, the
+    final norm and the head are replicated."""
+    size = lambda name: int(mesh.shape.get(name, 1))  # noqa: E731
+    pp, tp, ep = size(cfg.pp_axis), size(cfg.tp_axis), size(cfg.expert_axis)
+    names = MOE_LEAVES if cfg.moe_experts > 0 else DENSE_LEAVES
+    layout = _layer_layout(cfg, pp)
+    per = cfg.n_layers // pp
+    spec: Dict[str, Tuple[Shard, ...]] = {}
+    for row, layer in enumerate(layout):
+        for name in names:
+            shards = []
+            if pp > 1:
+                shards.append(Shard(cfg.pp_axis, None, row // per))
+            if tp > 1 and name in _TP_DIMS:
+                shards.append(Shard(cfg.tp_axis, _TP_DIMS[name]))
+            if ep > 1 and name in _EP_DIMS:
+                shards.append(Shard(cfg.expert_axis, _EP_DIMS[name]))
+            if shards:
+                spec[f"blocks.{int(layer)}.{name}"] = tuple(shards)
+    return spec
+
+
+#: a block's params, in module order: dense FFN and mixture of experts
+DENSE_LEAVES = ("ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "win", "bin", "wout", "bout")
+MOE_LEAVES = ("ln1", "wqkv", "bqkv", "wo", "bo", "ln2", "router", "w_up", "b_up",
+              "w_down", "b_down")
+
+
+def batch_spec(cfg: TransformerConfig, mesh) -> Dict[str, tuple]:
+    """JAX ``_batch_specs``: tokens and targets split over the batch axes on
+    dim 0 and the sequence axis on dim 1."""
+    sp = cfg.seq_axis if cfg.seq_axis in mesh.axis_names else None
+    return {"tokens": (cfg.batch_axis, sp), "targets": (cfg.batch_axis, sp)}
 
 
 def synthetic_batch(cfg: TransformerConfig, rng: np.random.Generator, batch_size: int):
@@ -584,8 +826,11 @@ def make_model(cfg: Optional[TransformerConfig] = None, **overrides) -> Model:
     return Model(
         name="transformer",
         build=lambda device=None, generator=None, mesh=None: TransformerLM(
-            cfg, device=device, generator=generator,
-            axes=None if mesh is None else mesh.shape),
+            cfg, device=device, generator=generator, mesh=mesh),
+        param_spec=lambda mesh: param_spec(cfg, mesh),
+        # the JAX loss is P() out of its shard_map: every axis
+        grad_axes=lambda mesh: tuple(mesh.axis_names),
+        batch_spec=lambda mesh: batch_spec(cfg, mesh),
         synthetic_batch=lambda rng, bs: synthetic_batch(cfg, rng, bs),
         label_keys=("targets",),
         config=cfg,

@@ -19,6 +19,11 @@ JAX package, with dO in q's dtype: see `_backward_inputs`),
 ``dS = P * (dP - delta) * scale``, ``dQ = dS K``,
 ``dK = dSᵀ Q`` and ``dV = Pᵀ dO``. The lse cotangent ``dlse`` is what lets
 the ring merge per-hop (out, lse) pairs and differentiate through both.
+The ring's hops have an f32 out, so their dO is f32, where the kernels read
+q's dtype: the backward then runs twice, on dO's bf16 part and on the bf16
+rounding of what that part leaves out (each pass with its own delta, the
+function being linear in (dO, delta)), and adds the two: the JAX kernels'
+f32 dO to within a rounding of the remainder.
 
 Layout at the boundary is the models' (B, S, H, D). The kernels read q, k and
 v through their strides, so the slices of a fused (B, S, 3, H, D) projection
@@ -299,7 +304,8 @@ def _backward_inputs(q, o, do, dlse) -> Tuple[torch.Tensor, torch.Tensor]:
     read bf16, so the f32 dO of the lse path is rounded, and delta is formed
     from that same dO. dP - delta then cancels as in exact arithmetic (to
     dlse for a row that sees one key), where a delta from the unrounded dO
-    would leave dP's rounding error in dS.
+    would leave dP's rounding error in dS. What the rounding leaves out goes
+    through a second pass (`_Flash.backward`).
     """
     do = do.to(q.dtype)
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2) - dlse.float()
@@ -324,10 +330,17 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        do, delta = _backward_inputs(q, o, do, dlse)
         bwd = _route(q, _bwd_reference, _bwd_kernel)
-        dq, dk, dv = bwd(q, k, v, do, lse, delta, **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+        hi, delta = _backward_inputs(q, o, do, dlse)
+        grads = bwd(q, k, v, hi, lse, delta, **ctx.opts)
+        if do.dtype != q.dtype:
+            # an f32 dO (the ring's hops): the backward of its remainder too,
+            # whose delta has no lse term (that went with the first part)
+            lo, delta_lo = _backward_inputs(q, o, do.float() - hi.float(),
+                                            torch.zeros_like(delta))
+            grads = tuple((a.float() + b.float()).to(a.dtype) for a, b in
+                          zip(grads, bwd(q, k, v, lo, lse, delta_lo, **ctx.opts)))
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(

@@ -21,6 +21,29 @@ Two halves:
 In the JAX package XLA issues the collectives (a sharding constraint makes
 the partitioner lower a reduction as reduce-scatter); here the Trainer
 issues them itself, one bucket at a time (`runtime.train_loop`).
+
+The in-model collectives of the model-parallel LM, each with the transpose
+JAX gives it inside a ``shard_map`` with ``check_vma=False``:
+
+- `psum`: the sum over an axis; its backward is `psum` of the cotangent
+  (under ``check_vma=False`` JAX transposes ``psum`` to ``psum``, unlike
+  `all_reduce` above).
+- `ppermute`: every rank of an axis sends to the rank ``shift`` places on
+  (a ring, or a line without wraparound); its backward sends the
+  cotangent back the other way.
+- `all_to_all`: the tiled ``jax.lax.all_to_all``; its backward is the
+  reverse all-to-all.
+- `exchange`: the point-to-point transport under the last two and the
+  pipeline schedules: one batch of sends and receives, matched by tag.
+
+The transport is chosen by the group's backend, never by trying one and
+catching its failure. On NCCL the tensors go as they are
+(``batch_isend_irecv``, ``all_to_all_single``). On gloo, CUDA tensors go
+through host copies: gloo's send and receive hand the buffer's pointer to
+its TCP transport and stage nothing, so the host copy is the transport;
+CPU tensors go as they are. (Gloo stages CUDA tensors itself for
+``all_reduce``, ``all_gather_into_tensor`` and ``reduce_scatter_tensor``,
+which the rest of this module uses.)
 """
 
 from __future__ import annotations
@@ -33,6 +56,10 @@ import torch.distributed as dist
 
 __all__ = [
     "GradBucket",
+    "all_to_all",
+    "exchange",
+    "ppermute",
+    "psum",
     "ShardSpec",
     "all_gather",
     "all_reduce",
@@ -318,3 +345,150 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """``jax.lax.psum(x, axis)`` into an output replicated over the axis.
     Backward: the cotangent, unchanged."""
     return _AllReduce.apply(x, group)
+
+
+# -- in-model collectives: psum, ppermute, all_to_all -----------------------
+
+
+def _host_staged(group, *tensors) -> bool:
+    """Whether the transport goes through host copies: gloo with a CUDA
+    tensor (see the module docstring)."""
+    return (dist.get_backend(group) == "gloo"
+            and any(t is not None and t.is_cuda for t in tensors))
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+             recvs: Sequence[Tuple[Tuple[int, ...], torch.dtype, int]],
+             group, device=None) -> List[torch.Tensor]:
+    """One batch of point-to-point transfers over ``group``: each ``(tensor,
+    peer)`` of ``sends`` goes to global rank ``peer``, and each ``(shape,
+    dtype, peer)`` of ``recvs`` comes from one; returns the received
+    tensors on ``device`` (default: the first sent tensor's, else the
+    CPU), in order. Transfers between one pair of ranks match in the order
+    they are listed (the i-th send to a peer is the peer's i-th receive
+    from this rank), so both sides must list them in the same order. Every
+    transfer is posted before any is waited on: no order of ranks can
+    deadlock. No autograd."""
+    if device is None:
+        device = sends[0][0].device if sends else torch.device("cpu")
+    staged = _host_staged(group, *(t for t, _ in sends)) or (
+        dist.get_backend(group) == "gloo" and torch.device(device).type == "cuda")
+    ops, bufs, kept = [], [], []
+    tags: Dict[Tuple[str, int], int] = {}
+
+    def tag(kind: str, peer: int) -> int:
+        n = tags.get((kind, peer), 0)
+        tags[(kind, peer)] = n + 1
+        return n
+
+    for t, peer in sends:
+        t = t.detach().contiguous()
+        if staged:
+            t = t.cpu()
+        kept.append(t)
+        ops.append(dist.P2POp(dist.isend, t, peer, group, tag("send", peer)))
+    for shape, dtype, peer in recvs:
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if staged else device)
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, peer, group, tag("recv", peer)))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(device) for b in bufs] if staged else bufs
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.psum(x, axis)`` inside a ``shard_map`` with
+    ``check_vma=False``: the sum over ``group``. Backward: `psum` of the
+    cotangent. ``group=None``: one rank, the identity."""
+    return x if group is None else _Psum.apply(x, group)
+
+
+def _permute(xs, mesh, axis: str, shift: int, wrap: bool):
+    """Send each of ``xs`` ``shift`` places along ``axis`` and receive the
+    ones sent here (zeros where the line ends and nothing arrives)."""
+    dst, src = mesh.neighbor(axis, shift, wrap), mesh.neighbor(axis, -shift, wrap)
+    group = mesh.group(axis)
+    sends = [(x, dst) for x in xs] if dst is not None else []
+    recvs = ([(tuple(x.shape), x.dtype, src) for x in xs] if src is not None else [])
+    got = exchange(sends, recvs, group, device=xs[0].device)
+    return got if src is not None else [torch.zeros_like(x) for x in xs]
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, shift, wrap, *xs):
+        ctx.args = (mesh, axis, shift, wrap)
+        return tuple(_permute(xs, mesh, axis, shift, wrap))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axis, shift, wrap = ctx.args
+        return (None, None, None, None, *_permute(gs, mesh, axis, -shift, wrap))
+
+
+def ppermute(xs: Sequence[torch.Tensor], mesh, axis: str, shift: int = 1,
+             wrap: bool = True) -> List[torch.Tensor]:
+    """``jax.lax.ppermute`` of the tensors ``xs`` over ``axis`` of
+    ``mesh``: the rank at index i sends each to the rank at index i +
+    ``shift`` (mod the axis size with ``wrap``; else the last ranks send
+    nothing and the first receive zeros, as JAX's ppermute gives a rank no
+    pair sends to). Backward: the cotangents travel the other way."""
+    return list(_Ppermute.apply(mesh, axis, int(shift), bool(wrap), *xs))
+
+
+def _a2a(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    moved = x.movedim(split_dim, 0)
+    if moved.shape[0] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of size {moved.shape[0]} "
+                         f"does not split over {n} ranks")
+    chunks = moved.reshape(n, moved.shape[0] // n, *moved.shape[1:]).contiguous()
+    staged = _host_staged(group, x)
+    src = chunks.cpu() if staged else chunks
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    out = out.to(x.device) if staged else out
+    # out[i]: rank i's chunk for this rank; put the split dim back, then lay
+    # the source ranks' chunks side by side along the concat dim
+    out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)
+    shape = list(out.shape)
+    shape[concat_dim:concat_dim + 2] = [shape[concat_dim] * shape[concat_dim + 1]]
+    return out.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return _a2a(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return _a2a(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    ``x`` cut into n equal chunks along ``split_dim``, chunk i sent to the
+    group's rank i, and the chunks received laid side by side along
+    ``concat_dim`` in source rank order. Backward: the reverse
+    all_to_all."""
+    return _AllToAll.apply(x, group, int(split_dim), int(concat_dim))

@@ -9,8 +9,10 @@ the same shape sits, and a leaf's shard on rank r is the one that JAX
 device holds.
 
 Every axis gets one process group for each of its slices (the ranks that
-differ only in that axis), and a batch-axis hierarchy such as ``("dcn",
-"data")`` one more over the product of those axes. ``torch.distributed``
+differ only in that axis), a batch-axis hierarchy such as ``("dcn",
+"data")`` one more over the product of those axes, and so does every other
+set of two or more axes of size above 1 (a model-parallel gradient is
+summed over the axes its param is not sharded on). ``torch.distributed``
 numbers a group's ranks in ascending global rank, which is row-major in
 the slice's axes: a rank's index in a group is its index on those axes.
 
@@ -25,6 +27,7 @@ Axis conventions (as in the JAX package):
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -122,12 +125,32 @@ class Mesh:
         return [r for r in range(self.world)
                 if all(c == mine[a] for a, c in self.coords(r).items() if a not in axes)]
 
+    def neighbor(self, axis: str, shift: int, wrap: bool = True) -> Optional[int]:
+        """The global rank ``shift`` places along ``axis`` from this one
+        (the other coordinates equal): modulo the axis size with ``wrap``,
+        else None past either end. Ring neighbours are ``neighbor(axis,
+        1)`` and ``neighbor(axis, -1)``; a pipeline's line drops the
+        wraparound ``n-1 -> 0``."""
+        c = self.coords()
+        n = self.shape[axis]
+        i = c[axis] + shift
+        if not wrap and not 0 <= i < n:
+            return None
+        c[axis] = i % n
+        return int(np.ravel_multi_index([c[a] for a in self.axis_names],
+                                        [self.shape[a] for a in self.axis_names]))
+
     def group(self, axes):
         """The process group of this rank's slice over ``axes``; None when
-        the mesh has no process group or ``axes`` names no axis of it."""
+        the mesh has no process group or ``axes`` names no axis of it (or,
+        for two or more axes, none of size above 1)."""
         key = self._axes(axes)
         if not key or not self._groups:
             return None
+        if key not in self._groups and len(key) > 1:
+            key = tuple(a for a in key if self.shape[a] > 1)
+            if len(key) <= 1:
+                return self.group(key) if key else None
         if key not in self._groups:
             raise KeyError(f"no process group over {key}; the mesh has groups over "
                            f"{sorted(self._groups)}")
@@ -137,11 +160,18 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank}/{self.world})"
 
 
-def _group_keys(names: Sequence[str]) -> List[Tuple[str, ...]]:
+def _group_keys(names: Sequence[str], sizes: Sequence[int]) -> List[Tuple[str, ...]]:
+    """Each axis; each hierarchy on the mesh; every other set of two or more
+    axes of size above 1, in mesh order."""
     keys = [(a,) for a in names]
     for tier in HIERARCHIES:
         if all(a in names for a in tier):
             keys.append(tuple(tier))
+    big = [a for a, n in zip(names, sizes) if n > 1]
+    for k in range(2, len(big) + 1):
+        for combo in itertools.combinations(big, k):
+            if combo not in keys:
+                keys.append(combo)
     return keys
 
 
@@ -176,7 +206,7 @@ def build_mesh(spec: MeshSpec) -> Mesh:
         raise ValueError(f"mesh spec {spec.axes} needs {spec.size()} ranks, have {world}")
     names = spec.ordered_axes() or ["data"]
     mesh = Mesh(names, [spec.axis(n) for n in names], rank, world)
-    mesh._groups = _make_groups(mesh, _group_keys(names))
+    mesh._groups = _make_groups(mesh, _group_keys(names, [spec.axis(n) for n in names]))
     return mesh
 
 

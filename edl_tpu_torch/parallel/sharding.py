@@ -7,12 +7,14 @@ process of a multi-process JAX job does: it passes the slice it produced
 from its own leased shards to ``Trainer.place_batch`` as it is, the global
 batch is never assembled, and the global batch size is the local one
 times the batch axes' size. `shard_batch` is the single-process branch:
-it cuts a global batch that every rank holds to this rank's rows.
+it cuts a global batch that every rank holds to this rank's rows, and,
+given a model's ``batch_spec`` (the JAX package's ``_batch_specs``: the
+LM's tokens and targets ``(dp, sp)``), to its sequence chunk as well.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -35,20 +37,35 @@ def axis_size(mesh, axis: BatchAxis) -> int:
     return n
 
 
-def shard_batch(batch: Dict[str, Any], mesh, axis: BatchAxis = "data") -> Dict[str, Any]:
-    """This rank's rows of a global ``batch``: every leaf split on dim 0
+def _cut(v, dim: int, mesh, axis, key: str):
+    n = axis_size(mesh, axis)
+    size = int(np.shape(v)[dim])
+    if size % n:
+        raise ValueError(f"batch key {key!r}: dim {dim} of size {size} does not split "
+                         f"over {n} ranks")
+    b = size // n
+    i = mesh.axis_index(present_axes(mesh, axis))
+    index = (slice(None),) * dim + (slice(i * b, (i + 1) * b),)
+    return v[index]
+
+
+def shard_batch(batch: Dict[str, Any], mesh, axis: BatchAxis = "data",
+                specs: Optional[Dict[str, Tuple[Any, Optional[str]]]] = None
+                ) -> Dict[str, Any]:
+    """This rank's part of a global ``batch``: every leaf split on dim 0
     over ``axis``, this rank keeping rows ``[i*b, (i+1)*b)``, ``i`` its
     index over the axes in mesh order (JAX device i's rows) and ``b`` the
-    global batch over the axes' size."""
-    n = axis_size(mesh, axis)
-    i = mesh.axis_index(present_axes(mesh, axis))
+    global batch over the axes' size. ``specs`` ({key: (batch axes,
+    sequence axis or None)}, a model's ``batch_spec``) names the axes of
+    its keys instead: dim 0 over the batch axes, dim 1 over the sequence
+    axis."""
     out = {}
     for k, v in batch.items():
-        rows = int(np.shape(v)[0])
-        if rows % n:
-            raise ValueError(f"batch key {k!r}: {rows} rows do not split over {n} ranks")
-        b = rows // n
-        out[k] = v[i * b:(i + 1) * b]
+        rows_axis, seq_axis = (specs or {}).get(k, (axis, None))
+        v = _cut(v, 0, mesh, rows_axis, k)
+        if seq_axis is not None:
+            v = _cut(v, 1, mesh, seq_axis, k)
+        out[k] = v
     return out
 
 

@@ -26,7 +26,8 @@ math is too: the losses match the JAX worker's on a CPU mesh of any size.
 What the port leaves out, each raising ``NotImplementedError`` with its
 ROADMAP.md item: the hybrid-parallel ``layout_planner`` and ``profiler=``
 (queue A item 7), a ``mesh_axes`` axis other than ``data`` above 1 (item
-5), and ``compile_cache_dir`` (item 7: eager PyTorch keeps no executable to
+9: the mesh Trainer trains such meshes, the workers do not rescale them),
+and ``compile_cache_dir`` (item 7: eager PyTorch keeps no executable to
 cache). ``warm_compile`` runs one forward on zeros during the restore (see
 `Trainer.warm_compile`). ``metrics_port`` serves the worker's own
 `/metrics`; the coordinator status bridge waits for item 7.
@@ -211,8 +212,9 @@ def check_unported(config: ElasticConfig, mesh_axes: Optional[Dict[str, int]],
     wide = {a: int(n) for a, n in (mesh_axes or {}).items() if a != "data" and int(n) > 1}
     if wide:
         raise NotImplementedError(
-            f"mesh_axes {wide}: tensor, sequence, pipeline and expert "
-            "parallelism are not ported yet (ROADMAP.md queue A item 5)")
+            f"mesh_axes {wide}: the elastic workers do not run or rescale "
+            "tensor, sequence, pipeline or expert meshes yet (ROADMAP.md queue "
+            "A item 9); the mesh Trainer trains them")
 
 
 def heartbeat_schedule(worker: str, base: float, jitter: float,

@@ -44,7 +44,9 @@ lockstep):
 
 What the port leaves out raises ``NotImplementedError`` naming its
 ROADMAP.md item (`elastic.check_unported`): ``layout_planner``,
-``profiler=``, ``compile_cache_dir`` and axes other than ``data`` above 1.
+``profiler=``, ``compile_cache_dir`` and axes other than ``data`` above 1
+(item 9: the mesh Trainer trains such meshes; the rounds do not yet give
+their model-parallel peers the same shard).
 """
 
 from __future__ import annotations

@@ -30,29 +30,36 @@ Over a `parallel.mesh.Mesh` (``Trainer(model, mesh)``) each rank steps its
 own slice of the global batch and the Trainer issues the collectives the
 JAX partitioner would, over the mesh's process groups:
 
-- The objective on a rank is its slice's mean loss over ``n``, the batch
-  axes' size, and gradients are SUMMED: so every gradient is that of the
-  global mean. (Averaging instead would make a row-sharded table's
-  gradient, which its lookup's collective backward already sums, n times
-  too large.) The loss returned is the global mean.
-- ``grad_sync="psum"``: every replicated leaf's gradient is all-reduced
-  over the batch axes; a leaf row-sharded over an axis (the model's
-  ``param_spec``) is all-reduced only over the batch axes other than its
-  own. ``"reduce_scatter"`` (the ZeRO-1 data plane; needs
-  ``shard_opt_state``): the ZeRO-sharded leaves' gradients are
-  reduce-scattered on their shard dim instead. ``"auto"`` is
-  ``"reduce_scatter"`` whenever ``shard_opt_state`` is on.
+- The objective on a rank is its module's loss over ``n``, the size of
+  the model's ``grad_axes`` (default: the batch axes; the transformer
+  takes every axis), and gradients are SUMMED over those axes less the
+  ones a param is sharded on (the model's ``param_spec``): so every
+  gradient is that of the global mean. (Averaging instead would make a
+  row-sharded table's gradient, which its lookup's collective backward
+  already sums, n times too large.) The loss returned is the mean over
+  the ``grad_axes``.
+- ``grad_sync="psum"``: every gradient is all-reduced over its axes.
+  ``"reduce_scatter"`` (the ZeRO-1 data plane; needs ``shard_opt_state``):
+  the ZeRO-sharded leaves' gradients are reduce-scattered over the batch
+  axes on their shard dim instead (after an all-reduce over their other
+  axes, if any). ``"auto"`` is ``"reduce_scatter"`` whenever
+  ``shard_opt_state`` is on.
 - ``shard_opt_state``: a replicated leaf with a `zero_shard_dim` over the
   batch axes keeps the optimizer's moments for this rank's shard only
   (rank r's is JAX device r's shard); the optimizer updates that shard and
-  the params are all-gathered back. Sharded and indivisible leaves keep
-  full moments.
+  the params are all-gathered back. Sharded leaves (a table's rows, a
+  tensor-parallel split, a pipeline stage's layers, experts) keep the
+  moments of their own part, as the JAX Trainer's ``_zero_specs`` leaves
+  them; indivisible leaves keep full moments.
 - Reductions go out bucket by bucket (`assign_buckets`, reverse leaf
   order), once per microbatch under accumulation; under
   ``reduce_scatter`` the accumulator holds 1/n shards.
 - Clipping takes the global norm: ZeRO shards' squared sums are
-  all-reduced over the batch axes, tables' over their own axis, and
-  replicated leaves are counted once.
+  all-reduced over the batch axes, a sharded leaf's over the axes it is
+  sharded on, and replicated leaves are counted once.
+- `full_state` gathers every part whole (split dims, and the layers that
+  other pipeline stages hold) into the one-device Trainer's state_dicts,
+  the optimizer's numbered in the one-device module's order.
 - A gradient that autograd leaves as None counts as zeros (every rank
   must join every collective), so on a mesh the optimizer updates every
   leaf each step, as optax does.
@@ -66,6 +73,7 @@ from __future__ import annotations
 import functools
 import inspect
 import logging
+import math
 import time
 import weakref
 from collections import defaultdict
@@ -79,10 +87,10 @@ import torch.distributed as dist
 from torch import nn
 
 from edl_tpu_torch.device import DeviceLike, resolve_device
-from edl_tpu_torch.models.base import Model
+from edl_tpu_torch.models.base import Model, Shard, normalize_spec
 from edl_tpu_torch.parallel.collective import (ShardSpec, assign_buckets,
                                                collective_bytes,
-                                               estimate_collective_seconds, gather_dim,
+                                               estimate_collective_seconds,
                                                zero1_step_bytes, zero_shard_spec)
 from edl_tpu_torch.parallel.sharding import axis_size, present_axes
 from edl_tpu_torch.runtime.pipeline import DevicePrefetcher
@@ -243,30 +251,57 @@ class _Leaf:
     """One param of a module on a mesh and how its gradient travels."""
 
     name: str
-    param: nn.Parameter  # the module's: full, or this rank's rows of a table
+    param: nn.Parameter  # the module's: whole, or this rank's part
     #: what the optimizer updates: ``param``, or this rank's ZeRO-1 shard
     opt_param: torch.Tensor
-    #: the mesh axis ``param`` is row-sharded over (the model's
-    #: ``param_spec``), else None
-    axis: Optional[str]
+    #: where the model's ``param_spec`` puts it (empty: replicated)
+    shards: Tuple[Shard, ...]
     #: the axes its gradient is all-reduced over (empty: none)
     reduce_axes: Tuple[str, ...]
     #: its ZeRO-1 shard (replicated leaves under ``shard_opt_state``)
     zero: Optional[ShardSpec]
 
+    @property
+    def own_axes(self) -> Tuple[str, ...]:
+        """The mesh axes its shards name."""
+        out: List[str] = []
+        for sh in self.shards:
+            out += [sh.axis] if isinstance(sh.axis, str) else list(sh.axis)
+        return tuple(out)
+
     def full_shape(self, mesh) -> Tuple[int, ...]:
-        shape = tuple(self.param.shape)
-        if self.axis is None:
-            return shape
-        return (shape[0] * mesh.axis_size(self.axis),) + shape[1:]
+        """Its shape whole: each split dim times its axes' size."""
+        shape = list(self.param.shape)
+        for sh in self.shards:
+            if sh.dim is not None:
+                shape[sh.dim] *= mesh.axis_size(sh.axis)
+        return tuple(shape)
+
+    def copies(self, mesh) -> int:
+        """How many distinct leaves of its shape the mesh holds: the stage
+        count for a pipeline stage's layer, else 1."""
+        return math.prod(mesh.axis_size(sh.axis) for sh in self.shards if sh.dim is None)
+
+    def moment_shards(self, v: torch.Tensor, batch_axes) -> Tuple[Shard, ...]:
+        """The shards of one of its optimizer state tensors: the param's (and
+        its ZeRO shard's) for a tensor of the optimizer param's shape; only
+        its pipeline placement for anything else (Adam's step)."""
+        if v.dim() > 0 and tuple(v.shape) == tuple(self.opt_param.shape):
+            extra = (Shard(batch_axes, self.zero.dim),) if self.zero is not None else ()
+            return self.shards + extra
+        return tuple(sh for sh in self.shards if sh.dim is None)
+
+
+#: joins a param's name and an optimizer state key in flat dicts
+_KEY = "::"
 
 
 class _MeshLayout:
     """The per-leaf plan of one module on a mesh: what each rank holds, what
     the optimizer updates, and which collective moves each gradient."""
 
-    def __init__(self, module: nn.Module, mesh, spec: Dict[str, str],
-                 cfg: TrainerConfig, grad_sync: str):
+    def __init__(self, module: nn.Module, mesh, spec: Dict[str, Tuple[Shard, ...]],
+                 cfg: TrainerConfig, grad_sync: str, grad_axes=None):
         self.mesh, self.grad_sync = mesh, grad_sync
         self.batch_axes = present_axes(mesh, cfg.batch_axis)
         if self.batch_axes != tuple(a for a in mesh.axis_names if a in self.batch_axes):
@@ -274,18 +309,25 @@ class _MeshLayout:
                              f"{mesh.axis_names}")
         self.n_batch = axis_size(mesh, self.batch_axes)
         self.index = mesh.axis_index(self.batch_axes)
+        #: the axes the objective is a mean over, in mesh order, and their size
+        self.grad_axes = (self.batch_axes if grad_axes is None else
+                          tuple(a for a in mesh.axis_names if a in tuple(grad_axes)))
+        self.n_grad = axis_size(mesh, self.grad_axes)
+        self.full_names = (module.full_param_names() if hasattr(module, "full_param_names")
+                           else [n for n, _ in module.named_parameters()])
         self.leaves: List[_Leaf] = []
         for name, p in module.named_parameters():
-            axis = spec.get(name)
+            shards = spec.get(name, ())
             zero = None
-            if axis is None and cfg.shard_opt_state and p.dim() > 0:
+            if not shards and cfg.shard_opt_state and p.dim() > 0:
                 zero = zero_shard_spec(p.shape, mesh, self.batch_axes)
             opt_param = p
             if zero is not None:
                 rows = p.shape[zero.dim] // self.n_batch
                 opt_param = p.detach().narrow(zero.dim, self.index * rows, rows).clone()
-            reduce_axes = tuple(a for a in self.batch_axes if a != axis)
-            self.leaves.append(_Leaf(name, p, opt_param, axis, reduce_axes, zero))
+            leaf = _Leaf(name, p, opt_param, shards, (), zero)
+            leaf.reduce_axes = tuple(a for a in self.grad_axes if a not in leaf.own_axes)
+            self.leaves.append(leaf)
         nbytes = [p.numel() * p.element_size() for p in module.parameters()]
         self.buckets = [b.indices for b in assign_buckets(
             nbytes, max(1, int(cfg.grad_bucket_mb * 2**20)))]
@@ -353,16 +395,22 @@ class _MeshLayout:
             scatter = defaultdict(list)  # dtype -> leaf indices
             for i in bucket:
                 leaf = self.leaves[i]
+                axes = leaf.reduce_axes
                 if leaf.zero is not None and self.grad_sync == "reduce_scatter":
                     scatter[grads[i].dtype].append(i)
-                elif leaf.reduce_axes:
-                    reduce[(leaf.reduce_axes, grads[i].dtype)].append(i)
+                    # its sum over the axes other than the batch's comes first
+                    axes = tuple(a for a in axes if a not in self.batch_axes)
+                if axes:
+                    reduce[(axes, grads[i].dtype)].append(i)
             for (axes, _), idx in reduce.items():
-                done = self._all_reduce([grads[i] for i in idx], self.mesh.group(axes))
+                group = self.mesh.group(axes)
+                if group is None:
+                    continue  # the axes are all of size 1
+                done = self._all_reduce([out[i] for i in idx], group)
                 for i, g in zip(idx, done):
                     out[i] = g
             for idx in scatter.values():
-                done = self._reduce_scatter([grads[i] for i in idx],
+                done = self._reduce_scatter([out[i] for i in idx],
                                             [self.leaves[i].zero.dim for i in idx])
                 for i, g in zip(idx, done):
                     out[i] = g
@@ -391,8 +439,8 @@ class _MeshLayout:
             sq = leaf.opt_param.grad.float().square().sum()
             if leaf.zero is not None:
                 over[self.batch_axes].append(sq)
-            elif leaf.axis is not None:
-                over[(leaf.axis,)].append(sq)
+            elif leaf.shards:
+                over[tuple(a for a in self.mesh.axis_names if a in leaf.own_axes)].append(sq)
             else:
                 once.append(sq)
         total = torch.stack(once).sum() if once else None
@@ -419,47 +467,52 @@ class _MeshLayout:
 
     # -- full state for checkpoints --------------------------------------------
 
-    def _gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
-        group = self.mesh.group(axes)
-        return t if group is None else gather_dim(t.contiguous(), group, dim)
-
     def full_optimizer_state(self, opt: torch.optim.Optimizer) -> dict:
-        """``opt.state_dict()`` with every sharded moment gathered whole
-        (collective), on the host."""
+        """``opt.state_dict()`` with every part gathered whole (collective)
+        and numbered in the one-device module's order, on the host."""
+        from edl_tpu_torch.models.convert import gather_state_dict
+
         sd = opt.state_dict()  # its per-param dicts are the live ones
-        state = {}
+        flat, spec, plain = {}, {}, {}
         for i, leaf in enumerate(self.leaves):
-            per = sd["state"].get(i)
-            if per is None:
-                continue
-            state[i] = {}
-            for k, v in per.items():
+            for k, v in sd["state"].get(i, {}).items():
+                key = f"{leaf.name}{_KEY}{k}"
                 if isinstance(v, torch.Tensor):
-                    if v.dim() > 0 and v.shape == leaf.opt_param.shape:
-                        if leaf.zero is not None:
-                            v = self._gather(v, self.batch_axes, leaf.zero.dim)
-                        elif leaf.axis is not None:
-                            v = self._gather(v, leaf.axis, 0)
-                state[i][k] = _host(v)
-        return {"state": state, "param_groups": sd["param_groups"]}
+                    flat[key] = v
+                    spec[key] = leaf.moment_shards(v, self.batch_axes)
+                else:
+                    plain[key] = v
+        whole = gather_state_dict(flat, spec, self.mesh)
+        whole.update(plain)
+        number = {n: i for i, n in enumerate(self.full_names)}
+        state: Dict[int, dict] = {}
+        for key, v in whole.items():
+            name, k = key.split(_KEY)
+            state.setdefault(number[name], {})[k] = _host(v)
+        groups = [dict(g, params=list(range(len(self.full_names))))
+                  for g in sd["param_groups"]]
+        return {"state": dict(sorted(state.items())), "param_groups": groups}
 
     def local_optimizer_state(self, sd: dict) -> dict:
-        """A whole optimizer state_dict cut to this rank's shards."""
-        out = {"state": {}, "param_groups": sd["param_groups"]}
+        """A whole optimizer state_dict (numbered in the one-device module's
+        order) cut to this rank's parts, numbered as its optimizer's."""
+        from edl_tpu_torch.models.convert import _cut
+
+        number = {n: i for i, n in enumerate(self.full_names)}
+        out = {"state": {}, "param_groups": [dict(g, params=list(range(len(self.leaves))))
+                                             for g in sd["param_groups"]]}
         for i, leaf in enumerate(self.leaves):
-            per = sd["state"].get(i)
+            per = sd["state"].get(number[leaf.name])
             if per is None:
                 continue
             full = leaf.full_shape(self.mesh)
             cut = {}
             for k, v in per.items():
                 if isinstance(v, torch.Tensor) and v.dim() > 0 and tuple(v.shape) == full:
+                    v = _cut(v, leaf.shards, self.mesh, leaf.name)
                     if leaf.zero is not None:
                         v = self.shard(leaf, v)
-                    elif leaf.axis is not None:
-                        rows = v.shape[0] // self.mesh.axis_size(leaf.axis)
-                        i0 = self.mesh.axis_index(leaf.axis) * rows
-                        v = v[i0:i0 + rows].contiguous()
+                    v = v.contiguous()
                 cut[k] = v
             out["state"][i] = cut
         return out
@@ -531,16 +584,19 @@ class Trainer:
         """The mesh layout of ``module`` (built on first use)."""
         layout = self._layouts.get(module)
         if layout is None:
+            grad_axes = (self.model.grad_axes(self.mesh)
+                         if self.model.grad_axes is not None else None)
             layout = _MeshLayout(module, self.mesh, self.param_spec(), self.config,
-                                 self.grad_sync)
+                                 self.grad_sync, grad_axes)
             self._layouts[module] = layout
         return layout
 
-    def param_spec(self) -> Dict[str, str]:
-        """{param name: mesh axis} of the row-sharded params on this mesh."""
+    def param_spec(self) -> Dict[str, Tuple[Shard, ...]]:
+        """{param name: its shards} of the params not whole on every rank of
+        this mesh (`models.base.normalize_spec` of the model's)."""
         if self.mesh is None or self.model.param_spec is None:
             return {}
-        return dict(self.model.param_spec(self.mesh))
+        return normalize_spec(self.model.param_spec(self.mesh))
 
     def full_state(self, state: TrainState) -> dict:
         """``{"step", "module", "optimizer"}`` with every shard gathered
@@ -557,9 +613,11 @@ class Trainer:
         from edl_tpu_torch.models.convert import gather_state_dict
 
         layout = self.layout_for(module)
+        whole = gather_state_dict(module.state_dict(), self.param_spec(), self.mesh)
+        order = [n for n in layout.full_names if n in whole]
         return {"step": int(state.step),
-                "module": gather_state_dict(module.state_dict(), self.param_spec(),
-                                            self.mesh),
+                "module": {**{n: whole[n] for n in order},
+                           **{n: t for n, t in whole.items() if n not in order}},
                 "optimizer": layout.full_optimizer_state(opt)}
 
     def load_full_state(self, state: TrainState, saved: dict) -> TrainState:
@@ -603,9 +661,13 @@ class Trainer:
             tiers = [(a, int(self.mesh.shape[a])) for a in axes]
             full = [leaf.full_shape(self.mesh) for leaf in layout.leaves]
             zero = [leaf.zero is not None for leaf in layout.leaves]
+        # a pipeline stage's layer counts once for each stage, whose layers
+        # have its shape (the JAX Trainer counts the stacked leaves whole)
+        copies = ([1] * len(full) if self.mesh is None
+                  else [leaf.copies(self.mesh) for leaf in layout.leaves])
         sizes = [p.element_size() for p in module.parameters()]
-        leaf_nbytes = [int(np.prod(shape, dtype=np.int64)) * size
-                       for shape, size in zip(full, sizes)]
+        leaf_nbytes = [int(np.prod(shape, dtype=np.int64)) * size * c
+                       for shape, size, c in zip(full, sizes, copies)]
         sharded = float(sum(nb for nb, z in zip(leaf_nbytes, zero) if z))
         replicated = float(sum(nb for nb, z in zip(leaf_nbytes, zero) if not z))
         n_micro = max(1, cfg.grad_accum_microbatches)
@@ -770,7 +832,7 @@ class Trainer:
     def _mesh_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, torch.Tensor]:
         """The step over the mesh (see the module docstring): per
-        microbatch, backward of the slice's mean over n and the bucketed
+        microbatch, backward of the module's loss over n and the bucketed
         reductions; then the average over microbatches, the global-norm
         clip, the update of what each rank holds and the params'
         all-gather. Returns the global mean loss."""
@@ -782,7 +844,7 @@ class Trainer:
         for mb in ([batch] if n == 1 else split_microbatches(batch, n)):
             module.zero_grad(set_to_none=True)
             loss = module(mb)
-            (loss / layout.n_batch).backward()
+            (loss / layout.n_grad).backward()
             losses.append(loss.detach())
             grads = layout.sync_grads()
             if acc is None:
@@ -798,11 +860,11 @@ class Trainer:
         opt.step()
         layout.gather_params()
         loss = losses[0] if n == 1 else torch.stack(losses).mean()
-        group = self.mesh.group(layout.batch_axes)
+        group = self.mesh.group(layout.grad_axes)
         if group is not None:
             loss = loss.clone()
             dist.all_reduce(loss, group=group)
-            loss = loss / layout.n_batch
+            loss = loss / layout.n_grad
         return TrainState(state.step + 1, module, opt), loss
 
     def _step(self, codec: Optional[WireCodec], state: TrainState,

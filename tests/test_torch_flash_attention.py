@@ -146,8 +146,9 @@ def test_bfloat16_values_and_gradients():
 
 def test_bfloat16_gradients_through_lse():
     """bf16 inputs on the ring's path: out and lse in f32, and a loss that
-    reads both. The port's backward takes dO in bf16, the kernels' operand,
-    with delta formed from that same dO; the JAX kernels keep the f32 dO."""
+    reads both. The port's kernels take dO in bf16, so its backward runs on
+    dO's bf16 part and again on the remainder; the JAX kernels take the f32
+    dO."""
     rng = np.random.default_rng(5)
     q, k, v = rand_qkv(rng, 1, 96, 2, 16)
     w = rng.standard_normal((1, 2, 96)).astype(np.float32)

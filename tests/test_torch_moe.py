@@ -49,6 +49,7 @@ from edl_tpu.runtime.export import _serving_mesh
 from edl_tpu_torch.models import transformer as torch_tf
 from edl_tpu_torch.models.convert import (MOE_BLOCK_PARAMS, block_params, params_from_jax,
                                           params_to_jax)
+from edl_tpu_torch.parallel.mesh import Mesh
 from edl_tpu_torch.runtime import (Trainer, TrainerConfig, load_inference_model,
                                    read_artifact, save_inference_model)
 
@@ -345,11 +346,14 @@ def test_top_k_out_of_range_raises(top_k):
 
 def test_indivisible_experts_and_an_expert_axis_raise():
     cfg = torch_tf.TransformerConfig(**{**CFG, "moe_experts": 3})
+    expert_axis = Mesh(["expert"], [2], 0, 2)
     with pytest.raises(ValueError, match="moe_experts"):
-        torch_tf.TransformerLM(cfg, device="cpu", axes={"expert": 2})
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+        torch_tf.TransformerLM(cfg, device="cpu", mesh=expert_axis)
+    # an expert axis runs on a mesh over a process group
+    # (tests/test_torch_model_parallel.py); without one, the module raises
+    with pytest.raises(ValueError, match="need a mesh over a process group"):
         torch_tf.TransformerLM(torch_tf.TransformerConfig(**CFG), device="cpu",
-                               axes={"expert": 2})
+                               mesh=expert_axis)
 
 
 # -- remat, the Trainer ---------------------------------------------------------

@@ -24,6 +24,7 @@ from edl_tpu.parallel.ring_attention import dense_attention as jax_dense
 from edl_tpu_torch import models as torch_models
 from edl_tpu_torch.models import transformer as torch_tf
 from edl_tpu_torch.models.convert import BLOCK_PARAMS, params_from_jax
+from edl_tpu_torch.parallel.mesh import Mesh
 from edl_tpu_torch.parallel.ring_attention import _ring_attention_local, dense_attention
 
 CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=8, d_ff=64, seq_len=16)
@@ -121,8 +122,10 @@ def test_dense_attention_matches_jax(causal):
 
 
 def test_ring_over_several_shards_raises():
+    """The ring over several shards runs on a mesh of ranks
+    (`tests/test_torch_ring_attention.py`); without one it raises."""
     q = torch.zeros((1, 8, 1, 8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs the mesh"):
         _ring_attention_local(q, q, q, n_shards=2, flash=True)
 
 
@@ -166,9 +169,12 @@ def test_options_outside_the_slice_raise(override, error):
 
 @pytest.mark.parametrize("axis", ["seq", "model", "pipe", "expert"])
 def test_parallel_axes_above_one_raise(axis):
-    with pytest.raises(NotImplementedError):
+    """These axes run on a mesh over a process group
+    (`tests/test_torch_model_parallel.py`); on a mesh of that shape with no
+    process group, the module raises."""
+    with pytest.raises(ValueError, match="need a mesh over a process group"):
         torch_tf.TransformerLM(torch_tf.TransformerConfig(**CFG), device="cpu",
-                               axes={axis: 2})
+                               mesh=Mesh([axis], [2], 0, 2))
 
 
 def test_zoo_get_and_resolve():

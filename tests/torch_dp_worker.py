@@ -23,18 +23,20 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def spawn_ranks(tmp_path, world: int, tasks: list, timeout: float = 240.0,
-                overlap=None) -> list:
+                overlap=None, script=None) -> list:
     """Run ``tasks`` (a list of (task name, kwargs)) on ``world`` ranks;
     returns each rank's list of task results. ``overlap()`` (the JAX
     reference, say) runs in this process while the ranks work. Any rank
-    failing fails the call with its output."""
+    failing fails the call with its output. ``script``: the worker file
+    whose ``task_<name>`` functions run (default: this one)."""
     import torch
 
     job = Path(tmp_path) / "job.pt"
     torch.save({"world": world, "init": f"file://{tmp_path}/rendezvous",
                 "tasks": tasks}, job)
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, __file__, str(job), str(r)], cwd=ROOT,
+    procs = [subprocess.Popen([sys.executable, str(script or __file__), str(job), str(r)],
+                              cwd=ROOT,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for r in range(world)]
@@ -236,7 +238,9 @@ def task_wire(case):
     return {"spec": spec, "losses": losses, "restart": restart, "floor": again.floor()}
 
 
-def main(job_path: str, rank: int) -> None:
+def main(job_path: str, rank: int, tasks=None) -> None:
+    """One rank: the job's tasks from ``tasks`` ({name: function}; default:
+    this file's ``task_<name>`` functions)."""
     import torch
     import torch.distributed as dist
 
@@ -244,8 +248,9 @@ def main(job_path: str, rank: int) -> None:
     job = torch.load(job_path, weights_only=False)
     dist.init_process_group("gloo", init_method=job["init"], world_size=job["world"],
                             rank=rank)
+    tasks = tasks or {k[5:]: f for k, f in globals().items() if k.startswith("task_")}
     try:
-        results = [globals()[f"task_{name}"](kwargs) for name, kwargs in job["tasks"]]
+        results = [tasks[name](kwargs) for name, kwargs in job["tasks"]]
         torch.save(results, f"{job_path}.rank{rank}.pt")
         dist.barrier()
     finally:
