@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time
     python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
+    python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
 
 It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order; a
 phase that fails raises, and the script exits non-zero without its last line:
@@ -122,7 +123,10 @@ phase that fails raises, and the script exits non-zero without its last line:
     state its barrier saved (params and moments); every shard done, none
     queued or leased; finite, falling losses; the LM's flash launches 12 a
     forward (its steps' and each warm-up's) and 12 a backward kernel a
-    step. Printed: each rescale's recovery and warm-up seconds, its
+    step. The LM row's layout comes from the planner (``plan_layout`` over
+    one card with the H100 defaults and the LM's profile): every ``replan``
+    span carries its plan, and its modeled step time is printed beside the
+    measured one. Printed: each rescale's recovery and warm-up seconds, its
     phases' seconds, the checkpoint's bytes and samples/s before and
     after. (b) The CTR entry (``python -m edl_tpu_torch.examples.ctr.train
     --dist-backend auto``) under two ``python -m edl_tpu_torch.launcher``
@@ -138,6 +142,25 @@ phase that fails raises, and the script exits non-zero without its last line:
     restores into a world-1 Trainer bit for bit. Printed: recovery (epoch
     move to the world-1 incarnation's first round plan), each
     incarnation's start-up, a world-2 round's and a world-1 step's time.
+    Then the checkpoint plane's smoke (``python -m edl_tpu_torch.ckpt_plane``
+    on the card): the twin, the peer restore and the group death's blob
+    fallback, the last two exactly the twin's loss. (c) The LM entry at
+    phase 4's width (``--axes {"pipe": 2}`` interleaved, v 2, 4
+    microbatches, ``--zero1``) under four launchers: four ranks on the
+    card over gloo as ``{"data": 2, "pipe": 2}``, each running the entry
+    through ``chip_smoke.py --el-mp-entry`` (its steps' flash launches,
+    losses and times recorded, its restore held against the checkpoint it
+    read), a checkpoint a round; once one covers a round, SIGTERM to both
+    launchers of data index 1. They exit 0; ranks 0 and 1 exit 75 once and
+    come back as ``{"data": 1, "pipe": 2}``, restore the world-4
+    checkpoint bit for bit (ZeRO-1 moments regrouped) and drain the queue:
+    every shard done, the world-2 incarnation trains exactly the shards the
+    restored checkpoint lacked, every rank's losses equal within an
+    incarnation, finite and falling, each step's flash launches on each
+    rank exactly `mp_expected_launches` (48/24/24) at both worlds, and that
+    checkpoint restores bit for bit into a one-device Trainer too.
+    Printed: recovery, each incarnation's start-up, a world-4 round and
+    step, a world-2 step, each rank's peak memory.
 14. Model parallelism (``mp``): phase 4's LM at its full width trained
     by the mesh Trainer on ranks that share the one card, one process a
     rank over gloo with CUDA tensors (``chip_smoke.py --mp-rank R JOB``):
@@ -3080,11 +3103,13 @@ def _rates(marks, rescales, batch: int) -> list:
 
 
 def elastic_row(label, model, trainer_kw, batch, shards, per_shard, script, device,
-                counts=None) -> dict:
+                counts=None, layout_planner=None) -> dict:
     """Part (a) for one row: an `ElasticWorker` on the card against an
     `InProcessCoordinator` under the membership ``script``; holds the
     rescales, their phases, the queue, the losses and each restore against
-    its barrier's save; returns the row's figures."""
+    its barrier's save; with ``layout_planner``, every ``replan`` span must
+    carry its plan (``planned``), whose modeled step time is printed beside
+    the measured one; returns the row's figures."""
     import os
 
     import numpy as np
@@ -3113,7 +3138,7 @@ def elastic_row(label, model, trainer_kw, batch, shards, per_shard, script, devi
                             step_callback=on_step, trainer=TrainerConfig(**trainer_kw))
         worker = ElasticWorker(model, coord.client("trainer-0"),
                                SyntheticShardSource(model, batch, per_shard), cfg,
-                               device=device, tracer=tracer)
+                               device=device, tracer=tracer, layout_planner=layout_planner)
         # the state each blocking save wrote (the latest), and each restore
         # held against it bit for bit, params and moments
         saved, restores = {}, []
@@ -3199,10 +3224,48 @@ def elastic_row(label, model, trainer_kw, batch, shards, per_shard, script, devi
            "max_recovery_seconds": metrics["max_recovery_seconds"]}
     if launches is not None:
         row["launches"] = launches
+    if layout_planner is not None:
+        row["plan"] = elastic_plan_vs_measured(label, tracer, marks, worker.rescales)
     print(f"elastic {label}: {worker.steps_done} steps over {shards} shards (every "
           f"shard done, none queued or leased) in {seconds:.1f} s; loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}; checkpoint {ckpt_bytes / 2**20:.1f} MiB")
     return row
+
+
+def lm_profile(cfg, batch: int):
+    """The LM's `ModelProfile` for the planner: its real param bytes (a
+    build on the ``meta`` device: every leaf, f32, ZeRO-shardable), Adam's
+    two f32 moments a param byte, its analytic FLOPs a sample and one
+    microbatch's bf16 stage-boundary activation (the whole batch)."""
+    from edl_tpu_torch.models.transformer import make_model
+    from edl_tpu_torch.parallel import ModelProfile
+
+    model = make_model(cfg)
+    module = model.build(device="meta")
+    return ModelProfile(
+        param_bytes=float(sum(p.numel() * p.element_size() for p in module.parameters())),
+        n_layers=cfg.n_layers, flops_per_sample=float(model.flops_per_step(1)),
+        activation_bytes_per_microbatch=float(batch * cfg.seq_len * cfg.d_model * 2))
+
+
+def elastic_plan_vs_measured(label, tracer, marks, rescales) -> dict:
+    """Every ``replan`` span of the row must carry its plan; returns the
+    plan's modeled step time beside the measured one (the median interval
+    between step callbacks, the steps after a rescale left out)."""
+    spans = tracer.find(name="replan")
+    require(spans and all(sp.attrs.get("planned") is True for sp in spans),
+            f"elastic {label}: replan spans without a plan: {[sp.attrs for sp in spans]}")
+    first = {r.at_step for r in rescales}
+    gaps = [b - a for (a, _), (b, step) in zip(marks, marks[1:]) if step not in first]
+    out = {"layouts": [json.loads(sp.attrs["layout"]) for sp in spans],
+           "modeled_step_ms": [sp.attrs["modeled_step_seconds"] * 1e3 for sp in spans],
+           "baseline_step_ms": [sp.attrs["baseline_step_seconds"] * 1e3 for sp in spans],
+           "measured_step_ms": statistics.median(gaps) * 1e3}
+    print(f"elastic {label}: the planner's layouts {out['layouts']}, modeled step "
+          + " / ".join(f"{ms:.3f}" for ms in out["modeled_step_ms"])
+          + f" ms against {out['measured_step_ms']:.3f} ms measured (median step, "
+          "checkpoints included)")
+    return out
 
 
 def elastic_rows(device) -> dict:
@@ -3210,7 +3273,9 @@ def elastic_rows(device) -> dict:
     after step 30) and the GPT-2-small-width LM (a join after step 6),
     each through the `ElasticWorker` on the card. The LM row counts the
     flash kernels' launches: 12 a forward (the steps' and each rescale's
-    warm-up forward) and 12 of each backward kernel a step."""
+    warm-up forward) and 12 of each backward kernel a step. Its layout comes
+    from the planner (`plan_layout` over one card of H100 defaults and the
+    LM's `lm_profile`) at every rescale."""
     import torch
 
     from edl_tpu_torch.models.transformer import TransformerConfig, make_model
@@ -3220,11 +3285,18 @@ def elastic_rows(device) -> dict:
                               dict(optimizer="adagrad", learning_rate=0.05), CTR_BATCH,
                               EL_CTR_SHARDS, EL_CTR_BATCHES, EL_CTR_SCRIPT, device)}
     torch.cuda.empty_cache()
+    from edl_tpu_torch.parallel import Topology, plan_layout
+
     cfg = TransformerConfig(flash=True, **SLICE)
+    profile = lm_profile(cfg, BATCH)
     lm = elastic_row("lm", make_model(cfg), dict(optimizer="adam", learning_rate=3e-4),
                      BATCH, EL_LM_SHARDS, EL_LM_BATCHES, EL_LM_SCRIPT, device,
-                     counts=(fa.reset_launches, lambda: dict(fa.LAUNCHES)))
+                     counts=(fa.reset_launches, lambda: dict(fa.LAUNCHES)),
+                     layout_planner=lambda n, devices: plan_layout(
+                         n, Topology(slices=(1,)), profile, BATCH, schedules=()))
     warm = sum(1 for r in lm["rescales"] if r["compile_seconds"] > 0)
+    require(lm["plan"]["layouts"] and all(l == {"data": 1} for l in lm["plan"]["layouts"]),
+            f"elastic lm: planned layouts {lm['plan']['layouts']} on one card")
     want = {"fwd": cfg.n_layers * (lm["steps"] + warm), "bwd_dq": cfg.n_layers * lm["steps"],
             "bwd_dkv": cfg.n_layers * lm["steps"]}
     require(lm["launches"] == want, f"elastic lm: flash launches {lm['launches']}, want "
@@ -3458,12 +3530,315 @@ def elastic_multihost(device) -> dict:
     return out
 
 
+#: part (c): the LM entry's layout and queue (shards x batches of 8: a
+#: world-4 round is two shards, a checkpoint a round), its learning rate,
+#: the deadline of the part, and extra entry arguments (none on the card)
+EL_MP_AXES = {"pipe": 2}
+EL_MP_LAYOUT = dict(pipeline_schedule="1f1b-interleaved", virtual_stages=2,
+                    microbatches=4)
+EL_MP_SHARDS, EL_MP_BATCHES, EL_MP_WORLD = 8, 2, 4
+EL_MP_LR = 3e-4
+EL_MP_TIMEOUT = 600
+EL_MP_ENTRY_ARGS = ""
+#: extra arguments of the checkpoint plane's smoke (none on the card)
+EL_PLANE_ARGS = ()
+
+
+def el_mp_entry_main(argv) -> int:
+    """One rank of part (c): ``chip_smoke.py --el-mp-entry RECORD_DIR --
+    ARGS`` runs the LM entry (`edl_tpu_torch.examples.lm.train.main(ARGS)`)
+    with each mesh step's flash launches, loss and time recorded, and its
+    restore held against the checkpoint it read (on rank 0, after the
+    collective gather of the restored state); at exit it writes this
+    incarnation's record to ``RECORD_DIR/<pid>.json``."""
+    import os
+
+    import torch
+
+    from edl_tpu_torch.examples.lm import train as lm_train
+    from edl_tpu_torch.runtime import train_loop
+    from edl_tpu_torch.runtime.multihost import MultiHostWorker
+
+    record_dir, args = argv[0], argv[argv.index("--") + 1:]
+    fa = _flash_module()
+    rec = {"pid": os.getpid(), "started": time.time(), "steps": []}
+    mesh_step = train_loop.Trainer._mesh_step
+
+    def counted(self, state, batch):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        new, loss = mesh_step(self, state, batch)
+        value = float(loss)  # synchronises on the step's work
+        rec["steps"].append({"launches": dict(fa.LAUNCHES), "loss": value,
+                             "ms": (time.perf_counter() - t0) * 1e3, "t": time.time()})
+        return new, loss
+
+    restore = MultiHostWorker._restore_or_init
+
+    def held(self, trainer):
+        state = restore(self, trainer)
+        full = trainer.full_state(state)  # collective
+        mesh = trainer.mesh
+        rec.update(rank=mesh.rank, world=mesh.world, mesh=dict(mesh.shape),
+                   restored_step=int(state.step))
+        if mesh.rank == 0 and int(state.step) > 0:
+            saved = torch.load(os.path.join(self.ckpt.directory, str(int(state.step)),
+                                            "state.pt"), map_location="cpu",
+                               weights_only=True)
+            rec["restore_diff"] = _full_diff(full, saved)
+        return state
+
+    train_loop.Trainer._mesh_step = counted
+    MultiHostWorker._restore_or_init = held
+    code = 0
+    try:
+        lm_train.main(args)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    finally:
+        rec["exit"] = code
+        if torch.cuda.is_available():
+            rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(record_dir, f"{os.getpid()}.json"), "w") as f:
+            json.dump(rec, f)
+    return code
+
+
+def elastic_mp(device) -> dict:
+    """Part (c): the LM entry at its full width under four launchers
+    against the native coordinator, ``--axes {"pipe": 2}`` interleaved
+    (v 2, 4 microbatches) with ZeRO-1: four ranks share the card over gloo
+    as ``{"data": 2, "pipe": 2}``, a checkpoint a round. Once a checkpoint
+    covers a round, both launchers of data index 1 get SIGTERM (a world of
+    3 is not divisible by pipe 2): they leave and exit 0; ranks 0 and 1
+    exit 75 once, are relaunched at world 2 as ``{"data": 1, "pipe": 2}``,
+    restore the world-4 checkpoint (the ZeRO-1 moments regrouped from two
+    data shards to one) and drain the queue."""
+    import os
+    import signal
+
+    import torch
+
+    from edl_tpu_torch.coordinator import CoordinatorServer
+    from edl_tpu_torch.models.transformer import make_model
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+    from edl_tpu_torch.runtime.data import shard_names
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    n, per, world = EL_MP_SHARDS, EL_MP_BATCHES, EL_MP_WORLD
+    cfg = _mp_config(EL_MP_LAYOUT)
+    want = mp_expected_launches(EL_MP_AXES, cfg)
+    args = (f"--vocab-size {SLICE['vocab_size']} --d-model {SLICE['d_model']} "
+            f"--n-layers {SLICE['n_layers']} --n-heads {SLICE['n_heads']} "
+            f"--d-ff {SLICE['d_ff']} --seq-len {SLICE['seq_len']} --batch-size {BATCH} "
+            f"--batches-per-shard {per} --learning-rate {EL_MP_LR} "
+            f"--pipeline-schedule {EL_MP_LAYOUT['pipeline_schedule']} "
+            f"--virtual-stages {EL_MP_LAYOUT['virtual_stages']} "
+            f"--microbatches {EL_MP_LAYOUT['microbatches']} --zero1 --dist-backend auto "
+            f"{EL_MP_ENTRY_ARGS}").strip()
+    with tempfile.TemporaryDirectory(prefix="edl-elastic-mp-") as root:
+        ckpt, snap, records = (os.path.join(root, d) for d in ("ckpt", "snap", "records"))
+        os.makedirs(snap)
+        os.makedirs(records)
+        entry = (f"{sys.executable} {os.path.abspath(__file__)} --el-mp-entry {records} -- "
+                 f"{args}")
+        procs = {}
+        with CoordinatorServer(task_lease_sec=600.0, heartbeat_ttl_sec=60.0) as server:
+            admin = server.client("admin")
+            admin.add_tasks(shard_names("lm", n))
+            admin.kv_put("edl/expected_world", str(world))
+            watch = CheckpointWatch(server.client("chip-smoke-watch"), ckpt, snap)
+
+            def launch(name):
+                env = {**os.environ, "PYTHONPATH": repo,
+                       "EDL_COORDINATOR_ENDPOINT": server.address,
+                       "EDL_PORT": str(server.port), "EDL_NUM_TRAINERS": str(world),
+                       "EDL_ENTRY": entry, "EDL_POD_NAME": name, "EDL_JOB_NAME": "chip-smoke",
+                       "EDL_MESH_AXES": json.dumps(EL_MP_AXES),
+                       "EDL_CHECKPOINT_DIR": ckpt, "EDL_CHECKPOINT_INTERVAL": str(per),
+                       "EDL_TERMINATION_LOG": os.path.join(root, f"term-{name}")}
+                files = [open(os.path.join(root, f"{name}.{k}"), "w") for k in ("out", "err")]
+                procs[name] = (time.time(), subprocess.Popen(
+                    [sys.executable, "-m", "edl_tpu_torch.launcher", "start_trainer"],
+                    env=env, cwd=repo, stdout=files[0], stderr=files[1],
+                    start_new_session=True))
+
+            deadline = time.monotonic() + EL_MP_TIMEOUT
+
+            def until(cond, what):
+                while not cond():
+                    require(time.monotonic() < deadline, f"elastic mp: {what}")
+                    require(all(p.poll() is None for _, p in procs.values()),
+                            f"elastic mp: a launcher exited early ({what})")
+                    time.sleep(EL_MH_POLL_S)
+
+            try:
+                for i in range(world):
+                    launch(f"w{i}")
+                until(lambda: any(r == 0 for _, r in watch.rounds),
+                      "the world-4 group never published a round")
+                ranks = admin.members()  # in rank order
+                until(lambda: int(watch.status.get("done", 0)) >= 2,
+                      "no collective checkpoint covered a round")
+                admin.kv_put("edl/expected_world", str(world // 2))
+                t_term = time.time()
+                leavers = ranks[2:]  # data index 1 of {"data": 2, "pipe": 2}
+                for name in leavers:
+                    procs[name][1].send_signal(signal.SIGTERM)
+                for name in (*leavers, *ranks[:2]):
+                    p = procs[name][1]
+                    p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                st = admin.status()
+            finally:
+                watch.close()
+                for _, p in procs.values():
+                    if p.poll() is None:  # the launcher and the entry it runs
+                        os.killpg(p.pid, signal.SIGKILL)
+                        p.wait()
+        logs = {name: {k: open(os.path.join(root, f"{name}.{k}")).read()
+                       for k in ("out", "err")} for name in procs}
+        codes = {name: p.returncode for name, (_, p) in procs.items()}
+        require(all(c == 0 for c in codes.values()),
+                f"elastic mp: launchers exited {codes}:\n"
+                + "\n".join(f"{k}: {v['err'][-3000:]}" for k, v in logs.items()))
+        marker = "entry requested rescale restart (exit 75)"
+        restarts = {name: log["err"].count(marker) for name, log in logs.items()}
+        require(restarts == {name: int(name in ranks[:2]) for name in ranks},
+                f"elastic mp: exit-75 relaunches {restarts}, want {ranks[:2]} once each")
+        require((st["done"], st["queued"], st["leased"]) == (n, 0, 0),
+                f"elastic mp: queue done/queued/leased {st['done']}/{st['queued']}/"
+                f"{st['leased']}")
+        recs = [json.load(open(os.path.join(records, f))) for f in os.listdir(records)]
+        by_world = {}
+        for rec in recs:
+            by_world.setdefault(rec.get("world", -1), []).append(rec)
+        require(sorted(by_world) == [world // 2, world]
+                and len(by_world[world]) == world and len(by_world[world // 2]) == world // 2,
+                f"elastic mp: incarnations {[(r.get('world'), r.get('rank')) for r in recs]}")
+        meshes = {w: [r["mesh"] for r in rs] for w, rs in by_world.items()}
+        require(all(m == {"data": w // 2, "pipe": 2} for w, ms in meshes.items() for m in ms),
+                f"elastic mp: meshes {meshes}")
+        for w, rs in by_world.items():
+            rs.sort(key=lambda r: r["rank"])
+            losses = [[s["loss"] for s in r["steps"]] for r in rs]
+            require(all(x == losses[0] for x in losses), f"elastic mp: world {w} ranks' "
+                                                         f"losses differ: {losses}")
+            require(all(math.isfinite(x) for x in losses[0]), f"elastic mp: {losses[0]}")
+            for r in rs:
+                bad = [s["launches"] for s in r["steps"] if s["launches"] != want]
+                require(not bad, f"elastic mp: world {w} rank {r['rank']} flash launches "
+                                 f"{bad[:3]}, want {want} each step")
+        w4, w2 = by_world[world], by_world[world // 2]
+        restored = w2[0]["restored_step"]
+        require(w2[0].get("restore_diff") == [] and restored in watch.snapshots
+                and restored > 0 and restored % per == 0,
+                f"elastic mp: the world-2 restore of step {restored}: "
+                f"{w2[0].get('restore_diff')}; snapshots {sorted(watch.snapshots)}")
+        covered = 2 * restored // per  # two shards a world-4 round
+        steps2 = len(w2[0]["steps"])
+        require(steps2 == (n - covered) * per,
+                f"elastic mp: the world-2 incarnation trained {steps2} steps, want "
+                f"{(n - covered) * per}: the {n - covered} shards the step-{restored} "
+                "checkpoint lacks")
+        all_losses = [s["loss"] for s in w4[0]["steps"][:restored]] + \
+            [s["loss"] for s in w2[0]["steps"]]
+        require(statistics.mean(all_losses[-per:]) < all_losses[0],
+                f"elastic mp: loss did not fall: {all_losses}")
+        # the world-4 checkpoint into one device: the re-cut across pipe
+        saved = torch.load(watch.snapshots[restored], map_location="cpu", weights_only=True)
+        one_cfg = _mp_config({})
+        trainer = Trainer(make_model(one_cfg), config=TrainerConfig(
+            optimizer="adam", learning_rate=EL_MP_LR), device=device)
+        state = trainer.load_full_state(trainer.init_state(), saved)
+        bad = _full_diff(trainer.full_state(state), saved)
+        require(not bad, f"elastic mp: one-device restore off the world-4 checkpoint: "
+                         f"{bad[:5]}")
+        del state, trainer, saved
+        torch.cuda.empty_cache()
+
+    epochs = sorted(watch.epochs.items())
+    moved = [(e, t) for e, t in epochs if t >= t_term]
+    require(moved, "elastic mp: no epoch move after the SIGTERM")
+    first_round = {e: t for (e, r), t in watch.rounds.items() if r == 0}
+    e_after = max(first_round)
+    e_before = min(first_round)
+    relaunch = _log_time(logs[ranks[0]]["err"], "restart=1")
+    rounds = sorted(t for (e, r), t in watch.rounds.items() if e == e_before)
+    launched = max(t for t, _ in procs.values())
+    out = {
+        "axes": EL_MP_AXES, "layout": EL_MP_LAYOUT, "shards": n, "batches_a_shard": per,
+        "batch_a_data_index": BATCH, "launcher_codes": codes,
+        "exit_75_relaunches": restarts, "restored_step": restored,
+        "shards_covered": covered, "world2_steps": steps2,
+        "flash_launches_per_step_and_rank": want,
+        "recovery_s": first_round[e_after] - moved[0][1],
+        "startup_s": {"world4": first_round[e_before] - launched,
+                      "world2": first_round[e_after] - relaunch},
+        "world4_round_s": statistics.median(b - a for a, b in zip(rounds, rounds[1:])),
+        "world4_step_ms": statistics.median(s["ms"] for s in w4[0]["steps"][1:]),
+        "world2_step_ms": statistics.median(s["ms"] for s in w2[0]["steps"][1:]),
+        "peak_memory_gib": {f"world{w}": [r.get("peak_memory_gib") for r in rs]
+                            for w, rs in by_world.items()},
+        "launches": {k: sum(s["launches"][k] for r in (w4[0], w2[0]) for s in r["steps"])
+                     for k in want},
+    }
+    print(f"elastic mp: the LM entry at full width, {EL_MP_AXES} interleaved (v 2, M 4), "
+          f"ZeRO-1, four ranks on one card over gloo as {meshes[world][0]}; SIGTERM to data "
+          f"index 1 ({', '.join(ranks[2:])}) after {covered} shards by step {restored}; "
+          f"ranks 0 and 1 exited 75 once and came back as {meshes[world // 2][0]}: recovery "
+          f"{out['recovery_s']:.2f} s (epoch move -> the world-2 incarnation's first round); "
+          f"start-up {out['startup_s']['world4']:.2f} s (world 4, the last launcher -> first "
+          f"round) and {out['startup_s']['world2']:.2f} s (relaunch -> first round); a "
+          f"world-4 round ({per} steps and a checkpoint) {out['world4_round_s']:.2f} s, a "
+          f"step {out['world4_step_ms']:.1f} ms; world 2 {out['world2_step_ms']:.1f} ms a "
+          f"step over {steps2} steps; peak memory "
+          + "; ".join(f"{k} " + " / ".join("not measured" if g is None else f"{g:.2f}"
+                                           for g in v) + " GiB"
+                      for k, v in out["peak_memory_gib"].items())
+          + f"; flash launches {want} every step on every rank at both worlds; every shard "
+          "done, only the uncommitted ones replayed; the world-4 checkpoint restored bit for "
+          "bit into the world-2 {\"pipe\": 2} ranks and into one device")
+    return out
+
+
+def elastic_ckpt_plane() -> dict:
+    """The checkpoint plane's smoke on the card (``python -m
+    edl_tpu_torch.ckpt_plane``): the twin, the peer restore and the group
+    death's blob fallback, the last two EXACTLY the twin's loss."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "edl_tpu_torch.ckpt_plane", *EL_PLANE_ARGS],
+                         cwd=repo,
+                         env={**os.environ, "PYTHONPATH": repo}, capture_output=True,
+                         text=True, timeout=300)
+    require(out.returncode == 0, f"ckpt_plane smoke exited {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+    report = json.loads(out.stdout[out.stdout.index("{"):])
+    require(report["pass"] is True and report["peer"]["source"] == "peer"
+            and report["peer"]["loss"] == report["blob_fallback"]["loss"]
+            == report["twin_loss"], f"ckpt_plane smoke: {report}")
+    report["seconds"] = time.perf_counter() - t0
+    require(report["device"].startswith("cuda"), f"ckpt_plane smoke ran on {report['device']}")
+    print(f"elastic ckpt_plane ({report['device']}): twin {report['twin_loss']!r}, peer restore "
+          f"{report['peer']['loss']!r} ({report['peer']['bytes']} bytes from the plane), "
+          f"group death's blob fallback {report['blob_fallback']['loss']!r}: exact; "
+          f"{report['seconds']:.1f} s")
+    return report
+
+
 def phase_elastic(device) -> dict:
     """The elastic phase: part (a) the `ElasticWorker` rows on the card,
-    part (b) the `MultiHostWorker` through the launcher."""
+    part (b) the `MultiHostWorker` through the launcher, the checkpoint
+    plane's smoke, part (c) the model-parallel LM through the launcher."""
     rows = elastic_rows(device)
-    return {"rows": rows, "multihost": elastic_multihost(device),
-            "launches": rows["lm"]["launches"]}
+    multihost = elastic_multihost(device)
+    plane = elastic_ckpt_plane()
+    mp = elastic_mp(device)
+    launches = {k: rows["lm"]["launches"][k] + mp["launches"][k] for k in mp["launches"]}
+    return {"rows": rows, "multihost": multihost, "ckpt_plane": plane, "mp": mp,
+            "launches": launches}
 
 
 # -- mp: model parallelism of the LM on one card --------------------------------
@@ -3762,6 +4137,8 @@ def main(argv) -> int:
     if "--mp-rank" in argv:  # one rank of the mp phase
         i = argv.index("--mp-rank")
         return mp_rank_main(argv[i + 2], int(argv[i + 1]))
+    if argv and argv[0] == "--el-mp-entry":  # one rank of the elastic phase's part (c)
+        return el_mp_entry_main(argv[1:])
     device = phase_device()
     sass = phase_build()
     kernels = phase_kernels(device)
@@ -3777,6 +4154,13 @@ def main(argv) -> int:
             row["launches_mp"] = mp["launches"][name]
         print(json.dumps({"kernels": list(kernels.values())}))
         print(json.dumps({"mp": mp}))
+        return 0
+    if "--elastic" in argv:  # the kernels and the elastic phase only
+        elastic = phase_elastic(device)
+        for name, row in kernels.items():
+            row["launches_elastic"] = elastic["launches"][name]
+        print(json.dumps({"kernels": list(kernels.values())}))
+        print(json.dumps({"elastic": elastic}))
         return 0
     with tempfile.TemporaryDirectory(prefix="edl-serve-") as serve_root:
         launches, in_step, lm, lm_state = phase_slice(device)

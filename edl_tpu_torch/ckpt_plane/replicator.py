@@ -228,11 +228,14 @@ def state_template(trainer, state) -> Dict:
     full = trainer.full_state(state)
     opt = state.opt_state
     module = state.params
+    # numbered as the one-device module's params, whose whole shapes
+    # `full_state` gathered: on a pipeline mesh a rank holds only its
+    # stage's layers, so its own params do not cover them
     if trainer.mesh is None:
-        shapes = [tuple(p.shape) for p in module.parameters()]
+        names = [n for n, _ in module.named_parameters()]
     else:
-        shapes = [leaf.full_shape(trainer.mesh)
-                  for leaf in trainer.layout_for(module).leaves]
+        names = trainer.layout_for(module).full_names
+    shapes = [tuple(full["module"][n].shape) for n in names]
     per = full["optimizer"]["state"]
     missing = [i for i in range(len(shapes)) if not per.get(i)]
     if missing:

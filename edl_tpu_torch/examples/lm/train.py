@@ -14,8 +14,16 @@ of ranks: standalone, the entry starts one process a rank on this host
 ``file://`` rendezvous: gloo when the ranks share the card or run on the
 CPU, NCCL when each has a card of its own), every rank trains the whole
 queue's batches in order with the mesh Trainer, and rank 0 prints the
-metrics. The elastic workers do not rescale such meshes yet (ROADMAP.md
-queue A item 9): in cloud mode they raise.
+metrics. In cloud mode each rank runs a `MultiHostWorker` over the axes
+times ``data`` (the world over their product): lockstep rounds, one shard
+for each data index, and at a rescale exit 75, the launcher's relaunch and
+the last checkpoint re-cut onto the new world's mesh. One rank a launcher,
+on the CPU, with a pod's env protocol (``EDL_COORDINATOR_ENDPOINT``,
+``EDL_PORT``, ``EDL_NUM_TRAINERS``, ``EDL_POD_NAME``,
+``EDL_CHECKPOINT_DIR``) set:
+
+    EDL_MESH_AXES='{"pipe": 2}' EDL_ENTRY="python -m edl_tpu_torch.examples.lm.train \
+        --device cpu --dist-backend gloo" python -m edl_tpu_torch.launcher start_trainer
 
     python -m edl_tpu_torch.examples.lm.train --seq-len 512 --remat --zero1
     python -m edl_tpu_torch.examples.lm.train --axes '{"seq": 2, "model": 2}' \

@@ -24,7 +24,10 @@ Bring-up protocol (per process), as in the JAX package:
 
 A process group's world size is fixed at init: a rescale exits the
 process (`runtime.multihost.MultiHostWorker`), and the relaunched entry
-forms the group at the new world.
+forms the group at the new world through the coordinator, as above. The
+group is the world's whatever the layout: the worker then builds its mesh
+of any axes over it (`parallel.mesh.build_mesh`, the fixed axes times
+``data``, or a planned layout), which makes the axes' subgroups.
 """
 
 from __future__ import annotations

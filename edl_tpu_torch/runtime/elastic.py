@@ -17,20 +17,32 @@ process's mesh over more local devices as the world grows (its
 ``default_device_planner``: world 1 -> 4 devices, world 2 -> 8). One
 process driving several cards is not PyTorch's idiom: a card is a rank,
 and a job over several cards runs one `MultiHostWorker` per card. So this
-worker builds a world-1 local mesh (`parallel.mesh.local_mesh`) on its one
-device (``device``, default the current CUDA device) at every world size.
-A rescale is still the JAX package's: checkpoint, barrier, a new `Trainer`,
-restore, resume. The global batch is the same at every world size, so the
-math is too: the losses match the JAX worker's on a CPU mesh of any size.
+worker builds its mesh over its one device (``device``, default the current
+CUDA device) at every world size: a world-1 local mesh
+(`parallel.mesh.local_mesh`). A rescale is still the JAX package's:
+checkpoint, barrier, a new `Trainer`, restore, resume. The global batch is
+the same at every world size, so the math is too: the losses match the JAX
+worker's on a CPU mesh of any size.
+
+The layout, as in the JAX worker: ``mesh_axes`` fixes the non-data axes
+and ``data`` takes the rest of the devices, so with one device a fixed
+axis above 1 raises the JAX worker's ``ValueError`` ("1 devices not
+divisible by fixed axes ..."), as the JAX worker does given one device.
+``layout_planner(n_devices, devices) -> Plan | None`` (say
+`parallel.planner.plan_layout` closed over a `Topology` and a
+`ModelProfile`) replaces that at every rescale; its plan is recorded on the
+``replan`` span (``planned``, ``schedule``, ``microbatches``,
+``modeled_step_seconds``, ``baseline_step_seconds``) and re-points the
+Trainer's batch axis when it is hierarchical. Here it is asked for one
+device. Model-parallel meshes over several cards run in the
+`MultiHostWorker`.
 
 What the port leaves out, each raising ``NotImplementedError`` with its
-ROADMAP.md item: the hybrid-parallel ``layout_planner`` and ``profiler=``
-(queue A item 7), a ``mesh_axes`` axis other than ``data`` above 1 (item
-9: the mesh Trainer trains such meshes, the workers do not rescale them),
-and ``compile_cache_dir`` (item 7: eager PyTorch keeps no executable to
-cache). ``warm_compile`` runs one forward on zeros during the restore (see
-`Trainer.warm_compile`). ``metrics_port`` serves the worker's own
-`/metrics`; the coordinator status bridge waits for item 7.
+ROADMAP.md item: ``profiler=`` (queue A item 4) and ``compile_cache_dir``
+(item 4: eager PyTorch keeps no executable to cache). ``warm_compile`` runs
+one forward on zeros during the restore (see `Trainer.warm_compile`).
+``metrics_port`` serves the worker's own `/metrics`; the coordinator status
+bridge waits for item 5.
 """
 
 from __future__ import annotations
@@ -51,7 +63,7 @@ from edl_tpu_torch.device import DeviceLike, resolve_device
 from edl_tpu_torch.models.base import Model
 from edl_tpu_torch.obs.instruments import PreemptInstruments, WorkerInstruments
 from edl_tpu_torch.obs.tracing import Tracer, get_tracer, rescale_trace_id
-from edl_tpu_torch.parallel.mesh import Mesh, local_mesh
+from edl_tpu_torch.parallel.mesh import Mesh, MeshSpec, local_mesh
 from edl_tpu_torch.runtime.checkpoint import Checkpointer
 from edl_tpu_torch.runtime.data import LeaseReader, split_pass
 from edl_tpu_torch.runtime.ft_policy import (
@@ -134,7 +146,7 @@ class ElasticConfig:
     #: serve ``/metrics`` + ``/healthz`` + ``/spans`` from this worker
     #: process on the given port (0 = ephemeral); None disables. (The JAX
     #: worker also bridges the coordinator's status counters onto the
-    #: scrape; that bridge waits for ROADMAP.md queue A item 7.)
+    #: scrape; that bridge waits for ROADMAP.md queue A item 5.)
     metrics_port: Optional[int] = None
     #: memory-resident checkpoint plane (``edl_tpu_torch.ckpt_plane``): > 0
     #: replicates each worker's ZeRO-1 state shard to this many ring peers
@@ -145,7 +157,7 @@ class ElasticConfig:
     peer_replicas: int = 0
     #: the JAX package's persistent AOT compile cache directory: eager
     #: PyTorch keeps no executable, so a non-empty value raises
-    #: ``NotImplementedError`` in the workers (ROADMAP.md queue A item 7).
+    #: ``NotImplementedError`` in the workers (ROADMAP.md queue A item 4).
     compile_cache_dir: str = ""
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
 
@@ -193,28 +205,48 @@ class ElasticConfig:
                 f"{self.peer_replicas!r}")
 
 
-def check_unported(config: ElasticConfig, mesh_axes: Optional[Dict[str, int]],
-                   profiler=None, layout_planner=None) -> None:
+def check_unported(config: ElasticConfig, profiler=None) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet,
     naming its ROADMAP.md item, before anything starts."""
-    if layout_planner is not None:
-        raise NotImplementedError(
-            "layout_planner: the hybrid-parallel planner is not ported yet "
-            "(ROADMAP.md queue A item 7)")
     if profiler is not None:
         raise NotImplementedError(
             "profiler=: tools/profiler.py is not ported yet (ROADMAP.md queue "
-            "A item 7)")
+            "A item 4)")
     if config.compile_cache_dir:
         raise NotImplementedError(
             "compile_cache_dir: runtime/compile_cache.py has no PyTorch "
-            "counterpart yet (ROADMAP.md queue A item 7)")
-    wide = {a: int(n) for a, n in (mesh_axes or {}).items() if a != "data" and int(n) > 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh_axes {wide}: the elastic workers do not run or rescale "
-            "tensor, sequence, pipeline or expert meshes yet (ROADMAP.md queue "
-            "A item 9); the mesh Trainer trains them")
+            "counterpart yet (ROADMAP.md queue A item 4)")
+
+
+def check_layout_args(mesh_axes: Optional[Dict[str, int]], layout_planner) -> None:
+    """The JAX workers' rule: a static layout or a searched one, not both."""
+    if layout_planner is not None and mesh_axes:
+        raise ValueError(
+            "pass either mesh_axes (static layout) or layout_planner "
+            "(searched layout), not both")
+
+
+def fixed_axes_mesh_spec(mesh_axes: Optional[Dict[str, int]], n: int) -> MeshSpec:
+    """The JAX workers' static layout for ``n`` devices: ``mesh_axes`` fixed
+    and ``data`` over the rest, raising their ``ValueError`` when the fixed
+    axes do not divide ``n``."""
+    axes = dict(mesh_axes or {})
+    fixed = 1
+    for size in axes.values():
+        fixed *= size
+    if n % fixed != 0:
+        raise ValueError(f"{n} devices not divisible by fixed axes {axes}")
+    axes["data"] = n // fixed
+    return MeshSpec(axes)
+
+
+def planned_trainer_config(config: TrainerConfig, plan) -> TrainerConfig:
+    """The trainer config for the current layout: a planned layout
+    re-points the batch axis (a hierarchical plan shards the batch over
+    ("dcn", "data")); the static path uses ``config`` as it is."""
+    if plan is None or config.batch_axis == plan.batch_axis:
+        return config
+    return dataclasses.replace(config, batch_axis=plan.batch_axis)
 
 
 def heartbeat_schedule(worker: str, base: float, jitter: float,
@@ -245,8 +277,8 @@ class RescaleEvent:
     #: the JAX package's compile-cache outcome; always "off" here (eager
     #: PyTorch has no executable cache).
     compile_cache: str = "off"
-    #: the mesh layout adopted at this rescale: this process's local mesh,
-    #: {"data": 1}.
+    #: the mesh layout adopted at this rescale: this process's local mesh
+    #: (every axis of size 1).
     layout: Dict[str, int] = field(default_factory=dict)
 
 
@@ -267,7 +299,8 @@ class ElasticWorker:
     ):
         if not config.checkpoint_dir:
             raise ValueError("ElasticConfig.checkpoint_dir is required")
-        check_unported(config, mesh_axes, profiler, layout_planner)
+        check_unported(config, profiler)
+        check_layout_args(mesh_axes, layout_planner)
         self.model = model
         #: this process's one device (see the module docstring)
         self.device = resolve_device(device)
@@ -277,7 +310,16 @@ class ElasticWorker:
             else OutboxClient(client)
         self.source = source
         self.config = config
-        self.mesh_axes = mesh_axes  # size-1 axes only (check_unported)
+        self.mesh_axes = mesh_axes  # extra non-data axes, sized per full mesh
+        #: hybrid-parallel replanner: ``(n_devices, devices) -> Plan | None``
+        #: (typically ``parallel.planner.plan_layout`` closed over a Topology
+        #: + ModelProfile). Called at every rescale; a returned Plan's mesh
+        #: axes and batch axis replace the static data-only resize, a None
+        #: falls back to it. Mutually exclusive with ``mesh_axes`` — the
+        #: plan owns the whole layout.
+        self.layout_planner = layout_planner
+        #: the Plan adopted at the last mesh build (None on the static path)
+        self.last_plan = None
         #: rescale lifecycle spans land here (shared process tracer unless a
         #: test/bench passes its own); correlated cross-process via the
         #: membership epoch (obs.tracing.rescale_trace_id).
@@ -777,11 +819,22 @@ class ElasticWorker:
     # -- mesh / state ----------------------------------------------------------
 
     def _build_mesh(self, world: int) -> Mesh:
-        """This process's world-1 local mesh, at every membership ``world``
-        (see the module docstring)."""
-        axes = {a: 1 for a in (self.mesh_axes or {}) if a != "data"}
-        axes["data"] = 1
-        return local_mesh(axes)
+        """The mesh over this process's one device, at every membership
+        ``world`` (see the module docstring): the planned layout when a
+        ``layout_planner`` gives one, else ``mesh_axes`` and ``data`` over
+        the rest."""
+        devices = [self.device]
+        self.last_plan = None
+        if self.layout_planner is not None:
+            plan = self.layout_planner(len(devices), devices)
+            if plan is not None:
+                self.last_plan = plan
+                return local_mesh(dict(plan.mesh_axes))
+        return local_mesh(fixed_axes_mesh_spec(self.mesh_axes, len(devices)).axes)
+
+    def _trainer_config(self) -> TrainerConfig:
+        """The trainer config for the current layout (`planned_trainer_config`)."""
+        return planned_trainer_config(self.config.trainer, self.last_plan)
 
     def _restore_or_init(self, trainer: Trainer, fresh: TrainState) -> TrainState:
         self._last_restore = {"source": "init", "bytes": 0}
@@ -1021,14 +1074,26 @@ class ElasticWorker:
                 self.tracer.record("checkpoint", ck_t0, ck_t1, trace_id=rid,
                                    component="worker")
             rescale_t0 = time.perf_counter()
-            # Replan: the layout for the new world (the local mesh here;
-            # recorded so every rescale timeline carries the phase, a ~0 s
-            # replan rather than a missing one).
+            # Replan: the layout search (planner argmin when a layout_planner
+            # is wired, the static data-only resize otherwise — recorded
+            # either way so every rescale timeline carries the phase and a
+            # missing planner shows up as a ~0 s replan, not a missing one).
             t_replan0 = time.time()
             mesh = self.mesh = self._build_mesh(world)
+            replan_attrs: Dict = {"layout": json.dumps(dict(mesh.shape))}
+            if self.last_plan is not None:
+                replan_attrs.update(
+                    planned=True,
+                    schedule=self.last_plan.schedule or "none",
+                    microbatches=self.last_plan.microbatches,
+                    modeled_step_seconds=self.last_plan.step_seconds,
+                    baseline_step_seconds=self.last_plan.baseline_step_seconds,
+                )
+            else:
+                replan_attrs["planned"] = False
             self.tracer.record("replan", t_replan0, time.time(),
                                trace_id=rid, component="worker",
-                               layout=json.dumps(dict(mesh.shape)), planned=False)
+                               **replan_attrs)
             codec_channel = None
             if self.config.trainer.wire_transport:
                 from edl_tpu_torch.runtime.wire import KVCodecChannel
@@ -1037,7 +1102,7 @@ class ElasticWorker:
                 # but persisting the widen floor through the coordinator means
                 # a restarted incarnation never re-learns an old overflow.
                 codec_channel = KVCodecChannel(self.client, self._epoch)
-            trainer = Trainer(self.model, mesh, self.config.trainer,
+            trainer = Trainer(self.model, mesh, self._trainer_config(),
                               device=self.device, codec_channel=codec_channel)
             self._trainer = trainer
             self.ckpt.trainer = trainer  # saves and restores go through it

@@ -33,6 +33,19 @@ step, the row-sharded tables (the model's ``param_spec``) are put back
 together whole, and rank 0 writes. So a CTR trained at world 2 exports
 the same file layout as one trained on one device, and
 ``load_inference_model`` of either package reads it.
+
+**Layer order: logical, by choice.** The port names a transformer's blocks
+by logical layer on every mesh (``blocks.i`` is layer i, whichever pipeline
+stage holds it), so its artifact stacks the layers in logical order under
+every schedule: it serves, in either package, the model that was trained.
+The JAX package writes its params as it stores them, and under
+``1f1b-interleaved`` with ``virtual_stages > 1`` on a pipe axis above 1 it
+stores the layers chunk-major (storage row p is logical layer
+``interleaved_layout(L, pipe, v)[p]``, `edl_tpu.models.transformer`); the
+manifest does not record ``pipe``, so no loader can undo that from the
+artifact alone. Such a JAX artifact therefore loads in the port (as in the
+JAX package's own loader) with its layers in that storage order. The JAX
+package leaves the re-permutation to the caller, and so does the port.
 """
 
 from __future__ import annotations

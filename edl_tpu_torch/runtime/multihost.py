@@ -13,20 +13,33 @@ Protocol (the reshape of the reference master's task queue,
 `docker/paddle_k8s:26-32` — still at-least-once leases, but consumed in
 lockstep):
 
+- the mesh: ``mesh_axes`` fixes the non-data axes and ``data`` takes the
+  rest of the world, raising the JAX worker's ``ValueError`` when the fixed
+  axes do not divide it; a ``layout_planner(world, ranks) -> Plan | None``
+  replaces that when given (a hierarchical plan builds
+  `build_hierarchical_mesh`). Every incarnation plans for the world it
+  finds, and `plan_layout` is deterministic, so the ranks agree without a
+  collective;
 - rank 0 is the decision-maker: each ROUND it checks the membership epoch
-  and leases ``world`` shards, then broadcasts the round plan through the
-  coordinator KV under an (epoch, round)-scoped key;
-- every rank polls that exact key and trains its assigned shard's batches:
-  each batch is this rank's slice of the global batch, which is the local
-  batch times the world (`Trainer.place_batch` takes it as it is, as the
-  JAX package assembles process-local data into global arrays).
-  When the source exposes ``batch_count(shard)``, rank 0 publishes the
+  and leases one shard for each **data index** (the product of the mesh's
+  batch axes), then broadcasts the round plan through the coordinator KV
+  under an (epoch, round)-scoped key;
+- every rank polls that exact key and trains the shard of its data index,
+  ``tasks[data_index % len(tasks)]``, so the ranks of one data index (the
+  stages of a pipeline, the shards of a tensor-parallel layer, the blocks
+  of a ring) train the same batches. Each batch is that data index's slice
+  of the global batch, which is the shard's batch times the number of data
+  indices; a rank keeps its part of it (`parallel.sharding.shard_batch`
+  with the model's ``batch_spec``: its sequence chunk under ``seq``) and
+  hands that to `Trainer.place_batch`;
+- when the source exposes ``batch_count(shard)``, rank 0 publishes the
   round's step count (max over the leased shards) and every rank runs
   exactly that many steps, cycling a shorter shard's batches to pad —
   uneven shards therefore cannot desynchronize the collective step count.
   Sources without the metadata must yield identical batch counts per shard;
-- tail rounds with fewer shards than ranks replicate the remainder across
-  ranks (``tasks[r % len]``) so the queue drains without breaking lockstep;
+- tail rounds with fewer shards than data indices replicate the remainder
+  across them (``tasks[i % len]``) so the queue drains without breaking
+  lockstep;
 - **completion lags the checkpoint**: rank 0 holds consumed shards' leases
   until a collective checkpoint covers them, then marks them complete. An
   interrupted incarnation therefore replays exactly the shards whose
@@ -38,15 +51,23 @@ lockstep):
   last periodic checkpoint a consistent restore point. The pod launcher
   warm-restarts the entry, which re-runs ``distributed_init`` (a process
   group's world is fixed at init; re-forming one in place is not done
-  here, as the JAX package does not) and comes back at the new world size,
-  restoring the whole tensors of the checkpoint into its shards
-  (`Checkpointer(trainer=)`).
+  here, as the JAX package does not), builds the mesh for the new world
+  and restores the whole tensors of the checkpoint into its parts
+  (`Checkpointer(trainer=)`, `Trainer.load_full_state`): the ZeRO-1
+  moments regroup over the new data axis, a pipeline stage takes its new
+  layers (named by logical layer, so an interleaved layout needs no
+  permutation) and a tensor-parallel shard its new slice.
+
+**Where this departs from the JAX worker.** A JAX process holds a whole
+host's chips, so its plan leases ``world`` shards, one a process, and a
+process's chips are cut from its shard by the global array. Here a process
+is one card, so the plan leases one shard for each data index, and every
+rank of that index reads the same shard. At a ``data``-only mesh the two
+are the same: the plans are the JAX worker's, shard for shard.
 
 What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP.md item (`elastic.check_unported`): ``layout_planner``,
-``profiler=``, ``compile_cache_dir`` and axes other than ``data`` above 1
-(item 9: the mesh Trainer trains such meshes; the rounds do not yet give
-their model-parallel peers the same shard).
+ROADMAP.md item (`elastic.check_unported`): ``profiler=`` and
+``compile_cache_dir``.
 """
 
 from __future__ import annotations
@@ -55,7 +76,7 @@ import json
 import logging
 import random
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch.distributed as dist
 
@@ -65,9 +86,13 @@ from edl_tpu_torch.coordinator.watch import make_epoch_watch
 from edl_tpu_torch.device import DeviceLike, resolve_device
 from edl_tpu_torch.models.base import Model
 from edl_tpu_torch.obs.instruments import PreemptInstruments, WorkerInstruments
-from edl_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh, local_mesh
+from edl_tpu_torch.parallel.mesh import (Mesh, MeshSpec, build_hierarchical_mesh,
+                                         build_mesh, local_mesh)
+from edl_tpu_torch.parallel.sharding import axis_size, present_axes, shard_batch
 from edl_tpu_torch.runtime.checkpoint import Checkpointer
-from edl_tpu_torch.runtime.elastic import ElasticConfig, check_unported
+from edl_tpu_torch.runtime.elastic import (ElasticConfig, check_layout_args,
+                                           check_unported, fixed_axes_mesh_spec,
+                                           planned_trainer_config)
 from edl_tpu_torch.runtime.ft_policy import (
     RIDE_OUT, WARM_RESTART, FTPolicy, FTPolicyConfig,
 )
@@ -77,6 +102,14 @@ log = logging.getLogger("edl_tpu_torch.runtime.multihost")
 
 #: KV key template for round plans; epoch-scoping keeps incarnations apart.
 ROUND_KEY = "edl/mh_round/{epoch}/{round}"
+
+
+def data_indices(mesh: Mesh, batch_axis) -> Tuple[int, int]:
+    """(the number of data indices of ``mesh``, this rank's): the size of
+    the batch axes ``batch_axis`` names on the mesh, and this rank's index
+    over them. A round leases one shard for each data index."""
+    axes = present_axes(mesh, batch_axis)
+    return axis_size(mesh, axes), mesh.axis_index(axes)
 
 
 class MultiHostWorker:
@@ -105,11 +138,12 @@ class MultiHostWorker:
         device: DeviceLike = None,
         mesh_axes: Optional[Dict[str, int]] = None,
         profiler=None,
-        layout_planner=None,
+        layout_planner=None,  # (world, ranks) -> parallel.planner.Plan | None
     ):
         if not config.checkpoint_dir:
             raise ValueError("ElasticConfig.checkpoint_dir is required")
-        check_unported(config, mesh_axes, profiler, layout_planner)
+        check_unported(config, profiler)
+        check_layout_args(mesh_axes, layout_planner)
         self.model = model
         self.device = resolve_device(device)
         # Degraded-mode facade: a coordinator outage buffers completions
@@ -121,7 +155,14 @@ class MultiHostWorker:
         self.client = client
         self.source = source
         self.config = config
-        self.mesh_axes = mesh_axes  # size-1 axes only (check_unported)
+        self.mesh_axes = mesh_axes
+        #: hybrid-parallel replanner (same contract as ElasticWorker's):
+        #: every warm-restart incarnation re-plans for the world it finds,
+        #: so the gang converges on the same layout from the same inputs
+        #: (plan_layout is deterministic — no cross-rank agreement needed).
+        self.layout_planner = layout_planner
+        #: the Plan adopted at the last mesh build (None on the static path)
+        self.last_plan = None
         #: same metric families as ElasticWorker — dashboards don't care
         #: which worker flavor a pod runs.
         self.obs = WorkerInstruments()
@@ -288,16 +329,40 @@ class MultiHostWorker:
             self._preempt_notice = {**notice, "mode": mode}
 
     def _build_mesh(self, world: int) -> Mesh:
-        """The mesh of ranks: ``mesh_axes``' size-1 axes and ``data`` over
-        the whole world (every rank calls it: it creates the groups). With
-        no process group, one process's local mesh (as the JAX worker runs
-        at ``jax.process_count() == 1``)."""
-        axes = {a: 1 for a in (self.mesh_axes or {}) if a != "data"}
+        """The mesh of ranks for ``world`` (see the module docstring; every
+        rank calls it: it creates the groups). With no process group, one
+        process's local mesh (as the JAX worker runs at
+        ``jax.process_count() == 1``)."""
+        self.last_plan = None
+        spec = None
+        if self.layout_planner is not None:
+            plan = self.layout_planner(world, list(range(world)))
+            if plan is not None:
+                self.last_plan = plan
+                spec = MeshSpec(dict(plan.mesh_axes))
+        if spec is None:
+            spec = fixed_axes_mesh_spec(self.mesh_axes, world)
         if not dist.is_initialized():
-            axes["data"] = 1
-            return local_mesh(axes)
-        axes["data"] = world
-        return build_mesh(MeshSpec(axes))
+            return local_mesh(spec.axes)
+        if self.last_plan is not None and self.last_plan.hierarchical:
+            return build_hierarchical_mesh(spec)
+        return build_mesh(spec)
+
+    def _trainer_config(self):
+        """The trainer config for the current layout (planned layouts
+        re-point the batch axis; see ElasticWorker._trainer_config)."""
+        return planned_trainer_config(self.config.trainer, self.last_plan)
+
+    def _rank_part(self, mesh: Mesh, batch_axes):
+        """``batch -> this rank's part`` of its data index's batch: the
+        model's ``batch_spec`` cut over the mesh axes that are not batch
+        axes (the sequence chunk under ``seq``); None for a model without a
+        ``batch_spec`` (every rank of an index keeps the whole batch)."""
+        if self.model.batch_spec is None:
+            return None
+        specs = {key: (tuple(a for a in present_axes(mesh, rows) if a not in batch_axes), seq)
+                 for key, (rows, seq) in self.model.batch_spec(mesh).items()}
+        return lambda batch: shard_batch(batch, mesh, (), specs=specs)
 
     def _restore_or_init(self, trainer: Trainer) -> TrainState:
         """Collective: every rank restores the same step into its shards."""
@@ -343,7 +408,8 @@ class MultiHostWorker:
     # -- round plan exchange ---------------------------------------------------
 
     def _publish_round(self, epoch: int, rnd: int, world: int) -> dict:
-        """Rank 0: lease up to ``world`` shards and broadcast the plan.
+        """Rank 0: lease up to ``world`` shards (one for each data index of
+        the mesh; `_run` passes their count) and broadcast the plan.
 
         Emits ``{"ckpt": true}`` instead of shards when the uncommitted
         backlog must be made durable first — either the queue drained down
@@ -673,6 +739,11 @@ class MultiHostWorker:
             self.ckpt_plane.on_epoch(epoch, world, rank)
 
         mesh = self.mesh = self._build_mesh(world)
+        config = self._trainer_config()
+        #: one shard a round for each data index; the ranks of an index
+        #: train the same batches, each keeping its part of them
+        n_data, data_index = data_indices(mesh, config.batch_axis)
+        part = self._rank_part(mesh, present_axes(mesh, config.batch_axis))
         codec_channel = None
         if self.config.trainer.wire_transport:
             from edl_tpu_torch.runtime.wire import KVCodecChannel
@@ -681,7 +752,7 @@ class MultiHostWorker:
             # codec from scratch (possibly under a new rank 0) while the
             # widen floor persists across epochs.
             codec_channel = KVCodecChannel(self.client, epoch)
-        trainer = Trainer(self.model, mesh, self.config.trainer,
+        trainer = Trainer(self.model, mesh, config,
                           device=self.device, codec_channel=codec_channel)
         self.ckpt.trainer = trainer
         # Live re-step pricing for the policy's park break-even
@@ -740,7 +811,7 @@ class MultiHostWorker:
                 # SIGTERM, plus shard evacuation while the notice lasts.
                 self._preempt_leave(state, rank, world)
             if rank == 0:
-                msg = self._publish_round(epoch, rnd, world)
+                msg = self._publish_round(epoch, rnd, n_data)
             else:
                 msg = self._poll_round(
                     epoch, rnd, timeout=self.config.rescale_barrier_timeout,
@@ -768,7 +839,7 @@ class MultiHostWorker:
                 continue
 
             tasks = msg["tasks"]
-            shard = tasks[rank % len(tasks)]  # tail rounds replicate remainder
+            shard = tasks[data_index % len(tasks)]  # tail rounds replicate remainder
             ran_steps = 0
 
             def _train_one(placed, step_fn) -> None:
@@ -787,6 +858,8 @@ class MultiHostWorker:
 
             steps = msg.get("steps")
             depth = self.config.pipeline_depth
+            place = (trainer.place_bound if part is None
+                     else lambda batch: trainer.place_bound(part(batch)))
             try:
                 if steps is None:
                     # No batch_count metadata: shards must align by construction.
@@ -802,7 +875,7 @@ class MultiHostWorker:
                     # read-ahead; exceptions — including a SystemExit from
                     # the padded-batches fallback — relay to this thread.
                     with DevicePrefetcher(
-                        batches, trainer.place_bound, depth=depth,
+                        batches, place, depth=depth,
                         thread_name="edl-mh-place-pump", device=trainer.device,
                     ) as pf:
                         for item in pf:
@@ -815,7 +888,7 @@ class MultiHostWorker:
                         # thread).
                         batches = prefetch_iter(batches)
                     for batch in batches:
-                        _train_one(*trainer.place_bound(batch))
+                        _train_one(*place(batch))
             except WireRestartRequired as e:
                 # A batch overflowed the gang-negotiated wire codec; the
                 # widened floor is already published. Same recovery as a

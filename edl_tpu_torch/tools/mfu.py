@@ -15,10 +15,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+#: the H100 SXM's dense bf16 tensor-core peak, TFLOP/s (NVIDIA data sheet,
+#: no sparsity); also the planner's default card (`parallel.planner.Topology`)
+H100_PEAK_BF16_TFLOPS = 989.0
+
 #: dense bf16 tensor-core peak TFLOP/s per card (NVIDIA data sheets, no
 #: sparsity), by a substring of the device name, matched most specific first
 _PEAK_BF16_TFLOPS = (
-    ("H100 80GB HBM3", 989.0),  # H100 SXM
+    ("H100 80GB HBM3", H100_PEAK_BF16_TFLOPS),  # H100 SXM
     ("H100 PCIe", 756.0),
     ("A100", 312.0),
 )

@@ -348,3 +348,36 @@ def test_elastic_worker_replicates_then_peer_restores(tmp_path):
     assert w2._last_restore["source"] == "peer", w2._last_restore
     assert w2._last_restore["bytes"] > 0
     assert w2.steps_done == 8
+
+
+# -- the plane's smoke ---------------------------------------------------------
+
+
+def test_the_smoke_gives_the_jax_smokes_three_verdicts():
+    """``python -m edl_tpu_torch.ckpt_plane --device cpu`` exits 0 with the
+    JAX smoke's report (``python -m edl_tpu.ckpt_plane``): the twin's loss,
+    the peer restore's and the blob fallback's, each EQUAL to the twin's."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1",
+           "JAX_PLATFORMS": "cpu"}
+    procs = {pkg: subprocess.Popen([sys.executable, "-m", f"{pkg}.ckpt_plane", *args],
+                                   cwd=root, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for pkg, args in (("edl_tpu_torch", ["--device", "cpu"]), ("edl_tpu", []))}
+    reports = {}
+    for pkg, p in procs.items():
+        out, err = p.communicate(timeout=240)
+        assert p.returncode == 0, (pkg, err[-4000:])
+        reports[pkg] = json.loads(out[out.index("{"):])
+    got, want = reports["edl_tpu_torch"], reports["edl_tpu"]
+    assert got.pop("device") == "cpu"
+    assert got.keys() == want.keys() and got["peer"].keys() == want["peer"].keys()
+    assert got["blob_fallback"].keys() == want["blob_fallback"].keys()
+    assert got["pass"] is want["pass"] is True
+    assert got["peer"]["loss"] == got["blob_fallback"]["loss"] == got["twin_loss"]
+    assert got["peer"]["source"] == want["peer"]["source"] == "peer"

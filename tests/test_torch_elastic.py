@@ -271,7 +271,16 @@ def test_the_port_reports_rescale_events_with_jax_fields():
             jax_elastic.heartbeat_schedule(name, 1.0, 0.2, 16)
 
 
-@pytest.mark.parametrize("kw", [dict(layout_planner=lambda n, d: None),
+def _one_device_plan(n, devices):
+    """A planner's plan for ``n`` devices of one node (`plan_layout` with the
+    port's H100 defaults)."""
+    from edl_tpu_torch.parallel import ModelProfile, Topology, plan_layout
+
+    return plan_layout(n, Topology(slices=(n,)), ModelProfile(param_bytes=1e6), 8,
+                       schedules=())
+
+
+@pytest.mark.parametrize("kw", [dict(layout_planner=_one_device_plan),
                                 dict(profiler=object()),
                                 dict(mesh_axes={"model": 2}),
                                 dict(mesh_axes={"seq": 2, "data": 4}),
@@ -279,19 +288,113 @@ def test_the_port_reports_rescale_events_with_jax_fields():
                          ids=["layout_planner", "profiler", "model_axis", "seq_axis",
                               "compile_cache_dir"])
 def test_what_is_not_ported_raises_naming_the_roadmap_item(kw, tmp_path):
+    """``profiler=`` and ``compile_cache_dir`` are not ported: both workers
+    raise ``NotImplementedError`` naming their ROADMAP.md item (queue A item
+    4). The layout cases are ported and hold the JAX workers' behaviour:
+    a fixed axis that one device does not divide raises the JAX
+    ``ValueError`` with its message (the JAX `ElasticWorker` given one
+    device, and the port's `MultiHostWorker` without a process group, one
+    rank), and a ``layout_planner`` is accepted and its plan built."""
     from edl_tpu_torch.runtime.multihost import MultiHostWorker
 
     cfg_kw = {"compile_cache_dir": kw.pop("compile_cache_dir")} if "compile_cache_dir" in kw \
         else {}
     cfg = ElasticConfig(checkpoint_dir=str(tmp_path / "ck"), **cfg_kw)
     coord = InProcessCoordinator()
-    for cls in (ElasticWorker, MultiHostWorker):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
-            cls(fit_a_line.MODEL, coord.client("w"), None, cfg, device="cpu", **kw)
+    workers = (ElasticWorker, MultiHostWorker)
+    if "mesh_axes" in kw:
+        jax_worker = jax_elastic.ElasticWorker(
+            jax_fit.MODEL, JaxCoordinator().client("w"), None,
+            jax_elastic.ElasticConfig(checkpoint_dir=str(tmp_path / "jax-ck")),
+            device_planner=lambda w: jax.devices()[:1], **kw)
+        with pytest.raises(ValueError) as want:
+            jax_worker._build_mesh(1)
+        assert "devices not divisible by fixed axes" in str(want.value)
+        for cls in workers:
+            worker = cls(fit_a_line.MODEL, coord.client("w"), None, cfg, device="cpu", **kw)
+            with pytest.raises(ValueError) as got:
+                worker._build_mesh(1)
+            assert str(got.value) == str(want.value), cls
+    elif "layout_planner" in kw:
+        for cls in workers:
+            worker = cls(fit_a_line.MODEL, coord.client("w"), None, cfg, device="cpu", **kw)
+            assert worker._build_mesh(1).shape == {"data": 1}
+            assert worker.last_plan.mesh_axes == (("data", 1),)
+            assert worker._trainer_config() is cfg.trainer  # batch axis "data" kept
+    else:
+        for cls in workers:
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
+                cls(fit_a_line.MODEL, coord.client("w"), None, cfg, device="cpu", **kw)
     # a size-1 axis is no parallelism: accepted
-    ElasticWorker(fit_a_line.MODEL, coord.client("w"), None,
-                  ElasticConfig(checkpoint_dir=str(tmp_path / "ck")), device="cpu",
-                  mesh_axes={"model": 1})
+    worker = ElasticWorker(fit_a_line.MODEL, coord.client("w"), None,
+                           ElasticConfig(checkpoint_dir=str(tmp_path / "ck")), device="cpu",
+                           mesh_axes={"model": 1})
+    assert worker._build_mesh(1).shape == {"model": 1, "data": 1}
+
+
+def test_a_static_and_a_searched_layout_together_raise_as_jax_does(tmp_path):
+    from edl_tpu_torch.runtime.multihost import MultiHostWorker
+    from edl_tpu.runtime.multihost import MultiHostWorker as JaxMultiHostWorker
+
+    kw = dict(mesh_axes={"pipe": 2}, layout_planner=_one_device_plan)
+    messages = set()
+    for cls, extra, coord in ((jax_elastic.ElasticWorker, {}, JaxCoordinator()),
+                              (JaxMultiHostWorker, {}, JaxCoordinator()),
+                              (ElasticWorker, {"device": "cpu"}, InProcessCoordinator()),
+                              (MultiHostWorker, {"device": "cpu"}, InProcessCoordinator())):
+        cfg = (jax_elastic.ElasticConfig if cls.__module__.startswith("edl_tpu.")
+               else ElasticConfig)(checkpoint_dir=str(tmp_path / cls.__module__))
+        with pytest.raises(ValueError) as e:
+            cls(fit_a_line.MODEL, coord.client("w"), None, cfg, **extra, **kw)
+        messages.add(str(e.value))
+    assert len(messages) == 1, messages
+
+
+def _planned_run(pkg, tmp_path):
+    """One short queue through ``pkg``'s `ElasticWorker` with a planner on
+    one device: the ``replan`` spans' attributes."""
+    if pkg == "jax":
+        from edl_tpu.parallel import ModelProfile, Topology, plan_layout
+
+        coord, model, tracer = JaxCoordinator(), jax_fit.MODEL, JaxTracer()
+        source = JaxSource(model, batch_size=8, batches_per_shard=2)
+        cfg = jax_elastic.ElasticConfig(checkpoint_dir=str(tmp_path / pkg),
+                                        heartbeat_interval=0.0, pipeline_depth=0,
+                                        trainer=JaxConfig(optimizer="sgd"))
+        kw = dict(device_planner=lambda w: jax.devices()[:1])
+        cls = jax_elastic.ElasticWorker
+    else:
+        from edl_tpu_torch.parallel import ModelProfile, Topology, plan_layout
+
+        coord, model, tracer = InProcessCoordinator(), fit_a_line.MODEL, Tracer()
+        source = SyntheticShardSource(model, batch_size=8, batches_per_shard=2)
+        cfg = ElasticConfig(checkpoint_dir=str(tmp_path / pkg), heartbeat_interval=0.0,
+                            pipeline_depth=0, trainer=TrainerConfig(optimizer="sgd"))
+        kw = dict(device="cpu")
+        cls = ElasticWorker
+    topo = Topology(slices=(1,), chip_flops=1e12, hbm_bytes=16 * 2**30, ici_bps=4.5e11,
+                    dcn_bps=5e10)
+    profile = ModelProfile(param_bytes=56.0, n_layers=1, flops_per_sample=78.0)
+
+    def planner(n, devices):
+        return plan_layout(n, topo, profile, 8, schedules=())
+
+    coord.client("admin").add_tasks(shard_names("plan", 2))
+    worker = cls(model, coord.client("w0"), source, cfg, tracer=tracer,
+                 layout_planner=planner, **kw)
+    worker.run()
+    spans = [json.loads(line) for line in tracer.to_jsonl().splitlines()]
+    return [sp["attrs"] for sp in spans if sp["name"] == "replan"]
+
+
+def test_a_planner_run_records_the_replan_attributes_jax_does(tmp_path):
+    want, got = _planned_run("jax", tmp_path), _planned_run("torch", tmp_path)
+    assert len(got) == len(want) == 1
+    strip = ("trace_id", "component")
+    assert {k: v for k, v in got[0].items() if k not in strip} == \
+        {k: v for k, v in want[0].items() if k not in strip}
+    assert got[0]["planned"] is True and got[0]["schedule"] == "none"
+    assert got[0]["modeled_step_seconds"] > 0
 
 
 def test_the_worker_raises_without_cuda_unless_the_cpu_is_asked_for(tmp_path):

@@ -350,6 +350,75 @@ def test_round_plans_are_the_jax_packages(tmp_path):
     assert any(m.get("ckpt") for m in plans[1]) and plans[1][-1] == {"stop": "exhausted"}
 
 
+def _mesh_of(axes, rank):
+    """A `Mesh` of ``axes`` seen from ``rank``, without a process group (the
+    round plan issues no collective)."""
+    from edl_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
+    spec = MeshSpec(dict(axes))
+    names = spec.ordered_axes()
+    return Mesh(names, [spec.axis(n) for n in names], rank, spec.size())
+
+
+@pytest.mark.parametrize("axes", [{"data": 4}, {"pipe": 2, "data": 2},
+                                  {"data": 2, "model": 2}, {"seq": 2, "data": 2}],
+                         ids=["data", "pipe", "model", "seq"])
+def test_round_plans_lease_one_shard_a_data_index(axes, tmp_path):
+    """Rank 0 leases one shard for each data index (the batch axes' size),
+    and every rank of an index trains the same shard; at a ``data``-only
+    mesh that is one shard a rank, and the plans are the JAX worker's for
+    the same world."""
+    from edl_tpu_torch.runtime.multihost import data_indices
+
+    world = 4
+    shares = [data_indices(_mesh_of(axes, r), "data") for r in range(world)]
+    n_data = shares[0][0]
+    assert {n for n, _ in shares} == {axes["data"]}
+    plans = {}
+    for P, n in (("jax", world), ("torch", n_data)):
+        client = _inproc_client(P, [f"s{i}" for i in range(5)])
+        ep = int(client.register()["epoch"])
+        w = _make_worker(P, client, tmp_path / P)
+        plans[P] = []
+        for rnd in range(3):
+            msg = w._publish_round(epoch=ep, rnd=rnd, world=n)
+            plans[P].append(msg)
+            w._uncommitted.extend(msg.get("tasks", []))
+    got = plans["torch"]
+    assert [len(m["tasks"]) for m in got[:2]] == [n_data, min(n_data, 5 - n_data)]
+    for msg in got[:2]:
+        shard = [msg["tasks"][i % len(msg["tasks"])] for _, i in shares]
+        for r in range(world):  # the ranks of one data index read one shard
+            same = [q for q in range(world) if shares[q][1] == shares[r][1]]
+            assert {shard[q] for q in same} == {shard[r]}
+        assert len(set(shard)) == len(msg["tasks"])
+    if n_data == world:
+        assert got == plans["jax"]
+
+
+def test_a_rank_keeps_its_part_of_its_data_index_batch(tmp_path):
+    """On ``{"data": 2, "seq": 2}`` each rank of a data index keeps its
+    sequence chunk of the shard's whole batch (the data axis chose the
+    shard, so no rows are cut); on ``{"data": 2, "pipe": 2}`` it keeps it
+    all."""
+    from edl_tpu_torch.models import transformer
+    from edl_tpu_torch.runtime import ElasticConfig, MultiHostWorker
+
+    model = transformer.make_model(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
+                                   d_ff=64, seq_len=16)
+    worker = MultiHostWorker(model, _inproc_client("torch", []), None,
+                             ElasticConfig(checkpoint_dir=str(tmp_path / "ck")), device="cpu")
+    batch = model.synthetic_batch(np.random.default_rng(0), 4)
+    for r in range(4):
+        mesh = _mesh_of({"data": 2, "seq": 2}, r)
+        got = worker._rank_part(mesh, ("data",))(batch)
+        j = mesh.coords()["seq"]
+        for k in ("tokens", "targets"):
+            np.testing.assert_array_equal(got[k], batch[k][:, j * 8:(j + 1) * 8])
+        whole = worker._rank_part(_mesh_of({"data": 2, "pipe": 2}, r), ("data",))(batch)
+        assert all(np.array_equal(whole[k], batch[k]) for k in batch)
+
+
 def test_padded_batches_cycles_short_shard(P, tmp_path):
     w = _make_worker(P, _inproc_client(P, []), tmp_path)
     w.source = _UnevenSource({"short": 2, "long": 5})

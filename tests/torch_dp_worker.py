@@ -103,6 +103,16 @@ def _trainer(case, **extra):
     return trainer, trainer.load_full_state(state, full)
 
 
+def _one_device(case):
+    """The port's one-device Trainer of the case's model and config."""
+    from edl_tpu_torch.runtime.train_loop import Trainer, TrainerConfig
+
+    kwargs = {k: v for k, v in case["model_kwargs"].items()
+              if k not in ("pipeline_schedule", "virtual_stages", "microbatches")}
+    return Trainer(_model(case["model"], kwargs), config=TrainerConfig(**case["config"]),
+                   device="cpu")
+
+
 def _local(trainer, batch):
     from edl_tpu_torch.parallel.sharding import shard_batch
 

@@ -10,7 +10,15 @@ relaunched. Knobs:
 
 - ``WORKER_NAME``: the member name (stable across relaunches, so a new
   incarnation takes over its predecessor's membership and leases);
-- ``MODEL``: ``fit_a_line`` (default) or ``ctr_small`` (sparse dim 503);
+- ``MODEL``: ``fit_a_line`` (default), ``ctr_small`` (sparse dim 503) or
+  ``lm`` (the transformer LM of the ``LM`` JSON's config, Adam with the
+  ``TRAINER`` JSON's options);
+- ``AXES``: the worker's ``mesh_axes`` (JSON); ``PLANNER=stub``: a
+  ``layout_planner`` giving ``{"pipe": 2}`` at world 2 and ``{"data": 1}``
+  at world 1;
+- ``RESTORES``: where rank 0 appends, at each incarnation's restore, the
+  step restored, the whole state it restored into and the checkpoint it read
+  (one ``torch.save`` file an incarnation);
 - ``BATCHES_PER_SHARD`` (default 3), ``BATCH_SIZE`` (16), ``BATCH_SLEEP``
   (seconds a batch, default 0);
 - ``HOLD_AFTER``: after that many batches this incarnation reads no more
@@ -19,7 +27,8 @@ relaunched. Knobs:
 - ``CKPT_DIR``, ``CKPT_INTERVAL`` (default 1000 steps);
 - ``EXPORT_DIR``/``EXPORT_INTERVAL``: a `PeriodicExporter` on every rank;
 - ``RESULT``: where each incarnation appends its rank's summary (the
-  shards it read in order, its losses and metrics) as one JSON line.
+  shards it read in order, its losses and metrics) as one JSON line, and
+  writes its rank to ``RESULT.rank`` once the process group is up.
 """
 
 from __future__ import annotations
@@ -58,6 +67,38 @@ class Throttled:
         return self.inner.batch_count(shard)
 
 
+def stub_planner(n, ranks):
+    """``{"pipe": 2}`` at two ranks, ``{"data": 1}`` at one."""
+    from edl_tpu_torch.parallel.planner import Plan
+
+    axes = (("pipe", 2),) if n == 2 else (("data", 1),)
+    return Plan(chips=n, mesh_axes=axes, schedule=None, virtual_stages=1, microbatches=1,
+                step_seconds=1.0, batch_axis="data", baseline_step_seconds=1.0)
+
+
+def record_restores(worker, path: str, rank: int) -> None:
+    """Wrap the worker's restore: rank 0 saves the step, the restored state
+    gathered whole (`Trainer.full_state`, collective) and the checkpoint
+    file of that step as it was read."""
+    import torch
+
+    restore = worker._restore_or_init
+
+    def held(trainer):
+        state = restore(trainer)
+        full = trainer.full_state(state)
+        if rank == 0 and int(state.step) > 0:
+            step = int(state.step)
+            saved = torch.load(os.path.join(worker.ckpt.directory, str(step), "state.pt"),
+                               weights_only=True)
+            torch.save({"step": step, "restored": full, "saved": saved,
+                        "mesh": dict(trainer.mesh.shape)},
+                       f"{path}.{os.getpid()}.pt")
+        return state
+
+    worker._restore_or_init = held
+
+
 def main() -> None:
     import torch
 
@@ -73,11 +114,19 @@ def main() -> None:
     client = wait_coordinator(ctx.coordinator_endpoint)
     client.worker = os.environ["WORKER_NAME"]
     ident = distributed_init(ctx, client, backend="gloo", timeout=60.0)
+    Path(os.environ["RESULT"] + ".rank").write_text(str(ident.process_id))
+    trainer_kw = {}
     if os.environ.get("MODEL") == "ctr_small":
         from edl_tpu_torch.models import ctr
 
         model = ctr.make_model(sparse_dim=503)
         ref, config, opt = "ctr", {"sparse_dim": 503}, "adagrad"
+    elif os.environ.get("MODEL") == "lm":
+        from edl_tpu_torch.models import transformer
+
+        config = json.loads(os.environ["LM"])
+        model, ref, opt = transformer.make_model(**config), "transformer", "adam"
+        trainer_kw = json.loads(os.environ.get("TRAINER", "{}"))
     else:
         from edl_tpu_torch.models import fit_a_line
 
@@ -101,11 +150,19 @@ def main() -> None:
             exporter.mesh = worker.mesh
             exporter(step, state)
 
+    trainer_kw = {"optimizer": opt, "learning_rate": 0.05, **trainer_kw}
     cfg = ElasticConfig(checkpoint_dir=os.environ["CKPT_DIR"],
                         checkpoint_interval=int(os.environ.get("CKPT_INTERVAL", "1000")),
                         rescale_barrier_timeout=30.0, step_callback=on_step,
-                        trainer=TrainerConfig(optimizer=opt, learning_rate=0.05))
-    worker = MultiHostWorker(model, client, source, cfg, device="cpu")
+                        trainer=TrainerConfig(**trainer_kw))
+    layout = {}
+    if os.environ.get("AXES"):
+        layout["mesh_axes"] = json.loads(os.environ["AXES"])
+    if os.environ.get("PLANNER") == "stub":
+        layout["layout_planner"] = stub_planner
+    worker = MultiHostWorker(model, client, source, cfg, device="cpu", **layout)
+    if os.environ.get("RESTORES"):
+        record_restores(worker, os.environ["RESTORES"], ident.process_id)
     summary = {"rank": ident.process_id, "world": ident.num_processes, "reads": reads}
     code = 0
     try:
@@ -116,7 +173,8 @@ def main() -> None:
         summary["metrics"] = metrics
     except SystemExit as e:
         code = e.code
-    summary.update(exit=code, losses=worker.losses)
+    summary.update(exit=code, losses=worker.losses,
+                   mesh=dict(worker.mesh.shape) if worker.mesh is not None else None)
     with open(os.environ["RESULT"], "a") as f:
         f.write(json.dumps(summary) + "\n")
     sys.exit(code)

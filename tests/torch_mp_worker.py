@@ -106,6 +106,88 @@ def task_export_checkpoint(case):
     return {"saved": saved, "restored": fresh.full_state(fstate)}
 
 
+def task_plane(case):
+    """The checkpoint plane on this mesh: a twin trains every batch; a second
+    run trains the first ``kill_after``, each rank replicates its slice of
+    the whole state to the coordinator named by ``coordinator`` (port), the
+    live state is dropped, a fresh state peer-restores and trains the rest.
+    Returns both runs' losses, and the difference of the whole restored
+    state from the replicated one onto this mesh and onto one device."""
+    import torch.distributed as dist
+
+    from edl_tpu_torch.ckpt_plane import CkptPlane, state_template
+    from edl_tpu_torch.coordinator.client import CoordinatorClient
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    client = CoordinatorClient(port=case["coordinator"], worker=f"rank-{rank}")
+    epoch = int(client.register()["epoch"])
+    plane = CkptPlane(client, replicas=1)
+    batches, k = case["batches"], case["kill_after"]
+    trainer, state = torch_dp_worker._trainer(case)
+    twin = []
+    for batch in batches:
+        state, loss = trainer.train_step(state, _local(trainer, batch))
+        twin.append(float(loss))
+    trainer, state = torch_dp_worker._trainer(case)
+    run = []
+    for batch in batches[:k]:
+        state, loss = trainer.train_step(state, _local(trainer, batch))
+        run.append(float(loss))
+    dist.barrier()  # every rank has registered: the epoch is settled
+    epoch = int(client.heartbeat()["epoch"])
+    plane.on_epoch(epoch, world, rank)
+    saved = trainer.full_state(state)
+    assert plane.replicate(saved, k, rank, world) is not None
+    dist.barrier()
+    del state  # the killed worker's memory is gone
+    fresh, fstate = torch_dp_worker._trainer(case)
+    got = plane.restore(state_template(fresh, fstate), trainer=fresh, state=fstate)
+    assert got is not None, "peer restore failed"
+    state, info = got
+    here = _diff(fresh.full_state(state), saved)
+    for batch in batches[k:]:
+        state, loss = fresh.train_step(state, _local(fresh, batch))
+        run.append(float(loss))
+    one = torch_dp_worker._one_device(case)
+    ostate = one.init_state()
+    got = plane.restore(state_template(one, ostate), trainer=one, state=ostate)
+    assert got is not None, "peer restore onto one device failed"
+    return {"twin": twin, "run": run, "source": info["source"], "diff_mesh": here,
+            "diff_one_device": _diff(one.full_state(got[0]), saved)}
+
+
+def _diff(got, want):
+    """The tensors of two whole states that are not bit for bit equal."""
+    import torch
+
+    bad = [] if got["step"] == want["step"] else ["step"]
+    bad += [k for k, v in want["module"].items() if not torch.equal(got["module"][k], v)]
+    for i, per in want["optimizer"]["state"].items():
+        bad += [f"{i}.{k}" for k, v in per.items()
+                if not torch.equal(torch.as_tensor(got["optimizer"]["state"][i][k]),
+                                   torch.as_tensor(v))]
+    return bad
+
+
+def task_export(case):
+    """Export the case's params from this mesh (every rank calls; rank 0
+    writes)."""
+    from edl_tpu_torch.runtime.export import save_inference_model
+
+    trainer, state = torch_dp_worker._trainer(case)
+    save_inference_model(case["export_dir"], "transformer", state,
+                         config=case["model_kwargs"], step=1, mesh=trainer.mesh)
+    return {}
+
+
+def _local(trainer, batch):
+    from edl_tpu_torch.parallel.sharding import shard_batch
+
+    specs = trainer.model.batch_spec(trainer.mesh)
+    return trainer.place_batch(shard_batch(batch, trainer.mesh, trainer.config.batch_axis,
+                                           specs=specs))
+
+
 if __name__ == "__main__":
     torch_dp_worker.main(sys.argv[1], int(sys.argv[2]),
                          {k[5:]: f for k, f in globals().items() if k.startswith("task_")})
