@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time
     python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
     python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
+    python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
 
 It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order; a
 phase that fails raises, and the script exits non-zero without its last line:
@@ -40,7 +41,13 @@ phase that fails raises, and the script exits non-zero without its last line:
    seq 1024, vocab 32000, batch 8) trained by the ``Trainer`` with Adam at lr
    3e-4 on one repeated synthetic batch. Losses must be finite and fall, and
    each kernel's launch count over the timed steps must be 12 x steps. Then
-   one more step under ``torch.profiler``: its device time by kernel.
+   one more step under ``torch.profiler``: its device time by kernel. Then
+   the step profiler on the card (the entries phase's part (c),
+   `profiler_on_card`): one step under `tools.profiler.trace`, whose
+   written trace must name the three flash kernels; `device_memory_stats()`
+   against ``torch.cuda.max_memory_allocated``; `Trainer.run` over 22 steps
+   with a `StepProfiler`, its host-clock step p50 and MFU beside the
+   synchronised step.
    Then the ``moe`` phase: the same LM with 8 experts at capacity factor
    1.25, in two arms from one seed (top-1 without aux, top-2 with aux
    0.01). A no-grad forward before the first step gives each layer's
@@ -179,11 +186,32 @@ phase that fails raises, and the script exits non-zero without its last line:
     Printed: each rank's step time and peak memory, rank 0's busy share
     from one profiled step, and ``data_plane()`` (analytic). A rank that
     fails fails the phase.
-15. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+15. The zoo's other entries (``entries``): (a) each entry as a
+    subprocess in local mode on the card (``python -m
+    edl_tpu_torch.examples.<name>.<file>``, the independent ones at once):
+    fit_a_line ``train_local`` and ``train_elastic`` at their defaults,
+    MNIST ``train`` then ``infer`` (accuracy above 0.9), ResNet tiny
+    ``train`` then ``infer`` (above 0.2), ResNet-50 ``--imagenet`` at batch
+    64 over 6 shards of 4 batches (run through ``chip_smoke.py
+    --entry-record``, which writes its per-step losses: all finite, the
+    last shard's mean below the first's), word2vec ``train_ft`` (80 steps,
+    79 steady profiled steps, final loss below 7.7); the JAX example
+    tests' bounds. (b) The word2vec entry under two launchers against the
+    native coordinator (the harness of phase 13's part (b),
+    `churn_two_launchers`): two ranks on the card over gloo, the table
+    row-sharded over ``data``, 16 shards, a checkpoint a round, SIGTERM to
+    rank 1 once one covers a round; rank 0 exits 75, is relaunched at
+    world 1, restores and drains the queue, every shard trained exactly
+    once into the final state; recovery and start-up seconds printed. (c)
+    Is phase 4's step profiler part. (d) The obs smoke, ``python -m
+    edl_tpu_torch.obs`` on the card, exits 0. The phase's own seconds are
+    printed.
+16. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
     per model, the remat LM included), one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
-    {...}}``, one ``{"elastic": {...}}`` and one ``{"mp": {...}}``.
-16. The last line: ``{"ok": true, "device": {...}}``.
+    {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}`` and one
+    ``{"entries": {...}}``.
+17. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -931,6 +959,7 @@ def phase_slice(device) -> tuple:
     print("profile: flash kernels' device ms a launch in the step: " + ", ".join(
         f"{k} {ms:.4f}" for k, ms in in_step.items()))
     row.update(config="GPT-2-small width " + json.dumps(SLICE), remat=False, launches=launches)
+    row["profiler"] = profiler_on_card(run, device)
     return launches, in_step, row, run.state
 
 
@@ -3377,37 +3406,35 @@ def _log_time(text: str, marker: str):
     return None
 
 
-def elastic_multihost(device) -> dict:
-    """Part (b): the CTR entry under two launchers (`MultiHostWorker`, two
-    ranks on the one card over gloo, tables 500096 rows a rank,
-    ``shard_opt_state``), the native coordinator, a SIGTERM to rank 1's
-    launcher once a collective checkpoint covers a round: rank 1 leaves,
-    rank 0 exits 75, its launcher relaunches it, and it forms a world-1
-    group (NCCL), restores the world-2 checkpoint and drains the queue."""
+def churn_two_launchers(label: str, entry: str, prefix: str, n: int, per: int,
+                        inspect=None) -> tuple:
+    """Two launchers (``python -m edl_tpu_torch.launcher start_trainer``)
+    running ``entry`` as two ranks on the one card against the native
+    ``CoordinatorServer`` (built with ``make``), over the queue of ``n``
+    shards named ``prefix`` of ``per`` batches, a checkpoint a round; once
+    a collective checkpoint covers a round, SIGTERM to rank 1's launcher.
+    Rank 1 leaves at a round boundary and exits 0, rank 0 exits 75 once,
+    is relaunched at world 1, restores the world-2 checkpoint and drains
+    the queue. Holds: both launchers exit 0, one exit-75 relaunch, the
+    final world 1, every shard done, and every shard trained exactly once
+    into the final state (the world-1 incarnation trains exactly the shards
+    its restored checkpoint lacks). ``inspect(snapshot_path)``, if given,
+    is called with the restored checkpoint's hard link while it exists.
+    Returns (the part's figures, the world-1 incarnation's JSON line)."""
     import os
     import signal
 
-    import torch
-
     from edl_tpu_torch.coordinator import CoordinatorServer
-    from edl_tpu_torch.models import ctr
-    from edl_tpu_torch.parallel.mesh import local_mesh
-    from edl_tpu_torch.runtime import Trainer, TrainerConfig
     from edl_tpu_torch.runtime.data import shard_names
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    n, per = EL_MH_SHARDS, EL_MH_BATCHES
-    sparse = (DP_CTR_CONFIG or {}).get("sparse_dim", ctr.SPARSE_DIM)
-    entry = (f"{sys.executable} -m edl_tpu_torch.examples.ctr.train --dist-backend auto "
-             f"--zero1 --batch-size {EL_MH_BATCH} --batches-per-shard {per} "
-             f"--sparse-feature-dim {sparse} {EL_MH_ENTRY_ARGS}").strip()
-    with tempfile.TemporaryDirectory(prefix="edl-elastic-mh-") as root:
+    with tempfile.TemporaryDirectory(prefix="edl-churn-") as root:
         ckpt, snap = os.path.join(root, "ckpt"), os.path.join(root, "snap")
         os.makedirs(snap)
         procs = {}
         with CoordinatorServer(task_lease_sec=600.0, heartbeat_ttl_sec=60.0) as server:
             admin = server.client("admin")
-            admin.add_tasks(shard_names("criteo", n))
+            admin.add_tasks(shard_names(prefix, n))
             admin.kv_put("edl/expected_world", "2")
             watch = CheckpointWatch(server.client("chip-smoke-watch"), ckpt, snap)
 
@@ -3428,9 +3455,9 @@ def elastic_multihost(device) -> dict:
 
             def until(cond, what):
                 while not cond():
-                    require(time.monotonic() < deadline, f"elastic multihost: {what}")
+                    require(time.monotonic() < deadline, f"{label}: {what}")
                     require(all(p.poll() is None for _, p in procs.values()),
-                            f"elastic multihost: a launcher exited early ({what})")
+                            f"{label}: a launcher exited early ({what})")
                     time.sleep(EL_MH_POLL_S)
 
             try:
@@ -3456,52 +3483,42 @@ def elastic_multihost(device) -> dict:
                        for k in ("out", "err")} for name in procs}
         codes = {name: p.returncode for name, (_, p) in procs.items()}
         require(codes == {"w0": 0, "w1": 0},
-                f"elastic multihost: launchers exited {codes}:\n"
+                f"{label}: launchers exited {codes}:\n"
                 + "\n".join(f"{k}: {v['err'][-3000:]}" for k, v in logs.items()))
         marker = "entry requested rescale restart (exit 75)"
         restarts = {name: log["err"].count(marker) for name, log in logs.items()}
         require(restarts == {"w0": 1, "w1": 0},
-                f"elastic multihost: exit-75 relaunches {restarts}, want w0 once")
+                f"{label}: exit-75 relaunches {restarts}, want w0 once")
         final = json.loads([line for line in logs["w0"]["out"].splitlines()
                             if line.startswith("{")][-1])
-        require(final["world"] == 1.0, f"elastic multihost: final world {final['world']}")
+        require(final["world"] == 1.0, f"{label}: final world {final['world']}")
         require((st["done"], st["queued"], st["leased"]) == (n, 0, 0),
-                f"elastic multihost: queue done/queued/leased {st['done']}/{st['queued']}/"
+                f"{label}: queue done/queued/leased {st['done']}/{st['queued']}/"
                 f"{st['leased']}")
         last = max(int(s) for s in os.listdir(ckpt) if s.isdigit())
         steps1 = int(final["steps"])
         restored = last - steps1
         require(restored in watch.snapshots and restored > 0 and restored % per == 0,
-                f"elastic multihost: restored step {restored} (final {last}, world-1 steps "
+                f"{label}: restored step {restored} (final {last}, world-1 steps "
                 f"{steps1}); snapshots {sorted(watch.snapshots)}")
         covered = 2 * restored // per  # two shards a round at world 2
         require(steps1 == (n - covered) * per,
-                f"elastic multihost: the world-1 incarnation trained {steps1} steps, want "
+                f"{label}: the world-1 incarnation trained {steps1} steps, want "
                 f"{(n - covered) * per}: the {n - covered} shards the step-{restored} "
                 "checkpoint lacks")
-        # the world-1 restore of the world-2 checkpoint, through the same
-        # code as the relaunched rank's (`load_full_state` on a world-1 mesh)
-        saved = torch.load(watch.snapshots[restored], map_location="cpu", weights_only=True)
-        trainer = Trainer(_dp_ctr(), local_mesh(), TrainerConfig(optimizer="adagrad",
-                                                                learning_rate=0.05),
-                          device=device)
-        state = trainer.load_full_state(trainer.init_state(), saved)
-        bad = _full_diff(trainer.full_state(state), saved)
-        require(not bad, f"elastic multihost: world-1 restore off the world-2 checkpoint: "
-                         f"{bad[:5]}")
-        del state, trainer
-        torch.cuda.empty_cache()
+        if inspect is not None:
+            inspect(watch.snapshots[restored])
 
     epochs = sorted(watch.epochs.items())
     moved = [(e, t) for e, t in epochs if t >= t_term]
-    require(moved, "elastic multihost: no epoch move after the SIGTERM")
+    require(moved, f"{label}: no epoch move after the SIGTERM")
     e_after, t_move = moved[0]
     first_round = {e: t for (e, r), t in watch.rounds.items() if r == 0}
     e_before = max(e for e, t in epochs if t < t_term)
     relaunch = _log_time(logs["w0"]["err"], "restart=1")
     rounds = sorted(t for (e, r), t in watch.rounds.items() if e == e_before)
     out = {
-        "shards": n, "batches_a_shard": per, "batch_a_rank": EL_MH_BATCH,
+        "shards": n, "batches_a_shard": per,
         "launcher_codes": codes, "exit_75_relaunches": restarts,
         "restored_step": restored, "shards_covered": covered,
         "world1_steps": steps1, "world1_step_ms": final["seconds"] / steps1 * 1e3,
@@ -3515,18 +3532,60 @@ def elastic_multihost(device) -> dict:
                                "world1": watch.addresses[e_after] - relaunch},
         "world2_round_s": statistics.median(b - a for a, b in zip(rounds, rounds[1:])),
     }
-    print(f"elastic multihost: two ranks (one card, --dist-backend auto) trained "
+    print(f"{label}: two ranks (one card, --dist-backend auto) trained "
           f"{covered} shards by step {restored}; SIGTERM to rank 1; rank 0 exited 75 once "
-          f"and came back at world 1: recovery {out['recovery_s']:.2f} s (epoch move -> the world-1 "
-          f"incarnation's first round, its first step right after); start-up "
+          f"and came back at world 1: recovery {out['recovery_s']:.2f} s (epoch move -> the "
+          f"world-1 incarnation's first round, its first step right after); start-up "
           f"{out['startup_s']['world2']:.2f} s (world 2, rank 1's launcher -> first round; "
           f"{out['to_group_address_s']['world2']:.2f} s of it to the group's address) "
           f"and {out['startup_s']['world1']:.2f} s (relaunch -> first round; "
           f"{out['to_group_address_s']['world1']:.2f} s to the address); a world-2 "
           f"round ({per} steps and a checkpoint) {out['world2_round_s']:.2f} s; world 1 "
           f"{out['world1_step_ms']:.1f} ms a step (checkpoints included) over {steps1} "
-          f"steps; every shard done, only the {n - covered} uncommitted replayed; the "
-          "world-1 restore equals the world-2 checkpoint bit for bit")
+          f"steps; every shard done, each trained once into the final state, only the "
+          f"{n - covered} uncommitted replayed")
+    return out, final
+
+
+def elastic_multihost(device) -> dict:
+    """Part (b): the CTR entry under two launchers (`MultiHostWorker`, two
+    ranks on the one card over gloo, tables 500096 rows a rank,
+    ``shard_opt_state``), the native coordinator, a SIGTERM to rank 1's
+    launcher once a collective checkpoint covers a round: rank 1 leaves,
+    rank 0 exits 75, its launcher relaunches it, and it forms a world-1
+    group (NCCL), restores the world-2 checkpoint and drains the queue
+    (`churn_two_launchers`). The restored checkpoint also restores into a
+    world-1 Trainer in this process bit for bit."""
+    import torch
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.parallel.mesh import local_mesh
+    from edl_tpu_torch.runtime import Trainer, TrainerConfig
+
+    per = EL_MH_BATCHES
+    sparse = (DP_CTR_CONFIG or {}).get("sparse_dim", ctr.SPARSE_DIM)
+    entry = (f"{sys.executable} -m edl_tpu_torch.examples.ctr.train --dist-backend auto "
+             f"--zero1 --batch-size {EL_MH_BATCH} --batches-per-shard {per} "
+             f"--sparse-feature-dim {sparse} {EL_MH_ENTRY_ARGS}").strip()
+
+    def world1_restore(snapshot):
+        # the world-1 restore of the world-2 checkpoint, through the same
+        # code as the relaunched rank's (`load_full_state` on a world-1 mesh)
+        saved = torch.load(snapshot, map_location="cpu", weights_only=True)
+        trainer = Trainer(_dp_ctr(), local_mesh(), TrainerConfig(optimizer="adagrad",
+                                                                learning_rate=0.05),
+                          device=device)
+        state = trainer.load_full_state(trainer.init_state(), saved)
+        bad = _full_diff(trainer.full_state(state), saved)
+        require(not bad, f"elastic multihost: world-1 restore off the world-2 checkpoint: "
+                         f"{bad[:5]}")
+        del state, trainer
+        torch.cuda.empty_cache()
+
+    out, _ = churn_two_launchers("elastic multihost", entry, "criteo", EL_MH_SHARDS, per,
+                                 inspect=world1_restore)
+    out["batch_a_rank"] = EL_MH_BATCH
+    print("elastic multihost: the world-1 restore equals the world-2 checkpoint bit for bit")
     return out
 
 
@@ -4130,6 +4189,284 @@ def phase_mp(device) -> dict:
     return out
 
 
+# -- entries: the zoo's other entries, the profiler, the obs smoke -------------
+
+#: part (a)'s bounds, the JAX package's example tests' own
+#: (`tests/test_examples.py`): MNIST and ResNet (tiny) accuracy on the
+#: held-out batch, word2vec's steps, steady profiled steps and final loss
+#: (below the uniform log(2074))
+EN_MNIST_ACCURACY = 0.9
+EN_RESNET_ACCURACY = 0.2
+EN_W2V = {"steps": 80.0, "profile_steady_steps": 79.0, "final_loss_below": 7.7}
+#: ResNet-50 at 224 px, 1000 classes: batch 64 over the entry's 6 hermetic
+#: shards of 4 batches
+EN_IMAGENET_ARGS = ("--imagenet", "--batch-size", "64", "--batches-per-shard", "4")
+#: part (b): word2vec's queue under churn (shards of the entry's 10 batches
+#: of 512; 16 so that rounds remain when the SIGTERM lands)
+EN_W2V_SHARDS, EN_W2V_BATCHES = 16, 10
+#: part (c): `Trainer.run` steps under the `StepProfiler` (2 warm-up)
+EN_PROFILER_STEPS, EN_PROFILER_WARMUP = 22, 2
+EN_TIMEOUT = 600
+#: extra arguments of every entry this phase runs (none on the card: an
+#: entry trains on the card by default)
+EN_ENTRY_ARGS = ""
+
+
+def entry_record_main(argv) -> int:
+    """``chip_smoke.py --entry-record PATH MODULE -- ARGS`` runs the entry
+    ``edl_tpu_torch.examples.MODULE``'s ``main(ARGS)`` with
+    ``ElasticWorker.run`` wrapped to write the worker's per-step losses to
+    ``PATH`` as it returns (the entry prints only the last)."""
+    import importlib
+
+    from edl_tpu_torch.runtime import elastic
+
+    path, module, args = argv[0], argv[1], argv[argv.index("--") + 1:]
+    run = elastic.ElasticWorker.run
+
+    def recorded(self, *a, **kw):
+        metrics = run(self, *a, **kw)
+        with open(path, "w") as f:
+            json.dump({"losses": [float(x) for x in self.losses]}, f)
+        return metrics
+
+    elastic.ElasticWorker.run = recorded
+    importlib.import_module(f"edl_tpu_torch.examples.{module}").main(args)
+    return 0
+
+
+def profiler_on_card(run, device) -> dict:
+    """Part (c), on phase 4's LM after its timed and profiled steps: one
+    step under `tools.profiler.trace`, whose written trace must name the
+    three flash kernels; `device_memory_stats()` against
+    ``torch.cuda.max_memory_allocated``; then `Trainer.run` over
+    ``EN_PROFILER_STEPS`` steps with a `StepProfiler`, whose host-clock
+    step time p50 and MFU (against 989 TFLOP/s) are printed beside the
+    synchronised step of `Run.timed`."""
+    import os
+
+    import torch
+
+    from edl_tpu_torch.tools.profiler import StepProfiler, device_memory_stats, trace
+
+    with tempfile.TemporaryDirectory(prefix="edl-trace-") as logdir:
+        with trace(logdir):
+            run.step()
+        files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+        require(len(files) == 1, f"profiler: trace() wrote {os.listdir(logdir)}, want one "
+                                 "*.pt.trace.json")
+        with open(os.path.join(logdir, files[0])) as f:
+            text = f.read()
+    named = {k: text.count(k) for k in FLASH_NAMES}
+    require(all(named.values()), f"profiler: the written trace names the flash kernels "
+                                 f"{named} times")
+    torch.cuda.synchronize()
+    stats = device_memory_stats()
+    peak = torch.cuda.max_memory_allocated(device)
+    card = str(device.index or 0)
+    require(list(stats) == [card], f"profiler: device_memory_stats() reports {list(stats)}, "
+                                   f"want this process's card {card} only")
+    require(stats[card]["peak_bytes_in_use"] == peak
+            and stats[card]["bytes_in_use"] == torch.cuda.memory_allocated(device)
+            and stats[card]["bytes_limit"]
+            == torch.cuda.get_device_properties(device).total_memory,
+            f"profiler: device_memory_stats() {stats[card]} against max_memory_allocated {peak}")
+    prof = StepProfiler(warmup=EN_PROFILER_WARMUP)
+    run.state, metrics = run.trainer.run(
+        run.state, (run.host_batch for _ in range(EN_PROFILER_STEPS)), profiler=prof)
+    summary = prof.summary()
+    require(summary["steady_steps"] >= 20 and math.isfinite(metrics["final_loss"]),
+            f"profiler: {summary}, {metrics}")
+    out = {"trace_bytes": len(text), "trace_names": named, "memory_stats": stats[card],
+           "max_memory_allocated": peak, "summary": summary,
+           "run_samples_per_sec": metrics["samples_per_sec"],
+           "timed_step_ms": run.row["step_ms"],
+           "host_step_p50_ms": summary["step_time_p50_s"] * 1e3, "mfu": summary.get("mfu")}
+    print(f"profiler: trace() wrote {len(text)} bytes naming the flash kernels {named} "
+          f"times; device_memory_stats() peak {peak} bytes = max_memory_allocated, limit "
+          f"{stats[card]['bytes_limit']}; StepProfiler over {EN_PROFILER_STEPS} Trainer.run "
+          f"steps ({summary['steady_steps']:.0f} steady): host step p50 "
+          f"{out['host_step_p50_ms']:.3f} ms, mean {summary['step_time_mean_s'] * 1e3:.3f} ms, "
+          "MFU " + (f"{out['mfu']:.4f} of 989 TFLOP/s" if out["mfu"] is not None
+                    else "not measured (no peak for this card)")
+          + f", against Run.timed's synchronised step {run.row['step_ms']:.3f} "
+          f"ms; Trainer.run's samples/s after its final sync {metrics['samples_per_sec']:.1f}")
+    return out
+
+
+def _entry_cmd(module: str, *args, record=None) -> list:
+    if record is not None:
+        return [sys.executable, __file__, "--entry-record", record, module, "--", *args,
+                *EN_ENTRY_ARGS.split()]
+    return [sys.executable, "-m", f"edl_tpu_torch.examples.{module}", *args,
+            *EN_ENTRY_ARGS.split()]
+
+
+def _run_entries(jobs: dict, root: str) -> dict:
+    """Run each of ``jobs`` ({label: command}) as a subprocess in local
+    mode, all at once, each with its own checkpoint directory; returns
+    {label: (the last JSON line, every JSON line, wall seconds)}. An entry
+    that fails fails the phase."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    env["PYTHONPATH"] = repo
+    procs = {}
+    for label, cmd in jobs.items():
+        files = [open(os.path.join(root, f"{label}.{k}"), "w") for k in ("out", "err")]
+        procs[label] = (time.perf_counter(), subprocess.Popen(
+            cmd, cwd=repo, stdout=files[0], stderr=files[1],
+            env={**env, "EDL_CHECKPOINT_DIR": os.path.join(root, f"ck-{label}")}))
+    out, ended = {}, {}
+    deadline = time.perf_counter() + EN_TIMEOUT
+    try:
+        while len(ended) < len(procs):
+            require(time.perf_counter() < deadline,
+                    f"entries: {sorted(set(procs) - set(ended))} still running after "
+                    f"{EN_TIMEOUT} s")
+            for label, (t0, p) in procs.items():
+                if label not in ended and p.poll() is not None:
+                    ended[label] = time.perf_counter() - t0
+            time.sleep(0.05)
+        for label, (_, p) in procs.items():
+            seconds = ended[label]
+            text = open(os.path.join(root, f"{label}.out")).read()
+            err = open(os.path.join(root, f"{label}.err")).read()
+            require(p.returncode == 0, f"entries: {label} exited {p.returncode}:\n{err[-3000:]}")
+            lines = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+            require(lines, f"entries: {label} printed no JSON line:\n{text[-2000:]}")
+            out[label] = (lines[-1], lines, seconds)
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def entries_local() -> dict:
+    """Part (a): each entry as a subprocess in local mode on the card, in
+    two waves (the ``infer`` runs read the ``train`` runs' checkpoints):
+    fit_a_line ``train_local`` and ``train_elastic`` at their defaults,
+    MNIST ``train`` then ``infer`` (accuracy above 0.9), ResNet tiny
+    ``train`` then ``infer`` (above 0.2), ResNet-50 ``--imagenet`` at batch
+    64 over 6 shards of 4 batches (finite per-step losses, the last
+    shard's mean below the first's), word2vec ``train_ft`` (80 steps, 79
+    steady profiled steps, final loss below 7.7)."""
+    import os
+
+    with tempfile.TemporaryDirectory(prefix="edl-entries-") as root:
+        mnist_dir, resnet_dir = os.path.join(root, "mnist"), os.path.join(root, "resnet")
+        losses = os.path.join(root, "imagenet-losses.json")
+        train = _run_entries({
+            "fit_a_line_local": _entry_cmd("fit_a_line.train_local"),
+            "fit_a_line_elastic": _entry_cmd("fit_a_line.train_elastic"),
+            "mnist_train": _entry_cmd("mnist.train", "train", "--model-dir", mnist_dir),
+            "resnet_train": _entry_cmd("resnet.train", "train", "--model-dir", resnet_dir),
+            "resnet_imagenet": _entry_cmd("resnet.train", "train", *EN_IMAGENET_ARGS,
+                                          "--model-dir", os.path.join(root, "imagenet"),
+                                          record=losses),
+            "word2vec": _entry_cmd("word2vec.train_ft"),
+        }, root)
+        infer = _run_entries({
+            "mnist_infer": _entry_cmd("mnist.train", "infer", "--model-dir", mnist_dir),
+            "resnet_infer": _entry_cmd("resnet.train", "infer", "--model-dir", resnet_dir),
+        }, root)
+        with open(losses) as f:
+            imagenet_losses = json.load(f)["losses"]
+    got = {k: v[0] for k, v in {**train, **infer}.items()}
+    seconds = {k: v[2] for k, v in {**train, **infer}.items()}
+    passes = train["fit_a_line_local"][1]
+    require(len(passes) == 10 and all(p["steps"] == 50.0 and math.isfinite(p["final_loss"])
+                                      for p in passes)
+            and passes[-1]["final_loss"] < passes[0]["final_loss"],
+            f"entries: fit_a_line train_local passes {passes}")
+    fit = got["fit_a_line_elastic"]
+    require(fit["steps"] == 160.0 and fit["world"] == 1.0 and math.isfinite(fit["final_loss"]),
+            f"entries: fit_a_line train_elastic {fit}")
+    require(got["mnist_train"]["steps"] == 60.0 and got["mnist_infer"]["step"] == 60
+            and got["mnist_infer"]["accuracy"] > EN_MNIST_ACCURACY,
+            f"entries: mnist {got['mnist_train']} then {got['mnist_infer']}")
+    require(got["resnet_train"]["steps"] == 60.0 and got["resnet_infer"]["step"] == 60
+            and got["resnet_infer"]["accuracy"] > EN_RESNET_ACCURACY,
+            f"entries: resnet tiny {got['resnet_train']} then {got['resnet_infer']}")
+    k = 4  # a shard's batches
+    require(got["resnet_imagenet"]["steps"] == 24.0 and len(imagenet_losses) == 24
+            and all(math.isfinite(x) for x in imagenet_losses)
+            and statistics.mean(imagenet_losses[-k:]) < statistics.mean(imagenet_losses[:k]),
+            f"entries: resnet --imagenet {got['resnet_imagenet']}, losses {imagenet_losses}")
+    w2v = got["word2vec"]
+    require(w2v["steps"] == EN_W2V["steps"]
+            and w2v["profile_steady_steps"] == EN_W2V["profile_steady_steps"]
+            and w2v["final_loss"] < EN_W2V["final_loss_below"], f"entries: word2vec {w2v}")
+    out = {"results": got, "imagenet_losses": imagenet_losses, "seconds": seconds}
+    print(f"entries (a): fit_a_line train_local 10 passes, loss {passes[0]['final_loss']} -> "
+          f"{passes[-1]['final_loss']}; train_elastic {fit['steps']:.0f} steps, loss "
+          f"{fit['final_loss']}; MNIST {got['mnist_train']['steps']:.0f} steps (host step p50 "
+          f"{got['mnist_train']['step_time_p50_s'] * 1e3:.3f} ms), infer accuracy "
+          f"{got['mnist_infer']['accuracy']}; ResNet tiny {got['resnet_train']['steps']:.0f} "
+          f"steps, loss {got['resnet_train']['final_loss']}, infer accuracy "
+          f"{got['resnet_infer']['accuracy']}; ResNet-50 224 px batch 64: 24 steps, loss "
+          f"{imagenet_losses[0]:.4f} -> {imagenet_losses[-1]:.4f}; word2vec {w2v['steps']:.0f} "
+          f"steps ({w2v['profile_steady_steps']:.0f} steady, host step p50 "
+          f"{w2v['profile_step_time_p50_s'] * 1e3:.3f} ms), loss {w2v['final_loss']}; "
+          "wall seconds a subprocess (all of a wave at once) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out
+
+
+def entries_churn() -> dict:
+    """Part (b): the word2vec entry under two launchers against the native
+    coordinator, two ranks sharing the card over gloo (``--dist-backend
+    auto``), the table row-sharded over ``data``; SIGTERM to rank 1 once a
+    round's checkpoint covers it; rank 0 exits 75, is relaunched at world
+    1, restores and drains the queue (`churn_two_launchers`: every shard
+    trained exactly once into the final state)."""
+    entry = (f"{sys.executable} -m edl_tpu_torch.examples.word2vec.train_ft "
+             f"--dist-backend auto {EN_ENTRY_ARGS}").strip()
+    out, final = churn_two_launchers("entries (b) word2vec under churn", entry, "imikolov",
+                                     EN_W2V_SHARDS, EN_W2V_BATCHES)
+    require(final["profile_steps"] == out["world1_steps"] and math.isfinite(final["final_loss"]),
+            f"entries (b): the world-1 incarnation's summary {final}")
+    out["world1_final_loss"] = final["final_loss"]
+    out["world1_profile_step_time_p50_s"] = final["profile_step_time_p50_s"]
+    return out
+
+
+def entries_obs_smoke() -> dict:
+    """Part (d): ``python -m edl_tpu_torch.obs`` (the native coordinator, an
+    `ElasticWorker` on the card with a `StepProfiler` and its `/metrics`,
+    the coordinator status bridge, scraped while it trains) exits 0."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "edl_tpu_torch.obs", *EN_ENTRY_ARGS.split()],
+                         cwd=repo, env={**os.environ, "PYTHONPATH": repo},
+                         capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0 and "obs-smoke: OK" in out.stdout,
+            f"obs smoke exited {out.returncode}: {out.stdout[-1000:]}{out.stderr[-3000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    seconds = time.perf_counter() - t0
+    print(f"entries (d): {line} ({seconds:.1f} s)")
+    return {"exit": out.returncode, "line": line, "seconds": seconds}
+
+
+def phase_entries(profiler: dict) -> dict:
+    """The entries phase: (a) `entries_local`, (b) `entries_churn`, (c)
+    ``profiler``, the result of `profiler_on_card` in phase 4, (d)
+    `entries_obs_smoke`; with its own seconds."""
+    t0 = time.perf_counter()
+    local = entries_local()
+    churn = entries_churn()
+    obs = entries_obs_smoke()
+    seconds = time.perf_counter() - t0
+    print(f"entries: the phase took {seconds:.1f} s")
+    return {"local": local, "churn": churn, "profiler": profiler, "obs_smoke": obs,
+            "seconds": seconds}
+
+
 def main(argv) -> int:
     if "--dp-rank" in argv:  # one rank of the dp phase's part (b)
         i = argv.index("--dp-rank")
@@ -4139,6 +4476,8 @@ def main(argv) -> int:
         return mp_rank_main(argv[i + 2], int(argv[i + 1]))
     if argv and argv[0] == "--el-mp-entry":  # one rank of the elastic phase's part (c)
         return el_mp_entry_main(argv[1:])
+    if argv and argv[0] == "--entry-record":  # one entry of the entries phase's part (a)
+        return entry_record_main(argv[1:])
     device = phase_device()
     sass = phase_build()
     kernels = phase_kernels(device)
@@ -4154,6 +4493,15 @@ def main(argv) -> int:
             row["launches_mp"] = mp["launches"][name]
         print(json.dumps({"kernels": list(kernels.values())}))
         print(json.dumps({"mp": mp}))
+        return 0
+    if "--entries" in argv:  # the kernels, phase 4's LM (part (c)) and the entries phase
+        launches, _, lm, lm_state = phase_slice(device)
+        del lm_state
+        entries = phase_entries(lm["profiler"])
+        for name, row in kernels.items():
+            row["launches"] = launches[name]
+        print(json.dumps({"kernels": list(kernels.values())}))
+        print(json.dumps({"entries": entries}))
         return 0
     if "--elastic" in argv:  # the kernels and the elastic phase only
         elastic = phase_elastic(device)
@@ -4181,6 +4529,7 @@ def main(argv) -> int:
     dp = phase_dp(device)
     elastic = phase_elastic(device)
     mp = phase_mp(device)
+    entries = phase_entries(lm["profiler"])
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
@@ -4199,6 +4548,7 @@ def main(argv) -> int:
     print(json.dumps({"dp": dp}))
     print(json.dumps({"elastic": elastic}))
     print(json.dumps({"mp": mp}))
+    print(json.dumps({"entries": entries}))
     import torch
 
     # count: the devices this run uses

@@ -1,9 +1,11 @@
 """word2vec, an N-gram neural LM: the port of `edl_tpu.models.word2vec`.
 
 A 5-gram model: embed 4 context words through a `parallel.ShardedEmbedding`
-(vocab 2074 padded to 2304, one shard here), concatenate, a bf16 hidden
-layer with ReLU, and a bf16 projection onto the vocabulary whose logits are
-cast to f32 before the f32 bias; cross-entropy in f32.
+(vocab 2074 padded to 2304), concatenate, a bf16 hidden layer with ReLU,
+and a bf16 projection onto the vocabulary whose logits are cast to f32
+before the f32 bias; cross-entropy in f32. Built on a
+`parallel.mesh.Mesh`, the table is row-sharded over ``data`` (the JAX
+package's ``param_spec``) and the lookup runs across the ranks, as CTR's.
 """
 
 from __future__ import annotations
@@ -31,16 +33,19 @@ _table = ShardedEmbedding(VOCAB, EMBED_DIM, "data", "data")
 
 class Word2Vec(nn.Module):
     """Params ``table`` (2304, 32), ``hidden.w`` (128, 256) / ``.b``,
-    ``out.w`` (256, 2074) / ``.b``; calling it on ``{"context", "target"}``
-    returns the mean next-word cross-entropy."""
+    ``out.w`` (256, 2074) / ``.b``; on a ``mesh`` the table holds this
+    rank's 2304/n rows. Calling it on ``{"context", "target"}`` returns the
+    mean next-word cross-entropy."""
 
     def __init__(self, *, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         device = resolve_device(device)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         fan_in = CONTEXT * EMBED_DIM
-        self.table = nn.Parameter(_table.init(g, device, scale=1.0 / math.sqrt(EMBED_DIM)))
+        self.mesh = mesh
+        self.table = nn.Parameter(_table.init(g, device, scale=1.0 / math.sqrt(EMBED_DIM),
+                                              mesh=mesh))
         self.hidden = Params(w=normal(g, (fan_in, HIDDEN), math.sqrt(2.0 / fan_in), device),
                              b=torch.zeros(HIDDEN, device=device))
         self.out = Params(w=normal(g, (HIDDEN, VOCAB), 0.01, device),
@@ -49,7 +54,7 @@ class Word2Vec(nn.Module):
     def predict(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Context ids (B, 4) -> next-word logits (B, VOCAB), f32."""
         bf16 = torch.bfloat16
-        ctx = _table.apply(self.table, batch["context"])  # (B, 4, D)
+        ctx = _table.apply(self.table, batch["context"], mesh=self.mesh)  # (B, 4, D)
         h = ctx.reshape(ctx.shape[0], -1).to(bf16)
         h = torch.relu(h @ self.hidden.w.to(bf16) + self.hidden.b.to(bf16))
         return (h @ self.out.w.to(bf16)).float() + self.out.b
@@ -66,7 +71,9 @@ def synthetic_batch(rng: np.random.Generator, batch_size: int) -> dict:
 
 MODEL = Model(
     name="word2vec",
-    build=lambda device=None, generator=None: Word2Vec(device=device, generator=generator),
+    build=lambda device=None, generator=None, mesh=None: Word2Vec(
+        device=device, generator=generator, mesh=mesh),
+    param_spec=lambda mesh: {"table": _table.shard_axis},
     synthetic_batch=synthetic_batch,
     label_keys=("target",),
     predict=lambda module, batch: module.predict(batch),

@@ -7,13 +7,19 @@
   trace id (the membership epoch) and the timeline stitcher.
 - :mod:`edl_tpu_torch.obs.http` — `/metrics`, `/healthz` and `/spans` on a
   stdlib HTTP server, and `scrape_metrics`.
+- :mod:`edl_tpu_torch.obs.bridge` — the native coordinator's ``status``
+  counters republished as ``edl_coordinator_*`` gauges at scrape time, so
+  one scrape of a worker sees the control plane and the data plane.
 - :mod:`edl_tpu_torch.obs.instruments` — the worker, checkpoint-plane,
   preemption, fault-tolerance-policy and serving instrument sets, with the
   JAX package's family names.
 
+``python -m edl_tpu_torch.obs`` is the obs smoke (`obs.__main__`).
+
 Stdlib-only: importing it loads no torch.
 """
 
+from edl_tpu_torch.obs.bridge import CoordinatorStatusBridge
 from edl_tpu_torch.obs.http import MetricsServer, ObsRequestHandler, scrape_metrics
 from edl_tpu_torch.obs.instruments import (LMServeInstruments, ServeInstruments,
                                            WorkerInstruments)
@@ -29,6 +35,7 @@ from edl_tpu_torch.obs.tracing import (Span, Tracer, get_tracer, load_spans,
                                       rescale_timeline, rescale_trace_id)
 
 __all__ = [
+    "CoordinatorStatusBridge",
     "Counter",
     "Gauge",
     "Histogram",

@@ -37,12 +37,16 @@ Trainer's batch axis when it is hierarchical. Here it is asked for one
 device. Model-parallel meshes over several cards run in the
 `MultiHostWorker`.
 
-What the port leaves out, each raising ``NotImplementedError`` with its
-ROADMAP.md item: ``profiler=`` (queue A item 4) and ``compile_cache_dir``
-(item 4: eager PyTorch keeps no executable to cache). ``warm_compile`` runs
-one forward on zeros during the restore (see `Trainer.warm_compile`).
-``metrics_port`` serves the worker's own `/metrics`; the coordinator status
-bridge waits for item 5.
+``profiler=`` takes a `tools.profiler.StepProfiler`: every rescale marks
+the next step warm-up, and the run's summary carries its ``profile_*``
+keys. ``compile_cache_dir`` is accepted and does nothing: eager PyTorch
+keeps no executable for a layout, and the one compiled artifact, the
+kernel library, is already kept on disk by a digest of its sources
+(`ops._build`); so every `RescaleEvent.compile_cache` reads ``"off"``, as
+a JAX worker without a cache reports it. ``warm_compile`` runs one forward
+on zeros during the restore (see `Trainer.warm_compile`).
+``metrics_port`` serves the worker's own `/metrics` with the coordinator's
+status counters bridged onto it (`obs.bridge`).
 """
 
 from __future__ import annotations
@@ -144,9 +148,9 @@ class ElasticConfig:
     #: outage_budget=outage_budget) with the documented defaults.
     ft_policy: Optional[FTPolicyConfig] = None
     #: serve ``/metrics`` + ``/healthz`` + ``/spans`` from this worker
-    #: process on the given port (0 = ephemeral); None disables. (The JAX
-    #: worker also bridges the coordinator's status counters onto the
-    #: scrape; that bridge waits for ROADMAP.md queue A item 5.)
+    #: process on the given port (0 = ephemeral); None disables. The
+    #: endpoint also bridges the coordinator's status counters, so one
+    #: scrape sees the control plane and the data plane together.
     metrics_port: Optional[int] = None
     #: memory-resident checkpoint plane (``edl_tpu_torch.ckpt_plane``): > 0
     #: replicates each worker's ZeRO-1 state shard to this many ring peers
@@ -155,9 +159,10 @@ class ElasticConfig:
     #: group-death fallback. 0 (the default) disables the plane entirely —
     #: restores read the blob store exactly as before.
     peer_replicas: int = 0
-    #: the JAX package's persistent AOT compile cache directory: eager
-    #: PyTorch keeps no executable, so a non-empty value raises
-    #: ``NotImplementedError`` in the workers (ROADMAP.md queue A item 4).
+    #: the JAX package's persistent AOT compile cache directory, accepted
+    #: and unused: eager PyTorch keeps no executable for a layout, and the
+    #: kernel library is kept on disk by a digest of its sources
+    #: (`ops._build`). Every `RescaleEvent.compile_cache` reads "off".
     compile_cache_dir: str = ""
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
 
@@ -203,19 +208,6 @@ class ElasticConfig:
                 f"ElasticConfig.peer_replicas must be >= 0 "
                 f"(0 disables the checkpoint plane), got "
                 f"{self.peer_replicas!r}")
-
-
-def check_unported(config: ElasticConfig, profiler=None) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet,
-    naming its ROADMAP.md item, before anything starts."""
-    if profiler is not None:
-        raise NotImplementedError(
-            "profiler=: tools/profiler.py is not ported yet (ROADMAP.md queue "
-            "A item 4)")
-    if config.compile_cache_dir:
-        raise NotImplementedError(
-            "compile_cache_dir: runtime/compile_cache.py has no PyTorch "
-            "counterpart yet (ROADMAP.md queue A item 4)")
 
 
 def check_layout_args(mesh_axes: Optional[Dict[str, int]], layout_planner) -> None:
@@ -275,7 +267,7 @@ class RescaleEvent:
     #: no longer sits inside stays honest.
     compile_seconds: float = 0.0
     #: the JAX package's compile-cache outcome; always "off" here (eager
-    #: PyTorch has no executable cache).
+    #: PyTorch has no executable cache; see ``compile_cache_dir``).
     compile_cache: str = "off"
     #: the mesh layout adopted at this rescale: this process's local mesh
     #: (every axis of size 1).
@@ -293,14 +285,14 @@ class ElasticWorker:
         config: ElasticConfig,
         device: DeviceLike = None,
         mesh_axes: Optional[Dict[str, int]] = None,
-        profiler=None,
+        profiler=None,  # optional tools.profiler.StepProfiler
         tracer: Optional[Tracer] = None,
         layout_planner=None,
     ):
         if not config.checkpoint_dir:
             raise ValueError("ElasticConfig.checkpoint_dir is required")
-        check_unported(config, profiler)
         check_layout_args(mesh_axes, layout_planner)
+        self.profiler = profiler
         self.model = model
         #: this process's one device (see the module docstring)
         self.device = resolve_device(device)
@@ -909,7 +901,8 @@ class ElasticWorker:
                 out["seconds"] = trainer.warm_compile(fresh, self._batch_avals)
                 self.tracer.record("warm_compile", t0, time.time(),
                                    trace_id=trace_id, component="worker",
-                                   compile_seconds=out["seconds"], cache="off")
+                                   compile_seconds=out["seconds"],
+                                   cache=trainer.last_compile_cache)
             except Exception:  # edl: noqa[EDL005] the warm-up is an optimization; a failure must degrade to paying on step 1, not kill the rescale
                 self.tracer.record("warm_compile", t0, time.time(),
                                    trace_id=trace_id, component="worker",
@@ -1018,8 +1011,10 @@ class ElasticWorker:
         try:
             if self.config.metrics_port is None:
                 return self._run(max_rescales)
+            from edl_tpu_torch.obs.bridge import CoordinatorStatusBridge
             from edl_tpu_torch.obs.http import MetricsServer
 
+            bridge = CoordinatorStatusBridge(self.client).register()
             server = MetricsServer(port=self.config.metrics_port,
                                    tracer=self.tracer,
                                    health=self._health).start()
@@ -1028,6 +1023,7 @@ class ElasticWorker:
             try:
                 return self._run(max_rescales)
             finally:
+                bridge.unregister()
                 server.stop()
         finally:
             if self._watch is not None:
@@ -1109,6 +1105,10 @@ class ElasticWorker:
             # Live re-step pricing: every completed step feeds its wall
             # seconds to the policy's EMA (train_loop cost hook).
             trainer.step_cost_cb = self.policy.note_step
+            if self.profiler is not None:
+                # the first step on a fresh Trainer builds its optimizer
+                # state and allocations: keep it out of steady summaries
+                self.profiler.mark_warmup()
             # The warm-up overlaps restore: the fresh state is built once,
             # then its forward runs on a background thread while the
             # checkpoint loads into it.
@@ -1162,10 +1162,14 @@ class ElasticWorker:
                     prefetch=self.config.prefetch,
                     soft_stop_check=lambda: self._soft_drain,
                 )
+                if self.profiler is not None:
+                    self.profiler.start()
                 try:
                     for placed, step_fn, task, samples, place_dt in \
                             self._dispatched(reader, trainer):
                         state, loss = step_fn(state, placed)
+                        if self.profiler is not None:
+                            self.profiler.step(samples, place_seconds=place_dt)
                         if not first_step_done:
                             first_step_done = True
                             recovery = time.perf_counter() - rescale_t0
@@ -1183,6 +1187,7 @@ class ElasticWorker:
                                         to_world=world,
                                         recovery_seconds=recovery,
                                         compile_seconds=compile_seconds,
+                                        compile_cache=trainer.last_compile_cache,
                                         layout={str(k): int(v) for k, v
                                                 in mesh.shape.items()},
                                     )
@@ -1303,6 +1308,10 @@ class ElasticWorker:
                 if len(self.client.outbox):
                     self._poll_pause()
             total = time.perf_counter() - t_start
+            if self.profiler is not None:
+                prof = {f"profile_{k}": v for k, v in self.profiler.summary().items()}
+            else:
+                prof = {}
             if self.pass_steps:
                 log.info("per-pass steps: %s", dict(sorted(self.pass_steps.items())))
             outage = {f"outage_{k}": v for k, v in self.client.summary().items()}
@@ -1311,6 +1320,7 @@ class ElasticWorker:
                            for m, n in self.policy.decisions.items()})
             outage["policy_incidents"] = float(self.policy.incidents)
             return {
+                **prof,
                 **outage,
                 "steps": float(self.steps_done),
                 "final_loss": self.losses[-1] if self.losses else float("nan"),

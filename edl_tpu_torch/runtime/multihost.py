@@ -65,9 +65,9 @@ is one card, so the plan leases one shard for each data index, and every
 rank of that index reads the same shard. At a ``data``-only mesh the two
 are the same: the plans are the JAX worker's, shard for shard.
 
-What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP.md item (`elastic.check_unported`): ``profiler=`` and
-``compile_cache_dir``.
+``profiler=`` and ``compile_cache_dir`` are the `ElasticWorker`'s: each
+incarnation marks its first step warm-up and the summary carries the
+``profile_*`` keys; the cache directory is accepted and unused.
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ from edl_tpu_torch.parallel.mesh import (Mesh, MeshSpec, build_hierarchical_mesh
 from edl_tpu_torch.parallel.sharding import axis_size, present_axes, shard_batch
 from edl_tpu_torch.runtime.checkpoint import Checkpointer
 from edl_tpu_torch.runtime.elastic import (ElasticConfig, check_layout_args,
-                                           check_unported, fixed_axes_mesh_spec,
+                                           fixed_axes_mesh_spec,
                                            planned_trainer_config)
 from edl_tpu_torch.runtime.ft_policy import (
     RIDE_OUT, WARM_RESTART, FTPolicy, FTPolicyConfig,
@@ -142,8 +142,8 @@ class MultiHostWorker:
     ):
         if not config.checkpoint_dir:
             raise ValueError("ElasticConfig.checkpoint_dir is required")
-        check_unported(config, profiler)
         check_layout_args(mesh_axes, layout_planner)
+        self.profiler = profiler  # optional tools.profiler.StepProfiler
         self.model = model
         self.device = resolve_device(device)
         # Degraded-mode facade: a coordinator outage buffers completions
@@ -758,6 +758,8 @@ class MultiHostWorker:
         # Live re-step pricing for the policy's park break-even
         # (train_loop cost hook).
         trainer.step_cost_cb = self.policy.note_step
+        if self.profiler is not None:
+            self.profiler.mark_warmup()
         t_restore0 = time.monotonic()
         state = self._restore_or_init(trainer)
         self.policy.note_restore_cost(time.monotonic() - t_restore0)
@@ -791,6 +793,8 @@ class MultiHostWorker:
         #: a rank > 0 that left the membership on SIGTERM and runs out the
         #: plan rank 0 may already have published
         leaving = False
+        if self.profiler is not None:
+            self.profiler.start()
         for rnd in range(max_rounds):
             if self._drain_requested and not leaving:
                 if rank == 0:
@@ -842,13 +846,15 @@ class MultiHostWorker:
             shard = tasks[data_index % len(tasks)]  # tail rounds replicate remainder
             ran_steps = 0
 
-            def _train_one(placed, step_fn) -> None:
+            def _train_one(placed, step_fn, samples, place_dt) -> None:
                 nonlocal state, ran_steps
                 state, loss = step_fn(state, placed)
                 ran_steps += 1
                 self.steps_done += 1
                 self.obs.steps.inc()
                 self.losses.append(float(loss))
+                if self.profiler is not None:
+                    self.profiler.step(samples, place_seconds=place_dt)
                 if self.config.step_callback is not None:
                     self.config.step_callback(int(state.step), state)
 
@@ -879,7 +885,7 @@ class MultiHostWorker:
                         thread_name="edl-mh-place-pump", device=trainer.device,
                     ) as pf:
                         for item in pf:
-                            _train_one(*item.payload)
+                            _train_one(*item.payload, item.samples, item.place_seconds)
                 else:
                     if self.config.prefetch:
                         # Batch-level read-ahead: shard decompression overlaps
@@ -888,7 +894,10 @@ class MultiHostWorker:
                         # thread).
                         batches = prefetch_iter(batches)
                     for batch in batches:
-                        _train_one(*place(batch))
+                        samples = len(next(iter(batch.values())))
+                        t0 = time.perf_counter()
+                        placed, step_fn = place(batch)
+                        _train_one(placed, step_fn, samples, time.perf_counter() - t0)
             except WireRestartRequired as e:
                 # A batch overflowed the gang-negotiated wire codec; the
                 # widened floor is already published. Same recovery as a
@@ -951,11 +960,17 @@ class MultiHostWorker:
                     "exiting with %d completions still buffered (coordinator "
                     "unreachable); their leases will expire and replay",
                     len(self.client.outbox))
+        prof = (
+            {f"profile_{k}": v for k, v in self.profiler.summary().items()}
+            if self.profiler is not None
+            else {}
+        )
         outage = {f"outage_{k}": v for k, v in self.client.summary().items()}
         outage.update({f"policy_{m}": float(n)
                        for m, n in self.policy.decisions.items()})
         outage["policy_incidents"] = float(self.policy.incidents)
         return {
+            **prof,
             **outage,
             "steps": float(self.steps_done),
             "final_loss": self.losses[-1] if self.losses else float("nan"),

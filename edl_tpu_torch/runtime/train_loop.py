@@ -550,6 +550,9 @@ class Trainer:
                           and self.config.grad_sync != "psum" else "psum")
         #: steady-state recompilations: eager PyTorch has none
         self.retraces = 0
+        #: the JAX Trainer's compile-cache outcome ("off" | "hit" | "miss"):
+        #: always "off", eager PyTorch keeps no executable to cache
+        self.last_compile_cache = "off"
         #: the wire codec, inferred from the first batch placed
         self._codec: Optional[WireCodec] = None
         self._warned_wire = False
@@ -921,14 +924,29 @@ class Trainer:
         a pump thread; exceptions from the source or the placement re-raise
         here as in the synchronous loop. Losses stay on the device until the
         loop ends; ``on_step`` forces a per-step sync (for debugging, not
-        benchmarking). ``profiler`` waits for the port of the JAX package's
-        ``StepProfiler`` and raises. Returns the JAX Trainer's metric keys;
-        with one device the data-plane keys are 0. On a mesh every rank runs
-        it over its own batches (its leased shards), in lockstep."""
-        if profiler is not None:
-            raise NotImplementedError("run(profiler=...) is not ported yet")
+        benchmarking). ``profiler`` (a `tools.profiler.StepProfiler`)
+        records per-step host times without synchronising, so its step
+        times follow the launch rate until the device's queue fills; the
+        returned ``samples_per_sec`` is taken after the final sync. Its
+        unset ``model``, ``n_chips`` (the mesh's world), ``device`` and
+        ``data_plane`` are filled from this Trainer. Returns the JAX
+        Trainer's metric keys; with one device the data-plane keys are 0.
+        On a mesh every rank runs it over its own batches (its leased
+        shards), in lockstep."""
         depth = self.config.pipeline_depth if pipeline_depth is None else pipeline_depth
         plane = self.data_plane(state.params)
+        if profiler is not None:
+            # the profiler's FLOP/MFU accounting without the caller
+            # threading the model and mesh through twice
+            if getattr(profiler, "model", None) is None:
+                profiler.model = self.model
+            if getattr(profiler, "n_chips", -1) is None:
+                profiler.n_chips = self.mesh.world if self.mesh is not None else 1
+            if getattr(profiler, "device", -1) is None:
+                profiler.device = self.device
+            if getattr(profiler, "data_plane", None) is None:
+                profiler.data_plane = plane
+            profiler.start()
         losses = []
         n = samples = 0
         place_seconds = 0.0
@@ -940,6 +958,9 @@ class Trainer:
             n += 1
             if on_step is not None:
                 on_step(n, float(loss))
+            if profiler is not None:
+                profiler.step(batch_samples, place_seconds=place_dt,
+                              collective_seconds=plane["collective_seconds"])
             losses.append(loss)
             if max_steps is not None and n >= max_steps:
                 break

@@ -53,17 +53,24 @@ def flops_per_step(model: Any, batch_size: int) -> Tuple[Optional[float], str]:
     return None, "unavailable (no analytic formula)"
 
 
-def mfu_fields(model: Any, batch_size: int, steps_per_sec: float,
+def mfu_fields(model: Any, batch_size: int, steps_per_sec: float, n_chips: int = 1,
                device: Any = None) -> Dict[str, Any]:
-    """Per-step model FLOPs, achieved TFLOP/s on one card, and MFU against
-    the card's peak (None off the card)."""
+    """Per-step model FLOPs, achieved TFLOP/s a card over ``n_chips``
+    cards, and MFU against the card's peak (None off the card), rounded as
+    the JAX package rounds them."""
     flops, method = flops_per_step(model, batch_size)
     out: Dict[str, Any] = {"model_flops": flops, "flops_method": method}
     if flops is None or steps_per_sec <= 0:
         out.update(tflops_per_sec=None, mfu=None, peak_tflops=None)
         return out
-    achieved = flops * steps_per_sec / 1e12
+    achieved = flops * steps_per_sec / max(1, n_chips) / 1e12
     peak = peak_tflops_per_chip(device)
-    out.update(tflops_per_sec=achieved, peak_tflops=peak,
-               mfu=achieved / peak if peak else None)
+    rounded = round(achieved, 3)
+    out.update(
+        # never round a positive rate down to 0: a tiny model's rate sits
+        # below a milli-TFLOP, and 0.0 reads as "no compute ran"
+        tflops_per_sec=rounded if rounded > 0 else achieved,
+        peak_tflops=peak,
+        mfu=round(achieved / peak, 4) if peak else None,
+    )
     return out

@@ -280,26 +280,116 @@ def _one_device_plan(n, devices):
                        schedules=())
 
 
+def _fit_source(pkg_source, model, bps=4):
+    return pkg_source(model, batch_size=32, batches_per_shard=bps)
+
+
+def _profiled_runs(tmp_path):
+    """fit_a_line over 2 shards x 4 batches with a `StepProfiler`: the JAX
+    `ElasticWorker`'s metrics, and both port workers' (the
+    `MultiHostWorker` as rank 0 of world 1, no process group)."""
+    from edl_tpu.tools.profiler import StepProfiler as JaxStepProfiler
+    from edl_tpu_torch.runtime.multihost import MultiHostWorker
+    from edl_tpu_torch.tools import StepProfiler
+
+    opt = dict(optimizer="sgd", learning_rate=0.05)
+    jcoord = JaxCoordinator(task_lease_sec=60.0, heartbeat_ttl_sec=60.0)
+    jcoord.client("admin").add_tasks(shard_names("pf", 2))
+    jax_worker = jax_elastic.ElasticWorker(
+        jax_fit.MODEL, jcoord.client("w"), _fit_source(JaxSource, jax_fit.MODEL),
+        jax_elastic.ElasticConfig(checkpoint_dir=str(tmp_path / "jax-ck"),
+                                  heartbeat_interval=0.0, trainer=JaxConfig(**opt)),
+        device_planner=lambda w: jax.devices()[:1], profiler=JaxStepProfiler(warmup=1))
+    runs = {"jax": jax_worker.run()}
+    for cls in (ElasticWorker, MultiHostWorker):
+        coord = InProcessCoordinator(task_lease_sec=60.0, heartbeat_ttl_sec=60.0)
+        coord.client("admin").add_tasks(shard_names("pf", 2))
+        worker = cls(fit_a_line.MODEL, coord.client("w"),
+                     _fit_source(SyntheticShardSource, fit_a_line.MODEL),
+                     ElasticConfig(checkpoint_dir=str(tmp_path / cls.__name__),
+                                   heartbeat_interval=0.0, trainer=TrainerConfig(**opt)),
+                     device="cpu", profiler=StepProfiler(warmup=1))
+        runs[cls.__name__] = worker.run()
+    return runs
+
+
+def _uncached_runs(tmp_path):
+    """``compile_cache_dir`` set: the port's `ElasticWorker` through a
+    rescale (a second member joins after step 10) and its
+    `MultiHostWorker`; the JAX `ElasticWorker` without a cache through the
+    same rescale. Returns (the port's rescale events, the JAX worker's,
+    the port's warm-up spans' ``cache``, the `MultiHostWorker`'s Trainer)."""
+    from edl_tpu_torch.runtime.multihost import MultiHostWorker
+
+    opt = dict(optimizer="sgd", learning_rate=0.05)
+    cache = str(tmp_path / "cache")
+    jcoord = JaxCoordinator(task_lease_sec=60.0, heartbeat_ttl_sec=60.0)
+    jcoord.client("admin").add_tasks(shard_names("cc", 2))
+    jscript = Membership(jcoord)
+    jax_worker = jax_elastic.ElasticWorker(
+        jax_fit.MODEL, jcoord.client("trainer-0"), _fit_source(JaxSource, jax_fit.MODEL, 8),
+        jax_elastic.ElasticConfig(checkpoint_dir=str(tmp_path / "jax-ck"),
+                                  checkpoint_interval=5, heartbeat_interval=0.0,
+                                  pipeline_depth=0, step_callback=jscript,
+                                  trainer=JaxConfig(**opt)),
+        device_planner=lambda w: jax.devices()[:1])
+    try:
+        jax_worker.run()
+    finally:
+        jscript.close()
+    coord = InProcessCoordinator(task_lease_sec=60.0, heartbeat_ttl_sec=60.0)
+    coord.client("admin").add_tasks(shard_names("cc", 2))
+    script, tracer = Membership(coord), Tracer()
+    worker = ElasticWorker(
+        fit_a_line.MODEL, coord.client("trainer-0"),
+        _fit_source(SyntheticShardSource, fit_a_line.MODEL, 8),
+        ElasticConfig(checkpoint_dir=str(tmp_path / "ck"), checkpoint_interval=5,
+                      heartbeat_interval=0.0, pipeline_depth=0, step_callback=script,
+                      compile_cache_dir=cache, trainer=TrainerConfig(**opt)),
+        device="cpu", tracer=tracer)
+    try:
+        worker.run()
+    finally:
+        script.close()
+    spans = [json.loads(line) for line in tracer.to_jsonl().splitlines()]
+    warm = [sp["attrs"].get("cache") for sp in spans if sp["name"] == "warm_compile"]
+    coord = InProcessCoordinator(task_lease_sec=60.0, heartbeat_ttl_sec=60.0)
+    coord.client("admin").add_tasks(shard_names("cc", 2))
+    mh = MultiHostWorker(fit_a_line.MODEL, coord.client("w"),
+                         _fit_source(SyntheticShardSource, fit_a_line.MODEL),
+                         ElasticConfig(checkpoint_dir=str(tmp_path / "mh-ck"),
+                                       heartbeat_interval=0.0, compile_cache_dir=cache,
+                                       trainer=TrainerConfig(**opt)),
+                         device="cpu")
+    assert mh.run()["steps"] == 8.0
+    assert not os.path.exists(cache)  # accepted, and nothing written
+    return worker.rescales, jax_worker.rescales, warm, mh.ckpt.trainer
+
+
 @pytest.mark.parametrize("kw", [dict(layout_planner=_one_device_plan),
-                                dict(profiler=object()),
+                                dict(profiler=True),
                                 dict(mesh_axes={"model": 2}),
                                 dict(mesh_axes={"seq": 2, "data": 4}),
-                                dict(compile_cache_dir="x")],
+                                dict(compile_cache_dir=True)],
                          ids=["layout_planner", "profiler", "model_axis", "seq_axis",
                               "compile_cache_dir"])
 def test_what_is_not_ported_raises_naming_the_roadmap_item(kw, tmp_path):
-    """``profiler=`` and ``compile_cache_dir`` are not ported: both workers
-    raise ``NotImplementedError`` naming their ROADMAP.md item (queue A item
-    4). The layout cases are ported and hold the JAX workers' behaviour:
-    a fixed axis that one device does not divide raises the JAX
-    ``ValueError`` with its message (the JAX `ElasticWorker` given one
-    device, and the port's `MultiHostWorker` without a process group, one
-    rank), and a ``layout_planner`` is accepted and its plan built."""
+    """What ROADMAP.md queue A item 4 left out is ported now: no worker
+    raises for want of a port. ``profiler``: both port workers run
+    fit_a_line with a `StepProfiler` and report the JAX `ElasticWorker`'s
+    ``profile_*`` keys with its step counts (a cold start's first step is
+    warm-up). ``compile_cache_dir``: accepted and unused by both workers;
+    the `ElasticWorker`'s rescale and its warm-up span report
+    ``compile_cache`` "off", as the JAX worker without a cache reports it
+    through the same rescale, and the `MultiHostWorker`'s Trainer reads
+    "off". The layout cases hold the JAX workers' behaviour: a fixed axis
+    that one device does not divide raises the JAX ``ValueError`` with its
+    message (the JAX `ElasticWorker` given one device, and the port's
+    `MultiHostWorker` without a process group, one rank), and a
+    ``layout_planner`` is accepted and its plan built."""
     from edl_tpu_torch.runtime.multihost import MultiHostWorker
 
-    cfg_kw = {"compile_cache_dir": kw.pop("compile_cache_dir")} if "compile_cache_dir" in kw \
-        else {}
-    cfg = ElasticConfig(checkpoint_dir=str(tmp_path / "ck"), **cfg_kw)
+    cfg = ElasticConfig(checkpoint_dir=str(tmp_path / "ck"))
     coord = InProcessCoordinator()
     workers = (ElasticWorker, MultiHostWorker)
     if "mesh_axes" in kw:
@@ -321,10 +411,25 @@ def test_what_is_not_ported_raises_naming_the_roadmap_item(kw, tmp_path):
             assert worker._build_mesh(1).shape == {"data": 1}
             assert worker.last_plan.mesh_axes == (("data", 1),)
             assert worker._trainer_config() is cfg.trainer  # batch axis "data" kept
+    elif "profiler" in kw:
+        runs = _profiled_runs(tmp_path)
+        want = {k: v for k, v in runs.pop("jax").items() if k.startswith("profile_")}
+        assert want["profile_steps"] == 8.0 and want["profile_steady_steps"] == 7.0
+        for name, metrics in runs.items():
+            got = {k: v for k, v in metrics.items() if k.startswith("profile_")}
+            assert set(got) == set(want), name
+            for key in ("profile_steps", "profile_steady_steps"):
+                assert got[key] == want[key], (name, key)
+            assert metrics["steps"] == 8.0, name
+            assert all(np.isfinite(v) and v >= 0 for v in got.values()), name
     else:
-        for cls in workers:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-                cls(fit_a_line.MODEL, coord.client("w"), None, cfg, device="cpu", **kw)
+        events, jax_events, warm, mh_trainer = _uncached_runs(tmp_path)
+        assert [(e.from_world, e.to_world) for e in events] == \
+            [(e.from_world, e.to_world) for e in jax_events] == [(1, 2)]
+        assert [e.compile_cache for e in events] == \
+            [e.compile_cache for e in jax_events] == ["off"]
+        assert warm == ["off"]
+        assert mh_trainer.last_compile_cache == "off"
     # a size-1 axis is no parallelism: accepted
     worker = ElasticWorker(fit_a_line.MODEL, coord.client("w"), None,
                            ElasticConfig(checkpoint_dir=str(tmp_path / "ck")), device="cpu",

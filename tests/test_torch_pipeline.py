@@ -221,9 +221,29 @@ def test_codec_widening_in_flight_keeps_each_batch_on_its_codec():
 
 
 def test_profiler_waits_for_its_port():
-    trainer = Trainer(fit_a_line.MODEL, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.run(trainer.init_state(), [], profiler=object())
+    """The profiler is ported: in the pipelined loop (depth 2) `Trainer.run`
+    feeds a `StepProfiler` one record a batch, each with the pump's
+    placement seconds, and its losses stay the synchronous loop's."""
+    from edl_tpu_torch.tools import StepProfiler
+
+    rng = np.random.default_rng(0)
+    batches = [fit_a_line.MODEL.synthetic_batch(rng, 32) for _ in range(6)]
+    runs = {}
+    for depth in (0, 2):
+        trainer = Trainer(fit_a_line.MODEL, device="cpu")
+        prof = StepProfiler(warmup=1)
+        losses = []
+        trainer.run(trainer.init_state(), iter(batches), pipeline_depth=depth,
+                    profiler=prof, on_step=lambda n, loss: losses.append(loss))
+        runs[depth] = (prof, losses)
+        assert [r.samples for r in prof.records] == [32] * 6
+        assert all(r.place_seconds is not None and r.place_seconds >= 0
+                   for r in prof.records)
+        summary = prof.summary()
+        assert summary["steps"] == 6.0 and summary["steady_steps"] == 5.0
+        assert "place_time_mean_s" in summary
+    assert runs[2][1] == runs[0][1]
+    assert_no_leaked_pumps()
 
 
 @pytest.mark.cuda
