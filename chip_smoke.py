@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
     python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
+    python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
 
 It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order; a
 phase that fails raises, and the script exits non-zero without its last line:
@@ -206,12 +207,40 @@ phase that fails raises, and the script exits non-zero without its last line:
     Is phase 4's step profiler part. (d) The obs smoke, ``python -m
     edl_tpu_torch.obs`` on the card, exits 0. The phase's own seconds are
     printed.
-16. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+16. The control plane (``controller``): the port's `Controller` over a
+    `ProcessCluster` of three one-chip nodes, all three the one card. (a)
+    ``lm-grow`` (2..3 trainers: the LM entry at phase 4's width, batch 8 a
+    rank, gloo, 30 shards of one batch, a checkpoint a round) trains at
+    world 2 while another tenant's accounting-only pod holds the third
+    chip; once a round is committed that pod leaves, and the autoscaler
+    alone grows the job 2 -> 3 (``edl/expected_world`` 3, the third pod
+    spawned, the epoch nudged, both ranks exit 75 and come back at world
+    3). (b) Once every world-3 rank has stepped, ``w2v-admit`` (one
+    trainer, the word2vec entry, 4 shards) pends; the make-room pass
+    shrinks lm-grow 3 -> 2 (``edl/expected_world`` 2; the newest pod gets
+    SIGTERM and leaves at a round boundary, the others exit 75 and return
+    at world 2); w2v-admit is placed and trains; once it ends, the
+    autoscaler may grow lm-grow back to 3. Every trainer runs under
+    ``chip_smoke.py --ctl-entry``, which records its restore, reads, steps
+    and exit. Holds: the scale records (2, 3) then (3, 2), both jobs and
+    every pod Succeeded, every LM shard trained exactly once into the final
+    state, each LM step's flash launches 12/12/12 on every rank at worlds
+    2 and 3, finite losses, the collector's samples at 2/3, then 3/3, then
+    3/3 with both jobs, no pod's process group left. (c) The CLI: ``python
+    -m edl_tpu_torch train --model transformer --steps 4 --batch-size 8``
+    with no ``--device`` trains on the card, ``status --json`` answers
+    against lm-grow's coordinator while it trains, ``plan --json`` with the
+    H100 defaults exits 0. Printed: each scale decision's actuation latency
+    (the record to the first step at the new world on every rank, split
+    into the slowest rank's start-up and the rest), the LM's step ms at
+    each world, each incarnation's peak memory, w2v-admit's wait from
+    submit to its first step, the collector's samples and the wall time.
+17. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
     per model, the remat LM included), one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
-    {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}`` and one
-    ``{"entries": {...}}``.
-17. The last line: ``{"ok": true, "device": {...}}``.
+    {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}``, one
+    ``{"entries": {...}}`` and one ``{"controller": {...}}``.
+18. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -4467,6 +4496,633 @@ def phase_entries(profiler: dict) -> dict:
             "seconds": seconds}
 
 
+#: the controller phase: three nodes of one chip each, all three the one
+#: card, which the LM's ranks share over gloo as in the elastic and mp phases
+CTL_NODES = 3
+#: lm-grow's queue: shards of one batch (a round is one step and a
+#: checkpoint, so a SIGTERM'd rank leaves within ProcessCluster's 10 s
+#: grace), enough that world 2 still trains after the shrink
+CTL_LM_SHARDS, CTL_LM_BATCHES = 36, 1
+#: world-3 steps every rank takes before w2v-admit arrives
+CTL_WORLD3_STEPS = 3
+CTL_LM_LR = 3e-4
+#: w2v-admit's queue: shards of the entry's 10 batches of 512 (its end frees
+#: its chip, and the autoscaler grows lm-grow again if lm-grow still trains)
+CTL_W2V_SHARDS = 16
+#: the autoscaler's loop (the reference's is 5 s) and the collector's period
+CTL_LOOP_S, CTL_COLLECT_S = 2.0, 0.5
+#: the deadline of parts (a) and (b) together
+CTL_TIMEOUT = 480
+#: extra arguments of the pods' entries and of the CLI's train (none on the
+#: card: both train on the card by default)
+CTL_ENTRY_ARGS = ""
+CTL_CLI_ARGS = ""
+#: the zoo model the CLI's train runs
+CTL_CLI_MODEL = "transformer"
+
+
+def ctl_entry_main(argv) -> int:
+    """One trainer of the controller phase: ``chip_smoke.py --ctl-entry
+    RECORD_DIR MODULE -- ARGS`` runs the entry
+    ``edl_tpu_torch.examples.MODULE``'s ``main(ARGS)`` and appends, as they
+    happen, one JSON line an event to ``RECORD_DIR/<pod>-<pid>.jsonl``: the
+    incarnation's start, its restore (rank, world, epoch, the step
+    restored), each shard read (at the round's first step), each mesh step
+    (its flash launches, loss, time) and its exit (code, peak memory)."""
+    import os
+    import threading
+
+    record_dir, module, args = argv[0], argv[1], argv[argv.index("--") + 1:]
+    pod = os.environ.get("EDL_POD_NAME", "local")
+    out = open(os.path.join(record_dir, f"{pod}-{os.getpid()}.jsonl"), "a", buffering=1)
+    lock = threading.Lock()
+    at = {"rank": None, "world": None, "step": 0}
+
+    def emit(**event):
+        with lock:
+            out.write(json.dumps({**event, "t": time.time()}) + "\n")
+
+    emit(event="start", pod=pod, pid=os.getpid())  # before the imports: start-up counts them
+    import importlib
+
+    import torch
+
+    from edl_tpu_torch.obs.logs import configure_logging
+    from edl_tpu_torch.runtime import train_loop
+    from edl_tpu_torch.runtime.data import SyntheticShardSource
+    from edl_tpu_torch.runtime.multihost import MultiHostWorker
+
+    configure_logging(level="info")  # the worker's epoch and round lines, in the pod's log
+    fa = _flash_module()
+    mesh_step = train_loop.Trainer._mesh_step
+    restore = MultiHostWorker._restore_or_init
+    read = SyntheticShardSource.read
+
+    def counted(self, state, batch):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        new, loss = mesh_step(self, state, batch)
+        value = float(loss)  # synchronises on the step's work
+        emit(event="step", step=at["step"], rank=at["rank"], world=at["world"],
+             launches=dict(fa.LAUNCHES), loss=value, ms=(time.perf_counter() - t0) * 1e3)
+        at["step"] += 1
+        return new, loss
+
+    def held(self, trainer):
+        state = restore(self, trainer)
+        at.update(rank=trainer.mesh.rank, world=trainer.mesh.world, step=int(state.step))
+        emit(event="restore", rank=trainer.mesh.rank, world=trainer.mesh.world,
+             epoch=self._epoch, restored_step=int(state.step))
+        return state
+
+    def recorded(self, shard):
+        emit(event="read", shard=shard, step=at["step"])
+        yield from read(self, shard)
+
+    train_loop.Trainer._mesh_step = counted
+    MultiHostWorker._restore_or_init = held
+    SyntheticShardSource.read = recorded
+    code = 0
+    try:
+        importlib.import_module(f"edl_tpu_torch.examples.{module}").main(args)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    finally:
+        peak = (torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available()
+                else None)
+        emit(event="exit", code=code, peak_memory_gib=peak)
+        out.close()
+    return code
+
+
+def _ctl_records(record_dir: str) -> list:
+    """Every incarnation's events (`ctl_entry_main`), one dict each: its pod,
+    start, restore, reads, steps and exit."""
+    import os
+
+    incs = []
+    for name in sorted(os.listdir(record_dir)):
+        inc = {"reads": [], "steps": [], "restore": None, "exit": None}
+        with open(os.path.join(record_dir, name)) as f:
+            for line in f:
+                if not line.endswith("\n"):
+                    break  # a line still being written
+                ev = json.loads(line)
+                kind = ev.pop("event")
+                if kind == "start":
+                    inc.update(pod=ev["pod"], pid=ev["pid"], start=ev["t"])
+                elif kind in ("restore", "exit"):
+                    inc[kind] = ev
+                else:
+                    inc[f"{kind}s"].append(ev)
+        incs.append(inc)
+    return sorted(incs, key=lambda i: i["start"])
+
+
+def _ctl_generations(incs: list) -> list:
+    """The incarnations that restored, grouped by the epoch they joined,
+    oldest first: [(epoch, world, restored step, [incarnations by rank])]."""
+    by_epoch = {}
+    for inc in incs:
+        if inc["restore"] is not None:
+            by_epoch.setdefault(inc["restore"]["epoch"], []).append(inc)
+    out = []
+    for epoch, group in sorted(by_epoch.items()):
+        group.sort(key=lambda i: i["restore"]["rank"])
+        worlds = {i["restore"]["world"] for i in group}
+        steps = {i["restore"]["restored_step"] for i in group}
+        require(len(worlds) == 1 and len(steps) == 1 and len(group) == worlds.copy().pop(),
+                f"controller: epoch {epoch}'s incarnations disagree: "
+                f"{[(i['pod'], i['restore']) for i in group]}")
+        out.append((epoch, worlds.pop(), steps.pop(), group))
+    return out
+
+
+def _ctl_exactly_once(gens: list, tasks: list) -> dict:
+    """Every shard trained exactly once into the final state: each
+    generation's rounds up to the step the next one restored (all of the
+    last one's) form the final state's lineage; their shards (a tail
+    round's replicas counted once, as its ranks average one shard's
+    gradient) must be every task, each in one round only."""
+    from collections import Counter
+
+    lineage = Counter()
+    for k, (epoch, world, restored, group) in enumerate(gens):
+        upto = gens[k + 1][2] if k + 1 < len(gens) else math.inf
+        rounds = {}
+        for inc in group:
+            for r in inc["reads"]:
+                if r["step"] < upto:
+                    rounds.setdefault(r["step"], set()).add(r["shard"])
+        for shards in rounds.values():
+            lineage.update(shards)
+    twice = sorted(s for s, n in lineage.items() if n > 1)
+    missing = sorted(set(tasks) - set(lineage))
+    require(not twice and not missing and set(lineage) == set(tasks),
+            f"controller: shards trained more than once into the final state {twice}, "
+            f"never {missing}")
+    return {"shards": len(lineage), "generations": [(e, w, r) for e, w, r, _ in gens]}
+
+
+def _live_groups(pgids) -> list:
+    """The process groups among ``pgids`` with a live member (a zombie
+    awaiting its reaper is not live), from ``/proc``."""
+    import os
+
+    live = set()
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue  # exited while we looked
+        if fields[0] != "Z" and int(fields[2]) in pgids:
+            live.add(int(fields[2]))
+    return sorted(live)
+
+
+def _ctl_job(name: str, port: int, lo: int, hi: int, entry: str, tasks: list, per: int,
+             root: str):
+    """A TrainingJob of the phase: one chip a trainer, the coordinator pod
+    the port's launcher on ``port``, the trainers the port's launcher
+    running ``entry`` and dialing the coordinator at 127.0.0.1 (the job's
+    DNS name resolves nowhere here)."""
+    import os
+
+    from edl_tpu_torch.api.types import TrainingJob
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    coord_dir = os.path.join(root, f"coordinator-{name}")
+    os.makedirs(coord_dir, exist_ok=True)
+    return TrainingJob.from_dict({
+        "metadata": {"name": name},
+        "spec": {
+            "image": "edl-tpu-torch:local", "port": port, "fault_tolerant": True,
+            "tpu": {"chips_per_trainer": 1},
+            "data_shards": tasks,
+            "checkpoint_dir": os.path.join(root, f"ckpt-{name}"),
+            "checkpoint_interval": per,
+            "coordinator": {
+                "entrypoint": f"{sys.executable} -m edl_tpu_torch.launcher start_coordinator "
+                              f"--port {port}",
+                "workspace": coord_dir, "env": {"PYTHONPATH": repo}},
+            "trainer": {
+                "entrypoint": f"{sys.executable} -m edl_tpu_torch.launcher start_trainer",
+                "min_instance": lo, "max_instance": hi,
+                "resources": {"requests": {"cpu": 1, "memory": "8Gi"}},
+                "env": {"EDL_COORDINATOR_ENDPOINT": f"127.0.0.1:{port}", "EDL_ENTRY": entry,
+                        "PYTHONPATH": repo, "PYTHONUNBUFFERED": "1",
+                        "EDL_TERMINATION_LOG": os.path.join(root, f"term-{name}")}},
+        },
+    })
+
+
+def _ctl_cli(root: str) -> dict:
+    """Part (c)'s two subprocesses, started at once: ``python -m
+    edl_tpu_torch train --model transformer --steps 4 --batch-size 8`` with
+    no ``--device`` and ``plan --json`` with the H100 defaults."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    env["PYTHONPATH"] = repo
+    cmds = {"train": ["train", "--model", CTL_CLI_MODEL, "--steps", "4", "--batch-size", "8",
+                      *CTL_CLI_ARGS.split()],
+            "plan": ["plan", "--json"]}
+    procs = {}
+    for label, args in cmds.items():
+        files = [open(os.path.join(root, f"cli-{label}.{k}"), "w") for k in ("out", "err")]
+        procs[label] = [time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "edl_tpu_torch", *args], cwd=repo, env=env,
+            stdout=files[0], stderr=files[1]), None]
+    return procs
+
+
+def _ctl_cli_poll(procs: dict) -> None:
+    """Note each CLI subprocess's wall seconds once it has exited."""
+    for entry in procs.values():
+        if entry[2] is None and entry[1].poll() is not None:
+            entry[2] = time.perf_counter() - entry[0]
+
+
+def _ctl_cli_finish(procs: dict, root: str) -> dict:
+    import os
+
+    out = {}
+    try:
+        for label, (t0, p, _) in procs.items():
+            p.wait(timeout=300)
+            _ctl_cli_poll(procs)
+            text = open(os.path.join(root, f"cli-{label}.out")).read()
+            err = open(os.path.join(root, f"cli-{label}.err")).read()
+            require(p.returncode == 0, f"controller (c): {label} exited {p.returncode}:\n"
+                                       f"{err[-3000:]}")
+            out[label] = (json.loads(text), err, procs[label][2])
+    finally:
+        for _, p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    metrics, err, seconds = out["train"]
+    device = re.search(rf"training {CTL_CLI_MODEL} on (\S+)", err)
+    require(device is not None and device.group(1).startswith(
+        "cpu" if "cpu" in CTL_CLI_ARGS else "cuda") and math.isfinite(metrics["final_loss"])
+        and metrics["steps"] == 4.0, f"controller (c): train {metrics} on "
+                                     f"{device and device.group(1)}:\n{err[-2000:]}")
+    plan = out["plan"][0]
+    require(plan["chips"] == 16 and plan["axes"], f"controller (c): plan {plan}")
+    print(f"controller (c): python -m edl_tpu_torch train --model {CTL_CLI_MODEL} --steps 4 "
+          f"--batch-size 8 (no --device) trained on {device.group(1)}: loss "
+          f"{metrics['final_loss']}, {metrics['samples_per_sec']:.1f} samples/s, "
+          f"{seconds:.1f} s of wall; plan --json with the H100 defaults chose "
+          f"{plan['axes']} over {plan['chips']} cards in {out['plan'][2]:.1f} s")
+    return {"train": metrics, "train_device": device.group(1), "train_s": seconds,
+            "plan": {k: plan[k] for k in ("chips", "axes", "step_ms")},
+            "plan_s": out["plan"][2]}
+
+
+def _ctl_status(port: int, token: str) -> dict:
+    """Part (c): ``python -m edl_tpu_torch status --port P --json`` against
+    lm-grow's coordinator while it trains."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "edl_tpu_torch", "status", "--port", str(port),
+                          "--json", "--token", token], cwd=repo,
+                         env={**os.environ, "PYTHONPATH": repo}, capture_output=True,
+                         text=True, timeout=120)
+    require(out.returncode == 0, f"controller (c): status exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+    st = json.loads(out.stdout)
+    require(st["ok"] is True and st["world"] >= 2, f"controller (c): status {st}")
+    return {"world": st["world"], "epoch": st["epoch"], "done": st["done"],
+            "queued": st["queued"], "seconds": time.perf_counter() - t0}
+
+
+def controller_drive(root: str) -> dict:
+    """Parts (a) and (b): the port's `Controller` over a `ProcessCluster`
+    of ``CTL_NODES`` one-chip nodes. The third chip starts out held by
+    another tenant's pod (an accounting-only pod, which the controller's
+    store does not know, as `K8sCluster.inquire` counts every namespace's
+    pods). lm-grow (2..3 trainers, the LM at the slice's full width, gloo)
+    trains at world 2; once it has committed a round, that pod leaves, and
+    the autoscaler, on its own, grows lm-grow 2 -> 3 (publish, spawn,
+    nudge; both ranks exit 75 and come back at world 3). Once every
+    world-3 rank has stepped, w2v-admit (one trainer, word2vec) is
+    submitted and pends; the make-room pass shrinks lm-grow 3 -> 2 (the
+    newest pod gets SIGTERM and leaves at a round boundary, the others exit
+    75 and return at world 2), w2v-admit is placed and trains, and both
+    jobs end Succeeded through their updaters. word2vec trains in seconds:
+    when w2v-admit ends while lm-grow still trains, its chip is free again,
+    and the autoscaler grows lm-grow back to 3 (allowed once, after
+    w2v-admit's exit)."""
+    import os
+    import signal
+
+    from edl_tpu_torch.api.quantity import ResourceList
+    from edl_tpu_torch.controller import (AutoscalerConfig, Controller, NodeInfo,
+                                          UpdaterConfig)
+    from edl_tpu_torch.controller.actuation import EXPECTED_WORLD_KEY
+    from edl_tpu_torch.controller.process_cluster import ProcessCluster
+    from edl_tpu_torch.coordinator.client import CoordinatorClient, CoordinatorError
+    from edl_tpu_torch.coordinator.server import ensure_built
+    from edl_tpu_torch.runtime.data import pass_tasks, shard_names
+    from edl_tpu_torch.tools.collector import Collector
+
+    ensure_built()  # the coordinator pods' binary, built once before they start
+    records = os.path.join(root, "records")
+    os.makedirs(records)
+    me = os.path.abspath(__file__)
+    lm_port, w2v_port = _free_port(), _free_port()
+    lm_tasks = shard_names("lm", CTL_LM_SHARDS)
+    w2v_tasks = shard_names("imikolov", CTL_W2V_SHARDS)
+    lm_entry = (f"{sys.executable} {me} --ctl-entry {records} lm.train -- "
+                f"--vocab-size {SLICE['vocab_size']} --d-model {SLICE['d_model']} "
+                f"--n-layers {SLICE['n_layers']} --n-heads {SLICE['n_heads']} "
+                f"--d-ff {SLICE['d_ff']} --seq-len {SLICE['seq_len']} --batch-size {BATCH} "
+                f"--batches-per-shard {CTL_LM_BATCHES} --learning-rate {CTL_LM_LR} "
+                f"--dist-backend gloo {CTL_ENTRY_ARGS}").strip()
+    w2v_entry = (f"{sys.executable} {me} --ctl-entry {records} word2vec.train_ft -- "
+                 f"--dist-backend auto {CTL_ENTRY_ARGS}").strip()
+    lm_job = _ctl_job("lm-grow", lm_port, 2, 3, lm_entry, lm_tasks, CTL_LM_BATCHES, root)
+    w2v_job = _ctl_job("w2v-admit", w2v_port, 1, 1, w2v_entry, w2v_tasks, 10, root)
+
+    chip = {"cpu": 16, "memory": "64Gi", "tpu": 1}
+    cluster = ProcessCluster([NodeInfo(name=f"node{i}", allocatable=ResourceList.make(chip))
+                              for i in range(CTL_NODES)], log_dir=os.path.join(root, "pods"))
+    print(f"controller: a ProcessCluster of {CTL_NODES} nodes of {chip}; all "
+          f"{CTL_NODES} chips are the one card, which the ranks share over gloo")
+    controller = Controller(
+        cluster, autoscaler_config=AutoscalerConfig(loop_seconds=CTL_LOOP_S,
+                                                    max_load_desired=0.97),
+        updater_config=UpdaterConfig(convert_seconds=0.5, poll_seconds=0.2,
+                                     create_timeout=120.0))
+    for job in (lm_job, w2v_job):
+        controller.actuator.set_endpoint(job.name, "127.0.0.1", job.spec.port)
+    collector = Collector(controller.store, cluster, period_seconds=CTL_COLLECT_S)
+    groups = set()  # every pod's process group, to prove none outlives the part
+    w2v_phases = []
+    deadline = time.monotonic() + CTL_TIMEOUT
+
+    def pods_log() -> str:
+        tails = []
+        for name in sorted(os.listdir(os.path.join(root, "pods"))):
+            with open(os.path.join(root, "pods", name)) as f:
+                tails.append(f"--- {name}\n{f.read()[-2500:]}")
+        return "\n".join(tails)
+
+    def until(cond, what):
+        while True:
+            _ctl_cli_poll(cli)
+            with cluster._lock:
+                groups.update(p.proc.pid for p in cluster.pods if p.proc is not None)
+            phases = [p.phase for p in cluster.job_pods(w2v_job.name, "trainer")]
+            if phases and (not w2v_phases or w2v_phases[-1] != phases[0]):
+                w2v_phases.append(phases[0])
+            if cond():
+                return
+            failed = [p.name for job in (lm_job, w2v_job)
+                      for p in cluster.job_pods(job.name, "trainer") if p.phase == "Failed"]
+            require(not failed and time.monotonic() < deadline,
+                    f"controller: {what} (failed pods {failed}):\n{pods_log()}")
+            time.sleep(0.2)
+
+    def scales(name):
+        return [(r.from_replicas, r.to_replicas, r.reason, r.timestamp)
+                for r in controller.job_status(name).status.scale_history]
+
+    def world_steps(world):
+        """Each rank's steps at ``world`` so far."""
+        counts = {}
+        for i in _ctl_records(records):
+            if i["pod"].startswith(lm_job.name) and i["restore"] and \
+                    i["restore"]["world"] == world:
+                counts[i["restore"]["rank"]] = counts.get(i["restore"]["rank"], 0) + \
+                    len(i["steps"])
+        return counts
+
+    admin = None
+    expected, cli = {}, {}
+    t_start = time.time()
+    try:
+        cli.update(_ctl_cli(root))
+        cluster.create_role("other-tenant", "trainer", 1,
+                            ResourceList.make({"cpu": 1, "tpu": 1}), ResourceList())
+        controller.start()
+        collector.start()
+        controller.submit(lm_job)
+        t_submit_lm = time.time()
+        until(lambda: controller.job_status(lm_job.name).spec.auth_token, "no auth token")
+        token = controller.job_status(lm_job.name).spec.auth_token
+
+        def lm_done(n):
+            nonlocal admin
+            try:
+                if admin is None:
+                    admin = CoordinatorClient("127.0.0.1", lm_port, worker="chip-smoke-admin",
+                                              connect_timeout=2.0, token=token)
+                return int(admin.status().get("done", 0)) >= n
+            except (CoordinatorError, OSError):
+                return False  # the coordinator pod is still starting
+
+        until(lambda: lm_done(2), "lm-grow never committed a round at world 2")
+        status = _ctl_status(lm_port, token)
+        # the other tenant's pod leaves: the third chip is free
+        cluster.delete_role("other-tenant", "trainer")
+        t_free = time.time()
+        collector.sample()
+        until(lambda: len(scales(lm_job.name)) >= 1, "the autoscaler never grew lm-grow")
+        expected["grow"] = admin.kv_get(EXPECTED_WORLD_KEY)
+        until(lambda: len(world_steps(3)) == 3 and min(world_steps(3).values())
+              >= CTL_WORLD3_STEPS, "lm-grow never stepped at world 3 on every rank")
+        controller.submit(w2v_job)
+        t_submit_w2v = time.time()
+        until(lambda: len(scales(lm_job.name)) >= 2, "the make-room pass never shrank lm-grow")
+        expected["shrink"] = admin.kv_get(EXPECTED_WORLD_KEY)
+        until(lambda: all(controller.job_status(j.name).status.phase.value == "Succeeded"
+                          for j in (lm_job, w2v_job)), "the jobs never both succeeded")
+        t_end = time.time()
+        pods = {j.name: [(p.name, p.phase) for p in cluster.job_pods(j.name, "trainer")]
+                for j in (lm_job, w2v_job)}
+        phases = {j.name: controller.job_status(j.name).status.phase.value
+                  for j in (lm_job, w2v_job)}
+        history = {j.name: scales(j.name) for j in (lm_job, w2v_job)}
+        cli_out = _ctl_cli_finish(cli, root)
+    finally:
+        for _, p, _ in cli.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if admin is not None:
+            admin.close()
+        collector.stop()
+        controller.stop()
+        cluster.shutdown(grace=min(10.0, max(1.0, deadline - time.monotonic())))
+        alive = _live_groups(groups)
+        for pgid in alive:
+            os.killpg(pgid, signal.SIGKILL)
+    require(not alive, f"controller: pod process groups {alive} outlived the part")
+
+    # -- the holds ----------------------------------------------------------------
+    incs = _ctl_records(records)
+    lm = [i for i in incs if i["pod"].startswith(lm_job.name)]
+    w2v = [i for i in incs if i["pod"].startswith(w2v_job.name)]
+    require(len(w2v) == 1 and w2v[0]["exit"] is not None and w2v[0]["exit"]["code"] == 0
+            and w2v[0]["restore"]["world"] == 1
+            and len(w2v[0]["steps"]) == CTL_W2V_SHARDS * 10,
+            f"controller: w2v-admit's incarnations "
+            f"{[(i['restore'], i['exit'], len(i['steps'])) for i in w2v]}")
+    w2v_end = w2v[0]["exit"]["t"]
+    got = [(a, b, r) for a, b, r, _ in history[lm_job.name]]
+    # once w2v-admit has succeeded its chip is free again, and the autoscaler
+    # may grow lm-grow back to 3 if its queue outlasts w2v-admit's
+    regrows = history[lm_job.name][2:]
+    require(got[:2] == [(2, 3, "autoscale"), (3, 2, "make-room")]
+            and all(r[:3] == (2, 3, "autoscale") and r[3] > w2v_end for r in regrows)
+            and len(regrows) <= 1 and not history[w2v_job.name],
+            f"controller: scale records {history}, want lm-grow (2, 3) then (3, 2) (then "
+            "(2, 3) again once w2v-admit has succeeded)")
+    require(expected == {"grow": "3", "shrink": "2"},
+            f"controller: edl/expected_world read {expected}, want 3 then 2")
+    require(phases == {lm_job.name: "Succeeded", w2v_job.name: "Succeeded"}
+            and all(ph == "Succeeded" for ps in pods.values() for _, ph in ps)
+            and len(pods[lm_job.name]) == 2 + len(regrows) and len(pods[w2v_job.name]) == 1,
+            f"controller: jobs {phases}, pods {pods}")
+    require("Running" in w2v_phases and w2v_phases[-1] == "Succeeded",
+            f"controller: w2v-admit's pod went {w2v_phases}, want Running then Succeeded")
+    gens = _ctl_generations(lm)
+    worlds = [w for _, w, _, _ in gens]
+    require(worlds[:3] == [2, 3, 2] and all(w == 3 for w in worlds[3:])
+            and len(worlds) <= 3 + len(regrows),
+            f"controller: lm-grow's generations ran at worlds {worlds}")
+    once = _ctl_exactly_once(gens, pass_tasks(lm_tasks, 1))
+    finals, ended = {}, {}
+    for inc in lm:
+        finals[inc["pod"]] = inc
+        if inc["restore"] is not None:
+            ended[inc["pod"]] = inc["restore"]["world"]
+    reported = {}
+    for pod in finals:
+        with open(os.path.join(root, "pods", f"{pod}.log")) as f:
+            lines = [json.loads(x) for x in f.read().splitlines() if x.startswith("{")]
+        if lines:
+            reported[pod] = lines[-1]["world"]
+    require(all(i["exit"] is not None and i["exit"]["code"] == 0 for i in finals.values())
+            and all(reported[p] == ended[p] for p in reported)
+            and len(reported) >= 2,
+            f"controller: lm-grow pods' final incarnations "
+            f"{[(p, i['restore'], i['exit']) for p, i in finals.items()]}, the worlds their "
+            f"metrics lines report {reported}: want each to exit 0 and report the world it "
+            "ended at")
+    want = mp_expected_launches({}, _mp_config({}))
+    steps = [(w, s) for _, w, _, group in gens for i in group for s in i["steps"]]
+    bad = [(w, s["rank"], s["launches"]) for w, s in steps if s["launches"] != want]
+    require(not bad and {w for w, _ in steps} == {2, 3},
+            f"controller: flash launches a step {bad[:5]}, want {want} on every rank")
+    losses = [s["loss"] for _, s in steps] + [s["loss"] for i in w2v for s in i["steps"]]
+    require(all(math.isfinite(x) for x in losses), f"controller: losses {losses}")
+
+    # -- the collector's samples: chips used of 3 and running trainers ----------
+    samples = []
+    for s in collector.samples:
+        row = (round(s.tpu_utilization * CTL_NODES),
+               {k: v for k, v in s.running_trainers.items() if v})
+        if not samples or samples[-1][1:] != row:
+            samples.append((round(s.timestamp - t_start, 2), *row))
+    marks = [(2, {lm_job.name: 2}), (3, {lm_job.name: 3}),
+             (3, {lm_job.name: 2, w2v_job.name: 1})]
+    it = iter((u, r) for _, u, r in samples)
+    require(all(m in it for m in marks),
+            f"controller: the collector's samples {samples} lack chips used/total 2/3, then "
+            "3/3, then 3/3 with both jobs")
+
+    # -- the figures ----------------------------------------------------------------
+    def latency(record, gen):
+        """The record's time to the last rank's first step at the new world:
+        the rest (the record to the last new incarnation's process start:
+        the old ranks' round boundary, exit 75 and relaunch; negative for a
+        shrink, whose record is written after the victim's drain, while the
+        survivors already relaunch) and the start-up (that start to the
+        first step: imports, the group, the build and restore, the step)."""
+        _, world, _, group = gen
+        starts = [i["start"] for i in group]
+        firsts = [i["steps"][0]["t"] for i in group]
+        return {"world": world, "total_s": max(firsts) - record[3],
+                "startup_s": max(firsts) - max(starts), "rest_s": max(starts) - record[3],
+                "startup_by_rank_s": [f - s for f, s in zip(firsts, starts)]}
+
+    def step_ms(gen):
+        """The median step of a generation's ranks, each incarnation's first
+        step (its warm-up) left out."""
+        steady = [s["ms"] for i in gen[3] for s in i["steps"][1:]]
+        return statistics.median(steady) if steady else None
+
+    grow, shrink = history[lm_job.name][:2]
+    lat = {"grow": latency(grow, gens[1]), "shrink": latency(shrink, gens[2])}
+    if regrows and len(gens) > 3:
+        lat["regrow"] = latency(regrows[0], gens[3])
+    w2v_first = w2v[0]["steps"][0]["t"]
+    out = {
+        "nodes": CTL_NODES, "lm_shards": CTL_LM_SHARDS, "w2v_shards": CTL_W2V_SHARDS,
+        "scale_records": got, "expected_world": expected, "jobs": phases, "pods": pods,
+        "worlds_reported": reported,
+        "w2v_pod_phases": w2v_phases, "exactly_once": once,
+        "flash_launches_per_step_and_rank": want,
+        "launches": {k: sum(s["launches"][k] for _, s in steps) for k in want},
+        "actuation": lat,
+        "step_ms": {"world2_before": step_ms(gens[0]), "world3": step_ms(gens[1]),
+                    "world2_after": step_ms(gens[2]),
+                    **({"world3_regrown": step_ms(gens[3])} if len(gens) > 3 else {})},
+        "peak_memory_gib": {i["pod"]: i["exit"]["peak_memory_gib"] for i in lm + w2v},
+        "first_step_s": {"lm_grow": min(s["t"] for i in gens[0][3] for s in i["steps"][:1])
+                         - t_submit_lm, "w2v_admit": w2v_first - t_submit_w2v},
+        "w2v_wait_s": w2v_first - t_submit_w2v,
+        "chip_free_to_decision_s": grow[3] - t_free,
+        "w2v_submit_to_decision_s": shrink[3] - t_submit_w2v,
+        "samples": samples, "status": status, "wall_s": t_end - t_start,
+    }
+    print(f"controller (a): lm-grow (the LM at d {SLICE['d_model']}, {SLICE['n_layers']} "
+          f"layers, batch {BATCH} a rank) trained at world 2 from {out['first_step_s']['lm_grow']:.2f} "
+          f"s after its submit; status --json answered (world {status['world']}, done "
+          f"{status['done']}); the third chip freed, the autoscaler decided 2 -> 3 "
+          f"{out['chip_free_to_decision_s']:.2f} s later (edl/expected_world "
+          f"{expected['grow']}); actuation {lat['grow']['total_s']:.2f} s to the first world-3 "
+          f"step on every rank: {lat['grow']['rest_s']:.2f} s to the last new incarnation's "
+          f"process start, then {lat['grow']['startup_s']:.2f} s of start-up to the last "
+          f"rank's first step (each rank's start-up {lat['grow']['startup_by_rank_s']})")
+    print(f"controller (b): w2v-admit submitted and pending; make-room 3 -> 2 "
+          f"{out['w2v_submit_to_decision_s']:.2f} s after its submit (edl/expected_world "
+          f"{expected['shrink']}); actuation {lat['shrink']['total_s']:.2f} s to the first "
+          f"world-2 step on both ranks ({lat['shrink']['startup_s']:.2f} s start-up, "
+          f"{lat['shrink']['rest_s']:.2f} s the rest); w2v-admit's wait from submit to its "
+          f"first step {out['w2v_wait_s']:.2f} s; both jobs Succeeded, every pod "
+          f"Succeeded, {once['shards']} LM shards each trained once into the final state over "
+          f"generations {once['generations']}")
+    if "regrow" in lat:
+        print(f"controller (b): w2v-admit's end freed its chip while lm-grow still trained: "
+              f"the autoscaler grew lm-grow 2 -> 3 again, actuation "
+              f"{lat['regrow']['total_s']:.2f} s ({lat['regrow']['startup_s']:.2f} s start-up)")
+    print(f"controller: LM step ms {out['step_ms']}; flash launches {want} every step on every "
+          f"rank at worlds 2 and 3; peak memory GiB {out['peak_memory_gib']}")
+    print("controller: collector samples (s, chips used of 3, running trainers): "
+          + "; ".join(f"{t} {u}/3 {r}" for t, u, r in samples))
+    print(f"controller: parts (a)-(b) took {out['wall_s']:.1f} s")
+    out["cli"] = cli_out
+    return out
+
+
+def phase_controller() -> dict:
+    """The controller phase: parts (a) and (b) `controller_drive`, part (c)
+    the CLI (`_ctl_cli`, `_ctl_status`); with its own seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="edl-controller-") as root:
+        out = controller_drive(root)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"controller: the phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     if "--dp-rank" in argv:  # one rank of the dp phase's part (b)
         i = argv.index("--dp-rank")
@@ -4478,6 +5134,8 @@ def main(argv) -> int:
         return el_mp_entry_main(argv[1:])
     if argv and argv[0] == "--entry-record":  # one entry of the entries phase's part (a)
         return entry_record_main(argv[1:])
+    if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
+        return ctl_entry_main(argv[1:])
     device = phase_device()
     sass = phase_build()
     kernels = phase_kernels(device)
@@ -4502,6 +5160,13 @@ def main(argv) -> int:
             row["launches"] = launches[name]
         print(json.dumps({"kernels": list(kernels.values())}))
         print(json.dumps({"entries": entries}))
+        return 0
+    if "--controller" in argv:  # the kernels and the controller phase only
+        controller = phase_controller()
+        for name, row in kernels.items():
+            row["launches"] = row["launches_controller"] = controller["launches"][name]
+        print(json.dumps({"kernels": list(kernels.values())}))
+        print(json.dumps({"controller": controller}))
         return 0
     if "--elastic" in argv:  # the kernels and the elastic phase only
         elastic = phase_elastic(device)
@@ -4530,6 +5195,7 @@ def main(argv) -> int:
     elastic = phase_elastic(device)
     mp = phase_mp(device)
     entries = phase_entries(lm["profiler"])
+    controller = phase_controller()
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
@@ -4539,6 +5205,7 @@ def main(argv) -> int:
         row["launches_dp"] = dp["launches"][name]
         row["launches_elastic"] = elastic["launches"][name]
         row["launches_mp"] = mp["launches"][name]
+        row["launches_controller"] = controller["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
@@ -4549,6 +5216,7 @@ def main(argv) -> int:
     print(json.dumps({"elastic": elastic}))
     print(json.dumps({"mp": mp}))
     print(json.dumps({"entries": entries}))
+    print(json.dumps({"controller": controller}))
     import torch
 
     # count: the devices this run uses

@@ -7,9 +7,15 @@ at the same path:
 
   ckpt_plane/ the memory-resident checkpoint plane: peer-replicated ZeRO-1
              shards in the JAX package's blob format
+  cli        ``python -m edl_tpu_torch``: validate, run, controller, status,
+             serve, plan and train, as the JAX package's CLI
+  controller/ the control plane: cluster accounting, the autoscaler, the
+             per-job updater, actuation through the job's coordinator, and
+             the in-memory and local-process cluster backends
   coordinator/ copies of the JAX package's coordinator client, in-process
              twin and native-server manager (the same binary)
-  examples/  the training entries (CTR, the LM) the launcher execs
+  examples/  the training entries the launcher execs, and the elastic demo
+  k8s/       the Kubernetes backend of the control plane (stdlib HTTP)
   models/    the model bundle and the zoo: fit_a_line, mnist, word2vec, ctr,
              resnet and the transformer LM (with its serving steps)
   obs/       the metrics registry, span tracing and `/metrics` over HTTP
@@ -25,7 +31,8 @@ at the same path:
              fault-tolerance policy and the straggler detector
   serving/   batch and continuous-batching LM serving replicas, router,
              HTTP frontend and autoscaler signals
-  tools/     FLOP and MFU accounting
+  tools/     the cluster collector, the step profiler, FLOP and MFU
+             accounting
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device and no device named they raise.

@@ -82,6 +82,11 @@ class TPUSpec:
     (`pkg/resource/training_job.go:194-207`, `pkg/cluster.go:224-232`). The
     autoscaler treats ``chips_per_trainer`` as the indivisible scheduling
     granule — you can't hand a trainer half a slice.
+
+    The port keeps the block's name, keys and defaults, so one job YAML
+    reads the same in both packages; here a chip is one H100 card
+    (``nvidia.com/gpu`` at the Kubernetes edge) and ``accelerator_type``
+    passes through to the pods as ``EDL_TPU_ACCELERATOR``.
     """
 
     accelerator_type: str = "v5e"

@@ -68,13 +68,24 @@ are the same: the plans are the JAX worker's, shard for shard.
 ``profiler=`` and ``compile_cache_dir`` are the `ElasticWorker`'s: each
 incarnation marks its first step warm-up and the summary carries the
 ``profile_*`` keys; the cache directory is accepted and unused.
+
+A rank heartbeats on a thread through the two stretches that make no
+coordinator call and grow with the model: an incarnation's restore (the
+model's build and the checkpoint's load) and a checkpoint's save. The JAX
+worker beats only between rounds, so a rank whose restore outlasts the
+coordinator's heartbeat TTL (10 s for the launcher's coordinator) expires,
+the epoch moves, and the whole gang warm-restarts into the same restore,
+again and again (the LM at GPT-2-small width, three ranks sharing one H100
+over gloo, took 11 s to restore).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import random
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -291,6 +302,28 @@ class MultiHostWorker:
             return
         self.obs.timed_heartbeat(self.client)  # fails soft under OutboxClient
         self.obs.note_outage_state(self.client)
+
+    @contextlib.contextmanager
+    def _beating(self):
+        """Heartbeat every ``heartbeat_interval`` on a thread for the body's
+        length (see the module docstring). A failed beat is left to the
+        round loop, whose heartbeats meet the outage."""
+        stop = threading.Event()
+
+        def beat() -> None:
+            while not stop.wait(max(0.1, self.config.heartbeat_interval)):
+                try:
+                    self.client.heartbeat()
+                except CoordinatorError:
+                    pass
+
+        thread = threading.Thread(target=beat, name="edl-mh-beat", daemon=True)
+        thread.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            thread.join()
 
     def _consume_watch(self) -> bool:
         """Drain pushed epoch notifications and latch whether one names an
@@ -761,7 +794,8 @@ class MultiHostWorker:
         if self.profiler is not None:
             self.profiler.mark_warmup()
         t_restore0 = time.monotonic()
-        state = self._restore_or_init(trainer)
+        with self._beating():
+            state = self._restore_or_init(trainer)
         self.policy.note_restore_cost(time.monotonic() - t_restore0)
         last_ckpt_step = int(state.step)
         t_start = time.perf_counter()
@@ -771,13 +805,14 @@ class MultiHostWorker:
             rank 0 completes the shards that checkpoint now covers."""
             nonlocal last_ckpt_step
             ck_t0 = time.monotonic()
-            self.ckpt.save(int(state.step), state)
-            self.ckpt.wait()
-            if grouped:
-                # The save is the round's barrier (the plan GC relies on it),
-                # but its gather issues no collective when nothing is
-                # sharded: make it one, as the JAX package's save is.
-                dist.barrier()
+            with self._beating():
+                self.ckpt.save(int(state.step), state)
+                self.ckpt.wait()
+                if grouped:
+                    # The save is the round's barrier (the plan GC relies on
+                    # it), but its gather issues no collective when nothing
+                    # is sharded: make it one, as the JAX package's save is.
+                    dist.barrier()
             self.policy.note_checkpoint_cost(time.monotonic() - ck_t0)
             if self.ckpt_plane is not None:
                 # Each process pushes its OWN rank's ZeRO slice — the plane

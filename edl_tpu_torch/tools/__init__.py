@@ -1,7 +1,8 @@
-"""Tools of the port: the step profiler and trace capture
-(`tools.profiler`), and FLOP and MFU accounting (`tools.mfu`). The JAX
-package's metrics collector reads the controller, and comes with it."""
+"""Tools of the port: the cluster metrics collector (`tools.collector`),
+the step profiler and trace capture (`tools.profiler`), and FLOP and MFU
+accounting (`tools.mfu`)."""
 
+from edl_tpu_torch.tools.collector import ClusterSample, Collector
 from edl_tpu_torch.tools.profiler import (
     StepProfiler,
     StepRecord,
@@ -12,6 +13,8 @@ from edl_tpu_torch.tools.profiler import (
 )
 
 __all__ = [
+    "ClusterSample",
+    "Collector",
     "StepProfiler",
     "StepRecord",
     "annotate_step",

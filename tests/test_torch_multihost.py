@@ -484,6 +484,39 @@ def test_prefetch_config_trains_identically(tmp_path):
     assert results["sync"][2] == 3
 
 
+@pytest.mark.parametrize("stretch", ["restore", "checkpoint"])
+def test_a_restore_or_save_past_the_heartbeat_ttl_keeps_the_member(stretch, tmp_path):
+    """A rank's restore (an incarnation's model build and load) and its
+    checkpoint saves make no coordinator call and grow with the model.
+    Held past the coordinator's heartbeat TTL, a worker that beats only
+    between rounds expires, the epoch moves and it exits 75 into the same
+    restore again (the LM at full width looped so on the card). The worker
+    beats on a thread through both: here each takes 3 TTLs of 0.5 s, and
+    the world-1 worker still drains its queue with no epoch move."""
+    from edl_tpu_torch.coordinator.inprocess import InProcessCoordinator
+
+    coord = InProcessCoordinator(task_lease_sec=60.0, heartbeat_ttl_sec=0.5)
+    coord.client("admin").add_tasks(["k0", "k1", "k2"])
+    client = coord.client("w0")
+    worker = _make_worker("torch", client, tmp_path, pipeline_depth=0,
+                          checkpoint_interval=3, heartbeat_interval=0.1)
+    slow = worker._restore_or_init if stretch == "restore" else worker.ckpt.save
+
+    def held(*args, **kw):
+        time.sleep(1.5)
+        return slow(*args, **kw)
+
+    if stretch == "restore":
+        worker._restore_or_init = held
+    else:
+        worker.ckpt.save = held
+    epoch = coord.client("probe").epoch()
+    metrics = worker.run()
+    assert metrics["steps"] == 9.0 and metrics["world"] == 1.0
+    st = client.status()
+    assert (int(st["done"]), int(st["queued"]), int(st["epoch"])) == (3, 0, epoch + 1)
+
+
 # -- graceful leave ------------------------------------------------------------
 
 

@@ -9,7 +9,8 @@ launcher can exec it as its ``EDL_ENTRY``: on a rescale it exits 75 and is
 relaunched. Knobs:
 
 - ``WORKER_NAME``: the member name (stable across relaunches, so a new
-  incarnation takes over its predecessor's membership and leases);
+  incarnation takes over its predecessor's membership and leases); without
+  it the pod's ``EDL_POD_NAME``, as a `ProcessCluster` pod sets it;
 - ``MODEL``: ``fit_a_line`` (default), ``ctr_small`` (sparse dim 503) or
   ``lm`` (the transformer LM of the ``LM`` JSON's config, Adam with the
   ``TRAINER`` JSON's options);
@@ -26,9 +27,10 @@ relaunched. Knobs:
   phase open until a peer has joined);
 - ``CKPT_DIR``, ``CKPT_INTERVAL`` (default 1000 steps);
 - ``EXPORT_DIR``/``EXPORT_INTERVAL``: a `PeriodicExporter` on every rank;
-- ``RESULT``: where each incarnation appends its rank's summary (the
-  shards it read in order, its losses and metrics) as one JSON line, and
-  writes its rank to ``RESULT.rank`` once the process group is up.
+- ``RESULT``: where each incarnation appends its rank's summary (its
+  member name, the shards it read in order, its losses and metrics) as one
+  JSON line, and writes its rank to ``RESULT.rank`` once the process group
+  is up.
 """
 
 from __future__ import annotations
@@ -112,7 +114,7 @@ def main() -> None:
 
     ctx = LaunchContext.from_env()
     client = wait_coordinator(ctx.coordinator_endpoint)
-    client.worker = os.environ["WORKER_NAME"]
+    client.worker = os.environ.get("WORKER_NAME") or os.environ["EDL_POD_NAME"]
     ident = distributed_init(ctx, client, backend="gloo", timeout=60.0)
     Path(os.environ["RESULT"] + ".rank").write_text(str(ident.process_id))
     trainer_kw = {}
@@ -163,7 +165,8 @@ def main() -> None:
     worker = MultiHostWorker(model, client, source, cfg, device="cpu", **layout)
     if os.environ.get("RESTORES"):
         record_restores(worker, os.environ["RESTORES"], ident.process_id)
-    summary = {"rank": ident.process_id, "world": ident.num_processes, "reads": reads}
+    summary = {"worker": client.worker, "rank": ident.process_id,
+               "world": ident.num_processes, "reads": reads}
     code = 0
     try:
         metrics = worker.run()
