@@ -9,6 +9,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
     python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
+    python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
 
 It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order; a
 phase that fails raises, and the script exits non-zero without its last line:
@@ -169,9 +170,10 @@ phase that fails raises, and the script exits non-zero without its last line:
     checkpoint restores bit for bit into a one-device Trainer too.
     Printed: recovery, each incarnation's start-up, a world-4 round and
     step, a world-2 step, each rank's peak memory.
-14. Model parallelism (``mp``): phase 4's LM at its full width trained
-    by the mesh Trainer on ranks that share the one card, one process a
-    rank over gloo with CUDA tensors (``chip_smoke.py --mp-rank R JOB``):
+14. Model parallelism (``mp``): phase 4's LM at its full width and
+    ``MP_LAYERS`` (4) of its 12 layers trained by the mesh Trainer on
+    ranks that share the one card, one process a rank over gloo with CUDA
+    tensors (``chip_smoke.py --mp-rank R JOB``):
     (a) ``{"seq": 2}``, the flash ring; (b) ``{"model": 2}``; (c)
     ``{"pipe": 2}`` GPipe, (d) 1F1B and (e) interleaved 1F1B (v 2), each
     at 4 microbatches; (f) ``{"expert": 2}``, the MoE phase's arm B (8
@@ -182,7 +184,7 @@ phase that fails raises, and the script exits non-zero without its last line:
     leaf's first-step gradient (a rank's part, after the reductions)
     within ``TOL_MP_GRAD`` of the one-device gradient's part, and each
     step's flash launches on each rank exactly the arm's count
-    (`mp_expected_launches`: in (a) 2 hops x 12 layers of the forward, and
+    (`mp_expected_launches`: in (a) 2 hops x 4 layers of the forward, and
     twice that of each backward kernel, which a hop's f32 dO runs twice).
     Printed: each rank's step time and peak memory, rank 0's busy share
     from one profiled step, and ``data_plane()`` (analytic). A rank that
@@ -235,12 +237,37 @@ phase that fails raises, and the script exits non-zero without its last line:
     into the slowest rank's start-up and the rest), the LM's step ms at
     each world, each incarnation's peak memory, w2v-admit's wait from
     submit to its first step, the collector's samples and the wall time.
-17. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
+17. Composed chaos (``chaos``), the port's counterpart of
+    ``tests/test_chaos_composed.py`` at phase 4's width: two LM jobs, each
+    with its own native coordinator at the launcher's 10 s heartbeat TTL,
+    under one `ChaosScenario` whose every fault gates on observed
+    progress. Alpha (the SIGKILL axis) is the LM entry under the port's
+    launcher as one `ProcessCluster` trainer pod (``--ctl-entry`` records
+    it); once a shard has committed, `kill_pod` SIGKILLs its process group
+    and `restart_failed` starts a replacement, which restores the durable
+    checkpoint and drains the queue. Beta (the partition axis) is an
+    `ElasticWorker` on the card whose client goes through the port's
+    `ChaosProxy`, with the adaptive fault-tolerance policy, started once
+    alpha is killed: three blips, each healed once beta has seen 1.2 s of
+    it, then a storm held until beta has parked and its ``/metrics`` and
+    ``/healthz`` have been scraped, then the heal. An unfaulted twin of
+    beta trains on the card first, while alpha's pod starts. Holds: both queues done exactly once (the
+    coordinators' ``status()``; alpha's lineage through its generations),
+    beta's policy took at least two modes (three reconnects and a park, each
+    decision a span), its audit record in the KV, beta's extra steps over
+    the twin in [0, one shard's batches] and its final loss within rel
+    0.05 of the twin's (the JAX test's bounds), 12 launches of each flash
+    kernel every step of alpha, beta and the twin. Printed: alpha's
+    kill-to-first-step recovery and its start-up share, beta's blip rides
+    and its park decision, the steps and losses, the fired timeline's
+    spec.
+18. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
     per model, the remat LM included), one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
     {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}``, one
-    ``{"entries": {...}}`` and one ``{"controller": {...}}``.
-18. The last line: ``{"ok": true, "device": {...}}``.
+    ``{"entries": {...}}``, one ``{"controller": {...}}`` and one
+    ``{"chaos": {...}}``.
+19. The last line: ``{"ok": true, "device": {...}}``.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -3931,10 +3958,15 @@ def phase_elastic(device) -> dict:
 
 # -- mp: model parallelism of the LM on one card --------------------------------
 
-#: the arms, each at the slice's width: (label, mesh axes, config overrides).
+#: the arms, each at the slice's width (at MP_LAYERS deep): (label, mesh axes,
+#: config overrides).
 #: Ranks share the one card, one process each, over gloo with CUDA tensors
 #: (NCCL refuses two ranks on one GPU)
 MP_M = 4
+#: the arms' depth: the slice's width at 4 of its 12 layers (every layout
+#: still splits it: two pipe stages of two virtual stages of one layer), to
+#: keep the script inside its time limit
+MP_LAYERS = 4
 #: the MoE arm: phase 4's moe arm B (8 experts, capacity factor 1.25, top-2,
 #: aux 0.01), its experts over two ranks, the tokens whole on both
 MP_MOE = dict(MOE, moe_top_k=2, moe_aux_weight=0.01)
@@ -3971,7 +4003,12 @@ MP_RANK_TIMEOUT = 900
 def _mp_config(overrides: dict):
     from edl_tpu_torch.models.transformer import TransformerConfig
 
-    return TransformerConfig(flash=True, **SLICE, **overrides)
+    return TransformerConfig(flash=True, **{**SLICE, **overrides})
+
+
+def _mp_arm_config(overrides: dict):
+    """An arm's config in the mp phase: the slice at ``MP_LAYERS`` deep."""
+    return _mp_config({"n_layers": MP_LAYERS, **overrides})
 
 
 def mp_expected_launches(axes: dict, cfg) -> dict:
@@ -4001,7 +4038,7 @@ def mp_references(device, root: str) -> dict:
 
     out = {}
     for kind, overrides in (("dense", {}), ("moe", MP_MOE)):
-        model = make_model(_mp_config(overrides))
+        model = make_model(_mp_arm_config(overrides))
         trainer = Trainer(model, config=TrainerConfig(optimizer="adam", learning_rate=3e-4,
                                                       seed=0), device=device)
         state = trainer.init_state()
@@ -4055,7 +4092,7 @@ def mp_rank_main(job_path: str, rank: int) -> int:
     try:
         for name in job["arms"]:
             axes, kw = arms[name]
-            cfg = _mp_config(kw)
+            cfg = _mp_arm_config(kw)
             model = make_model(cfg)
             mesh = build_mesh(MeshSpec(dict(axes)))
             torch.cuda.synchronize()
@@ -4171,7 +4208,7 @@ def phase_mp(device) -> dict:
     for name, axes, kw in MP_ARMS:
         world = math.prod(axes.values())
         rows = [rank["arms"][name] for rank in ranks[world]]
-        cfg = _mp_config(kw)
+        cfg = _mp_arm_config(kw)
         ref = refs["moe" if cfg.moe_experts else "dense"]["losses"]
         want = mp_expected_launches(axes, cfg)
         for r, row in enumerate(rows):
@@ -5123,6 +5160,402 @@ def phase_controller() -> dict:
     return out
 
 
+# -- chaos: the composed chaos scenario on the card ------------------------------
+
+#: job alpha (the SIGKILL axis): the LM entry at the slice's width as one
+#: `ProcessCluster` trainer pod, shards of CH_ALPHA_BATCHES batches, a
+#: checkpoint a shard (the entry's cloud mode commits a shard once a save
+#: covers it)
+CH_ALPHA_SHARDS, CH_ALPHA_BATCHES = 4, 2
+#: job beta (the partition axis): an in-process `ElasticWorker` on the LM,
+#: shards of CH_BETA_BATCHES, a checkpoint a shard; each batch paced by
+#: CH_BETA_PACE seconds (`tests/test_chaos_composed.py`'s BETA_PACE) so its
+#: queue outlives the three blips and the storm (the gates synchronise)
+CH_BETA_SHARDS, CH_BETA_BATCHES, CH_BETA_PACE = 12, 4, 0.2
+#: a blip's length as beta sees it (the JAX test holds each for 1.2 s)
+CH_BLIP_S = 1.2
+#: both jobs' coordinators: the launcher's heartbeat TTL
+CH_TTL = 10.0
+#: the phase's deadline
+CH_TIMEOUT = 420
+#: extra arguments of alpha's entry (none on the card)
+CH_ENTRY_ARGS = ""
+
+
+def _ch_paced_source(model, counts: dict):
+    """Beta's source: `SyntheticShardSource` with each shard's reads
+    counted and each batch paced by ``CH_BETA_PACE``."""
+    from edl_tpu_torch.runtime import SyntheticShardSource
+
+    class Paced(SyntheticShardSource):
+        def read(self, shard):
+            counts[shard] = counts.get(shard, 0) + 1
+            for batch in super().read(shard):
+                time.sleep(CH_BETA_PACE)
+                yield batch
+
+    return Paced(model, batch_size=BATCH, batches_per_shard=CH_BETA_BATCHES)
+
+
+def _ch_beta_config(root: str, name: str, **kw):
+    import os
+
+    from edl_tpu_torch.runtime import ElasticConfig, TrainerConfig
+
+    return ElasticConfig(checkpoint_dir=os.path.join(root, f"ck-{name}"),
+                         checkpoint_interval=CH_BETA_BATCHES, heartbeat_interval=0.0,
+                         trainer=TrainerConfig(optimizer="adam", learning_rate=3e-4), **kw)
+
+
+def chaos_drive(device, root: str) -> dict:
+    """The port's counterpart of `tests/test_chaos_composed.py` at the
+    slice's width, its SIGKILL and partition axes overlapping under one
+    `ChaosScenario` whose every fault gates on observed progress.
+
+    Alpha: the LM entry under the port's launcher as one `ProcessCluster`
+    trainer pod (``--ctl-entry`` records its events) against a native
+    coordinator with the launcher's 10 s TTL; once a shard has committed,
+    `kill_pod` SIGKILLs the pod's whole process group, `restart_failed`
+    starts a replacement that restores the durable checkpoint and drains
+    the queue. Beta: an `ElasticWorker` on the LM whose client goes through
+    the port's `ChaosProxy` to its own native coordinator (10 s TTL), with
+    the adaptive fault-tolerance policy: three blips, each healed once beta
+    has seen 1.2 s of it, then a storm held until beta has parked and its
+    ``/metrics`` has been scraped, then the heal. An unfaulted twin of beta trains on the card first, while
+    alpha's pod starts."""
+    import os
+    import threading
+    import urllib.request
+
+    import torch
+
+    import edl_tpu_torch
+    from edl_tpu_torch.api.quantity import ResourceList
+    from edl_tpu_torch.api.types import TrainingJob
+    from edl_tpu_torch.api.validation import normalize
+    from edl_tpu_torch.controller.cluster import NodeInfo
+    from edl_tpu_torch.controller.jobparser import parse_to_trainer
+    from edl_tpu_torch.controller.process_cluster import ProcessCluster
+    from edl_tpu_torch.coordinator import (CoordinatorServer, InProcessCoordinator,
+                                           RetryPolicy)
+    from edl_tpu_torch.coordinator.client import CoordinatorClient
+    from edl_tpu_torch.coordinator.server import ensure_built
+    from edl_tpu_torch.models.transformer import TransformerConfig, make_model
+    from edl_tpu_torch.obs.metrics import parse_prometheus
+    from edl_tpu_torch.runtime import ElasticWorker, SyntheticShardSource, train_loop
+    from edl_tpu_torch.runtime.data import shard_names
+    from edl_tpu_torch.runtime.elastic import FT_POLICY_KEY
+    from edl_tpu_torch.runtime.ft_policy import PARK, RECONNECT, FTPolicyConfig
+    from edl_tpu_torch.testing import ChaosProxy, ChaosScenario
+
+    ensure_built()
+    fa = _flash_module()
+    want = {k: SLICE["n_layers"] for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + CH_TIMEOUT
+    me = os.path.abspath(__file__)
+    records = os.path.join(root, "records")
+    os.makedirs(records)
+
+    # -- alpha: the job, its coordinator and its pod ----------------------------
+    alpha_tasks = shard_names("alpha", CH_ALPHA_SHARDS)
+    server_a = CoordinatorServer(port=_free_port(), task_lease_sec=120.0,
+                                 heartbeat_ttl_sec=CH_TTL)
+    entry = (f"{sys.executable} {me} --ctl-entry {records} lm.train -- "
+             f"--vocab-size {SLICE['vocab_size']} --d-model {SLICE['d_model']} "
+             f"--n-layers {SLICE['n_layers']} --n-heads {SLICE['n_heads']} "
+             f"--d-ff {SLICE['d_ff']} --seq-len {SLICE['seq_len']} --batch-size {BATCH} "
+             f"--batches-per-shard {CH_ALPHA_BATCHES} --learning-rate 3e-4 "
+             f"--dist-backend gloo {CH_ENTRY_ARGS}").strip()
+    job = normalize(TrainingJob.from_dict({
+        "metadata": {"name": "alpha"},
+        "spec": {
+            "port": server_a.port, "fault_tolerant": True, "tpu": {"chips_per_trainer": 1},
+            "checkpoint_dir": os.path.join(root, "ck-alpha"),
+            "checkpoint_interval": CH_ALPHA_BATCHES,
+            "trainer": {
+                "entrypoint": f"{sys.executable} -m edl_tpu_torch.launcher start_trainer",
+                "min_instance": 1, "max_instance": 1,
+                "resources": {"requests": {"cpu": 1, "memory": "8Gi"}},
+                "env": {"EDL_COORDINATOR_ENDPOINT": server_a.address, "EDL_ENTRY": entry,
+                        "PYTHONPATH": os.path.dirname(os.path.dirname(
+                            os.path.abspath(edl_tpu_torch.__file__))),
+                        "PYTHONUNBUFFERED": "1",
+                        "EDL_TERMINATION_LOG": os.path.join(root, "term-alpha")}},
+        }}))
+    cluster = ProcessCluster([NodeInfo(name="node0", allocatable=ResourceList.make(
+        {"cpu": 16, "memory": "64Gi", "tpu": 1}))], log_dir=os.path.join(root, "pods"))
+    killed = {}
+
+    def kill_alpha():
+        (pod,) = [p for p in cluster.job_pods("alpha") if p.phase == "Running"]
+        killed.update(pod=pod.name, t=time.time(), done=int(admin_a.status()["done"]))
+        cluster.kill_pod(pod.name)  # SIGKILL to the whole group: no drain, no leave
+
+    def respawn_alpha():
+        """The Job controller's reconcile: once the pod reads Failed, a
+        replacement (a new member; the dead one expires by the TTL)."""
+        while not any(p.phase == "Failed" for p in cluster.job_pods("alpha")):
+            require(time.monotonic() < deadline, "chaos: the killed pod never failed")
+            time.sleep(0.1)
+        require(cluster.restart_failed("alpha") == 1, "chaos: no replacement for alpha")
+
+    def pods_log() -> str:
+        tails = []
+        for name in sorted(os.listdir(os.path.join(root, "pods"))):
+            with open(os.path.join(root, "pods", name)) as f:
+                tails.append(f"--- {name}\n{f.read()[-2500:]}")
+        return "\n".join(tails)
+
+    # -- beta: the worker behind the proxy, its launches counted ----------------
+    server_b = CoordinatorServer(task_lease_sec=120.0, heartbeat_ttl_sec=CH_TTL)
+    beta_tasks = shard_names("beta", CH_BETA_SHARDS)
+    cfg = TransformerConfig(flash=True, **SLICE)
+    #: each in-process step's launches, by the thread that stepped ("chaos-
+    #: twin", then "chaos-beta": the launch counters are the process's, so
+    #: the two never step at once)
+    step_log = {}
+    mesh_step = train_loop.Trainer._mesh_step
+
+    def counted(self, state, batch):
+        fa.reset_launches()
+        new, loss = mesh_step(self, state, batch)
+        step_log.setdefault(threading.current_thread().name, []).append(
+            dict(fa.LAUNCHES))
+        return new, loss
+
+    # -- the unfaulted twin of beta, on the card while alpha's pod starts -------
+    def run_twin():
+        try:
+            coord = InProcessCoordinator(task_lease_sec=120.0, heartbeat_ttl_sec=120.0)
+            coord.client("admin").add_tasks(beta_tasks)
+            twin = ElasticWorker(make_model(cfg), coord.client("w-twin"),
+                                 SyntheticShardSource(make_model(cfg), batch_size=BATCH,
+                                                      batches_per_shard=CH_BETA_BATCHES),
+                                 _ch_beta_config(root, "twin"), device=device)
+            twin_out["metrics"] = twin.run()
+        except BaseException as e:  # edl: noqa[EDL005] raised on the main thread below
+            twin_out["error"] = e
+
+    counts = {}
+    beta_out, twin_out = {}, {}
+    sc = None
+    twin_t = threading.Thread(target=run_twin, name="chaos-twin", daemon=True)
+    train_loop.Trainer._mesh_step = counted
+    try:
+        server_a.start()
+        server_b.start()
+        admin_a = server_a.client("admin")
+        admin_a.add_tasks(alpha_tasks)
+        admin_b = server_b.client("admin")
+        admin_b.add_tasks(beta_tasks)
+        trainer = parse_to_trainer(job)
+        cluster.create_role("alpha", "trainer", 1, trainer.requests, trainer.limits,
+                            workload=trainer)
+        twin_t.start()
+        with ChaosProxy(server_b.port, seed=11) as proxy:
+            raw_b = CoordinatorClient(port=proxy.port, worker="w-beta",
+                                      retry=RetryPolicy(deadline=0.5, seed=11))
+            worker_b = ElasticWorker(
+                make_model(cfg), raw_b, _ch_paced_source(make_model(cfg), counts),
+                _ch_beta_config(root, "beta", metrics_port=0, ft_policy=FTPolicyConfig(
+                    outage_budget=6.0, min_history=3, min_wait=1.0,
+                    storm_retry_deadline=0.5)),
+                device=device)
+            policy = worker_b.policy
+
+            def run_beta():
+                try:
+                    beta_out["metrics"] = worker_b.run()
+                except BaseException as e:  # edl: noqa[EDL005] raised on the main thread below
+                    beta_out["error"] = e
+
+            scraped = threading.Event()
+            beta_t = threading.Thread(target=run_beta, name="chaos-beta", daemon=True)
+
+            def hist(k):
+                return lambda: len(policy.history) >= k
+
+            sc = (ChaosScenario("composed-on-card")
+                  .register_proxy("beta", proxy)
+                  .register("alpha.kill", kill_alpha)
+                  .register("alpha.respawn", respawn_alpha)
+                  .register("beta.start", beta_t.start)
+                  .predicate("twin_done", lambda: bool(twin_out))
+                  .predicate("alpha_progress",
+                             lambda: int(admin_a.status().get("done", 0)) >= 1)
+                  .predicate("beta_warm", lambda: worker_b.steps_done >= 2)
+                  # a blip heals once beta has seen it for CH_BLIP_S: a step or
+                  # a checkpoint's wait makes no coordinator call, and a
+                  # blip no call met would be no incident
+                  .predicate("beta_down", lambda: worker_b.client.unreachable
+                             and worker_b.client.outage_seconds() >= CH_BLIP_S)
+                  .predicate("hist1", hist(1))
+                  .predicate("hist2", hist(2))
+                  .predicate("hist3", hist(3))
+                  .predicate("scraped", scraped.is_set)
+                  .add("alpha.kill", when="alpha_progress", timeout=CH_TIMEOUT,
+                       note="SIGKILL alpha's pod once a shard has committed")
+                  .add("alpha.respawn", note="Job-controller reconcile: replacement pod")
+                  # beta starts now: its partitions land while alpha's
+                  # replacement starts up, restores and drains
+                  .add("beta.start", when="twin_done", timeout=CH_TIMEOUT,
+                       note="beta's worker starts (the twin has ended)")
+                  .add("beta.partition", when="beta_warm", timeout=120.0,
+                       note="blip 1")
+                  .add("beta.heal", when="beta_down", timeout=60.0)
+                  .add("beta.partition", when="hist1", timeout=60.0, note="blip 2")
+                  .add("beta.heal", when="beta_down", timeout=60.0)
+                  .add("beta.partition", when="hist2", timeout=60.0, note="blip 3")
+                  .add("beta.heal", when="beta_down", timeout=60.0)
+                  .add("beta.partition", when="hist3", timeout=60.0,
+                       note="the storm: held until beta parks")
+                  .add("beta.heal", when="scraped", timeout=120.0,
+                       note="heal once beta has parked and /metrics was scraped"))
+            sc.start()
+            while policy.decisions[PARK] < 1:
+                require(time.monotonic() < deadline and sc.failed is None
+                        and "error" not in beta_out
+                        and (beta_t.is_alive() or beta_t.ident is None),
+                        f"chaos: beta never parked: {policy.state()} {sc.events} "
+                        f"{sc.failed} {beta_out.get('error')!r}\n{pods_log()}")
+                time.sleep(0.05)
+            url = getattr(worker_b, "metrics_url", None)
+            require(url is not None, "chaos: beta's metrics server never came up")
+            with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+                families = parse_prometheus(r.read().decode())
+            with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+                health = json.loads(r.read().decode())
+            ft_families = sorted(n for n in families if n.startswith("edl_ft_policy_"))
+            require({"edl_ft_policy_decisions_total", "edl_ft_policy_mode",
+                     "edl_ft_policy_incidents_total",
+                     "edl_ft_policy_park_threshold_seconds"} <= set(ft_families),
+                    f"chaos: beta's /metrics families {ft_families}")
+            require(health["ft_policy"]["mode"] == PARK, f"chaos: /healthz {health}")
+            scraped.set()
+            sc.join(timeout=max(1.0, deadline - time.monotonic()))
+            require(sc.completed, f"chaos: the scenario did not complete: {sc.failed} "
+                                  f"{sc.events}\n{pods_log()}")
+            beta_t.join(timeout=max(1.0, deadline - time.monotonic()))
+            require(not beta_t.is_alive(), "chaos: beta never drained after the heal")
+            if "error" in beta_out:
+                raise beta_out["error"]
+        metrics_b = beta_out["metrics"]
+        st_b = admin_b.status()
+        audit = json.loads(admin_b.kv_get(FT_POLICY_KEY.format(worker="w-beta")))
+        while any(p.proc is not None and p.proc.poll() is None for p in cluster.pods):
+            require(time.monotonic() < deadline, f"chaos: alpha never drained\n{pods_log()}")
+            time.sleep(0.2)
+        phases = [p.phase for p in cluster.job_pods("alpha")]
+        st_a = admin_a.status()
+    finally:
+        train_loop.Trainer._mesh_step = mesh_step
+        if sc is not None:
+            sc.close()
+        cluster.shutdown(grace=2.0)
+        server_a.stop()
+        server_b.stop()
+    twin_t.join(timeout=max(1.0, deadline - time.monotonic()))
+    require(not twin_t.is_alive(), "chaos: the twin never ended")
+    if "error" in twin_out:
+        raise twin_out["error"]
+    metrics_twin = twin_out["metrics"]
+    spans = worker_b.tracer.find(name="ft_decision")
+    beta_steps, beta_loss = metrics_b["steps"], metrics_b["final_loss"]
+    del worker_b
+    torch.cuda.empty_cache()
+
+    # -- the checks -------------------------------------------------------------
+    require(phases == ["Succeeded"], f"chaos: alpha's pods {phases}\n{pods_log()}")
+    for name, st, n in (("alpha", st_a, CH_ALPHA_SHARDS), ("beta", st_b, CH_BETA_SHARDS)):
+        require((int(st["done"]), int(st["queued"]), int(st["leased"])) == (n, 0, 0),
+                f"chaos: {name}'s queue done/queued/leased {st['done']}/{st['queued']}/"
+                f"{st['leased']}, want {n}/0/0")
+    incs = [i for i in _ctl_records(records) if i["pod"].startswith("alpha")]
+    gens = _ctl_generations(incs)
+    once = _ctl_exactly_once(gens, alpha_tasks)
+    (replacement,) = [i for i in incs if i["pod"] != killed["pod"]]
+    require(replacement["exit"] is not None and replacement["exit"]["code"] == 0
+            and replacement["steps"], f"chaos: alpha's replacement {replacement['exit']}")
+    alpha_steps = [s for i in incs for s in i["steps"]]
+    for s in alpha_steps:
+        require(s["launches"] == want, f"chaos: an alpha step launched {s['launches']}, "
+                                       f"want {want}")
+        require(math.isfinite(s["loss"]), f"chaos: alpha loss {s['loss']}")
+    require(sorted(step_log) == ["chaos-beta", "chaos-twin"]
+            and all(s == want for run in step_log.values() for s in run),
+            f"chaos: in-process steps launched {step_log}, want {want} each")
+    used = sorted(m for m, n in policy.decisions.items() if n > 0)
+    require(len(used) >= 2 and policy.decisions[RECONNECT] >= 3
+            and policy.decisions[PARK] >= 1 and policy.incidents >= 4,
+            f"chaos: beta's decisions {policy.decisions}, incidents {policy.incidents}")
+    require(len(spans) >= policy.incidents and all(
+        {"mode", "threshold", "elapsed", "park_breakeven"} <= set(s.attrs) for s in spans),
+        f"chaos: beta's decision spans {[s.attrs for s in spans]}")
+    require(audit["policy"] == "adaptive" and audit["incidents"] >= 4, f"chaos: {audit}")
+    require(set(counts) == set(beta_tasks), f"chaos: beta read {counts}")
+    replayed = sorted(s for s, n in counts.items() if n > 1)
+    require(len(replayed) <= 1 and all(counts[s] == 2 for s in replayed),
+            f"chaos: beta re-read {counts}")
+    extra = beta_steps - metrics_twin["steps"]
+    loss_rel = abs(beta_loss - metrics_twin["final_loss"]) / abs(metrics_twin["final_loss"])
+    require(0 <= extra <= CH_BETA_BATCHES and loss_rel <= 0.05,
+            f"chaos: beta {beta_steps} steps, loss {beta_loss}; twin "
+            f"{metrics_twin['steps']} steps, loss {metrics_twin['final_loss']}")
+    first = replacement["steps"][0]["t"]
+    park = [s for s in spans if s.attrs["mode"] == PARK][0]
+    out = {
+        "alpha": {"shards": CH_ALPHA_SHARDS, "killed_after_done": killed["done"],
+                  "recovery_s": first - killed["t"],
+                  "startup_s": first - replacement["start"],
+                  "startup_share": (first - replacement["start"]) / (first - killed["t"]),
+                  "restored_step": replacement["restore"]["restored_step"],
+                  "steps": len(alpha_steps), "exactly_once": once,
+                  "peak_memory_gib": replacement["exit"]["peak_memory_gib"]},
+        "beta": {"shards": CH_BETA_SHARDS, "decisions": dict(policy.decisions),
+                 "modes": used, "incidents": policy.incidents,
+                 "blip_rides_s": list(policy.history[:3]),
+                 "park_decision_elapsed_s": park.attrs["elapsed"],
+                 "park_threshold_s": park.attrs["threshold"],
+                 "steps": beta_steps, "final_loss": beta_loss, "replayed_shards": replayed,
+                 "spec": json.loads(sc.spec()), "fired": [e["action"] for e in sc.events]},
+        "twin": {"steps": metrics_twin["steps"], "final_loss": metrics_twin["final_loss"]},
+        "extra_steps": extra, "loss_diff": beta_loss - metrics_twin["final_loss"],
+        "loss_rel_diff": loss_rel, "flash_launches_per_step": want,
+        "launches": {k: sum(s["launches"][k] for s in alpha_steps)
+                     + sum(s[k] for run in step_log.values() for s in run) for k in want},
+        "exactly_once": {"alpha": [int(st_a["done"]), CH_ALPHA_SHARDS],
+                         "beta": [int(st_b["done"]), CH_BETA_SHARDS]},
+        "wall_s": time.perf_counter() - t0,
+    }
+    print(f"chaos alpha: SIGKILL after {killed['done']} of {CH_ALPHA_SHARDS} shards "
+          f"committed; the replacement restored step {out['alpha']['restored_step']}, "
+          f"kill-to-first-step recovery {out['alpha']['recovery_s']:.2f} s, of it "
+          f"{out['alpha']['startup_s']:.2f} s the replacement's start-up "
+          f"({out['alpha']['startup_share']:.1%}); every shard trained once over "
+          f"generations {once['generations']}")
+    print(f"chaos beta: blips ridden in {[round(x, 3) for x in out['beta']['blip_rides_s']]} s; "
+          f"parked {park.attrs['elapsed']:.2f} s into the storm (threshold "
+          f"{park.attrs['threshold']:.2f} s); decisions {policy.decisions}; steps "
+          f"{beta_steps} against the twin's {metrics_twin['steps']}; final loss "
+          f"{beta_loss!r} against {metrics_twin['final_loss']!r} (difference "
+          f"{out['loss_diff']!r}, {'zero' if out['loss_diff'] == 0 else 'not zero'})")
+    print(f"chaos: flash launches {want} every step of alpha, beta and the twin; the "
+          f"scenario fired {out['beta']['fired']}")
+    print("chaos: the fired timeline's spec " + sc.spec().replace("\n", " "))
+    return out
+
+
+def phase_chaos(device) -> dict:
+    """The chaos phase (`chaos_drive`), with its own seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="edl-chaos-") as root:
+        out = chaos_drive(device, root)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"chaos: the phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     if "--dp-rank" in argv:  # one rank of the dp phase's part (b)
         i = argv.index("--dp-rank")
@@ -5168,6 +5601,13 @@ def main(argv) -> int:
         print(json.dumps({"kernels": list(kernels.values())}))
         print(json.dumps({"controller": controller}))
         return 0
+    if "--chaos" in argv:  # the kernels and the chaos phase only
+        chaos = phase_chaos(device)
+        for name, row in kernels.items():
+            row["launches"] = row["launches_chaos"] = chaos["launches"][name]
+        print(json.dumps({"kernels": list(kernels.values())}))
+        print(json.dumps({"chaos": chaos}))
+        return 0
     if "--elastic" in argv:  # the kernels and the elastic phase only
         elastic = phase_elastic(device)
         for name, row in kernels.items():
@@ -5196,6 +5636,7 @@ def main(argv) -> int:
     mp = phase_mp(device)
     entries = phase_entries(lm["profiler"])
     controller = phase_controller()
+    chaos = phase_chaos(device)
     for name, row in kernels.items():
         row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
@@ -5206,6 +5647,7 @@ def main(argv) -> int:
         row["launches_elastic"] = elastic["launches"][name]
         row["launches_mp"] = mp["launches"][name]
         row["launches_controller"] = controller["launches"][name]
+        row["launches_chaos"] = chaos["launches"][name]
         row["in_step_ms"] = in_step.get(name)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
@@ -5217,6 +5659,7 @@ def main(argv) -> int:
     print(json.dumps({"mp": mp}))
     print(json.dumps({"entries": entries}))
     print(json.dumps({"controller": controller}))
+    print(json.dumps({"chaos": chaos}))
     import torch
 
     # count: the devices this run uses

@@ -36,7 +36,7 @@ class _Handler(BaseHTTPRequestHandler):
         if path == "/metrics":
             try:
                 body = self.registry.render_prometheus().encode()
-            except Exception as e:  # surfaced to the scraper as HTTP 500, not a dead server thread
+            except Exception as e:  # edl: noqa[EDL005] surfaced to the scraper as HTTP 500 — a broken collector fails the scrape loudly instead of killing the server thread
                 self.send_error(500, f"scrape failed: {type(e).__name__}: {e}")
                 return
             self._reply(body, "text/plain; version=0.0.4; charset=utf-8")
@@ -45,7 +45,7 @@ class _Handler(BaseHTTPRequestHandler):
             if self.health is not None:
                 try:
                     payload.update(self.health())
-                except Exception as e:  # health detail is best-effort; the probe still answers, degraded
+                except Exception as e:  # edl: noqa[EDL005] health detail is best-effort; the probe still answers (degraded, visibly)
                     payload.update(ok=False, error=f"{type(e).__name__}: {e}")
             self._reply(json.dumps(payload).encode(), "application/json")
         elif path == "/spans":

@@ -85,7 +85,10 @@ class Checkpointer:
         self.trainer = trainer if getattr(trainer, "mesh", None) is not None else None
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
-        self._error: Optional[BaseException] = None
+        #: the writer's failure, handed over through the join: the writer
+        #: appends to the list it was given, and ``wait`` reads it only
+        #: after joining, so no attribute is shared between the threads
+        self._errors: List[BaseException] = []
         #: seconds from the last completed ``save`` call to its step on disk
         self.durable_seconds: Optional[float] = None
 
@@ -102,8 +105,10 @@ class Checkpointer:
             if self.trainer.mesh.rank != 0:
                 return
             extra = None if extra is None else json.loads(json.dumps(extra))
+            self._errors = []
             self._thread = threading.Thread(
-                target=self._write, args=(int(step), snap, extra, None, t0),
+                target=self._write,
+                args=(int(step), snap, extra, None, t0, self._errors),
                 name="edl-checkpoint", daemon=True)
             self._thread.start()
             return
@@ -120,13 +125,15 @@ class Checkpointer:
             ready = (device, torch.cuda.Event())
             ready[1].record(torch.cuda.current_stream(device))
         extra = None if extra is None else json.loads(json.dumps(extra))
+        self._errors = []
         self._thread = threading.Thread(
-            target=self._write, args=(int(step), snap, extra, ready, t0),
+            target=self._write,
+            args=(int(step), snap, extra, ready, t0, self._errors),
             name="edl-checkpoint", daemon=True)
         self._thread.start()
 
     def _write(self, step: int, snap: dict, extra: Optional[dict], ready,
-               t0: float) -> None:
+               t0: float, errors: List[BaseException]) -> None:
         try:
             to_host = functools.partial(_map_tensors, lambda t: t.to("cpu"))
             if ready is None:
@@ -152,7 +159,7 @@ class Checkpointer:
             self.durable_seconds = time.perf_counter() - t0
             self._prune()
         except BaseException as e:  # edl: noqa[EDL005] kept and re-raised by wait()/save() on the caller's thread
-            self._error = e
+            errors.append(e)
 
     def _prune(self) -> None:
         for step in self.all_steps()[:-self.keep] if self.keep > 0 else []:
@@ -164,9 +171,9 @@ class Checkpointer:
         if t is not None:
             t.join()
             self._thread = None
-        err, self._error = self._error, None
-        if err is not None:
-            raise err
+        errors, self._errors = self._errors, []
+        if errors:
+            raise errors[0]
 
     def saving(self) -> bool:
         """True while a save is still in flight (non-blocking)."""

@@ -51,16 +51,19 @@ status counters bridged onto it (`obs.bridge`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
 import random
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from edl_tpu_torch.coordinator.client import CoordinatorError
 from edl_tpu_torch.coordinator.outbox import OutboxClient
 from edl_tpu_torch.coordinator.watch import make_epoch_watch
 from edl_tpu_torch.device import DeviceLike, resolve_device
@@ -272,6 +275,32 @@ class RescaleEvent:
     #: the mesh layout adopted at this rescale: this process's local mesh
     #: (every axis of size 1).
     layout: Dict[str, int] = field(default_factory=dict)
+
+
+@contextlib.contextmanager
+def beating(client, interval: float, name: str = "edl-beat"):
+    """Heartbeat ``client`` every ``interval`` seconds (at least 0.1) on a
+    thread for the body's length. A restore (the model's build and the
+    checkpoint's load) or a save makes no coordinator call and grows with
+    the model: past the heartbeat TTL the member would expire and the epoch
+    move under it. A failed beat is left to the caller's own loop, whose
+    heartbeats meet the outage."""
+    stop = threading.Event()
+
+    def beat() -> None:
+        while not stop.wait(max(0.1, interval)):
+            try:
+                client.heartbeat()
+            except CoordinatorError:
+                pass
+
+    thread = threading.Thread(target=beat, name=name, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
 
 
 class ElasticWorker:
@@ -954,16 +983,21 @@ class ElasticWorker:
                 yield (*item.payload, item.samples, item.place_seconds)
 
     def _checkpoint(self, state: TrainState, block: bool = False) -> None:
-        self.ckpt.save(int(state.step), state)
-        if block:
-            self.ckpt.wait()
-        if self.ckpt_plane is not None:
-            # One process holds the whole state, so one host gather covers
-            # every rank's shard. Best-effort — the blob save above is the
-            # durable copy.
-            self.ckpt_plane.replicate_all(
-                self._trainer.full_state(state), int(state.step),
-                max(1, self._world))
+        with self._beating():
+            self.ckpt.save(int(state.step), state)
+            if block:
+                self.ckpt.wait()
+            if self.ckpt_plane is not None:
+                # One process holds the whole state, so one host gather
+                # covers every rank's shard. Best-effort — the blob save
+                # above is the durable copy.
+                self.ckpt_plane.replicate_all(
+                    self._trainer.full_state(state), int(state.step),
+                    max(1, self._world))
+
+    def _beating(self):
+        return beating(self.client, self.config.heartbeat_interval,
+                       "edl-elastic-beat")
 
     def _checkpoint_and_commit(
         self, state: TrainState, reader: Optional[LeaseReader], block: bool
@@ -1070,52 +1104,55 @@ class ElasticWorker:
                 self.tracer.record("checkpoint", ck_t0, ck_t1, trace_id=rid,
                                    component="worker")
             rescale_t0 = time.perf_counter()
-            # Replan: the layout search (planner argmin when a layout_planner
-            # is wired, the static data-only resize otherwise — recorded
-            # either way so every rescale timeline carries the phase and a
-            # missing planner shows up as a ~0 s replan, not a missing one).
-            t_replan0 = time.time()
-            mesh = self.mesh = self._build_mesh(world)
-            replan_attrs: Dict = {"layout": json.dumps(dict(mesh.shape))}
-            if self.last_plan is not None:
-                replan_attrs.update(
-                    planned=True,
-                    schedule=self.last_plan.schedule or "none",
-                    microbatches=self.last_plan.microbatches,
-                    modeled_step_seconds=self.last_plan.step_seconds,
-                    baseline_step_seconds=self.last_plan.baseline_step_seconds,
-                )
-            else:
-                replan_attrs["planned"] = False
-            self.tracer.record("replan", t_replan0, time.time(),
-                               trace_id=rid, component="worker",
-                               **replan_attrs)
-            codec_channel = None
-            if self.config.trainer.wire_transport:
-                from edl_tpu_torch.runtime.wire import KVCodecChannel
+            # The layout, the Trainer's build and the restore make no
+            # coordinator call and grow with the model: beat through them.
+            with self._beating():
+                # Replan: the layout search (planner argmin when a layout_planner
+                # is wired, the static data-only resize otherwise — recorded
+                # either way so every rescale timeline carries the phase and a
+                # missing planner shows up as a ~0 s replan, not a missing one).
+                t_replan0 = time.time()
+                mesh = self.mesh = self._build_mesh(world)
+                replan_attrs: Dict = {"layout": json.dumps(dict(mesh.shape))}
+                if self.last_plan is not None:
+                    replan_attrs.update(
+                        planned=True,
+                        schedule=self.last_plan.schedule or "none",
+                        microbatches=self.last_plan.microbatches,
+                        modeled_step_seconds=self.last_plan.step_seconds,
+                        baseline_step_seconds=self.last_plan.baseline_step_seconds,
+                    )
+                else:
+                    replan_attrs["planned"] = False
+                self.tracer.record("replan", t_replan0, time.time(),
+                                   trace_id=rid, component="worker",
+                                   **replan_attrs)
+                codec_channel = None
+                if self.config.trainer.wire_transport:
+                    from edl_tpu_torch.runtime.wire import KVCodecChannel
 
-                # One process: in-place widening is safe,
-                # but persisting the widen floor through the coordinator means
-                # a restarted incarnation never re-learns an old overflow.
-                codec_channel = KVCodecChannel(self.client, self._epoch)
-            trainer = Trainer(self.model, mesh, self._trainer_config(),
-                              device=self.device, codec_channel=codec_channel)
-            self._trainer = trainer
-            self.ckpt.trainer = trainer  # saves and restores go through it
-            # Live re-step pricing: every completed step feeds its wall
-            # seconds to the policy's EMA (train_loop cost hook).
-            trainer.step_cost_cb = self.policy.note_step
-            if self.profiler is not None:
-                # the first step on a fresh Trainer builds its optimizer
-                # state and allocations: keep it out of steady summaries
-                self.profiler.mark_warmup()
-            # The warm-up overlaps restore: the fresh state is built once,
-            # then its forward runs on a background thread while the
-            # checkpoint loads into it.
-            fresh = trainer.init_state()
-            join_warm = self._start_warm_compile(trainer, fresh, trace_id=rid)
-            t_restore0 = time.time()
-            state = self._restore_or_init(trainer, fresh=fresh)
+                    # One process: in-place widening is safe,
+                    # but persisting the widen floor through the coordinator means
+                    # a restarted incarnation never re-learns an old overflow.
+                    codec_channel = KVCodecChannel(self.client, self._epoch)
+                trainer = Trainer(self.model, mesh, self._trainer_config(),
+                                  device=self.device, codec_channel=codec_channel)
+                self._trainer = trainer
+                self.ckpt.trainer = trainer  # saves and restores go through it
+                # Live re-step pricing: every completed step feeds its wall
+                # seconds to the policy's EMA (train_loop cost hook).
+                trainer.step_cost_cb = self.policy.note_step
+                if self.profiler is not None:
+                    # the first step on a fresh Trainer builds its optimizer
+                    # state and allocations: keep it out of steady summaries
+                    self.profiler.mark_warmup()
+                # The warm-up overlaps restore: the fresh state is built once,
+                # then its forward runs on a background thread while the
+                # checkpoint loads into it.
+                fresh = trainer.init_state()
+                join_warm = self._start_warm_compile(trainer, fresh, trace_id=rid)
+                t_restore0 = time.time()
+                state = self._restore_or_init(trainer, fresh=fresh)
             self.tracer.record(
                 "restore", t_restore0, time.time(), trace_id=rid,
                 component="worker", world=world,

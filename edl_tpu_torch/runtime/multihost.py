@@ -81,11 +81,9 @@ over gloo, took 11 s to restore).
 
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import random
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -101,7 +99,7 @@ from edl_tpu_torch.parallel.mesh import (Mesh, MeshSpec, build_hierarchical_mesh
                                          build_mesh, local_mesh)
 from edl_tpu_torch.parallel.sharding import axis_size, present_axes, shard_batch
 from edl_tpu_torch.runtime.checkpoint import Checkpointer
-from edl_tpu_torch.runtime.elastic import (ElasticConfig, check_layout_args,
+from edl_tpu_torch.runtime.elastic import (ElasticConfig, beating, check_layout_args,
                                            fixed_axes_mesh_spec,
                                            planned_trainer_config)
 from edl_tpu_torch.runtime.ft_policy import (
@@ -303,27 +301,11 @@ class MultiHostWorker:
         self.obs.timed_heartbeat(self.client)  # fails soft under OutboxClient
         self.obs.note_outage_state(self.client)
 
-    @contextlib.contextmanager
     def _beating(self):
-        """Heartbeat every ``heartbeat_interval`` on a thread for the body's
-        length (see the module docstring). A failed beat is left to the
-        round loop, whose heartbeats meet the outage."""
-        stop = threading.Event()
-
-        def beat() -> None:
-            while not stop.wait(max(0.1, self.config.heartbeat_interval)):
-                try:
-                    self.client.heartbeat()
-                except CoordinatorError:
-                    pass
-
-        thread = threading.Thread(target=beat, name="edl-mh-beat", daemon=True)
-        thread.start()
-        try:
-            yield
-        finally:
-            stop.set()
-            thread.join()
+        """Heartbeat on a thread for the body's length (see the module
+        docstring and `elastic.beating`)."""
+        return beating(self.client, self.config.heartbeat_interval,
+                       "edl-mh-beat")
 
     def _consume_watch(self) -> bool:
         """Drain pushed epoch notifications and latch whether one names an

@@ -88,7 +88,7 @@ class ServeRequestHandler(ObsRequestHandler):
         except (KeyError, ValueError, TypeError) as e:
             self.send_error(400, f"bad request: {e}")
             return
-        except Exception as e:  # surfaced to the caller as HTTP 500, not a dead server thread
+        except Exception as e:  # edl: noqa[EDL005] surfaced to the caller as HTTP 500 — a failed batch fails the request loudly instead of killing the server thread
             self.send_error(500, f"prediction failed: {type(e).__name__}: {e}")
             return
         status = replica.status()
@@ -129,7 +129,7 @@ class ServeRequestHandler(ObsRequestHandler):
         except (KeyError, ValueError, TypeError) as e:
             self.send_error(400, f"bad request: {e}")
             return
-        except Exception as e:  # surfaced to the caller as HTTP 500, not a dead server thread
+        except Exception as e:  # edl: noqa[EDL005] surfaced to the caller as HTTP 500 — a failed stream fails the request loudly instead of killing the server thread
             self.send_error(500, f"generation failed: {type(e).__name__}: {e}")
             return
         self._reply(json.dumps(result).encode(), "application/json")

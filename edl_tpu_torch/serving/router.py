@@ -176,7 +176,7 @@ class Router:
         def free_blocks(r) -> int:
             try:
                 return int(r.status().get("kv", {}).get("free_blocks", 0))
-            except Exception:  # a replica failing status mid-rescale just sorts last; routing must not die on it
+            except Exception:  # edl: noqa[EDL005] a replica failing status mid-rescale just sorts last; routing must not die on it
                 return -1
 
         candidates.sort(key=free_blocks, reverse=True)

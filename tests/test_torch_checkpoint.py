@@ -275,3 +275,37 @@ def test_checkpoint_saved_at_world_2_restores_bit_for_bit(tmp_path):
         for leaf, t in state.params.state_dict().items():
             if leaf not in ("deep_table", "wide_table"):
                 assert torch.equal(t, results[0][i]["saved"]["module"][leaf]), (name, leaf)
+
+
+@pytest.mark.parametrize("next_call", ["wait", "save"])
+def test_a_writer_failure_is_raised_once_by_the_next_call(tmp_path, monkeypatch, next_call):
+    """A failure on the writer thread is handed to the caller's thread under
+    the checkpointer's lock and raised by the next ``wait()`` or ``save()``,
+    exactly once: the call after it runs clean. The lock is what the thread
+    race rule (EDL006) asks of an attribute written on the writer thread
+    and read and cleared on the caller's; the port's analyzer holds it."""
+    from edl_tpu_torch.analysis import analyze
+
+    save, calls = torch.save, []
+
+    def failing_save(obj, f, *a, **k):
+        calls.append(f)
+        if len(calls) == 1:
+            raise OSError("disk full")
+        return save(obj, f, *a, **k)
+
+    monkeypatch.setattr(ckpt_module.torch, "save", failing_save)
+    model = fit_a_line.MODEL
+    trainer = Trainer(model, device="cpu", config=TrainerConfig(optimizer="sgd"))
+    state = trainer.init_state()
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, state)
+    with pytest.raises(OSError, match="disk full"):
+        ck.wait() if next_call == "wait" else ck.save(2, state)
+    ck.wait()  # nothing left to raise
+    ck.save(3, state)
+    ck.wait()
+    assert ck.latest_step() == 3 and 1 not in ck.all_steps()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ckpt_module.__file__)))
+    report = analyze([ckpt_module.__file__], root=os.path.dirname(root), rules=["EDL006"])
+    assert report.findings == []

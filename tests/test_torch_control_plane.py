@@ -9,7 +9,8 @@ are held by the JAX package's own tests mirrored onto them:
 parts of `tests/test_launcher.py` that need no controller. Where the copy
 must read its input as the JAX package does (the ``EDL_*`` env protocol,
 exit-code reasons, the job-spec round trip), the test compares the two on
-the same input. The JAX package's `ChaosProxy` is a test fixture here.
+the same input. The port's own `ChaosProxy` (`edl_tpu_torch.testing`) is
+the fault fixture here.
 Every wait has a deadline of its own (at most 10 s a drain, 30 s a join);
 semantics are exact.
 """
@@ -32,7 +33,6 @@ from edl_tpu.api.validation import normalize as jax_normalize
 from edl_tpu.launcher.launch import LaunchContext as JaxLaunchContext
 from edl_tpu.launcher.launch import map_exit_code as jax_map_exit_code
 from edl_tpu.obs.logs import configure_logging as jax_configure_logging
-from edl_tpu.testing import ChaosProxy
 from edl_tpu_torch.api import (JobPhase, ResourceList, TrainingJob, ValidationError,
                                parse_quantity, set_defaults, validate)
 from edl_tpu_torch.api.validation import normalize
@@ -48,6 +48,7 @@ from edl_tpu_torch.launcher.launch import (FAILED_COUNT_KEY, LaunchContext,
                                            start_coordinator, start_trainer)
 from edl_tpu_torch.obs.logs import configure_logging
 from edl_tpu_torch.runtime.data import pass_tasks
+from edl_tpu_torch.testing import ChaosProxy
 
 from tests.test_torch_coordinator import has_toolchain
 

@@ -28,6 +28,8 @@ Semantics are exact: no tolerance anywhere in this file.
 import importlib
 import json
 import os
+import random
+import socket
 import sys
 import time
 from pathlib import Path
@@ -986,15 +988,39 @@ def test_process_cluster_pod_teardown_takes_the_whole_group(tmp_path):
 # -- the live loops --------------------------------------------------------------
 
 
+def _group_port():
+    """A job port whose next port (where the ranks' process group listens,
+    ``EDL_PORT`` + 1) is free and lies below the host's ephemeral range.
+
+    Every pod of a `ProcessCluster` shares the host's ports. An ephemeral
+    port (the coordinator server's own, or the local end of any outgoing
+    connection on a loaded host) plus one may be held by some connection
+    when the ranks bind it: rank 0's store then fails with EADDRINUSE and
+    the pod fails. Ports below the ephemeral range are never handed out by
+    the kernel, so only an explicit bind can take one."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    rng = random.Random()
+    for _ in range(200):
+        port = rng.randrange(max(1024, low - 12000), low - 2)
+        with socket.socket() as probe:
+            try:
+                probe.bind(("0.0.0.0", port + 1))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free process-group port below the ephemeral range")
+
+
 def _live_job(name, min_i, max_i, server, tmp_path, **env):
     """A fit_a_line job of `tests/torch_mh_worker.py` ranks under the port's
-    launcher, against ``server``; its port is the coordinator's, so the
-    ranks' process group listens on the next one (``EDL_PORT`` + 1)."""
+    launcher, against ``server``; the ranks' process group listens on the
+    job's port plus one (``EDL_PORT`` + 1), from `_group_port`."""
     return normalize(TrainingJob.from_dict({
         "metadata": {"name": name},
         "spec": {
             "fault_tolerant": True,
-            "port": server.port,
+            "port": _group_port(),
             "tpu": {"chips_per_trainer": 4},
             "trainer": {
                 "min_instance": min_i, "max_instance": max_i,

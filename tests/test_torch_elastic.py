@@ -792,3 +792,48 @@ def test_the_ctr_entry_prepares_trains_from_files_exports_and_infers(tmp_path, m
     scored = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert scored["step"] == 12 and scored["examples"] == 64
     assert np.isfinite(scored["logloss"])
+
+
+@pytest.mark.parametrize("stretch", ["restore", "checkpoint"])
+def test_a_restore_or_save_past_the_heartbeat_ttl_keeps_the_member(stretch, tmp_path):
+    """The `ElasticWorker`'s restore and its checkpoint saves make no
+    coordinator call and grow with the model. Held past the heartbeat TTL, a
+    worker that beats only between steps expires, the epoch moves and it
+    rescales into the same restore again. It beats on a thread through both
+    (`elastic.beating`, shared with the `MultiHostWorker`): here each takes
+    3 TTLs of 0.5 s, and the world-1 worker keeps its rank and drains its
+    queue with the one epoch move of its own join."""
+    coord = InProcessCoordinator(task_lease_sec=60.0, heartbeat_ttl_sec=0.5)
+    coord.client("admin").add_tasks(shard_names("ttl", 3))
+    client = coord.client("w0")
+    worker = ElasticWorker(
+        fit_a_line.MODEL, client, _fit_source(SyntheticShardSource, fit_a_line.MODEL, bps=3),
+        ElasticConfig(checkpoint_dir=str(tmp_path / "ck"), checkpoint_interval=3,
+                      heartbeat_interval=0.1,
+                      trainer=TrainerConfig(optimizer="sgd", learning_rate=0.05)),
+        device="cpu")
+    restore, save = worker._restore_or_init, worker.ckpt.save
+    restores = []
+
+    def held(fn):
+        def call(*args, **kw):
+            time.sleep(1.5)
+            return fn(*args, **kw)
+        return call
+
+    def counted(*args, **kw):
+        # an expired member comes back through another restore, and with
+        # a stretch past the TTL it would loop so for ever
+        restores.append(time.monotonic())
+        if len(restores) > 1:
+            raise RuntimeError("the member expired and restored again")
+        return (held(restore) if stretch == "restore" else restore)(*args, **kw)
+
+    worker._restore_or_init = counted
+    if stretch == "checkpoint":
+        worker.ckpt.save = held(save)
+    epoch = coord.client("probe").epoch()
+    metrics = worker.run()
+    assert len(restores) == 1
+    assert metrics["steps"] == 9.0 and metrics["world"] == 1.0
+    assert metrics["rescales"] == 0.0

@@ -42,6 +42,7 @@ def _pkg(name):
         OutboxClient=m("coordinator.outbox").OutboxClient,
         CoordinatorUnreachable=m("coordinator.client").CoordinatorUnreachable,
         ElasticConfig=m("runtime.elastic").ElasticConfig,
+        ChaosScenario=m("testing.chaosproxy").ChaosScenario,
     )
 
 
@@ -367,6 +368,54 @@ def test_outbox_reports_per_incident_durations(P):
     client.heartbeat()
     assert len(closed) == 2
     assert client.outages == 2
+
+
+# -- scripted scenarios (the composed-chaos conductor): tests/test_ft_policy.py ----
+
+
+def test_scenario_fires_steps_in_order_with_gates(P):
+    fired = []
+    gate = {"open": False}
+    sc = (P.ChaosScenario("unit")
+          .register("a", lambda: fired.append("a"))
+          .register("b", lambda tag: fired.append(f"b:{tag}"))
+          .predicate("gate", lambda: gate["open"])
+          .add("a")
+          .add("b", when="gate", tag="x")
+          .add("a", after=0.05))
+    sc.start()
+    time.sleep(0.1)
+    assert fired == ["a"]  # step 2 is gated
+    gate["open"] = True
+    sc.join(timeout=5.0)
+    assert sc.completed and sc.failed is None
+    assert fired == ["a", "b:x", "a"]
+    assert [e["action"] for e in sc.events] == ["a", "b", "a"]
+
+
+def test_scenario_gate_timeout_fails_loudly(P):
+    sc = (P.ChaosScenario("stuck")
+          .register("never", lambda: None)
+          .predicate("no", lambda: False)
+          .add("never", when="no", timeout=0.1))
+    sc.start()
+    sc.join(timeout=5.0)
+    assert not sc.completed
+    assert "never opened" in sc.failed
+
+
+def test_scenario_spec_round_trips_through_json(P):
+    sc = (P.ChaosScenario("rt")
+          .add("x.partition", when="warm", after=1.5, note="sever")
+          .add("x.heal", after=2.0))
+    clone = P.ChaosScenario.from_spec(sc.spec())
+    assert [s.to_dict() for s in clone.steps] == [s.to_dict() for s in sc.steps]
+
+
+def test_scenario_rejects_unregistered_names(P):
+    sc = P.ChaosScenario("bad").add("ghost")
+    with pytest.raises(ValueError, match="ghost"):
+        sc.start()
 
 
 # -- restore-source break-even (checkpoint plane) ------------------------------
