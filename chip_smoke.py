@@ -4,7 +4,9 @@
 Run from the root of a checkout on a machine with one CUDA device:
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time
+    python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time, sweep
+    python3 chip_smoke.py --lm-d128  # phases 1-3 and lm_d128 (the LM at head dim 128)
+    python3 chip_smoke.py --kernels --tile-table PATH  # also write the sweep's winners
     python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
     python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
@@ -17,28 +19,40 @@ phase that fails raises, and the script exits non-zero without its last line:
 1. Device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` gives them; turns TF32 off for f32 matmuls
    and convolutions.
-2. Build: compiles the CUDA sources with ``nvcc`` for ``sm_90a``, prints
-   ptxas's registers and spills, and counts with ``cuobjdump -sass`` each
-   kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``), mbarrier
-   (``SYNCS``) and ``mma.sync`` (``HMMA``) instructions; every flash kernel
-   must have wgmma and TMA loads and no ``mma.sync``.
+2. Build: compiles the CUDA sources for ``sm_90a``, one ``nvcc`` process
+   a unit, all at once (each unit's seconds printed), prints ptxas's
+   registers and spills of every variant, and counts with ``cuobjdump
+   -sass`` each kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``),
+   mbarrier (``SYNCS``), ``mma.sync`` (``HMMA``) and f32 FMA (``FFMA``)
+   instructions; every bf16 and f16 flash kernel must have wgmma and TMA
+   loads and no ``mma.sync``; the f32 kernels print what they use.
 3. Kernels: each of the three flash-attention kernels against its plain
-   PyTorch version on the same inputs, at the slice's shape, a ragged shape,
-   the ring's offset cases (with an lse cotangent), cases with rows that see
-   no key (one with a whole 128-row query block that sees none), head dims
-   8, 16 and 32, and fewer queries than keys, row by row and element by
-   element;
+   PyTorch version on the same inputs (the forward at every tile compiled
+   for the case), at the slice's shape, a ragged shape, the ring's offset
+   cases (with an lse cotangent), cases with rows that see no key (one with
+   a whole 128-row query block that sees none), head dims 8, 16, 32, 40,
+   80, 96 and 128, f16 at 64 and 128, f32 at 64 and 128, and fewer queries
+   than keys, row by row and element by element; the JAX on-chip check's
+   five cases (``ONCHIP_CASES``) through `flash_attention`, forward and
+   backward, against the plain forward in f32 within that check's relative
+   errors (2e-3 f32, 3e-2 bf16); views the kernels' loads cannot read,
+   copied or padded by the wrapper and served (``SERVED_VIEWS``);
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
-   slice's shape; then the ring's per-hop engine on one card: the slice's
-   q, k, v cut into 2 and 4 blocks, each query block's offset hops
-   through the kernels with ``return_lse=True`` merged by the ring's
+   slice's shape and at D 128; then the ring's per-hop engine on one card:
+   the slice's q, k, v cut into 2 and 4 blocks, each query block's offset
+   hops through the kernels with ``return_lse=True`` merged by the ring's
    ``merge_hops``, output and gradients against the plain full causal
-   attention; then each kernel's time at the slice's shape (``ms``: one
-   call at a time; ``ms_back_to_back``: ten launches in a row), its wrapper's
-   host time a call (and the whole backward's, inputs checked once), its
-   plain version's time, one library call's (timed both ways) and the
-   card's bound.
+   attention; then each kernel's time (``ms``: one call at a time;
+   ``ms_back_to_back``: ten launches in a row), its wrapper's host time a
+   call (and, at the slice's shape, the whole backward's, inputs checked
+   once), its plain version's time, one library call's (timed both ways)
+   and the card's bound, at the slice's shape (bf16, D 64), the D-128
+   LM's attention and the JAX check's D-128 shape (bf16) and its f32
+   shape; then the tile sweep (``SWEEP_SHAPES``): every compiled forward
+   tile timed, forward and forward plus backward, the winners printed (and
+   written as a tile table with ``--tile-table PATH``), and the wrapper
+   must resolve each shape to the committed table's tile.
 4. The LM: the GPT-2-small-width transformer LM (12 layers, d_model 768,
    seq 1024, vocab 32000, batch 8) trained by the ``Trainer`` with Adam at lr
    3e-4 on one repeated synthetic batch. Losses must be finite and fall, and
@@ -62,7 +76,14 @@ phase that fails raises, and the script exits non-zero without its last line:
    MoE function, and the einsum form's steps timed as a diagnostic.
 5. The same width at depth 2, one step through the kernels and one through
    the plain attention path from the same weights: loss and every gradient
-   compared.
+   compared. Then the ``lm_d128`` phase: the LM at Pythia-1.4B's widths
+   (d_model 2048, 16 heads, so head dim 128; d_ff 8192, 24 layers, seq
+   2048, vocab 50304), batch 4, Adam at 3e-4, trained by the ``Trainer``:
+   finite, falling losses over 8 timed steps, exactly 24 launches of each
+   kernel a step, all of the D-128 bf16 variants; a profiled step
+   (tokens/s, MFU, peak memory, each kernel's device ms a launch, the busy
+   share); the same widths at depth 2 through the kernels and the plain
+   path; and the ring's per-hop engine at its attention shape.
 6. CTR, the flagship, at its published width (tables of 1000192 rows,
    embed 10, MLP 400-400-400) and batch 8192, trained with adagrad at lr
    0.05: a finite, falling loss; the padded table rows and a sample of rows
@@ -154,7 +175,8 @@ phase that fails raises, and the script exits non-zero without its last line:
     Then the checkpoint plane's smoke (``python -m edl_tpu_torch.ckpt_plane``
     on the card): the twin, the peer restore and the group death's blob
     fallback, the last two exactly the twin's loss. (c) The LM entry at
-    phase 4's width (``--axes {"pipe": 2}`` interleaved, v 2, 4
+    phase 4's width at ``RANKS_LM_LAYERS`` (4) of its 12 layers (``--axes
+    {"pipe": 2}`` interleaved, v 2, 4
     microbatches, ``--zero1``) under four launchers: four ranks on the
     card over gloo as ``{"data": 2, "pipe": 2}``, each running the entry
     through ``chip_smoke.py --el-mp-entry`` (its steps' flash launches,
@@ -166,7 +188,7 @@ phase that fails raises, and the script exits non-zero without its last line:
     every shard done, the world-2 incarnation trains exactly the shards the
     restored checkpoint lacked, every rank's losses equal within an
     incarnation, finite and falling, each step's flash launches on each
-    rank exactly `mp_expected_launches` (48/24/24) at both worlds, and that
+    rank exactly `mp_expected_launches` (16/8/8) at both worlds, and that
     checkpoint restores bit for bit into a one-device Trainer too.
     Printed: recovery, each incarnation's start-up, a world-4 round and
     step, a world-2 step, each rank's peak memory.
@@ -211,7 +233,8 @@ phase that fails raises, and the script exits non-zero without its last line:
     printed.
 16. The control plane (``controller``): the port's `Controller` over a
     `ProcessCluster` of three one-chip nodes, all three the one card. (a)
-    ``lm-grow`` (2..3 trainers: the LM entry at phase 4's width, batch 8 a
+    ``lm-grow`` (2..3 trainers: the LM entry at phase 4's width and 4
+    layers, batch 8 a
     rank, gloo, 30 shards of one batch, a checkpoint a round) trains at
     world 2 while another tenant's accounting-only pod holds the third
     chip; once a round is committed that pod leaves, and the autoscaler
@@ -226,7 +249,7 @@ phase that fails raises, and the script exits non-zero without its last line:
     ``chip_smoke.py --ctl-entry``, which records its restore, reads, steps
     and exit. Holds: the scale records (2, 3) then (3, 2), both jobs and
     every pod Succeeded, every LM shard trained exactly once into the final
-    state, each LM step's flash launches 12/12/12 on every rank at worlds
+    state, each LM step's flash launches 4/4/4 on every rank at worlds
     2 and 3, finite losses, the collector's samples at 2/3, then 3/3, then
     3/3 with both jobs, no pod's process group left. (c) The CLI: ``python
     -m edl_tpu_torch train --model transformer --steps 4 --batch-size 8``
@@ -238,7 +261,8 @@ phase that fails raises, and the script exits non-zero without its last line:
     each world, each incarnation's peak memory, w2v-admit's wait from
     submit to its first step, the collector's samples and the wall time.
 17. Composed chaos (``chaos``), the port's counterpart of
-    ``tests/test_chaos_composed.py`` at phase 4's width: two LM jobs, each
+    ``tests/test_chaos_composed.py`` at phase 4's width and 4 layers: two
+    LM jobs, each
     with its own native coordinator at the launcher's 10 s heartbeat TTL,
     under one `ChaosScenario` whose every fault gates on observed
     progress. Alpha (the SIGKILL axis) is the LM entry under the port's
@@ -256,13 +280,16 @@ phase that fails raises, and the script exits non-zero without its last line:
     beta's policy took at least two modes (three reconnects and a park, each
     decision a span), its audit record in the KV, beta's extra steps over
     the twin in [0, one shard's batches] and its final loss within rel
-    0.05 of the twin's (the JAX test's bounds), 12 launches of each flash
+    0.05 of the twin's (the JAX test's bounds), 4 launches of each flash
     kernel every step of alpha, beta and the twin. Printed: alpha's
     kill-to-first-step recovery and its start-up share, beta's blip rides
     and its park decision, the steps and losses, the fired timeline's
     spec.
-18. One JSON line ``{"kernels": [...]}``, one ``{"zoo": [...]}`` (a row
-    per model, the remat LM included), one ``{"serve": {...}}``, one
+18. One JSON line ``{"kernels": [...]}`` (a row per kernel and variant
+    timed, with its ``head_dim`` and ``dtype``), one ``{"kernel_checks":
+    {...}}`` (the build's seconds, the JAX check's cases, the sweep), one
+    ``{"zoo": [...]}`` (a row per model, the remat LM included), one
+    ``{"lm_d128": {...}}``, one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
     {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}``, one
     ``{"entries": {...}}``, one ``{"controller": {...}}`` and one
@@ -288,8 +315,10 @@ import sys
 import tempfile
 import time
 
-#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
+#: NVIDIA H100 SXM data sheet: dense bf16 (and fp16) tensor-core peak, f32
+#: outside the tensor cores (the f32 kernels' FMAs), and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 #: kernel vs plain version, both on the card, compared row by row (a row is
@@ -321,6 +350,19 @@ FAULT_K_TILE, FAULT_Q_TILE, FAULT_SCALE = 3, 8, 0.02
 #: layers. Loss relative error, and each gradient's relative norm error.
 TOL_STEP_LOSS = 2e-2
 TOL_STEP_GRAD = 5e-2
+
+#: the LM at Pythia-1.4B's widths (EleutherAI/pythia-1.4b ``config.json``:
+#: hidden_size 2048, num_attention_heads 16, intermediate_size 8192,
+#: num_hidden_layers 24, max_position_embeddings 2048, vocab_size 50304), so
+#: head dim 128; the rest is the repo's LM (learned positions, RMSNorm, a
+#: GELU FFN, an untied f32 head). Batch 4, Adam at 3e-4, remat off, 2 warm-up
+#: and 8 timed steps
+LM_D128 = dict(d_model=2048, n_layers=24, n_heads=16, d_ff=8192, seq_len=2048,
+               vocab_size=50304)
+LM_D128_BATCH = 4
+LM_D128_STEPS = 8
+#: its attention's causal (B, S, H, D)
+LM_D128_ATTENTION = (4, 2048, 16, 128)
 
 SLICE = dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072, seq_len=1024,
              vocab_size=32000)
@@ -364,8 +406,12 @@ KERNELS = {  # name -> (plain version, TPU kernel it replaces)
     "bwd_dq": ("_bwd_dq_reference", "edl_tpu/ops/flash_attention.py:178"),
     "bwd_dkv": ("_bwd_dkv_reference", "edl_tpu/ops/flash_attention.py:219"),
 }
-SOURCE = "edl_tpu_torch/ops/csrc/flash_attention.cu"
+SOURCE = "edl_tpu_torch/ops/csrc/flash_kernels.cuh"
+SOURCE_F32 = "edl_tpu_torch/ops/csrc/flash_f32.cu"
 FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+#: the f32 kernels, which run on the CUDA cores (no wgmma, no TMA)
+FLASH_F32_NAMES = ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+                   "flash_bwd_dkv_f32_kernel")
 #: the ring's hop counts held on one card: the merged (out, lse) of this many
 #: offset hops against the plain full attention (1: one kernel call on the
 #: whole sequence, the baseline)
@@ -389,28 +435,75 @@ DESIGNS = {
     "bwd_dkv": ("flash_bwd_dkv_kernel", "wgmma+TMA, PR 2"),
 }
 #: SASS instructions counted per kernel: wgmma, TMA tile load, mbarrier,
-#: mma.sync
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA")
+#: mma.sync, and the f32 kernels' fused multiply-add
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA")
 
-#: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused):
-#: ``fused`` cases take q, k and v as strided slices of one (B, S, 3, H, D)
-#: tensor, as the model hands them over
+#: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused,
+#: dtype): ``fused`` cases take q, k and v as strided slices of one
+#: (B, S, 3, H, D) tensor, as the model hands them over
 CASES = [
-    ("slice", (8, 1024, 1024, 12, 64), True, 0, 0, False, True),
-    ("ragged", (2, 300, 300, 2, 64), False, 0, 0, False, True),
-    ("ragged_causal", (2, 300, 300, 2, 64), True, 0, 0, False, True),
-    ("ring_diagonal", (2, 300, 300, 2, 64), True, 300, 300, True, False),
-    ("ring_past", (2, 300, 300, 2, 64), True, 300, 0, True, False),
-    ("no_key_rows", (1, 200, 200, 2, 64), True, 0, 69, True, False),
+    ("slice", (8, 1024, 1024, 12, 64), True, 0, 0, False, True, "bfloat16"),
+    ("ragged", (2, 300, 300, 2, 64), False, 0, 0, False, True, "bfloat16"),
+    ("ragged_causal", (2, 300, 300, 2, 64), True, 0, 0, False, True, "bfloat16"),
+    ("ring_diagonal", (2, 300, 300, 2, 64), True, 300, 300, True, False, "bfloat16"),
+    ("ring_past", (2, 300, 300, 2, 64), True, 300, 0, True, False, "bfloat16"),
+    ("no_key_rows", (1, 200, 200, 2, 64), True, 0, 69, True, False, "bfloat16"),
     # queries 0-199 see no key: the first 128-row dq block sees none, the
     # second has one warpgroup that sees none; keys 100-299 are seen by none
-    ("no_key_block", (1, 300, 300, 2, 64), True, 0, 200, True, False),
-    ("head_dim_8", (1, 100, 100, 2, 8), True, 0, 0, False, True),
-    ("head_dim_16", (1, 100, 100, 2, 16), True, 0, 0, False, True),
-    ("head_dim_32", (1, 100, 100, 2, 32), False, 0, 0, False, True),
+    ("no_key_block", (1, 300, 300, 2, 64), True, 0, 200, True, False, "bfloat16"),
+    ("head_dim_8", (1, 100, 100, 2, 8), True, 0, 0, False, True, "bfloat16"),
+    ("head_dim_16", (1, 100, 100, 2, 16), True, 0, 0, False, True, "bfloat16"),
+    ("head_dim_32", (1, 100, 100, 2, 32), False, 0, 0, False, True, "bfloat16"),
     # fewer queries than keys, the queries late in the sequence
-    ("uneven", (1, 100, 260, 2, 32), True, 160, 0, True, False),
+    ("uneven", (1, 100, 260, 2, 32), True, 160, 0, True, False, "bfloat16"),
+    # head dims past 64: 40 runs the D-64 kernels with its last 24 columns
+    # loaded as zeros, 80 and 96 the D-128 ones with 48 and 32; ragged S, the
+    # ring's offsets, an lse cotangent and rows that see no key
+    ("head_dim_40", (2, 300, 300, 2, 40), True, 0, 0, True, True, "bfloat16"),
+    ("head_dim_80_ring_past", (2, 300, 300, 2, 80), True, 300, 0, True, False, "bfloat16"),
+    ("head_dim_96_ring_diagonal", (1, 300, 300, 2, 96), True, 300, 300, True, False,
+     "bfloat16"),
+    ("head_dim_128_ragged", (2, 300, 300, 2, 128), False, 0, 0, False, True, "bfloat16"),
+    ("head_dim_128_no_key_block", (1, 300, 300, 2, 128), True, 0, 200, True, False,
+     "bfloat16"),
+    ("head_dim_128_uneven", (1, 100, 260, 2, 128), True, 160, 0, True, False, "bfloat16"),
+    ("f16_head_dim_64", (2, 300, 300, 2, 64), True, 0, 69, True, False, "float16"),
+    ("f16_head_dim_128", (2, 300, 300, 2, 128), True, 300, 300, True, True, "float16"),
+    ("f32_no_key_rows", (1, 200, 200, 2, 64), True, 0, 69, True, False, "float32"),
+    ("f32_head_dim_128", (1, 300, 300, 2, 128), True, 300, 0, True, False, "float32"),
 ]
+#: the planted faults are also rejected at D 128, at the JAX on-chip check's
+#: D-128 shape
+FAULT_CASES = (CASES[0], ("jax_check_d128", (1, 2048, 2048, 8, 128), True, 0, 0, False, True,
+                          "bfloat16"))
+
+#: the JAX package's on-chip check (`onchip_flash_check.py:22-28`), letter
+#: for letter: (B, S, H, D, causal, dtype). Each runs forward and backward
+#: (loss sum(out²)) through `flash_attention` and through the plain forward
+#: in f32 on the same inputs (autograd); out, dq, dk and dv are held to its
+#: relative error (max |kernel - plain| / max |plain|) within its bounds, and
+#: lse (``return_lse=True``) must be finite
+ONCHIP_CASES = [
+    (2, 1024, 4, 64, True, "float32"),
+    (2, 1024, 4, 64, True, "bfloat16"),
+    (1, 640, 2, 64, True, "float32"),
+    (1, 2048, 8, 128, True, "bfloat16"),
+    (2, 512, 4, 64, False, "float32"),
+]
+ONCHIP_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+
+#: views the kernels' loads cannot read, which `flash_attention` pads or
+#: copies first and then serves: (name, D of the view, how it is cut)
+SERVED_VIEWS = [
+    ("stride_not_16B", 64, "head stride 68 elements (136 bytes)"),
+    ("odd_stride", 64, "start 2 bytes past an allocation, head stride 65"),
+    ("head_dim_20", 20, "a head dim that is not a multiple of 8 (padded to 24)"),
+]
+
+#: the tile sweep (the counterpart of `onchip_flash_sweep.py`): the JAX
+#: sweep's four (B, S, H, D) and the D-128 LM's attention, bf16, causal
+SWEEP_SHAPES = [(4, 1024, 8, 64), (4, 2048, 8, 64), (2, 4096, 8, 64), (1, 8192, 8, 128),
+                (4, 2048, 16, 128)]
 
 
 class SmokeFailure(RuntimeError):
@@ -472,9 +565,10 @@ def _flash_module():
     return importlib.import_module("edl_tpu_torch.ops.flash_attention")
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, what bounds it): the least time the card could take."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(ms, what bounds it): the least time the card could take, at ``peak``
+    FLOP/s and the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -485,11 +579,7 @@ def phase_device():
     import torch
 
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    print(smi)
+    print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off (torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -500,33 +590,98 @@ def phase_device():
 
 
 def phase_build() -> dict:
-    """Build the library; returns the SASS counts (`sass_counts`)."""
+    """Build the library, each unit in its own nvcc process; print ptxas's
+    registers and spills of every variant and its SASS counts. Returns
+    ``{"seconds", "sass", "ptxas"}``."""
     from edl_tpu_torch.ops import _build
 
     fa = _flash_module()
     t0 = time.perf_counter()
     path = _build.build()
     fa._kernels()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
-            print(f"  ptxas: {line.strip()}")
+    seconds = time.perf_counter() - t0
+    print(f"build: {path.name} from {len(_build._sources())} units compiled at once in "
+          f"{seconds:.1f} s")
+    log = path.with_suffix(".log").read_text()
+    ptxas = ptxas_usage(log)
+    for (fn, label), use in sorted(ptxas.items()):
+        print(f"  ptxas: {fn} {label}: {use['registers']} registers, {use['spill_stores']} "
+              f"bytes spill stores, {use['spill_loads']} bytes spill loads")
+    for line in log.splitlines():
+        if "warning" in line or line.startswith("nvcc: "):
+            print(f"  {line.strip()}")
+    require("setmaxnreg ignored" not in log, "ptxas ignored setmaxnreg (the warp roles rejoin)")
     counts = sass_counts(path)
-    for fn, by_dp in counts.items():
-        for dp, ops in sorted(by_dp.items()):
-            print(f"  sass: {fn}<{dp}> " + ", ".join(f"{op} {n}" for op, n in ops.items()))
-    for fn, _ in DESIGNS.values():
+    for fn, by_variant in counts.items():
+        for label, ops in sorted(by_variant.items()):
+            print(f"  sass: {fn} {label} " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    for fn in FLASH_NAMES:
         require(fn in counts, f"{fn} is not in the library's SASS")
-        for dp, ops in counts[fn].items():
+        for label, ops in counts[fn].items():
             require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
-                    f"{fn}<{dp}> lacks wgmma or TMA loads, or has mma.sync, in its "
+                    f"{fn} {label} lacks wgmma or TMA loads, or has mma.sync, in its "
                     f"SASS: {ops}")
-    return counts
+    for fn in FLASH_F32_NAMES:
+        require(fn in counts, f"{fn} is not in the library's SASS")
+    import torch
+
+    from edl_tpu_torch.ops import flash_tuning
+
+    for dtype in (torch.bfloat16, torch.float16):
+        for dp in (16, 32, 64, 128):
+            for _, bk in fa.compiled_blocks(dp, dtype):
+                label = _label(flash_tuning.dtype_name(dtype), dp, bk)
+                require(label in counts["flash_fwd_kernel"], f"flash_fwd_kernel {label} is "
+                                                             f"not in the library")
+    return {"seconds": seconds, "sass": counts,
+            "ptxas": {f"{fn} {label}": use for (fn, label), use in ptxas.items()}}
+
+
+def _label(dtype: str, dp: int, block_k=None) -> str:
+    """A variant's label: its element type, padded head dim and (forward)
+    keys a stage; the f32 kernels are one variant each."""
+    if dtype == "float32":
+        return "f32"
+    ty = {"bfloat16": "bf16", "float16": "f16"}[dtype]
+    return f"{ty} D{dp}" + (f" k{block_k}" if block_k else "")
+
+
+def _variant(mangled: str):
+    """(kernel, variant label) of a flash kernel's mangled name, or None."""
+    name = next((n for n in FLASH_NAMES + FLASH_F32_NAMES if n in mangled), None)
+    if name is None:
+        return None
+    if name in FLASH_F32_NAMES:
+        return name, "f32"
+    ints = [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
+    dtype = "float16" if "6__half" in mangled else "bfloat16"
+    return name, _label(dtype, ints[0], ints[1] if len(ints) > 1 else None)
+
+
+def ptxas_usage(log: str) -> dict:
+    """{(kernel, variant): registers and spill bytes} from ptxas -v's log."""
+    usage, cur = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            cur = _variant(hit.group(1))
+            if cur is not None:
+                usage[cur] = {"registers": None, "spill_stores": None, "spill_loads": None}
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            usage[cur]["spill_stores"], usage[cur]["spill_loads"] = map(int, spill.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            usage[cur]["registers"] = int(regs.group(1))
+    return usage
 
 
 def sass_counts(path) -> dict:
-    """{kernel: {padded head dim: {op: instructions}}} for the flash
-    kernels, from ``cuobjdump -sass`` of the built library."""
+    """{kernel: {variant: {op: instructions}}} for the flash kernels, from
+    ``cuobjdump -sass`` of the built library."""
     from pathlib import Path
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -537,13 +692,11 @@ def sass_counts(path) -> dict:
     counts, ops = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            name = next((n for n in FLASH_NAMES if n in fn), None)
-            dp = re.search(r"ILi(\d+)E", fn)
+            hit = _variant(line.split("Function :")[1].strip())
             ops = None
-            if name is not None and dp is not None:
-                ops = counts.setdefault(name, {}).setdefault(int(dp.group(1)),
-                                                             dict.fromkeys(SASS_OPS, 0))
+            if hit is not None:
+                ops = counts.setdefault(hit[0], {}).setdefault(hit[1],
+                                                               dict.fromkeys(SASS_OPS, 0))
         elif ops is not None:
             hit = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
             if hit:
@@ -551,20 +704,21 @@ def sass_counts(path) -> dict:
     return counts
 
 
-def _case_inputs(shape, fused, return_lse, gen, device):
+def _case_inputs(shape, fused, return_lse, gen, device, dtype="bfloat16"):
     import torch
 
     B, Sq, Sk, H, D = shape
+    dt = getattr(torch, dtype)
 
     def randn(*s):
-        return torch.randn(s, generator=gen, device=device).to(torch.bfloat16)
+        return torch.randn(s, generator=gen, device=device).to(dt)
 
     if fused:
         qkv = randn(B, Sq, 3, H, D)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
         q, k, v = randn(B, Sq, H, D), randn(B, Sk, H, D), randn(B, Sk, H, D)
-    out_dtype = torch.float32 if return_lse else torch.bfloat16
+    out_dtype = torch.float32 if return_lse else dt
     do = torch.randn((B, Sq, H, D), generator=gen, device=device).to(out_dtype)
     dlse = (torch.randn((B, H, Sq), generator=gen, device=device) if return_lse
             else torch.zeros((B, H, Sq), device=device))
@@ -605,16 +759,16 @@ def _plain_outputs(fa, q, k, v, do, dlse, out_dtype, opts) -> dict:
                 dq=fa._bwd_dq_reference(q, k, v, do, lse, delta, **opts))
 
 
-def check_planted_faults(fa, gen, device) -> None:
-    """The comparison must reject two planted faults at the slice's shape,
+def check_planted_faults(fa, gen, device, case) -> None:
+    """The comparison must reject two planted faults at the case's shape,
     each held against the true outputs: a kernel that leaves out one key tile
     for the later query tiles (the plain versions' outputs with that tile
     masked off), and one whose later rows are off by ``FAULT_SCALE`` of their
     value (a slip in a rescaling), small beside the first rows' values."""
     from unittest import mock
 
-    name, shape, causal, qo, ko, ret_lse, fused = CASES[0]
-    q, k, v, do, dlse, out_dtype = _case_inputs(shape, fused, ret_lse, gen, device)
+    name, shape, causal, qo, ko, ret_lse, fused, dtype = case
+    q, k, v, do, dlse, out_dtype = _case_inputs(shape, fused, ret_lse, gen, device, dtype)
     opts = dict(scale=1.0 / math.sqrt(shape[4]), causal=causal, q_offset=qo, k_offset=ko)
     want = _plain_outputs(fa, q, k, v, do, dlse, out_dtype, opts)
     valid, first = fa._valid, FAULT_Q_TILE * fa.TILE
@@ -635,7 +789,7 @@ def check_planted_faults(fa, gen, device) -> None:
         dk, dv = fa._bwd_dkv_reference(*args, **opts)
         dropped = dict(o=o, dq=fa._bwd_dq_reference(*args, **opts), dk=dk, dv=dv)
     lse_err = (lse - want["lse"]).abs().max().item()
-    require(lse_err > TOL_LSE, "the lse check passes the planted fault")
+    require(lse_err > TOL_LSE, f"the lse check passes the planted fault ({name})")
     faults = {
         f"key tile {FAULT_K_TILE} left out for query tiles >= {FAULT_Q_TILE} "
         f"(lse abs {lse_err:.3e})": dropped,
@@ -643,19 +797,20 @@ def check_planted_faults(fa, gen, device) -> None:
             {n: rescaled(want[n]) for n in dropped},
     }
     for label, got in faults.items():
-        print(f"planted fault ({name} {shape}): {label}")
+        print(f"planted fault ({name} {shape} {dtype}): {label}")
         for n, g in got.items():
             err = _compare(g, want[n])
             scaled = err["abs"] / max(1.0, want[n].float().abs().max().item())
             print(f"  {n}: {_fmt(err)}; max abs err / max(1, max |plain|) {scaled:.3e}")
-            require(not _passes(err), f"the {n} check passes the planted fault {label}")
+            require(not _passes(err), f"the {n} check passes the planted fault {label} "
+                                      f"({name})")
 
 
 def _plain_full(fa, q, k, v, ct, opts) -> dict:
     """The plain versions on the whole sequence, as `flash_attention(...,
     return_lse=True)` runs them on the CPU: the f32 out, and dq, dk, dv for
-    the cotangent ``ct`` of the out, its bf16 part and its remainder each
-    through the plain backward."""
+    the cotangent ``ct`` of the out, its part in q's dtype and its remainder
+    each through the plain backward."""
     import torch
 
     o, lse = fa._fwd_reference(q, k, v, out_dtype=torch.float32, **opts)
@@ -667,10 +822,10 @@ def _plain_full(fa, q, k, v, ct, opts) -> dict:
                         for n, a, b in zip(("dq", "dk", "dv"), *parts)})
 
 
-def check_merged_hops(fa, gen, device) -> None:
-    """The ring's per-hop engine on one card: at the slice's shape, the
-    queries and keys cut into ``n`` blocks (1, 2 and 4), each query block's
-    hops through the kernels with their global offsets and
+def check_merged_hops(fa, gen, device, shape) -> dict:
+    """The ring's per-hop engine on one card: at ``shape`` (B, S, H, D), bf16,
+    the queries and keys cut into ``n`` blocks (1, 2 and 4), each query
+    block's hops through the kernels with their global offsets and
     ``return_lse=True``, in the ring's order, merged by the ring's own
     `merge_hops`; the merged output, and dq, dk and dv for the loss sum(out
     * ct), against the plain full causal attention (the plain versions on
@@ -683,21 +838,21 @@ def check_merged_hops(fa, gen, device) -> None:
     lse and the delta made from them, at the kernel tolerances: what the
     composed bounds allow is then the forward's error carried through delta,
     not a fault of the backward kernels on the f32-out path. Launches made
-    here are not the main path's."""
+    here are not the main path's. Returns each hop count's errors."""
     from unittest import mock
 
     import torch
 
     from edl_tpu_torch.parallel.ring_attention import merge_hops
 
-    B, S, _, H, D = CASES[0][1]
+    B, S, H, D = shape
     opts = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=0, k_offset=0)
     q, k, v = (torch.randn((B, S, H, D), generator=gen, device=device)
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
     ct = torch.randn((B, S, H, D), generator=gen, device=device)
     with torch.no_grad():
         want = _plain_full(fa, q, k, v, ct, opts)
-    one = {}
+    one, out = {}, {}
     kernel = fa._bwd_kernel
     for n in MERGED_HOPS:
         s = S // n
@@ -725,6 +880,7 @@ def check_merged_hops(fa, gen, device) -> None:
         got["o"] = o.detach()
         check_hop_backward_calls(fa, n, calls)
         errs = {name: _compare(got[name], want[name]) for name in ("o", "dq", "dk", "dv")}
+        out[n] = errs
         print(f"merged hops: {n} offset hop(s) a query block at {(B, S, H, D)}, against "
               f"the plain full attention: " + "; ".join(f"{x} {_fmt(e)}"
                                                        for x, e in errs.items()))
@@ -744,8 +900,7 @@ def check_merged_hops(fa, gen, device) -> None:
                 require(e[metric] <= bound,
                         f"merged {n} hops: {name} {metric} {e[metric]:.3e} off the plain "
                         f"full attention (bound {bound:.3e})")
-
-
+    return out
 def check_hop_backward_calls(fa, n, calls) -> None:
     """Each backward kernel call recorded on the merged-hops path against the
     plain backward on the same (q, k, v, dO, lse, delta): outputs the plain
@@ -777,80 +932,178 @@ def check_hop_backward_calls(fa, n, calls) -> None:
     torch.cuda.synchronize()
 
 
-def phase_kernels(device):
-    """Every kernel against its plain version on every case, and the check
-    against planted faults; returns per-kernel worst errors (each with the
-    case and output it came from) and, at the slice's shape, the timings."""
+def check_cases(fa, gen, device) -> dict:
+    """Every kernel against its plain version on every case of ``CASES``, the
+    forward at every tile compiled for the case's head dim and dtype; returns
+    the worst errors by (kernel, dtype, padded head dim), each with the case
+    and output it came from."""
     import torch
-    import torch.nn.functional as F
 
-    fa = _flash_module()
-    gen = torch.Generator(device=device).manual_seed(0)
     outputs = {"fwd": ("o", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
-    worst = {kname: {} for kname in KERNELS}  # metric -> (value, "case output")
-
-    for name, shape, causal, qo, ko, ret_lse, fused in CASES:
-        q, k, v, do, dlse, out_dtype = _case_inputs(shape, fused, ret_lse, gen, device)
+    worst = {}  # (kernel, dtype, padded head dim) -> metric -> (value, "case output")
+    for name, shape, causal, qo, ko, ret_lse, fused, dtype in CASES:
+        q, k, v, do, dlse, out_dtype = _case_inputs(shape, fused, ret_lse, gen, device, dtype)
         opts = dict(scale=1.0 / math.sqrt(shape[4]), causal=causal,
                     q_offset=qo, k_offset=ko)
         want = _plain_outputs(fa, q, k, v, do, dlse, out_dtype, opts)
         do, lse_p, delta = want["do"], want["lse"], want["delta"]
-        o_k, lse_k = fa._fwd_kernel(q, k, v, out_dtype=out_dtype, **opts)
         dq_k = fa._bwd_dq_kernel(q, k, v, do, lse_p, delta, **opts)
         dk_k, dv_k = fa._bwd_dkv_kernel(q, k, v, do, lse_p, delta, **opts)
-        torch.cuda.synchronize()
-
-        for t in (o_k, lse_k, dq_k, dk_k, dv_k):
-            require(bool(torch.isfinite(t).all()), f"{name}: non-finite kernel output")
         no_key = lse_p == fa._NEG_INF  # (B, H, Sq)
-        require(torch.equal(lse_k == fa._NEG_INF, no_key),
-                f"{name}: the -1e30 sentinel rows of the kernel's lse differ")
         rows = no_key.transpose(1, 2)  # (B, Sq, H)
-        require(bool((o_k[rows] == 0).all()) and bool((dq_k[rows] == 0).all()),
-                f"{name}: rows that see no key must give O = 0 and dQ = 0")
         unseen = ~fa._valid(shape[1], shape[2], qo, ko, causal, device).any(0)
-        require(bool((dk_k[:, unseen] == 0).all()) and bool((dv_k[:, unseen] == 0).all()),
-                f"{name}: keys that no query sees must give dK = 0 and dV = 0")
         live = ~no_key
-        lse_err = ((lse_k[live] - lse_p[live]).abs().max().item()
-                   if live.any() else 0.0)
-        errs = {"o": _compare(o_k, want["o"]), "dq": _compare(dq_k, want["dq"]),
-                "dk": _compare(dk_k, want["dk"]), "dv": _compare(dv_k, want["dv"])}
-        print(f"kernels {name} {shape} causal={causal} offsets=({qo}, {ko}) "
-              f"lse={ret_lse} no-key rows={int(no_key.sum())} unseen keys="
-              f"{int(unseen.sum())}: lse abs "
-              f"{lse_err:.3e}; " + "; ".join(f"{n} {_fmt(e)}" for n, e in errs.items()))
-        require(lse_err <= TOL_LSE,
-                f"{name}: lse off its plain version by {lse_err:.3e} (tolerance {TOL_LSE})")
+        for _, block_k in fa.compiled_blocks(shape[4], q.dtype):
+            o_k, lse_k = fa._fwd_kernel(q, k, v, out_dtype=out_dtype, block_k=block_k, **opts)
+            torch.cuda.synchronize()
+            for t in (o_k, lse_k, dq_k, dk_k, dv_k):
+                require(bool(torch.isfinite(t).all()), f"{name}: non-finite kernel output")
+            require(torch.equal(lse_k == fa._NEG_INF, no_key),
+                    f"{name}: the -1e30 sentinel rows of the kernel's lse differ")
+            require(bool((o_k[rows] == 0).all()) and bool((dq_k[rows] == 0).all()),
+                    f"{name}: rows that see no key must give O = 0 and dQ = 0")
+            require(bool((dk_k[:, unseen] == 0).all()) and bool((dv_k[:, unseen] == 0).all()),
+                    f"{name}: keys that no query sees must give dK = 0 and dV = 0")
+            lse_err = ((lse_k[live] - lse_p[live]).abs().max().item()
+                       if live.any() else 0.0)
+            errs = {"o": _compare(o_k, want["o"]), "dq": _compare(dq_k, want["dq"]),
+                    "dk": _compare(dk_k, want["dk"]), "dv": _compare(dv_k, want["dv"])}
+            print(f"kernels {name} {shape} {dtype} causal={causal} offsets=({qo}, {ko}) "
+                  f"lse={ret_lse} keys a stage={block_k} no-key rows={int(no_key.sum())} "
+                  f"unseen keys={int(unseen.sum())}: lse abs {lse_err:.3e}; "
+                  + "; ".join(f"{n} {_fmt(e)}" for n, e in errs.items()))
+            require(lse_err <= TOL_LSE,
+                    f"{name}: lse off its plain version by {lse_err:.3e} (tolerance {TOL_LSE})")
+            for n, e in errs.items():
+                require(_passes(e), f"{name}: {n} off its plain version: {_fmt(e)} "
+                                    f"(tolerances: row {TOL_ROW}, elem {TOL_ELEM})")
+            errs["lse"] = {"abs": lse_err}
+            for kname, outs in outputs.items():
+                slot = worst.setdefault((kname, dtype, fa.padded_head_dim(shape[4])), {})
+                for n in outs:
+                    for metric, x in errs[n].items():
+                        if x >= slot.get(metric, (-1.0, ""))[0]:
+                            slot[metric] = (x, f"{name} {n}")
+    return worst
+
+
+def _onchip_rel(got, want) -> float:
+    """The JAX on-chip check's error: max |got - want| / max |want|."""
+    return (got.float() - want.float()).abs().max().item() / max(
+        1e-6, want.float().abs().max().item())
+
+
+def check_onchip_cases(fa, gen, device) -> list:
+    """The JAX package's on-chip check's five cases (``ONCHIP_CASES``)
+    through `flash_attention`, forward and backward, against the plain
+    forward in f32 (TF32 is off) on the same inputs, within its relative
+    errors; the lse of ``return_lse=True`` must be finite."""
+    import torch
+
+    records = []
+    for B, S, H, D, causal, dtype in ONCHIP_CASES:
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=device)
+                   .to(getattr(torch, dtype)).requires_grad_() for _ in range(3))
+        out = fa.flash_attention(q, k, v, causal=causal)
+        grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+        q32, k32, v32 = (x.detach().float().requires_grad_() for x in (q, k, v))
+        want, _ = fa._fwd_reference(q32, k32, v32, scale=1.0 / math.sqrt(D), causal=causal,
+                                    q_offset=0, k_offset=0, out_dtype=torch.float32)
+        wgrads = torch.autograd.grad((want ** 2).sum(), (q32, k32, v32))
+        _, lse = fa.flash_attention(q.detach(), k.detach(), v.detach(), causal=causal,
+                                    return_lse=True)
+        errs = {"out": _onchip_rel(out, want)}
+        errs.update({f"d{n}": _onchip_rel(g, w) for n, g, w in zip("qkv", grads, wgrads)})
+        tol = ONCHIP_TOL[dtype]
+        finite = bool(torch.isfinite(lse).all())
+        print(f"jax on-chip case {(B, S, H, D)} causal={causal} {dtype}: " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()) + f" (bound {tol}); lse finite {finite}")
+        require(finite, f"on-chip case {(B, S, H, D, causal, dtype)}: lse not finite")
+        require(all(e <= tol for e in errs.values()),
+                f"on-chip case {(B, S, H, D, causal, dtype)} off the plain f32 forward: {errs}")
+        records.append(dict(shape=[B, S, H, D], causal=causal, dtype=dtype, rel_err=errs,
+                            tolerance=tol, lse_finite=finite))
+    return records
+
+
+def check_served_views(fa, gen, device) -> None:
+    """Views the kernels' loads cannot read (``SERVED_VIEWS``), through
+    `flash_attention` on the card, forward and backward, against the plain
+    versions on the CPU on the same values: the output within the kernel
+    tolerances, the gradients within the composed path's."""
+    import torch
+
+    for name, D, how in SERVED_VIEWS:
+        B, S, H = 1, 192, 2
+        extra, cut = {"stride_not_16B": (4, slice(0, D)),
+                      "odd_stride": (1, slice(1, D + 1))}.get(name, (0, slice(0, D)))
+        views = [torch.randn((B, S, H, D + extra), generator=gen, device=device)
+                 .to(torch.bfloat16)[..., cut] for _ in range(3)]
+        problem = fa._view_problem(views[0].shape, views[0].stride(),
+                                   views[0].element_size(), views[0].data_ptr())
+        require(problem is not None, f"{name}: the view was readable as it is")
+        q, k, v = (x.detach().requires_grad_() for x in views)
+        ct = torch.randn((B, S, H, D), generator=gen, device=device)
+        out = fa.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad((out.float() * ct).sum(), (q, k, v))
+        cq, ck, cv = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+        want = fa.flash_attention(cq, ck, cv, causal=True)
+        wgrads = torch.autograd.grad((want.float() * ct.cpu()).sum(), (cq, ck, cv))
+        errs = {"o": _compare(out.cpu(), want)}
+        errs.update({f"d{n}": _compare(g.cpu(), w) for n, g, w in zip("qkv", grads, wgrads)})
+        print(f"served view {name} ({how}; the kernels refuse it as it is: {problem}): "
+              + "; ".join(f"{n} {_fmt(e)}" for n, e in errs.items()))
+        require(_passes(errs.pop("o")), f"served view {name}: o off the plain version")
+        # the gradients compose the kernel forward's o through delta: the
+        # composed path's bounds, as for the merged hops
         for n, e in errs.items():
-            require(_passes(e), f"{name}: {n} off its plain version: {_fmt(e)} "
-                                f"(tolerances: row {TOL_ROW}, elem {TOL_ELEM})")
-        errs["lse"] = {"abs": lse_err}
-        for kname, outs in outputs.items():
-            for n in outs:
-                for metric, x in errs[n].items():
-                    if x >= worst[kname].get(metric, (-1.0, ""))[0]:
-                        worst[kname][metric] = (x, f"{name} {n}")
+            require(e["row"] <= TOL_COMPOSED_ROW and e["elem"] <= TOL_COMPOSED_ELEM,
+                    f"served view {name}: {n} off the plain version: {_fmt(e)} (bounds: "
+                    f"row {TOL_COMPOSED_ROW}, elem {TOL_COMPOSED_ELEM})")
 
-    check_planted_faults(fa, gen, device)
-    check_merged_hops(fa, gen, device)
 
-    # -- timings at the slice's shape
-    name, shape, causal, qo, ko, ret_lse, fused = CASES[0]
-    B, S, _, H, D = shape
-    q, k, v, do, dlse, out_dtype = _case_inputs(shape, fused, ret_lse, gen, device)
-    opts = dict(scale=1.0 / math.sqrt(D), causal=causal, q_offset=qo, k_offset=ko)
+def _kernel_bounds(B, S, H, D, itemsize: int, peak: float) -> dict:
+    """The least time of each kernel's work at a causal (B, S, H, D): its
+    FLOPs at ``peak`` against its bytes (each input read once, each output
+    written once) at the HBM rate."""
+    pairs = B * H * S * (S + 1) // 2  # visible (query, key) pairs, causal
+    row_bytes = B * H * S * D * itemsize  # one (B, S, H, D) tensor
+    stat_bytes = B * H * S * 4            # one f32 (B, H, S) row statistic
+    return {
+        # q, k, v in; o, lse out. QKᵀ and PV
+        "fwd": bound(2 * 2 * pairs * D, 4 * row_bytes + stat_bytes, peak),
+        # q, k, v, dO, lse, delta in; dq out. S, dP and dS·K
+        "bwd_dq": bound(3 * 2 * pairs * D, 5 * row_bytes + 2 * stat_bytes, peak),
+        # q, k, v, dO, lse, delta in; dk, dv out. Sᵀ, dPᵀ, Pᵀ·dO and dSᵀ·Q
+        "bwd_dkv": bound(4 * 2 * pairs * D, 6 * row_bytes + 2 * stat_bytes, peak),
+    }
+
+
+def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) -> list:
+    """Each kernel's time at the causal (B, S, H, D) ``shape`` in ``dtype``
+    (the forward at every compiled tile): ``ms`` one call at a time,
+    ``ms_back_to_back`` ten in a row, the wrapper's host time a call, the
+    plain version's time, one library call's (PyTorch's SDPA, timed both
+    ways) and the card's bound. Returns the kernel rows."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, H, D = shape
+    fused = dtype != "float32"  # the model's fused projection; f32 as separate tensors
+    q, k, v, do, dlse, out_dtype = _case_inputs((B, S, S, H, D), fused, False, gen, device,
+                                                dtype)
+    opts = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=0, k_offset=0)
     o, lse = fa._fwd_kernel(q, k, v, out_dtype=out_dtype, **opts)
     do, delta = fa._backward_inputs(q, o, do, dlse)
     args = (q, k, v, do, lse, delta)
-    timed = {
-        "fwd": (lambda: fa._fwd_kernel(q, k, v, out_dtype=out_dtype, **opts),
-                lambda: fa._fwd_reference(q, k, v, out_dtype=out_dtype, **opts)),
-        "bwd_dq": (lambda: fa._bwd_dq_kernel(*args, **opts),
-                   lambda: fa._bwd_dq_reference(*args, **opts)),
-        "bwd_dkv": (lambda: fa._bwd_dkv_kernel(*args, **opts),
-                    lambda: fa._bwd_dkv_reference(*args, **opts)),
-    }
+    timed = {("fwd", bk): (lambda bk=bk: fa._fwd_kernel(q, k, v, out_dtype=out_dtype,
+                                                        block_k=bk, **opts),
+                           lambda: fa._fwd_reference(q, k, v, out_dtype=out_dtype, **opts))
+             for _, bk in fa.compiled_blocks(D, q.dtype)}
+    timed[("bwd_dq", None)] = (lambda: fa._bwd_dq_kernel(*args, **opts),
+                               lambda: fa._bwd_dq_reference(*args, **opts))
+    timed[("bwd_dkv", None)] = (lambda: fa._bwd_dkv_kernel(*args, **opts),
+                                lambda: fa._bwd_dkv_reference(*args, **opts))
     # the library yardstick, never called by the port: PyTorch's fused SDPA
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -862,36 +1115,34 @@ def phase_kernels(device):
     def lib_bwd():
         return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
 
-    # each (one call at a time, back to back)
     fwd_times = (time_ms(lib_fwd), time_ms(lib_fwd, batch=BACK_TO_BACK))
     bwd_times = (time_ms(lib_bwd), time_ms(lib_bwd, batch=BACK_TO_BACK))
     library = {"fwd": fwd_times, "bwd_dq": bwd_times, "bwd_dkv": bwd_times}
-
-    pairs = B * H * S * (S + 1) // 2  # visible (query, key) pairs, causal
-    row_bytes = B * H * S * D * 2     # one bf16 (B, S, H, D) tensor
-    stat_bytes = B * H * S * 4        # one f32 (B, H, S) row statistic
-    bounds = {
-        # q, k, v in; o, lse out. QKᵀ and PV
-        "fwd": bound(2 * 2 * pairs * D, 4 * row_bytes + stat_bytes),
-        # q, k, v, dO, lse, delta in; dq out. S, dP and dS·K
-        "bwd_dq": bound(3 * 2 * pairs * D, 5 * row_bytes + 2 * stat_bytes),
-        # q, k, v, dO, lse, delta in; dk, dv out. Sᵀ, dPᵀ, Pᵀ·dO and dSᵀ·Q
-        "bwd_dkv": bound(4 * 2 * pairs * D, 6 * row_bytes + 2 * stat_bytes),
-    }
-    results = {}
-    for kname, (kernel, plain) in timed.items():
+    f32 = dtype == "float32"
+    bounds = _kernel_bounds(B, S, H, D, q.element_size(),
+                            PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    rows = []
+    for (kname, bk), (kernel, plain) in timed.items():
         ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5, warmup=1)
         ms_b2b, wrapper_ms = time_ms(kernel, batch=BACK_TO_BACK), host_ms(kernel)
         (lib_ms, lib_b2b), (bound_ms, bound_by) = library[kname], bounds[kname]
-        print(f"time {kname} at {shape}: kernel {ms:.4f} ms one call at a time "
-              f"({ms_b2b:.4f} ms back to back; host {wrapper_ms:.4f} ms a call), plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_b2b:.4f} ms back to back), "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
-        results[kname] = dict(
-            name=kname, route="cuda", source=SOURCE, replaces=KERNELS[kname][1],
-            design=DESIGNS[kname][1],
-            max_abs_err=worst[kname]["abs"][0],
-            worst={m: {"value": x, "case": c} for m, (x, c) in worst[kname].items()},
+        tile = f", keys a stage {bk}" if bk else ""
+        print(f"time {kname} ({label}) at {shape} {dtype}{tile}: kernel {ms:.4f} ms one call "
+              f"at a time ({ms_b2b:.4f} ms back to back; host {wrapper_ms:.4f} ms a call), "
+              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_b2b:.4f} ms back to "
+              f"back), bound {bound_ms:.4f} ms ({bound_by})")
+        err = worst[(kname, dtype, fa.padded_head_dim(D))]
+        rows.append(dict(
+            name=kname, route="cuda", source=SOURCE_F32 if f32 else SOURCE,
+            replaces=KERNELS[kname][1],
+            design=("f32 FMA tiles" if f32 else
+                    "wgmma+TMA, one consumer warpgroup a block"
+                    if kname == "bwd_dkv" and fa.padded_head_dim(D) == 128
+                    else DESIGNS[kname][1]),
+            head_dim=D, dtype=dtype, shape=[B, S, H, D], timed_at=label,
+            block_k=bk if kname == "fwd" else None,
+            max_abs_err=err["abs"][0],
+            worst={m: {"value": x, "case": c} for m, (x, c) in err.items()},
             tolerance={"row": TOL_ROW, "elem": TOL_ELEM, "lse_abs": TOL_LSE}, ms=ms,
             ms_back_to_back=ms_b2b, host_ms=wrapper_ms,
             plain_ms=plain_ms, plain=KERNELS[kname][0], bound_ms=bound_ms,
@@ -899,12 +1150,113 @@ def phase_kernels(device):
             library_call=("scaled_dot_product_attention(is_causal=True)"
                           if kname == "fwd" else
                           "scaled_dot_product_attention backward: dq, dk and dv together"),
-        )
-    bwd_host = host_ms(lambda: fa._bwd_kernel(*args, **opts))
-    print(f"host: the backward's two launches (inputs checked once) {bwd_host:.4f} ms a "
-          f"call, against {results['bwd_dq']['host_ms'] + results['bwd_dkv']['host_ms']:.4f} "
-          f"ms for the two wrappers called one after the other")
-    return results
+        ))
+    if host:
+        bwd_host = host_ms(lambda: fa._bwd_kernel(*args, **opts))
+        by = {r["name"]: r for r in rows}
+        print(f"host: the backward's two launches (inputs checked once) {bwd_host:.4f} ms a "
+              f"call, against {by['bwd_dq']['host_ms'] + by['bwd_dkv']['host_ms']:.4f} "
+              f"ms for the two wrappers called one after the other")
+    return rows
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+
+
+def sweep_tiles(fa, gen, device, table_out=None) -> dict:
+    """The tile sweep: every compiled forward tile at each of
+    ``SWEEP_SHAPES`` (bf16, causal), the forward and the forward plus the
+    backward timed back to back; the winner of each shape is the fastest
+    forward plus backward. Writes the winners as a tile table to
+    ``table_out`` if given. Then the wrapper must resolve each shape to the
+    committed table's tile (`flash_tuning`'s file in the checkout), or to
+    the default where no table is committed."""
+    import torch
+
+    from edl_tpu_torch.ops import flash_tuning
+
+    winners, records = {}, []
+    for B, S, H, D in SWEEP_SHAPES:
+        q, k, v, do, dlse, _ = _case_inputs((B, S, S, H, D), False, False, gen, device)
+        opts = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=0, k_offset=0)
+        o, lse = fa._fwd_kernel(q, k, v, out_dtype=torch.bfloat16, **opts)
+        do, delta = fa._backward_inputs(q, o, do, dlse)
+        best = None
+        for bq, bk in fa.compiled_blocks(D, torch.bfloat16):
+            def fwd(bk=bk):
+                return fa._fwd_kernel(q, k, v, out_dtype=torch.bfloat16, block_k=bk, **opts)
+
+            rec = dict(shape=[B, S, H, D], block_q=bq, block_k=bk,
+                       fwd_ms=time_ms(fwd, batch=BACK_TO_BACK),
+                       fwd_bwd_ms=time_ms(lambda: (fwd(), fa._bwd_kernel(
+                           q, k, v, do, lse, delta, **opts)), batch=BACK_TO_BACK))
+            records.append(rec)
+            if best is None or rec["fwd_bwd_ms"] < best["fwd_bwd_ms"]:
+                best = rec
+        key = flash_tuning._key(flash_tuning._bucket(S), D, "bfloat16")
+        winners[key] = (best["block_q"], best["block_k"])
+        print(f"sweep {(B, S, H, D)} bf16 causal: " + ", ".join(
+            f"({r['block_q']}, {r['block_k']}) fwd {r['fwd_ms']:.4f} ms, fwd+bwd "
+            f"{r['fwd_bwd_ms']:.4f} ms" for r in records if r["shape"] == [B, S, H, D])
+              + f"; winner {winners[key]} ({key})")
+    if table_out:
+        import torch.version
+
+        meta = {"card": card(), "torch": torch.__version__, "cuda": torch.version.cuda,
+                "call": " ".join(["chip_smoke.py", *(a for a in sys.argv[1:]
+                                                     if a not in ("--tile-table", table_out))]),
+                "at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+                "shapes": [list(s) for s in SWEEP_SHAPES],
+                "criterion": "forward plus backward, back to back"}
+        flash_tuning.save_table(winners, meta, path=table_out)
+        print(f"sweep: the winners written to {table_out}")
+    committed = flash_tuning._load_table()
+    resolved = {}
+    for B, S, H, D in SWEEP_SHAPES:
+        key = flash_tuning._key(flash_tuning._bucket(S), D, "bfloat16")
+        require(not committed or key in committed, f"the committed tile table lacks {key}")
+        got = fa.resolve_blocks(S, D, torch.bfloat16)
+        want = tuple(committed[key]) if committed else flash_tuning.DEFAULT_BLOCKS
+        require(got == want, f"the wrapper resolves {(B, S, H, D)} to {got}, the committed "
+                             f"table to {want}")
+        resolved[key] = list(got)
+    print("sweep: the wrapper resolves every shape to the " + (
+        "committed table's tile" if committed else "default tile (no table committed)")
+          + f": {resolved}")
+    return {"records": records, "winners": {k: list(v) for k, v in winners.items()},
+            "resolved": resolved, "committed": bool(committed)}
+
+
+def phase_kernels(device, table_out=None) -> tuple:
+    """Every kernel against its plain version on every case, the JAX on-chip
+    check's cases, the views the wrapper copies or pads, the check against
+    planted faults, the ring's merged hops, the timings and the tile sweep;
+    returns (the kernel rows, the phase's other records)."""
+    import torch
+
+    fa = _flash_module()
+    gen = torch.Generator(device=device).manual_seed(0)
+    worst = check_cases(fa, gen, device)
+    onchip = check_onchip_cases(fa, gen, device)
+    check_served_views(fa, gen, device)
+    for case in FAULT_CASES:
+        check_planted_faults(fa, gen, device, case)
+    check_merged_hops(fa, gen, device, (lambda B, S, _, H, D: (B, S, H, D))(*CASES[0][1]))
+    B, S, _, H, D = CASES[0][1]
+    rows = time_kernel_rows(fa, gen, device, (B, S, H, D), "bfloat16", worst, "slice",
+                            host=True)
+    rows += time_kernel_rows(fa, gen, device, LM_D128_ATTENTION, "bfloat16", worst, "lm_d128")
+    rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[3][:4], "bfloat16", worst,
+                             "jax check d128")
+    rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[0][:4], "float32", worst,
+                             "jax check f32")
+    sweep = sweep_tiles(fa, gen, device, table_out)
+    return rows, {"onchip_cases": onchip, "sweep": sweep}
 
 
 class Run:
@@ -929,14 +1281,17 @@ class Run:
         self.state, _ = self.trainer.train_step(self.state, self.batch)
         torch.cuda.synchronize()
 
-    def timed(self, reset_counts=None) -> dict:
-        """``WARMUP_STEPS`` steps, then ``STEPS`` timed steps (host clock around
-        each step and a synchronise), peak memory over the timed steps.
-        ``reset_counts`` runs just before the timed steps. Requires a finite,
-        falling loss; prints and returns the zoo row."""
+    def timed(self, reset_counts=None, steps=None) -> dict:
+        """``WARMUP_STEPS`` steps, then ``steps`` (default ``STEPS``) timed
+        steps (host clock around each step and a synchronise), peak memory
+        over the timed steps. ``reset_counts`` runs just before the timed
+        steps. Requires a finite, falling loss; prints and returns the zoo
+        row."""
         import torch
 
         from edl_tpu_torch.tools.mfu import mfu_fields
+
+        steps = STEPS if steps is None else steps
 
         for _ in range(WARMUP_STEPS):
             self.state, loss = self.trainer.train_step(self.state, self.batch)
@@ -946,7 +1301,7 @@ class Run:
         if reset_counts is not None:
             reset_counts()
         losses, step_s = [], []
-        for _ in range(STEPS):
+        for _ in range(steps):
             t0 = time.perf_counter()
             self.state, loss = self.trainer.train_step(self.state, self.batch)
             torch.cuda.synchronize()
@@ -962,7 +1317,7 @@ class Run:
         cfg = self.config
         self.row = dict(
             name=self.label, model=self.model.name, params=n_params, batch=self.batch_size,
-            optimizer=cfg.optimizer, learning_rate=cfg.learning_rate, steps=STEPS,
+            optimizer=cfg.optimizer, learning_rate=cfg.learning_rate, steps=steps,
             step_ms=step * 1e3, samples_per_s=self.batch_size / step,
             model_flops=acc["model_flops"], tflops_per_sec=acc["tflops_per_sec"],
             mfu=acc["mfu"], peak_tflops=acc["peak_tflops"],
@@ -971,7 +1326,7 @@ class Run:
             loss_last=losses[-1])
         print(f"{self.label}: {n_params / 1e6:.2f} M params, batch {self.batch_size}, "
               f"{cfg.optimizer} lr {cfg.learning_rate}: step {step * 1e3:.3f} ms (median of "
-              f"{STEPS}), {self.batch_size / step:.0f} samples/s, MFU "
+              f"{steps}), {self.batch_size / step:.0f} samples/s, MFU "
               + (f"{acc['mfu']:.5f} of {acc['peak_tflops']:.0f} TFLOP/s"
                  if acc["mfu"] is not None else "not measured (no peak for this card)")
               + f" ({acc['tflops_per_sec']:.3f} TFLOP/s), peak memory "
@@ -1261,21 +1616,23 @@ def phase_remat(device, off: dict) -> dict:
     return row
 
 
-def phase_step_parity(device) -> None:
-    """One step at depth 2 through the kernels and through dense attention."""
+def phase_step_parity(device, widths=None, batch_size=None) -> dict:
+    """One step at depth 2 through the kernels and through dense attention,
+    at ``widths`` (default ``SLICE``) and ``batch_size`` (default ``BATCH``)."""
     import numpy as np
     import torch
 
     from edl_tpu_torch.models.transformer import TransformerConfig, make_model
 
-    cfg = TransformerConfig(flash=True, **{**SLICE, "n_layers": 2})
+    widths = SLICE if widths is None else widths
+    cfg = TransformerConfig(flash=True, **{**widths, "n_layers": 2})
     model = make_model(cfg)
     kern = model.build(device=device, generator=torch.Generator().manual_seed(1))
     plain = make_model(dataclasses.replace(cfg, flash=False)).build(
         device=device, generator=torch.Generator().manual_seed(2))
     plain.load_state_dict(kern.state_dict())
-    batch = {k: torch.from_numpy(v).to(device)
-             for k, v in model.synthetic_batch(np.random.default_rng(1), BATCH).items()}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in model.synthetic_batch(
+        np.random.default_rng(1), BATCH if batch_size is None else batch_size).items()}
     losses = []
     for module in (kern, plain):
         loss = module(batch)
@@ -1286,11 +1643,74 @@ def phase_step_parity(device) -> None:
     for (name, pk), (_, pp) in zip(kern.named_parameters(), plain.named_parameters()):
         grads[name] = ((pk.grad - pp.grad).norm() / pp.grad.norm()).item()
     worst = max(grads, key=grads.get)
-    print(f"step parity (depth 2): loss kernel {losses[0]:.6f} plain {losses[1]:.6f} "
-          f"(rel {rel:.3e}); worst grad {worst} rel norm err {grads[worst]:.3e}")
+    print(f"step parity (depth 2, d_model {cfg.d_model}, head dim {cfg.head_dim}): loss "
+          f"kernel {losses[0]:.6f} plain {losses[1]:.6f} (rel {rel:.3e}); worst grad {worst} "
+          f"rel norm err {grads[worst]:.3e}")
     require(rel <= TOL_STEP_LOSS, f"depth-2 loss off by {rel:.3e}")
     require(all(math.isfinite(e) and e <= TOL_STEP_GRAD for e in grads.values()),
             f"depth-2 grads off: {grads}")
+    return {"loss_rel": rel, "worst_grad": worst, "worst_grad_rel_norm": grads[worst],
+            "loss_tolerance": TOL_STEP_LOSS, "grad_tolerance": TOL_STEP_GRAD}
+
+
+def phase_lm_d128(device) -> dict:
+    """The LM at head dim 128 (``LM_D128``, Pythia-1.4B's widths) trained by
+    the ``Trainer`` on the card: finite, falling losses, exactly 24 launches
+    of each kernel a timed step, all of the D-128 bf16 variants and the
+    forward at the tile the table resolves; one profiled step (tokens/s,
+    MFU, peak memory, each kernel's device ms a launch, the busy share).
+    Then one step at depth 2 through the kernels and through the plain
+    attention path from the same weights, and the ring's per-hop engine at
+    the LM's attention shape. Returns its record."""
+    import torch
+
+    from edl_tpu_torch.models.transformer import TransformerConfig, make_model
+    from edl_tpu_torch.runtime import TrainerConfig
+
+    fa = _flash_module()
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(flash=True, **LM_D128)
+    run = Run("transformer d128 (Pythia-1.4B widths)", make_model(cfg), TrainerConfig(
+        optimizer="adam", learning_rate=3e-4, seed=0), LM_D128_BATCH, device)
+    row = run.timed(reset_counts=fa.reset_launches, steps=LM_D128_STEPS)
+    launches, variants = dict(fa.LAUNCHES), dict(fa.VARIANT_LAUNCHES)
+    want = cfg.n_layers * LM_D128_STEPS
+    require(all(n == want for n in launches.values()),
+            f"lm_d128 launch counts {launches}, want {want} each ({cfg.n_layers} layers x "
+            f"{LM_D128_STEPS} steps)")
+    _, block_k = fa.resolve_blocks(cfg.seq_len, cfg.head_dim, torch.bfloat16)
+    want_variants = {("fwd", "bfloat16", 128, block_k): want, ("bwd_dq", "bfloat16", 128, None):
+                     want, ("bwd_dkv", "bfloat16", 128, None): want}
+    require(variants == want_variants, f"lm_d128 variants {variants}, want {want_variants}")
+    tokens = LM_D128_BATCH * cfg.seq_len / row["step_ms"] * 1e3
+    print(f"lm_d128: batch {LM_D128_BATCH} x {cfg.seq_len}, head dim {cfg.head_dim}, "
+          f"{tokens:.0f} tokens/s, MFU {row['mfu']}, peak memory "
+          f"{row['peak_memory_gib']:.3f} GiB, launches {launches}, the forward at keys a "
+          f"stage {block_k}")
+    kernels = run.profile(LM_GROUPS)
+    in_step = {}
+    for kname, (fn, _) in DESIGNS.items():
+        hits = [e for e in kernels if fn in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            in_step[kname] = sum(e.self_device_time_total for e in hits) / 1e3 / n
+    print("profile lm_d128: flash kernels' device ms a launch in the step: " + ", ".join(
+        f"{k} {ms:.4f}" for k, ms in in_step.items()))
+    del run, kernels
+    torch.cuda.empty_cache()
+    row.update(config="Pythia-1.4B widths " + json.dumps(LM_D128), remat=False,
+               launches=launches, tokens_per_s=tokens, block_k=block_k,
+               variant_launches={" ".join(map(str, k)): n for k, n in variants.items()},
+               in_step_ms=in_step)
+    row["step_parity"] = phase_step_parity(device, LM_D128, LM_D128_BATCH)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(0)
+    hops = check_merged_hops(fa, gen, device, LM_D128_ATTENTION)
+    row["merged_hops"] = {str(n): e for n, e in hops.items()}
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    print(f"lm_d128: the phase {row['seconds']:.1f} s")
+    return row
 
 
 # -- the MoE phase ---------------------------------------------------------------
@@ -3720,7 +4140,8 @@ def el_mp_entry_main(argv) -> int:
 
 
 def elastic_mp(device) -> dict:
-    """Part (c): the LM entry at its full width under four launchers
+    """Part (c): the LM entry at its full width (``RANKS_LM_LAYERS`` deep)
+    under four launchers
     against the native coordinator, ``--axes {"pipe": 2}`` interleaved
     (v 2, 4 microbatches) with ZeRO-1: four ranks share the card over gloo
     as ``{"data": 2, "pipe": 2}``, a checkpoint a round. Once a checkpoint
@@ -3741,10 +4162,10 @@ def elastic_mp(device) -> dict:
 
     repo = os.path.dirname(os.path.abspath(__file__))
     n, per, world = EL_MP_SHARDS, EL_MP_BATCHES, EL_MP_WORLD
-    cfg = _mp_config(EL_MP_LAYOUT)
+    cfg = _mp_config({**EL_MP_LAYOUT, "n_layers": RANKS_LM_LAYERS})
     want = mp_expected_launches(EL_MP_AXES, cfg)
     args = (f"--vocab-size {SLICE['vocab_size']} --d-model {SLICE['d_model']} "
-            f"--n-layers {SLICE['n_layers']} --n-heads {SLICE['n_heads']} "
+            f"--n-layers {RANKS_LM_LAYERS} --n-heads {SLICE['n_heads']} "
             f"--d-ff {SLICE['d_ff']} --seq-len {SLICE['seq_len']} --batch-size {BATCH} "
             f"--batches-per-shard {per} --learning-rate {EL_MP_LR} "
             f"--pipeline-schedule {EL_MP_LAYOUT['pipeline_schedule']} "
@@ -3861,7 +4282,7 @@ def elastic_mp(device) -> dict:
                 f"elastic mp: loss did not fall: {all_losses}")
         # the world-4 checkpoint into one device: the re-cut across pipe
         saved = torch.load(watch.snapshots[restored], map_location="cpu", weights_only=True)
-        one_cfg = _mp_config({})
+        one_cfg = _mp_config({"n_layers": RANKS_LM_LAYERS})
         trainer = Trainer(make_model(one_cfg), config=TrainerConfig(
             optimizer="adam", learning_rate=EL_MP_LR), device=device)
         state = trainer.load_full_state(trainer.init_state(), saved)
@@ -3897,7 +4318,8 @@ def elastic_mp(device) -> dict:
         "launches": {k: sum(s["launches"][k] for r in (w4[0], w2[0]) for s in r["steps"])
                      for k in want},
     }
-    print(f"elastic mp: the LM entry at full width, {EL_MP_AXES} interleaved (v 2, M 4), "
+    print(f"elastic mp: the LM entry at full width, {RANKS_LM_LAYERS} layers, {EL_MP_AXES} "
+          f"interleaved (v 2, M 4), "
           f"ZeRO-1, four ranks on one card over gloo as {meshes[world][0]}; SIGTERM to data "
           f"index 1 ({', '.join(ranks[2:])}) after {covered} shards by step {restored}; "
           f"ranks 0 and 1 exited 75 once and came back as {meshes[world // 2][0]}: recovery "
@@ -3998,6 +4420,14 @@ TOL_MP_LOSS = 1e-3
 #: other places through 12 layers)
 TOL_MP_GRAD = 5e-2
 MP_RANK_TIMEOUT = 900
+
+
+#: the LM's depth where its entry runs under launchers on ranks that share
+#: the card (the elastic phase's part (c), the controller, the chaos
+#: phase): its full width at MP_LAYERS of its 12 layers, as the mp arms, so
+#: that the whole script keeps inside its time limit; their checks follow
+#: the depth (a step's flash launches are one of each kernel a layer)
+RANKS_LM_LAYERS = MP_LAYERS
 
 
 def _mp_config(overrides: dict):
@@ -4842,7 +5272,8 @@ def controller_drive(root: str) -> dict:
     of ``CTL_NODES`` one-chip nodes. The third chip starts out held by
     another tenant's pod (an accounting-only pod, which the controller's
     store does not know, as `K8sCluster.inquire` counts every namespace's
-    pods). lm-grow (2..3 trainers, the LM at the slice's full width, gloo)
+    pods). lm-grow (2..3 trainers, the LM at the slice's full width,
+    ``RANKS_LM_LAYERS`` deep, gloo)
     trains at world 2; once it has committed a round, that pod leaves, and
     the autoscaler, on its own, grows lm-grow 2 -> 3 (publish, spawn,
     nudge; both ranks exit 75 and come back at world 3). Once every
@@ -4876,7 +5307,7 @@ def controller_drive(root: str) -> dict:
     w2v_tasks = shard_names("imikolov", CTL_W2V_SHARDS)
     lm_entry = (f"{sys.executable} {me} --ctl-entry {records} lm.train -- "
                 f"--vocab-size {SLICE['vocab_size']} --d-model {SLICE['d_model']} "
-                f"--n-layers {SLICE['n_layers']} --n-heads {SLICE['n_heads']} "
+                f"--n-layers {RANKS_LM_LAYERS} --n-heads {SLICE['n_heads']} "
                 f"--d-ff {SLICE['d_ff']} --seq-len {SLICE['seq_len']} --batch-size {BATCH} "
                 f"--batches-per-shard {CTL_LM_BATCHES} --learning-rate {CTL_LM_LR} "
                 f"--dist-backend gloo {CTL_ENTRY_ARGS}").strip()
@@ -5052,7 +5483,7 @@ def controller_drive(root: str) -> dict:
             f"{[(p, i['restore'], i['exit']) for p, i in finals.items()]}, the worlds their "
             f"metrics lines report {reported}: want each to exit 0 and report the world it "
             "ended at")
-    want = mp_expected_launches({}, _mp_config({}))
+    want = mp_expected_launches({}, _mp_config({"n_layers": RANKS_LM_LAYERS}))
     steps = [(w, s) for _, w, _, group in gens for i in group for s in i["steps"]]
     bad = [(w, s["rank"], s["launches"]) for w, s in steps if s["launches"] != want]
     require(not bad and {w for w, _ in steps} == {2, 3},
@@ -5119,7 +5550,7 @@ def controller_drive(root: str) -> dict:
         "w2v_submit_to_decision_s": shrink[3] - t_submit_w2v,
         "samples": samples, "status": status, "wall_s": t_end - t_start,
     }
-    print(f"controller (a): lm-grow (the LM at d {SLICE['d_model']}, {SLICE['n_layers']} "
+    print(f"controller (a): lm-grow (the LM at d {SLICE['d_model']}, {RANKS_LM_LAYERS} "
           f"layers, batch {BATCH} a rank) trained at world 2 from {out['first_step_s']['lm_grow']:.2f} "
           f"s after its submit; status --json answered (world {status['world']}, done "
           f"{status['done']}); the third chip freed, the autoscaler decided 2 -> 3 "
@@ -5250,7 +5681,7 @@ def chaos_drive(device, root: str) -> dict:
 
     ensure_built()
     fa = _flash_module()
-    want = {k: SLICE["n_layers"] for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    want = {k: RANKS_LM_LAYERS for k in ("fwd", "bwd_dq", "bwd_dkv")}
     t0 = time.perf_counter()
     deadline = time.monotonic() + CH_TIMEOUT
     me = os.path.abspath(__file__)
@@ -5263,7 +5694,7 @@ def chaos_drive(device, root: str) -> dict:
                                  heartbeat_ttl_sec=CH_TTL)
     entry = (f"{sys.executable} {me} --ctl-entry {records} lm.train -- "
              f"--vocab-size {SLICE['vocab_size']} --d-model {SLICE['d_model']} "
-             f"--n-layers {SLICE['n_layers']} --n-heads {SLICE['n_heads']} "
+             f"--n-layers {RANKS_LM_LAYERS} --n-heads {SLICE['n_heads']} "
              f"--d-ff {SLICE['d_ff']} --seq-len {SLICE['seq_len']} --batch-size {BATCH} "
              f"--batches-per-shard {CH_ALPHA_BATCHES} --learning-rate 3e-4 "
              f"--dist-backend gloo {CH_ENTRY_ARGS}").strip()
@@ -5310,7 +5741,7 @@ def chaos_drive(device, root: str) -> dict:
     # -- beta: the worker behind the proxy, its launches counted ----------------
     server_b = CoordinatorServer(task_lease_sec=120.0, heartbeat_ttl_sec=CH_TTL)
     beta_tasks = shard_names("beta", CH_BETA_SHARDS)
-    cfg = TransformerConfig(flash=True, **SLICE)
+    cfg = TransformerConfig(flash=True, **{**SLICE, "n_layers": RANKS_LM_LAYERS})
     #: each in-process step's launches, by the thread that stepped ("chaos-
     #: twin", then "chaos-beta": the launch counters are the process's, so
     #: the two never step at once)
@@ -5570,49 +6001,93 @@ def main(argv) -> int:
     if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
         return ctl_entry_main(argv[1:])
     device = phase_device()
-    sass = phase_build()
-    kernels = phase_kernels(device)
-    for name, row in kernels.items():
-        fn = DESIGNS[name][0]
-        row["sass"] = {f"DP{dp}": ops for dp, ops in sorted(sass[fn].items())}
+    build = phase_build()
+    table_out = argv[argv.index("--tile-table") + 1] if "--tile-table" in argv else None
+    rows, checks = phase_kernels(device, table_out)
+    fa = _flash_module()
+    for row in rows:
+        f32 = row["dtype"] == "float32"
+        fn = FLASH_F32_NAMES[list(KERNELS).index(row["name"])] if f32 else DESIGNS[row["name"]][0]
+        label = _label(row["dtype"], fa.padded_head_dim(row["head_dim"]), row["block_k"])
+        row["sass"] = build["sass"][fn].get(label)
+        row["ptxas"] = build["ptxas"].get(f"{fn} {label}")
+    checks["build_seconds"] = build["seconds"]
+    # the rows of the D-64 bf16 kernels at the slice's shape, the forward at
+    # the tile the slice's LM resolves, which every model phase but lm_d128
+    # runs; kernels maps each kernel to its row
+    import torch
+
+    slice_bk = fa.resolve_blocks(SLICE["seq_len"], SLICE["d_model"] // SLICE["n_heads"],
+                                 torch.bfloat16)[1]
+    kernels = {r["name"]: r for r in rows if r["timed_at"] == "slice" and r["block_k"] in
+               (None, slice_bk)}
+
+    def emit(main_variants, in_step=None, lm_d128=None) -> None:
+        """Each row's launches on the main path (by variant) and in-step ms,
+        then the kernels line and the phase 3 records."""
+        for row in rows:
+            key = (row["name"], row["dtype"], fa.padded_head_dim(row["head_dim"]),
+                   row["block_k"])
+            row["launches"] = main_variants.get(key, 0)
+            if lm_d128 is not None and row["head_dim"] == 128 and row["dtype"] == "bfloat16":
+                row["launches_lm_d128"] = row["launches"]
+                if row["launches"] and row["timed_at"] == "lm_d128":
+                    row["in_step_ms"] = lm_d128["in_step_ms"].get(row["name"])
+            elif in_step is not None and row in kernels.values():
+                row["in_step_ms"] = in_step.get(row["name"])
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"kernel_checks": checks}))
+
+    def variants_of(launches: dict) -> dict:
+        """The slice's variants' launches from per-kernel counts."""
+        return {(name, "bfloat16", 64, slice_bk if name == "fwd" else None): n
+                for name, n in launches.items()}
+
+    def lm_d128_variants(lm_d128: dict) -> dict:
+        return {(name, "bfloat16", 128, lm_d128["block_k"] if name == "fwd" else None): n
+                for name, n in lm_d128["launches"].items()}
+
     if "--kernels" in argv:
-        print(json.dumps({"kernels": list(kernels.values())}))
+        emit({})
+        return 0
+    if "--lm-d128" in argv:  # the kernels and the lm_d128 phase only
+        lm_d128 = phase_lm_d128(device)
+        emit(lm_d128_variants(lm_d128), lm_d128=lm_d128)
+        print(json.dumps({"lm_d128": lm_d128}))
         return 0
     if "--mp" in argv:  # the kernels and the mp phase only
         mp = phase_mp(device)
         for name, row in kernels.items():
             row["launches_mp"] = mp["launches"][name]
-        print(json.dumps({"kernels": list(kernels.values())}))
+        emit(variants_of(mp["launches"]))
         print(json.dumps({"mp": mp}))
         return 0
     if "--entries" in argv:  # the kernels, phase 4's LM (part (c)) and the entries phase
         launches, _, lm, lm_state = phase_slice(device)
         del lm_state
         entries = phase_entries(lm["profiler"])
-        for name, row in kernels.items():
-            row["launches"] = launches[name]
-        print(json.dumps({"kernels": list(kernels.values())}))
+        emit(variants_of(launches))
         print(json.dumps({"entries": entries}))
         return 0
     if "--controller" in argv:  # the kernels and the controller phase only
         controller = phase_controller()
         for name, row in kernels.items():
-            row["launches"] = row["launches_controller"] = controller["launches"][name]
-        print(json.dumps({"kernels": list(kernels.values())}))
+            row["launches_controller"] = controller["launches"][name]
+        emit(variants_of(controller["launches"]))
         print(json.dumps({"controller": controller}))
         return 0
     if "--chaos" in argv:  # the kernels and the chaos phase only
         chaos = phase_chaos(device)
         for name, row in kernels.items():
-            row["launches"] = row["launches_chaos"] = chaos["launches"][name]
-        print(json.dumps({"kernels": list(kernels.values())}))
+            row["launches_chaos"] = chaos["launches"][name]
+        emit(variants_of(chaos["launches"]))
         print(json.dumps({"chaos": chaos}))
         return 0
     if "--elastic" in argv:  # the kernels and the elastic phase only
         elastic = phase_elastic(device)
         for name, row in kernels.items():
             row["launches_elastic"] = elastic["launches"][name]
-        print(json.dumps({"kernels": list(kernels.values())}))
+        emit(variants_of(elastic["launches"]))
         print(json.dumps({"elastic": elastic}))
         return 0
     with tempfile.TemporaryDirectory(prefix="edl-serve-") as serve_root:
@@ -5623,6 +6098,7 @@ def main(argv) -> int:
         del lm_state
         moe = phase_moe(device, lm)
         phase_step_parity(device)
+        lm_d128 = phase_lm_d128(device)
         ctr_row, ctr_run = phase_ctr(device)
         ctr_staged = stage_ctr_versions(ctr_run, serve_root)
         del ctr_run
@@ -5638,7 +6114,6 @@ def main(argv) -> int:
     controller = phase_controller()
     chaos = phase_chaos(device)
     for name, row in kernels.items():
-        row["launches"] = launches[name]
         row["launches_remat"] = remat["launches"][name]
         row["launches_serve"] = serve["lm"]["flash_launches"][name]
         row["launches_data_path"] = data_path["grad_accum"]["launches"][name]
@@ -5648,9 +6123,9 @@ def main(argv) -> int:
         row["launches_mp"] = mp["launches"][name]
         row["launches_controller"] = controller["launches"][name]
         row["launches_chaos"] = chaos["launches"][name]
-        row["in_step_ms"] = in_step.get(name)
-    print(json.dumps({"kernels": list(kernels.values())}))
+    emit({**variants_of(launches), **lm_d128_variants(lm_d128)}, in_step, lm_d128)
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
+    print(json.dumps({"lm_d128": lm_d128}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"data_path": data_path}))
     print(json.dumps({"moe": moe}))
@@ -5660,8 +6135,6 @@ def main(argv) -> int:
     print(json.dumps({"entries": entries}))
     print(json.dumps({"controller": controller}))
     print(json.dumps({"chaos": chaos}))
-    import torch
-
     # count: the devices this run uses
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))

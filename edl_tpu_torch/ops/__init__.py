@@ -2,7 +2,7 @@
 
 `flash_attention` is the port of the reference's Pallas flash-attention
 kernels: CUDA C++ for ``sm_90a`` under ``csrc/``, built at first use by
-`_build` and called through ``ctypes``.
+`_build` and called through ``ctypes``; `flash_tuning` is its tile table.
 """
 
 from edl_tpu_torch.ops.flash_attention import flash_attention

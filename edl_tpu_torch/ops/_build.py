@@ -1,10 +1,10 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-The ``csrc/*.cu`` files (which include the ``csrc/*.cuh`` headers) are
-compiled by one ``nvcc`` call for ``sm_90a`` (Hopper) and linked into one
-shared library with a plain C interface, which `load` opens with ``ctypes``.
-Nothing here includes PyTorch's headers, so a build takes seconds, not
-minutes.
+Each ``csrc/*.cu`` file (which include the ``csrc/*.cuh`` and ``*.h``
+headers) is compiled for ``sm_90a`` (Hopper) by its own ``nvcc`` process,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, which `load` opens with ``ctypes``. Nothing here
+includes PyTorch's headers, so a build takes seconds, not minutes.
 
 The library lands in ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), named by a digest of every file under ``csrc/`` and the
@@ -18,8 +18,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional
 
@@ -61,23 +64,44 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _run(cmds: List[List[str]]) -> List[str]:
+    """Run the commands at once, one process each; their output, in order,
+    each after a line ``nvcc: <last argument> in <seconds> s``. Raises
+    ``RuntimeError`` with a failed command's output."""
+
+    def one(cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        done = list(pool.map(one, cmds))
+    for cmd, (proc, _) in zip(cmds, done):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {cmd[-1]}:\n{proc.stdout}")
+    return [f"nvcc: {Path(cmd[-1]).name} in {seconds:.1f} s\n{proc.stdout}"
+            for cmd, (proc, seconds) in zip(cmds, done)]
+
+
 def build() -> Path:
     """Compile and link the library unless it is already built; return its
-    path. The compiler's output (with ``-Xptxas=-v``) is kept beside the
+    path. The compilers' output (with ``-Xptxas=-v``) is kept beside the
     library as ``<name>.log``. Raises ``RuntimeError`` with the compiler's
     output when a source does not compile."""
     out = library_path()
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
+    objs = out.parent / f"{out.stem}.{os.getpid()}.objs"
+    objs.mkdir(parents=True, exist_ok=True)
+    sources = _sources()
+    nvcc = _nvcc()
+    logs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)]
+                 for src in sources])
     tmp = out.parent / f"{out.stem}.{os.getpid()}.so"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, _sources())],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
+    logs += _run([[nvcc, *NVCC_FLAGS, "-shared", *(str(objs / f"{src.stem}.o") for src in sources),
+                   "-o", str(tmp)]])
+    out.with_suffix(".log").write_text("".join(logs))
+    shutil.rmtree(objs)
     os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
     return out
 

@@ -1,0 +1,14 @@
+// The f16 variants of flash_fwd_kernel (flash_kernels.cuh) by padded head dim,
+// keys a stage, compiled on their own so that the build runs one nvcc process
+// per unit (flash_launch.h).
+
+#include "flash_kernels.cuh"
+
+namespace edl_flash {
+
+template cudaError_t launch_fwd<__half, 16, 64>(const FwdArgs&, cudaStream_t);
+template cudaError_t launch_fwd<__half, 32, 64>(const FwdArgs&, cudaStream_t);
+template cudaError_t launch_fwd<__half, 64, 64>(const FwdArgs&, cudaStream_t);
+template cudaError_t launch_fwd<__half, 128, 64>(const FwdArgs&, cudaStream_t);
+
+}  // namespace edl_flash

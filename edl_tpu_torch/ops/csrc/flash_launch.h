@@ -1,0 +1,62 @@
+// The launchers of the flash-attention kernels, as the C interface
+// (flash_attention.cu) calls them. Each variant is compiled in its own
+// translation unit (flash_fwd_*.cu, flash_bwd_*.cu, flash_f32.cu), so that
+// the build runs one nvcc process per unit, all at once.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace edl_flash {
+
+// A (B, S, H, D) view: its start and its element strides (unit stride along D).
+struct View {
+  const void* ptr;
+  long long sb, ss, sh;
+};
+
+struct FwdArgs {
+  View q, k, v;
+  void* o;     // contiguous (B, Sq, H, D): f32 if out_f32, else q's type
+  float* lse;  // (B, H, Sq)
+  int B, H, Sq, Sk, D, q_offset, k_offset;
+  float scale;
+  int causal, out_f32;
+};
+
+struct BwdArgs {
+  View q, k, v;
+  const void* dout;    // contiguous (B, Sq, H, D), q's type
+  const float* lse;    // (B, H, Sq)
+  const float* delta;  // (B, H, Sq)
+  void* dq;            // contiguous, q's shape and type (dq kernels)
+  void* dk;            // contiguous, k's shape and type (dkv kernels)
+  void* dv;
+  int B, H, Sq, Sk, D, q_offset, k_offset;
+  float scale;
+  int causal;
+};
+
+// The wgmma kernels: T is __nv_bfloat16 or __half, DP the padded head dim
+// (16, 32, 64 or 128), KEYS the forward's keys a pipeline stage (64 or 128).
+template <typename T, int DP, int KEYS>
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream);
+template <typename T, int DP>
+cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream);
+template <typename T, int DP>
+cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream);
+
+// The f32 kernels (any head dim up to 128).
+cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream);
+cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream);
+cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream);
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above the default 48 KB)
+// on the current device. Set at every launch, so that every device has it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace edl_flash

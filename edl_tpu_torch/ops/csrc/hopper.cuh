@@ -2,18 +2,29 @@
 // TMA tile loads, warpgroup matrix multiplies (wgmma) with their shared-memory
 // descriptors. Plain inline PTX, no CUTLASS or CuTe.
 //
-// Shared-memory tiles are written by TMA with the swizzle whose span equals
-// one tile row: a row of DP bf16 is 2·DP bytes, so DP 64 uses the 128-byte
-// swizzle, DP 32 the 64-byte one and DP 16 the 32-byte one. Every tile starts
-// on a 1024-byte boundary, so the swizzle pattern is the same at every tile.
-// One descriptor then serves a tile both as a K-major operand (its rows are
-// the M or N index, the head dim is the reduction) and as an MN-major one (its
-// rows are the reduction index): only the wgmma's transpose flag and the step
-// along the reduction differ.
+// Element types: bf16 and f16 take every path alike; `Elem<T>` names the TMA
+// data type and the packing of two f32 values, and the wgmma wrappers are
+// specialised for both.
+//
+// Shared-memory tiles are written by TMA with the swizzle whose span is one
+// tile row of up to 64 elements: a row of DP 16-bit elements is 2·DP bytes,
+// so DP 64 uses the 128-byte swizzle, DP 32 the 64-byte one and DP 16 the
+// 32-byte one. A row of DP 128 (256 bytes) is wider than the widest swizzle:
+// such a tile is stored as two chunks of 64 columns, each chunk a tile of its
+// own rows, 128B-swizzled, the second chunk right after the first. Every
+// tile and chunk starts on a 1024-byte boundary, so the swizzle pattern is
+// the same at every one. One descriptor then serves a tile both as a K-major
+// operand (its rows are the M or N index, the head dim is the reduction,
+// stepped across the chunks) and as an MN-major one (its rows are the
+// reduction index; its N spans the chunks, whose stride is the descriptor's
+// leading byte offset): only the wgmma's transpose flag and the step along
+// the reduction differ.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,6 +32,50 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- element types ------------------------------------------------------------------
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+// -- tile geometry ------------------------------------------------------------------
+
+// A tile row of DP 16-bit elements: chunks of kSpan columns (one swizzle span
+// each), kChunks of them.
+template <int DP>
+struct Span {
+  static_assert(DP == 16 || DP == 32 || DP == 64 || DP == 128, "head dim tile");
+  static constexpr int kSpan = DP < 64 ? DP : 64;
+  static constexpr int kChunks = DP / kSpan;
+  static constexpr uint64_t kSwizzle = kSpan == 64 ? 1 : kSpan == 32 ? 2 : 3;
+};
+
+// Byte offset, from a K-major descriptor's start, of the 16-element step kk
+// of the head-dim reduction in a tile of ROWS rows: across the chunks (each
+// ROWS rows long), then within a chunk's swizzled row.
+template <int DP, int ROWS>
+__device__ __forceinline__ constexpr uint32_t kmajor_step(int kk) {
+  return (kk * 16 / Span<DP>::kSpan) * ROWS * Span<DP>::kSpan * 2 +
+         (kk * 16 % Span<DP>::kSpan) * 2;
 }
 
 // -- mbarriers ------------------------------------------------------------------
@@ -87,24 +142,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A tile of ROWS rows (sequence positions row ...) of head h, batch b, one
+// box a chunk: the map's box is one chunk wide (`Span<DP>::kSpan` columns).
+template <int DP, int ROWS, typename T>
+__device__ __forceinline__ void tma_load_tile(T* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                              int row, int b) {
+#pragma unroll
+  for (int c = 0; c < Span<DP>::kChunks; ++c) {
+    tma_load_4d(dst + c * ROWS * Span<DP>::kSpan, map, bar, c * Span<DP>::kSpan, h, row, b);
+  }
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // -- wgmma ------------------------------------------------------------------------
 
-// Descriptor of a tile of rows of DP bf16 (2·DP bytes, the swizzle span) in
-// shared memory. Bits 0-13: start address / 16; 16-29: leading byte offset /
-// 16 (not read for these layouts, whose extent along the swizzled dimension is
-// one swizzle span); 32-45: stride byte offset / 16, the distance between
-// groups of 8 rows; 62-63: swizzle (1: 128 B, 2: 64 B, 3: 32 B).
-template <int DP>
+// Descriptor of a tile of ROWS rows of DP 16-bit elements in shared memory,
+// from `tile` (a row of its first chunk). Bits 0-13: start address / 16;
+// 16-29: leading byte offset / 16, the stride between chunks, read only
+// where an MN-major operand's N spans more than one chunk (DP 128; K-major
+// operands and one-chunk tiles do not read it); 32-45: stride byte offset /
+// 16, the distance between groups of 8 rows; 62-63: swizzle (1: 128 B, 2: 64
+// B, 3: 32 B).
+template <int DP, int ROWS>
 __device__ __forceinline__ uint64_t make_desc(const void* tile) {
-  static_assert(DP == 16 || DP == 32 || DP == 64, "head dim tile");
-  constexpr uint64_t kSwizzle = DP == 64 ? 1 : DP == 32 ? 2 : 3;
-  constexpr uint64_t kGroupBytes = 8 * 2 * DP;
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
-         ((kGroupBytes >> 4) << 32) | (kSwizzle << 62);
+  constexpr uint64_t kChunkBytes = Span<DP>::kChunks > 1 ? ROWS * Span<DP>::kSpan * 2 : 16;
+  constexpr uint64_t kGroupBytes = 8 * 2 * Span<DP>::kSpan;
+  static_assert((kChunkBytes >> 4) < (1 << 14), "leading byte offset field");
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) | ((kChunkBytes >> 4) << 16) |
+         ((kGroupBytes >> 4) << 32) | (Span<DP>::kSwizzle << 62);
 }
 
 // The descriptor moved on by `bytes` (a multiple of 16) inside the tile.
@@ -149,14 +217,27 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 }
 
 // d (64 x 64, f32) (+)= A (64 x 16) · B (16 x 64), A and B in shared memory,
-// both K-major. `accumulate` 0 overwrites d.
+// both K-major, of element type T. `accumulate` 0 overwrites d.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate) {
+                                             int accumulate);
+
+// d (64 x N, f32) += A (64 x 16, T in registers) · B (16 x N) with B in
+// shared memory MN-major (its rows are the reduction index). A's fragment is
+// mma.sync's m16n8k16 A fragment, one 16-row slice per warp.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_n64<__nv_bfloat16>(float (&d)[32], uint64_t a, uint64_t b,
+                                                      int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
       " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31},"
       " %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -166,33 +247,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x N, f32) += A (64 x 16, bf16 in registers) · B (16 x N) with B in
-// shared memory MN-major (its rows are the reduction index). A's fragment is
-// mma.sync's m16n8k16 A fragment, one 16-row slice per warp.
-template <int N>
-__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
-                                            uint64_t b);
-
 template <>
-__device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t b) {
+__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 16>(float (&d)[8],
+                                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs_mn<32>(float (&d)[16], const uint32_t (&a)[4],
-                                                uint64_t b) {
+__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 32>(float (&d)[16],
+                                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
@@ -205,14 +275,135 @@ __device__ __forceinline__ void wgmma_rs_mn<32>(float (&d)[16], const uint32_t (
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs_mn<16>(float (&d)[8], const uint32_t (&a)[4],
-                                                uint64_t b) {
+__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 64>(float (&d)[32],
+                                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 128>(float (&d)[64],
+                                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      " %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_n64<__half>(float (&d)[32], uint64_t a, uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__half, 16>(float (&d)[8],
+                                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__half, 32>(float (&d)[16],
+                                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__half, 64>(float (&d)[32],
+                                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<__half, 128>(float (&d)[64],
+                                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      " %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -10,7 +10,17 @@ sentinel for rows that see no key.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors go through the
 plain versions, CUDA tensors through the kernels, and a CUDA request the
-kernels cannot serve raises. Nothing falls back.
+kernels cannot serve raises. Nothing falls back. The kernels take bf16, f16
+and f32 at any head dim up to `MAX_HEAD_DIM`: bf16 and f16 through the wgmma
+kernels (``flash_kernels.cuh``), f32 through the f32 kernels
+(``flash_f32.cu``). What their loads cannot read, the wrapper first makes
+readable, on either device: a head dim that is not a multiple of 8 is
+zero-padded (zero columns change no score; the outputs are sliced back),
+and a view that TMA cannot read is copied to a contiguous one.
+
+The forward's tile (``block_q`` query rows a block, ``block_k`` keys a stage)
+comes from the tile table (`flash_tuning.lookup`) unless the caller pins it;
+a pinned tile must be one the kernels were compiled for (`compiled_blocks`).
 
 The backward is the standard two-kernel flash recipe: the forward also emits
 the per-row ``lse = m + log(l)``; the backward recomputes ``P = exp(S - lse)``
@@ -20,10 +30,10 @@ JAX package, with dO in q's dtype: see `_backward_inputs`),
 ``dK = dSᵀ Q`` and ``dV = Pᵀ dO``. The lse cotangent ``dlse`` is what lets
 the ring merge per-hop (out, lse) pairs and differentiate through both.
 The ring's hops have an f32 out, so their dO is f32, where the kernels read
-q's dtype: the backward then runs twice, on dO's bf16 part and on the bf16
-rounding of what that part leaves out (each pass with its own delta, the
-function being linear in (dO, delta)), and adds the two: the JAX kernels'
-f32 dO to within a rounding of the remainder.
+q's dtype: for 16-bit q the backward then runs twice, on dO's part in q's
+dtype and on the rounding of what that part leaves out (each pass with its
+own delta, the function being linear in (dO, delta)), and adds the two: the
+JAX kernels' f32 dO to within a rounding of the remainder.
 
 Layout at the boundary is the models' (B, S, H, D). The kernels read q, k and
 v through their strides, so the slices of a fused (B, S, 3, H, D) projection
@@ -33,32 +43,97 @@ are not copied; outputs are contiguous (B, S, H, D), lse is (B, H, Sq) f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from edl_tpu_torch.ops import flash_tuning
 
 __all__ = ["flash_attention"]
 
 #: finite "masked" score: exp() of it is exactly 0.0 without nan risk
 _NEG_INF = -1e30
 
-#: the kernels' tile, fixed when the CUDA source is compiled: the rows one
-#: warpgroup owns in every kernel (wgmma's 64-row M), the key tile that the
-#: forward and dq kernels stream and the query tile that dkv streams
+#: the rows one warpgroup owns in every 16-bit kernel (wgmma's 64-row M),
+#: the key tile that dq streams and the query tile that dkv streams; the f32
+#: kernels' tile is TILE x TILE
 TILE = 64
 
-#: the largest head dim the kernels are compiled for (multiples of 8)
-MAX_HEAD_DIM = 64
+#: the largest head dim the kernels are compiled for (multiples of 8; the
+#: wrapper pads others); ROADMAP item B1 is head dims 129-256
+MAX_HEAD_DIM = 128
 
-#: kernel launches since the counts were last set to 0, one per kernel; each
-#: wrapper adds one where it launches its kernel and nowhere else
+#: the element types the kernels take, with the C interface's codes
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+#: kernel launches since the counts were last set to 0, one per kernel, every
+#: variant under its kernel's name; each wrapper adds one where it launches
+#: its kernel and nowhere else
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+
+#: the same launches by variant: (kernel, dtype name, padded head dim, the
+#: forward's keys a stage or None) -> launches
+VARIANT_LAUNCHES: Dict[Tuple[str, str, int, Optional[int]], int] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANT_LAUNCHES.clear()
+
+
+def _count(kernel: str, dtype: torch.dtype, head_dim: int, block_k: Optional[int] = None) -> None:
+    LAUNCHES[kernel] += 1
+    key = (kernel, flash_tuning.dtype_name(dtype), padded_head_dim(head_dim), block_k)
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The head dim the kernels are compiled for that serves ``head_dim`` (a
+    multiple of 8 up to `MAX_HEAD_DIM`): 16, 32, 64 or 128."""
+    return next(dp for dp in (16, 32, 64, 128, head_dim) if head_dim <= dp)
+
+
+def compiled_blocks(head_dim: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """The forward tiles (block_q, block_k) compiled for this head dim and
+    dtype, the default first (``csrc/flash_attention.cu`` has the table):
+    bf16 and f16 at 128 query rows a block and 64 keys a stage, bf16 also at
+    128 keys from a padded head dim of 64; f32 at 64 x 64. None for a dtype
+    the kernels do not take."""
+    if dtype == torch.float32:
+        return ((TILE, TILE),)
+    if dtype == torch.bfloat16 and head_dim > 32:
+        return (flash_tuning.DEFAULT_BLOCKS, (128, 128))
+    if dtype in (torch.bfloat16, torch.float16):
+        return (flash_tuning.DEFAULT_BLOCKS,)
+    return ()
+
+
+def resolve_blocks(seq_len: int, head_dim: int, dtype: torch.dtype,
+                   block_q: Optional[int] = None, block_k: Optional[int] = None
+                   ) -> Tuple[int, int]:
+    """The forward's tile for a request: what the caller pinned, the rest
+    from the tile table (`flash_tuning.lookup`, by key length, head dim and
+    dtype), or this variant's default where the table names a tile that is
+    not compiled for it. Raises ``NotImplementedError`` for a tile outside
+    the compiled set, on either device."""
+    compiled = compiled_blocks(head_dim, dtype)
+    pinned = (block_q, block_k)
+    if block_q is None or block_k is None:
+        tuned = flash_tuning.lookup(seq_len, head_dim, dtype)
+        if compiled and tuned not in compiled:
+            tuned = compiled[0]
+        block_q = tuned[0] if block_q is None else block_q
+        block_k = tuned[1] if block_k is None else block_k
+    if (block_q, block_k) in compiled or (not compiled and pinned == (None, None)):
+        return block_q, block_k
+    raise NotImplementedError(
+        f"(block_q, block_k) = ({block_q}, {block_k}): the kernels for head dim "
+        f"{head_dim} in {flash_tuning.dtype_name(dtype)} are compiled for "
+        f"{list(compiled)}")
 
 
 # -- plain PyTorch versions ----------------------------------------------------
@@ -134,13 +209,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _STRIDES = [_L] * 9  # batch, sequence and head strides of q, k and v
-_SIGNATURES = {
+_SIGNATURES = {  # ... offsets, scale, causal, [out_f32,] dtype, [block_k,] stream
     "edl_flash_fwd": [_P] * 5 + [_I] * 5 + _STRIDES
-    + [_I, _I, ctypes.c_float, _I, _I, _P],
+    + [_I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     "edl_flash_bwd_dq": [_P] * 7 + [_I] * 5 + _STRIDES
-    + [_I, _I, ctypes.c_float, _I, _P],
+    + [_I, _I, ctypes.c_float, _I, _I, _P],
     "edl_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + _STRIDES
-    + [_I, _I, ctypes.c_float, _I, _P],
+    + [_I, _I, ctypes.c_float, _I, _I, _P],
 }
 _lib: Optional[ctypes.CDLL] = None
 
@@ -171,14 +246,23 @@ def _check(rc: int, kernel: str) -> None:
 
 def _view_problem(shape, strides, itemsize: int, ptr: int) -> Optional[str]:
     """Why the kernels cannot read a (B, S, H, D) view of this layout, or
-    None if they can. The kernels load q, k and v by TMA: unit stride along
-    D, a start aligned to 16 bytes, byte strides that are multiples of 16,
-    and a head dim that is a multiple of 8 (rows of 16-byte multiples) and at
-    most `MAX_HEAD_DIM`."""
+    None if they can. The 16-bit kernels load q, k and v by TMA: unit stride
+    along D, a start aligned to 16 bytes, byte strides that are multiples of
+    16, and a head dim that is a multiple of 8 (rows of 16-byte multiples)
+    and at most `MAX_HEAD_DIM`; the f32 kernels are held to the same. The
+    wrapper pads or copies whatever this refuses at D <= `MAX_HEAD_DIM`
+    (`_kernel_layout`)."""
     D = shape[3]
     if D % 8 or not 0 < D <= MAX_HEAD_DIM:
         return (f"head_dim {D}: the kernels take head dims that are multiples "
-                f"of 8, up to {MAX_HEAD_DIM}")
+                f"of 8, up to {MAX_HEAD_DIM} (ROADMAP item B1: head dims "
+                f"{MAX_HEAD_DIM + 1}-256)")
+    return _layout_problem(strides, itemsize, ptr)
+
+
+def _layout_problem(strides, itemsize: int, ptr: int) -> Optional[str]:
+    """`_view_problem`'s layout part: why TMA cannot read a view with these
+    strides from this start, or None."""
     if strides[3] != 1:
         return f"strides {tuple(strides)}: D needs unit stride"
     if any(s * itemsize % 16 for s in strides[:3]):
@@ -189,15 +273,35 @@ def _view_problem(shape, strides, itemsize: int, ptr: int) -> Optional[str]:
     return None
 
 
+def _kernel_layout(q, k, v):
+    """q, k and v as the kernels read them: a head dim that is not a multiple
+    of 8 zero-padded up to one (zero columns change no score; the caller
+    slices the outputs back), and a view whose layout TMA cannot read (a
+    start not aligned to 16 bytes, byte strides that are not multiples of 16,
+    a head-dim stride other than 1) copied to a contiguous one. Done on
+    either device, outside the autograd function, so autograd carries the
+    pad and the copy."""
+    pad = -q.shape[3] % 8
+    out = []
+    for x in (q, k, v):
+        if pad:
+            x = F.pad(x, (0, pad))
+        elif _layout_problem(x.stride(), x.element_size(), x.data_ptr()):
+            x = x.clone(memory_format=torch.contiguous_format)
+        out.append(x)
+    return out
+
+
 def _check_kernel_inputs(q, k, v) -> None:
     """Raise on any request the kernels do not take."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} is on {x.device}; the kernels need q, k "
                              f"and v on one CUDA device")
-        if x.dtype != torch.bfloat16:
+        if x.dtype not in _DTYPES or x.dtype != q.dtype:
             raise NotImplementedError(
-                f"{name} is {x.dtype}; the CUDA kernels take bfloat16 only")
+                f"{name} is {x.dtype} (q {q.dtype}); the CUDA kernels take q, k "
+                f"and v of one dtype of {[str(t) for t in _DTYPES]}")
         problem = _view_problem(x.shape, x.stride(), x.element_size(),
                                 x.data_ptr())
         if problem is not None:
@@ -216,7 +320,10 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _fwd_kernel(q, k, v, *, scale, causal, q_offset, k_offset, out_dtype):
+def _fwd_kernel(q, k, v, *, scale, causal, q_offset, k_offset, out_dtype,
+                block_k=flash_tuning.DEFAULT_BLOCKS[1]):
+    """The forward kernel; ``block_k`` names its keys a stage (the f32
+    kernel's tile is `TILE`)."""
     _check_kernel_inputs(q, k, v)
     B, Sq, H, D = q.shape
     o = torch.empty((B, Sq, H, D), dtype=out_dtype, device=q.device)
@@ -224,9 +331,10 @@ def _fwd_kernel(q, k, v, *, scale, causal, q_offset, k_offset, out_dtype):
     rc = _kernels().edl_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, H, Sq, k.shape[1], D, *_strides(q, k, v), q_offset, k_offset,
-        scale, int(causal), int(out_dtype == torch.float32), _stream(q))
+        scale, int(causal), int(out_dtype == torch.float32), _DTYPES[q.dtype],
+        block_k, _stream(q))
     _check(rc, "fwd")
-    LAUNCHES["fwd"] += 1
+    _count("fwd", q.dtype, D, block_k)
     return o, lse
 
 
@@ -234,10 +342,10 @@ def _bwd_args(q, k, v, do, lse, delta):
     """The backward kernels' inputs, checked: (q, k, v, dO, lse, delta)
     with dO, lse and delta contiguous."""
     _check_kernel_inputs(q, k, v)
-    if do.dtype != torch.bfloat16 or do.shape != q.shape:
+    if do.dtype != q.dtype or do.shape != q.shape:
         raise NotImplementedError(
-            f"dO is {do.dtype} {tuple(do.shape)}; the kernels take a bf16 dO "
-            f"of q's shape {tuple(q.shape)}")
+            f"dO is {do.dtype} {tuple(do.shape)}; the kernels take a dO in q's "
+            f"dtype ({q.dtype}) and of q's shape {tuple(q.shape)}")
     return q, k, v, do.contiguous(), lse.contiguous(), delta.contiguous()
 
 
@@ -249,9 +357,9 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, *, scale, causal, q_offset,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, H, Sq, k.shape[1], D, *_strides(q, k, v), q_offset, k_offset,
-        scale, int(causal), _stream(q))
+        scale, int(causal), _DTYPES[q.dtype], _stream(q))
     _check(rc, "bwd_dq")
-    LAUNCHES["bwd_dq"] += 1
+    _count("bwd_dq", q.dtype, D)
     return dq
 
 
@@ -264,9 +372,9 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal, q_offset,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, Sq, k.shape[1], D, *_strides(q, k, v), q_offset, k_offset,
-        scale, int(causal), _stream(q))
+        scale, int(causal), _DTYPES[q.dtype], _stream(q))
     _check(rc, "bwd_dkv")
-    LAUNCHES["bwd_dkv"] += 1
+    _count("bwd_dkv", q.dtype, D)
     return dk, dv
 
 
@@ -305,12 +413,11 @@ def _backward_inputs(q, o, do, dlse) -> Tuple[torch.Tensor, torch.Tensor]:
     from that same dO. dP - delta then cancels as in exact arithmetic (to
     dlse for a row that sees one key), where a delta from the unrounded dO
     would leave dP's rounding error in dS. What the rounding leaves out goes
-    through a second pass (`_Flash.backward`).
+    through a second pass (`_Flash.backward`); an f32 q needs none.
     """
     do = do.to(q.dtype)
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2) - dlse.float()
     return do, delta  # delta: (B, H, Sq) f32
-
 
 
 class _Flash(torch.autograd.Function):
@@ -318,10 +425,10 @@ class _Flash(torch.autograd.Function):
     (o, lse), differentiable through both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, q_offset, k_offset, out_dtype):
+    def forward(ctx, q, k, v, scale, causal, q_offset, k_offset, out_dtype, block_k):
         opts = dict(scale=scale, causal=causal, q_offset=q_offset,
                     k_offset=k_offset)
-        fwd = _route(q, _fwd_reference, _fwd_kernel)
+        fwd = _route(q, _fwd_reference, functools.partial(_fwd_kernel, block_k=block_k))
         o, lse = fwd(q, k, v, out_dtype=out_dtype, **opts)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = opts
@@ -334,13 +441,14 @@ class _Flash(torch.autograd.Function):
         hi, delta = _backward_inputs(q, o, do, dlse)
         grads = bwd(q, k, v, hi, lse, delta, **ctx.opts)
         if do.dtype != q.dtype:
-            # an f32 dO (the ring's hops): the backward of its remainder too,
-            # whose delta has no lse term (that went with the first part)
+            # an f32 dO for a 16-bit q (the ring's hops): the backward of its
+            # remainder too, whose delta has no lse term (that went with the
+            # first part)
             lo, delta_lo = _backward_inputs(q, o, do.float() - hi.float(),
                                             torch.zeros_like(delta))
             grads = tuple((a.float() + b.float()).to(a.dtype) for a, b in
                           zip(grads, bwd(q, k, v, lo, lse, delta_lo, **ctx.opts)))
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention(
@@ -364,22 +472,27 @@ def flash_attention(
     merge at accumulator precision, lse is (B, H, Sq) f32 with rows that see
     no key at the finite ``_NEG_INF`` sentinel; gradients flow through both.
 
-    ``block_q``/``block_k`` may name the kernels' tile (`TILE`) or be left
-    out; the CUDA tiles are compile-time constants, so any other value raises
-    ``NotImplementedError``.
+    ``block_q``/``block_k`` name the forward kernel's tile (query rows a
+    block, keys a stage). Left out, they come from the tile table
+    (`resolve_blocks`); pinned, they must name a tile the kernels were
+    compiled for (`compiled_blocks`), or ``NotImplementedError`` is raised.
+    q, k and v take any float dtype on the CPU and bf16, f16 or f32 at a head
+    dim up to `MAX_HEAD_DIM` on CUDA.
     """
-    for name, blk in (("block_q", block_q), ("block_k", block_k)):
-        if blk is not None and blk != TILE:
-            raise NotImplementedError(
-                f"{name}={blk}: the kernels' tile is fixed at {TILE}")
     B, Sq, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if Sq == 0 or k.shape[1] == 0:
         raise ValueError("flash attention needs at least one query and key")
+    if q.device.type == "cuda" and D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"head_dim {D}: the CUDA kernels take head dims up to {MAX_HEAD_DIM} "
+            f"(ROADMAP item B1: head dims {MAX_HEAD_DIM + 1}-256)")
+    _, block_k = resolve_blocks(k.shape[1], D, q.dtype, block_q, block_k)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out_dtype = torch.float32 if return_lse else q.dtype
-    o, lse = _Flash.apply(q, k, v, scale, bool(causal), int(q_offset),
-                          int(k_offset), out_dtype)
+    o, lse = _Flash.apply(*_kernel_layout(q, k, v), scale, bool(causal),
+                          int(q_offset), int(k_offset), out_dtype, block_k)
+    o = o[..., :D]
     return (o, lse) if return_lse else o

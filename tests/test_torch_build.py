@@ -77,8 +77,10 @@ def test_stride_not_a_multiple_of_16_bytes_is_rejected():
     assert "multiples of 16" in _problem(x, x)
 
 
-@pytest.mark.parametrize("D", [4, 12, 60, 72, 128])
+@pytest.mark.parametrize("D", [4, 12, 60, 136, 256])
 def test_head_dims_off_the_compiled_set_are_rejected(D):
+    """Not a multiple of 8 (the wrapper pads those), or past 128 (ROADMAP
+    item B1)."""
     x = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16)
     assert "head_dim" in _problem(x, x)
 
@@ -123,6 +125,7 @@ def test_each_backward_wrapper_checks_its_inputs(launches):
 
 @pytest.mark.parametrize("wrapper", ["_bwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"])
 def test_backward_rejects_a_do_that_is_not_bf16(launches, wrapper):
-    with pytest.raises(NotImplementedError, match="bf16 dO"):
+    """The kernels read dO in q's dtype: an f32 dO for a bf16 q is refused."""
+    with pytest.raises(NotImplementedError, match="dO in q's dtype"):
         getattr(fa, wrapper)(*_bwd_inputs(torch.float32), **OPTS)
     assert launches == ["check"]

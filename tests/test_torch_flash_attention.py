@@ -4,8 +4,12 @@ On the CPU the port runs its plain PyTorch versions of the three kernels
 (through the same ``autograd.Function`` the CUDA kernels sit behind) and the
 JAX package runs its Pallas kernels in interpret mode. Inputs are made with
 numpy from a seed and handed to both. Tolerances: f32 forward 2e-5 (as the
-JAX package's own tests), f32 gradients 1e-4, bf16 2e-2.
+JAX package's own tests), f32 gradients 1e-4, bf16 2e-2, f16 5e-3 (both
+sides round the same f16 inputs; outputs and gradients are f16, whose
+rounding is 2^-11 of a value, and the two sum in other orders).
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -17,9 +21,13 @@ from edl_tpu.ops import flash_attention as jax_flash
 from edl_tpu_torch.ops import flash_attention
 from edl_tpu_torch.ops.flash_attention import _NEG_INF, TILE
 
+# the module (the package's attribute of that name is the function)
+fa = importlib.import_module("edl_tpu_torch.ops.flash_attention")
+
 F32_FWD = dict(rtol=2e-5, atol=2e-5)
 F32_GRAD = dict(rtol=1e-4, atol=1e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+F16 = dict(rtol=5e-3, atol=5e-3)
 
 
 def rand_qkv(rng, B, S, H, D, Sk=None):
@@ -211,6 +219,115 @@ def test_randomized_shapes_and_offsets(trial):
 
 
 def test_unsupported_blocks_raise():
+    """A tile outside the compiled set (f32: 64 x 64) raises, naming the set."""
     q = torch.zeros((1, 8, 1, 8))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, block_q=128)
+    with pytest.raises(NotImplementedError, match=r"compiled for \[\(64, 64\)\]"):
+        flash_attention(q, q, q, block_q=256)
+
+
+def _lse_loss_grads(q, k, v, w, kw, dtype=(jnp.float32, torch.float32)):
+    """(JAX, port) gradients of sum(out²) + sum(lse · w), and each side's
+    (out, lse)."""
+    def jloss(q, k, v):
+        out, lse = jax_flash(q, k, v, return_lse=True, **kw)
+        return jnp.sum(out ** 2) + jnp.sum(lse * w)
+
+    def tloss(q, k, v):
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        return (out ** 2).sum() + (lse * torch.from_numpy(w)).sum()
+
+    return both_grads(jloss, tloss, q, k, v, dtype=dtype)
+
+
+@pytest.mark.parametrize("D", [40, 80, 96, 128])
+def test_head_dims_past_64_match_jax(D):
+    """The head dims that the D-64 (40, its last 24 columns zero) and D-128
+    (80, 96, 128) kernels serve: forward, lse and gradients through lse, with
+    a ragged sequence and the ring's offsets, and rows that see no key."""
+    rng = np.random.default_rng(7)
+    q, k, v = rand_qkv(rng, 1, 70, 2, D)
+    w = rng.standard_normal((1, 2, 70)).astype(np.float32)
+    kw = dict(causal=True, q_offset=16, k_offset=24)
+    jo, jl = jax_flash(*jax_leaves(q, k, v), return_lse=True, **kw)
+    to, tl = flash_attention(*torch_leaves(q, k, v), return_lse=True, **kw)
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), **F32_FWD)
+    jl, tl = np.asarray(jl), tl.detach().numpy()
+    np.testing.assert_array_equal(tl == _NEG_INF, jl == _NEG_INF)
+    assert (tl == _NEG_INF).any()
+    np.testing.assert_allclose(tl, jl, **F32_FWD)
+    want, got = _lse_loss_grads(q, k, v, w, kw)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a, b, **F32_GRAD, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", ["float16", "float32"])
+def test_float16_and_float32_match_jax(dtype, D):
+    """f16 and f32 through the same wrapper, with offsets and a ragged
+    sequence: out (in the input's dtype), out and lse with lse, and the
+    gradients of a loss that reads both."""
+    rng = np.random.default_rng(8)
+    q, k, v = rand_qkv(rng, 1, 90, 2, D, Sk=75)
+    w = rng.standard_normal((1, 2, 90)).astype(np.float32)
+    kw = dict(causal=True, q_offset=40, k_offset=20)
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+    fwd, grad = (F32_FWD, F32_GRAD) if dtype == "float32" else (F16, F16)
+    want = jax_flash(*jax_leaves(q, k, v, dtype=jt), **kw)
+    got = flash_attention(*torch_leaves(q, k, v, dtype=tt), **kw)
+    assert got.dtype == tt
+    np.testing.assert_allclose(got.float().detach().numpy(), np.asarray(want, np.float32), **fwd)
+    jo, jl = jax_flash(*jax_leaves(q, k, v, dtype=jt), return_lse=True, **kw)
+    to, tl = flash_attention(*torch_leaves(q, k, v, dtype=tt), return_lse=True, **kw)
+    assert to.dtype == torch.float32
+    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), **fwd)
+    np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl), **fwd)
+    want, got = _lse_loss_grads(q, k, v, w, kw, dtype=(jt, tt))
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a, b, **grad, err_msg=f"d{name}")
+
+
+def test_head_dim_not_a_multiple_of_8_is_padded_and_matches_jax(monkeypatch):
+    """D 20: the wrapper pads q, k and v to 24 columns of zeros before the
+    autograd function (on either device) and slices the output back; values
+    and gradients are the JAX kernels' at D 20, with the scale of D 20."""
+    seen = []
+    apply = fa._Flash.apply
+    monkeypatch.setattr(fa._Flash, "apply", lambda *args: seen.append(args) or apply(*args))
+    rng = np.random.default_rng(9)
+    q, k, v = rand_qkv(rng, 1, 50, 2, 20)
+    want = jax_flash(*jax_leaves(q, k, v), causal=True)
+    got = flash_attention(*torch_leaves(q, k, v), causal=True)
+    assert got.shape == (1, 50, 2, 20)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **F32_FWD)
+    assert seen[0][0].shape == (1, 50, 2, 24) and seen[0][3] == pytest.approx(20 ** -0.5)
+    assert (seen[0][0][..., 20:] == 0).all()
+    want, got = both_grads(lambda q, k, v: jnp.sum(jax_flash(q, k, v) ** 2),
+                           lambda q, k, v: (flash_attention(q, k, v) ** 2).sum(), q, k, v)
+    for name, a, b in zip("qkv", got, want):
+        assert a.shape == (1, 50, 2, 20)
+        np.testing.assert_allclose(a, b, **F32_GRAD, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("cut", ["stride_not_16B", "odd_stride"])
+def test_views_tma_cannot_read_are_copied(cut, monkeypatch):
+    """A view whose strides or start TMA cannot read is copied to a
+    contiguous tensor before the autograd function; values and gradients
+    are those of the contiguous input."""
+    seen = []
+    apply = fa._Flash.apply
+    monkeypatch.setattr(fa._Flash, "apply", lambda *args: seen.append(args) or apply(*args))
+    rng = np.random.default_rng(10)
+    bases = [torch.tensor(rng.standard_normal((1, 40, 2, 68)), dtype=torch.bfloat16)
+             for _ in range(3)]
+    views = [b[..., :64] if cut == "stride_not_16B" else b[..., 1:65] for b in bases]
+    assert fa._view_problem(views[0].shape, views[0].stride(), views[0].element_size(),
+                            views[0].data_ptr() - bases[0].data_ptr() + (1 << 20)) is not None
+    leaves = [x.detach().requires_grad_() for x in views]
+    out = flash_attention(*leaves)
+    assert all(x.is_contiguous() for x in seen[0][:3])
+    dense = [x.contiguous().requires_grad_() for x in views]
+    want = flash_attention(*dense)
+    assert torch.equal(out, want)
+    for g, w in zip(torch.autograd.grad(out.float().sum(), leaves),
+                    torch.autograd.grad(want.float().sum(), dense)):
+        assert torch.equal(g, w)

@@ -32,10 +32,10 @@ LOSS_RTOL = 2e-2
 GRAD_REL_NORM = 5e-2
 
 
-def jax_setup(flash: bool, seed: int = 0, remat: bool = False):
+def jax_setup(flash: bool, seed: int = 0, remat: bool = False, cfg=CFG):
     """(JAX model, its params on a one-device mesh, the mesh)."""
     mesh = build_mesh(MeshSpec({"data": 1}), jax.devices()[:1])
-    model = jax_tf.make_model(jax_tf.TransformerConfig(flash=flash, remat=remat, **CFG))
+    model = jax_tf.make_model(jax_tf.TransformerConfig(flash=flash, remat=remat, **cfg))
     return model, model.init(jax.random.PRNGKey(seed), mesh), mesh
 
 
@@ -44,21 +44,21 @@ def jax_placed(model, mesh, batch):
         mesh, model.batch_spec(mesh)[k])) for k, v in batch.items()}
 
 
-def torch_module(flash: bool, params, remat: bool = False) -> torch_tf.TransformerLM:
+def torch_module(flash: bool, params, remat: bool = False, cfg=CFG) -> torch_tf.TransformerLM:
     module = torch_tf.TransformerLM(
-        torch_tf.TransformerConfig(flash=flash, remat=remat, **CFG), device="cpu")
+        torch_tf.TransformerConfig(flash=flash, remat=remat, **cfg), device="cpu")
     module.load_state_dict(params_from_jax(jax.device_get(params)))
     return module
 
 
 @pytest.mark.parametrize("flash", [True, False])
-def test_loss_and_grads_match_jax(flash, remat=False):
-    jm, params, mesh = jax_setup(flash, remat=remat)
+def test_loss_and_grads_match_jax(flash, remat=False, cfg=CFG):
+    jm, params, mesh = jax_setup(flash, remat=remat, cfg=cfg)
     batch = jm.synthetic_batch(np.random.default_rng(0), 4)
     step = jax.jit(jax.value_and_grad(lambda p, b: jm.loss_fn(p, b, mesh)))
     jl, jg = step(params, jax_placed(jm, mesh, batch))
 
-    module = torch_module(flash, params, remat=remat)
+    module = torch_module(flash, params, remat=remat, cfg=cfg)
     loss = module({k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
     assert loss.dtype == torch.float32
@@ -71,6 +71,15 @@ def test_loss_and_grads_match_jax(flash, remat=False):
 
 def test_remat_loss_and_grads_match_the_jax_remat_model():
     test_loss_and_grads_match_jax(flash=True, remat=True)
+
+
+def test_head_dim_128_loss_and_grads_match_jax():
+    """The LM at head dim 128 (d_model 256, 2 heads, 2 layers), the head dim
+    of the Pythia-1.4B-width run on the card, through the flash path:
+    loss and every gradient after one step against the JAX LM."""
+    cfg = dict(CFG, d_model=256, n_heads=2)
+    assert torch_tf.TransformerConfig(**cfg).head_dim == 128
+    test_loss_and_grads_match_jax(flash=True, cfg=cfg)
 
 
 @pytest.mark.parametrize("flash", [True, False])
