@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time, sweep
     python3 chip_smoke.py --lm-d128  # phases 1-3 and lm_d128 (the LM at head dim 128)
+    python3 chip_smoke.py --lm-d256  # phases 1-3 and lm_d256 (the LM at head dim 256)
     python3 chip_smoke.py --kernels --tile-table PATH  # also write the sweep's winners
     python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
     python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
@@ -13,8 +14,10 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
     python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
 
-It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order; a
-phase that fails raises, and the script exits non-zero without its last line:
+It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order (each
+phase's wall seconds printed as it ends, and all of them in a
+``{"phase_seconds": ...}`` line); a phase that fails raises, and the script
+exits non-zero without its last line:
 
 1. Device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` gives them; turns TF32 off for f32 matmuls
@@ -25,21 +28,25 @@ phase that fails raises, and the script exits non-zero without its last line:
    -sass`` each kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``),
    mbarrier (``SYNCS``), ``mma.sync`` (``HMMA``) and f32 FMA (``FFMA``)
    instructions; every bf16 and f16 flash kernel must have wgmma and TMA
-   loads and no ``mma.sync``; the f32 kernels print what they use.
+   loads and no ``mma.sync``, and every variant compiled for head dims up
+   to 256 (the two dkv passes from 192 included) must be in the library;
+   the f32 kernels (head dims up to 128 and up to 256) print what they use.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs (the forward at every tile compiled
    for the case), at the slice's shape, a ragged shape, the ring's offset
    cases (with an lse cotangent), cases with rows that see no key (one with
    a whole 128-row query block that sees none), head dims 8, 16, 32, 40,
-   80, 96 and 128, f16 at 64 and 128, f32 at 64 and 128, and fewer queries
-   than keys, row by row and element by element; the JAX on-chip check's
+   80, 96, 128, 136, 192, 200 and 256 (at 256 a whole 64-row block that
+   sees no key), f16 at 64, 128, 192 and 256, f32 at 64, 128, 192 and 256,
+   and fewer queries than keys, row by row and element by element; the JAX on-chip check's
    five cases (``ONCHIP_CASES``) through `flash_attention`, forward and
    backward, against the plain forward in f32 within that check's relative
    errors (2e-3 f32, 3e-2 bf16); views the kernels' loads cannot read,
    copied or padded by the wrapper and served (``SERVED_VIEWS``);
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
-   slice's shape and at D 128; then the ring's per-hop engine on one card:
+   slice's shape, at D 128 and at the D-256 LM's attention; then the ring's
+   per-hop engine on one card:
    the slice's q, k, v cut into 2 and 4 blocks, each query block's offset
    hops through the kernels with ``return_lse=True`` merged by the ring's
    ``merge_hops``, output and gradients against the plain full causal
@@ -47,12 +54,15 @@ phase that fails raises, and the script exits non-zero without its last line:
    ``ms_back_to_back``: ten launches in a row), its wrapper's host time a
    call (and, at the slice's shape, the whole backward's, inputs checked
    once), its plain version's time, one library call's (timed both ways)
-   and the card's bound, at the slice's shape (bf16, D 64), the D-128
-   LM's attention and the JAX check's D-128 shape (bf16) and its f32
-   shape; then the tile sweep (``SWEEP_SHAPES``): every compiled forward
-   tile timed, forward and forward plus backward, the winners printed (and
-   written as a tile table with ``--tile-table PATH``), and the wrapper
-   must resolve each shape to the committed table's tile.
+   and the card's bound, at the slice's shape (bf16 and f16, D 64), the
+   D-128 LM's attention (bf16 and f16), the D-256 LM's attention and the
+   same shape at D 192 (bf16), and the JAX check's D-128 shape (bf16) and
+   its f32 shape, with whether SDPA's flash backend takes each; then the
+   tile sweep (``SWEEP_SHAPES``): every compiled forward tile timed,
+   forward and forward plus backward, the winners printed (and written as
+   a tile table with ``--tile-table PATH``), and the wrapper must resolve
+   each shape to the committed table's tile, and the D-256 shape to its one
+   compiled tile.
 4. The LM: the GPT-2-small-width transformer LM (12 layers, d_model 768,
    seq 1024, vocab 32000, batch 8) trained by the ``Trainer`` with Adam at lr
    3e-4 on one repeated synthetic batch. Losses must be finite and fall, and
@@ -77,13 +87,17 @@ phase that fails raises, and the script exits non-zero without its last line:
 5. The same width at depth 2, one step through the kernels and one through
    the plain attention path from the same weights: loss and every gradient
    compared. Then the ``lm_d128`` phase: the LM at Pythia-1.4B's widths
-   (d_model 2048, 16 heads, so head dim 128; d_ff 8192, 24 layers, seq
-   2048, vocab 50304), batch 4, Adam at 3e-4, trained by the ``Trainer``:
-   finite, falling losses over 8 timed steps, exactly 24 launches of each
-   kernel a step, all of the D-128 bf16 variants; a profiled step
-   (tokens/s, MFU, peak memory, each kernel's device ms a launch, the busy
-   share); the same widths at depth 2 through the kernels and the plain
-   path; and the ring's per-hop engine at its attention shape.
+   (d_model 2048, 16 heads, so head dim 128; d_ff 8192, seq 2048, vocab
+   50304) at 12 of its 24 layers, batch 4, Adam at 3e-4, trained by the
+   ``Trainer``: finite, falling losses over 5 timed steps, exactly 12
+   launches of each kernel a step, all of the D-128 bf16 variants; a
+   profiled step (tokens/s, MFU, peak memory, each kernel's device ms a
+   call, the busy share); the same widths at depth 2 through the kernels
+   and the plain path; and the ring's per-hop engine at its attention
+   shape. Then the ``lm_d256`` phase, the same at GPT-J-6B's widths
+   (d_model 4096, 16 heads, so head dim 256; d_ff 16384, seq 2048, vocab
+   50400) at 12 of its 28 layers: 12 calls of each kernel a step, each dkv
+   call its two passes, all of the D-256 bf16 variants.
 6. CTR, the flagship, at its published width (tables of 1000192 rows,
    embed 10, MLP 400-400-400) and batch 8192, trained with adagrad at lr
    0.05: a finite, falling loss; the padded table rows and a sample of rows
@@ -288,8 +302,9 @@ phase that fails raises, and the script exits non-zero without its last line:
 18. One JSON line ``{"kernels": [...]}`` (a row per kernel and variant
     timed, with its ``head_dim`` and ``dtype``), one ``{"kernel_checks":
     {...}}`` (the build's seconds, the JAX check's cases, the sweep), one
-    ``{"zoo": [...]}`` (a row per model, the remat LM included), one
-    ``{"lm_d128": {...}}``, one ``{"serve": {...}}``, one
+    ``{"phase_seconds": {...}}``, one ``{"zoo": [...]}`` (a row per model,
+    the remat LM included), one ``{"lm_d128": {...}}``, one ``{"lm_d256":
+    {...}}``, one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
     {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}``, one
     ``{"entries": {...}}``, one ``{"controller": {...}}`` and one
@@ -353,16 +368,31 @@ TOL_STEP_GRAD = 5e-2
 
 #: the LM at Pythia-1.4B's widths (EleutherAI/pythia-1.4b ``config.json``:
 #: hidden_size 2048, num_attention_heads 16, intermediate_size 8192,
-#: num_hidden_layers 24, max_position_embeddings 2048, vocab_size 50304), so
-#: head dim 128; the rest is the repo's LM (learned positions, RMSNorm, a
-#: GELU FFN, an untied f32 head). Batch 4, Adam at 3e-4, remat off, 2 warm-up
-#: and 8 timed steps
-LM_D128 = dict(d_model=2048, n_layers=24, n_heads=16, d_ff=8192, seq_len=2048,
+#: max_position_embeddings 2048, vocab_size 50304), so head dim 128; the rest
+#: is the repo's LM (learned positions, RMSNorm, a GELU FFN, an untied f32
+#: head). num_hidden_layers 24 is cut to 12, for the script's time limit
+#: (PERF.md §4). Batch 4, Adam at 3e-4, remat off, 2 warm-up and 5 timed steps
+LM_D128 = dict(d_model=2048, n_layers=12, n_heads=16, d_ff=8192, seq_len=2048,
                vocab_size=50304)
 LM_D128_BATCH = 4
-LM_D128_STEPS = 8
+LM_D128_STEPS = 5
 #: its attention's causal (B, S, H, D)
 LM_D128_ATTENTION = (4, 2048, 16, 128)
+
+#: the LM at GPT-J-6B's widths (EleutherAI/gpt-j-6b ``config.json``: n_embd
+#: 4096, n_head 16, n_inner null so 4 x 4096, n_positions 2048, vocab_size
+#: 50400), so head dim 256, with the repo's LM's blocks as above. n_layer 28
+#: is cut to 12, for memory: 28 layers' f32 parameters, gradients and Adam
+#: moments alone take 97 GB, past the card's 80 GB. Batch 4, Adam at 3e-4,
+#: remat off, 2 warm-up and 5 timed steps
+LM_D256 = dict(d_model=4096, n_layers=12, n_heads=16, d_ff=16384, seq_len=2048,
+               vocab_size=50400)
+LM_D256_BATCH = 4
+LM_D256_STEPS = 5
+#: its attention's causal (B, S, H, D)
+LM_D256_ATTENTION = (4, 2048, 16, 256)
+#: the D-192 kernels are timed at that shape with head dim 192
+D192_ATTENTION = (4, 2048, 16, 192)
 
 SLICE = dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072, seq_len=1024,
              vocab_size=32000)
@@ -420,11 +450,13 @@ MERGED_HOPS = (1, 2, 4)
 #: backward's delta comes from the kernels' own forward output, not the
 #: plain one as in the cases above, so the forward's error (the o check:
 #: 2.7e-3 of a row) enters dS on every key of a row, and where a row's dq
-#: nearly cancels (down to the ROW_FLOOR clamp) that is a few 1e-2 of it:
-#: one kernel call on the whole sequence measured dq at 3.13e-2 of a row and
-#: 3.86e-2 of an element on an H100 (PERF.md). Bounds for that composed
-#: path, and the ring's decomposition may add at most a quarter to the
-#: one-call baseline's error
+#: nearly cancels (down to the ROW_FLOOR clamp) it weighs most. A forward
+#: whose O was off by a scale (normalised by the sum of the unrounded P
+#: while P·V multiplied the rounded P) made that up to 7.7e-2 of a row at D
+#: 256; the forward now divides by the rounded P's sum, and one kernel call
+#: on the whole sequence measured dq within 5.5e-3 of a row at D 64, 128 and
+#: 256 on an H100 (PERF.md). Bounds for that composed path, and the ring's
+#: decomposition may add at most a quarter to the one-call baseline's error
 TOL_COMPOSED_ROW = 5e-2
 TOL_COMPOSED_ELEM = 2**-4
 COMPOSED_HOPS_OVER_ONE = 1.25
@@ -434,6 +466,9 @@ DESIGNS = {
     "bwd_dq": ("flash_bwd_dq_kernel", "wgmma+TMA, PR 3"),
     "bwd_dkv": ("flash_bwd_dkv_kernel", "wgmma+TMA, PR 2"),
 }
+#: the dkv kernel's PASS template argument (csrc/flash_kernels.cuh
+#: `DkvPass`) -> the pass's name in `VARIANT_LAUNCHES`
+DKV_PASSES = {0: None, 1: "dv", 2: "dk"}
 #: SASS instructions counted per kernel: wgmma, TMA tile load, mbarrier,
 #: mma.sync, and the f32 kernels' fused multiply-add
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA")
@@ -467,15 +502,32 @@ CASES = [
     ("head_dim_128_no_key_block", (1, 300, 300, 2, 128), True, 0, 200, True, False,
      "bfloat16"),
     ("head_dim_128_uneven", (1, 100, 260, 2, 128), True, 160, 0, True, False, "bfloat16"),
+    # head dims past 128: 136 runs the D-192 kernels with its last 56 columns
+    # loaded as zeros, 200 the D-256 ones with 56; ragged S, the ring's
+    # offsets, an lse cotangent, rows that see no key (at D 256 a whole
+    # 64-row block), fewer queries than keys, fused slices
+    ("head_dim_136_ring_past", (2, 300, 300, 2, 136), True, 300, 0, True, False, "bfloat16"),
+    ("head_dim_192_ring_diagonal", (1, 300, 300, 2, 192), True, 300, 300, True, False,
+     "bfloat16"),
+    ("head_dim_192_no_key_rows", (1, 200, 200, 2, 192), True, 0, 69, True, False, "bfloat16"),
+    ("head_dim_200_uneven", (1, 100, 260, 2, 200), True, 160, 0, True, False, "bfloat16"),
+    ("head_dim_256_ragged", (2, 300, 300, 2, 256), False, 0, 0, False, True, "bfloat16"),
+    ("head_dim_256_no_key_block", (1, 300, 300, 2, 256), True, 0, 200, True, True,
+     "bfloat16"),
     ("f16_head_dim_64", (2, 300, 300, 2, 64), True, 0, 69, True, False, "float16"),
     ("f16_head_dim_128", (2, 300, 300, 2, 128), True, 300, 300, True, True, "float16"),
+    ("f16_head_dim_192", (2, 300, 300, 2, 192), True, 0, 69, True, False, "float16"),
+    ("f16_head_dim_256", (2, 300, 300, 2, 256), True, 300, 300, True, True, "float16"),
     ("f32_no_key_rows", (1, 200, 200, 2, 64), True, 0, 69, True, False, "float32"),
     ("f32_head_dim_128", (1, 300, 300, 2, 128), True, 300, 0, True, False, "float32"),
+    ("f32_head_dim_192", (1, 300, 300, 2, 192), True, 0, 69, True, False, "float32"),
+    ("f32_head_dim_256", (1, 300, 300, 2, 256), True, 300, 0, True, False, "float32"),
 ]
 #: the planted faults are also rejected at D 128, at the JAX on-chip check's
-#: D-128 shape
+#: D-128 shape, and at D 256, at the GPT-J-width LM's attention
 FAULT_CASES = (CASES[0], ("jax_check_d128", (1, 2048, 2048, 8, 128), True, 0, 0, False, True,
-                          "bfloat16"))
+                          "bfloat16"),
+               ("lm_d256", (4, 2048, 2048, 16, 256), True, 0, 0, False, True, "bfloat16"))
 
 #: the JAX package's on-chip check (`onchip_flash_check.py:22-28`), letter
 #: for letter: (B, S, H, D, causal, dtype). Each runs forward and backward
@@ -508,6 +560,16 @@ SWEEP_SHAPES = [(4, 1024, 8, 64), (4, 2048, 8, 64), (2, 4096, 8, 64), (1, 8192, 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def timed(seconds: dict, name: str, fn, *args, **kw):
+    """Run one phase, then print its wall seconds and record them in
+    ``seconds`` under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    seconds[name] = time.perf_counter() - t0
+    print(f"seconds: the {name} phase took {seconds[name]:.1f} s")
+    return out
 
 
 def require(cond: bool, msg: str) -> None:
@@ -621,41 +683,57 @@ def phase_build() -> dict:
             require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                     f"{fn} {label} lacks wgmma or TMA loads, or has mma.sync, in its "
                     f"SASS: {ops}")
-    for fn in FLASH_F32_NAMES:
-        require(fn in counts, f"{fn} is not in the library's SASS")
     import torch
 
     from edl_tpu_torch.ops import flash_tuning
 
+    want = {fn: [] for fn in FLASH_NAMES}
+    want.update({fn: [_label("float32", dp) for dp in (128, 256)] for fn in FLASH_F32_NAMES})
     for dtype in (torch.bfloat16, torch.float16):
-        for dp in (16, 32, 64, 128):
-            for _, bk in fa.compiled_blocks(dp, dtype):
-                label = _label(flash_tuning.dtype_name(dtype), dp, bk)
-                require(label in counts["flash_fwd_kernel"], f"flash_fwd_kernel {label} is "
-                                                             f"not in the library")
+        name = flash_tuning.dtype_name(dtype)
+        for dp in fa._PADDED:
+            want["flash_fwd_kernel"] += [_label(name, dp, bk)
+                                         for _, bk in fa.compiled_blocks(dp, dtype)]
+            want["flash_bwd_dq_kernel"] += [_label(name, dp)]
+            want["flash_bwd_dkv_kernel"] += [_label(name, dp, p)
+                                             for p in fa.dkv_passes(dp, dtype)]
+    for fn, labels in want.items():
+        missing = [label for label in labels if label not in counts.get(fn, {})]
+        require(not missing, f"{fn} {missing} not in the library's SASS")
     return {"seconds": seconds, "sass": counts,
             "ptxas": {f"{fn} {label}": use for (fn, label), use in ptxas.items()}}
 
 
-def _label(dtype: str, dp: int, block_k=None) -> str:
-    """A variant's label: its element type, padded head dim and (forward)
-    keys a stage; the f32 kernels are one variant each."""
+def _label(dtype: str, dp: int, tag=None) -> str:
+    """A variant's label: its element type, padded head dim and the
+    forward's keys a stage (``tag`` an int) or the dkv pass (``tag`` "dv" or
+    "dk"); the f32 kernels by the largest head dim they take, 128 or 256."""
     if dtype == "float32":
-        return "f32"
+        return f"f32 D{128 if dp <= 128 else 256}"
     ty = {"bfloat16": "bf16", "float16": "f16"}[dtype]
-    return f"{ty} D{dp}" + (f" k{block_k}" if block_k else "")
+    if tag is None:
+        return f"{ty} D{dp}"
+    return f"{ty} D{dp} " + (f"k{tag}" if isinstance(tag, int) else tag)
 
 
 def _variant(mangled: str):
-    """(kernel, variant label) of a flash kernel's mangled name, or None."""
+    """(kernel, variant label) of a flash kernel's mangled name, or None:
+    its template arguments are (T, DP, KEYS, NC) for the forward, (T, DP, NC,
+    KEYS) for dq, (T, DP, PASS) for dkv and (DMAX, COLS) for the f32
+    kernels."""
     name = next((n for n in FLASH_NAMES + FLASH_F32_NAMES if n in mangled), None)
     if name is None:
         return None
-    if name in FLASH_F32_NAMES:
-        return name, "f32"
     ints = [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
+    if name in FLASH_F32_NAMES:
+        return name, _label("float32", ints[0])
     dtype = "float16" if "6__half" in mangled else "bfloat16"
-    return name, _label(dtype, ints[0], ints[1] if len(ints) > 1 else None)
+    tag = None
+    if name == "flash_fwd_kernel":
+        tag = ints[1]
+    elif name == "flash_bwd_dkv_kernel":
+        tag = DKV_PASSES[ints[1]]
+    return name, _label(dtype, ints[0], tag)
 
 
 def ptxas_usage(log: str) -> dict:
@@ -1079,12 +1157,46 @@ def _kernel_bounds(B, S, H, D, itemsize: int, peak: float) -> dict:
     }
 
 
+def _design(fa, kname: str, dtype: str, D: int) -> str:
+    """The design a kernel row's variant is built on."""
+    dp = fa.padded_head_dim(D)
+    if dtype == "float32":
+        return "f32 FMA tiles" + (", 32-wide tiles in dq and dkv" if dp > 128 else "")
+    if dp > 128:
+        return {"fwd": "wgmma+TMA, one consumer warpgroup a block",
+                "bwd_dq": "wgmma+TMA, one consumer warpgroup a block, 32-key stages",
+                "bwd_dkv": "wgmma+TMA, one consumer warpgroup, a dV pass and a dK pass"}[kname]
+    if kname == "bwd_dkv" and dp == 128:
+        return "wgmma+TMA, one consumer warpgroup a block"
+    return DESIGNS[kname][1]
+
+
+def sdpa_flash_backend(q, k, v) -> str:
+    """Whether PyTorch's flash backend of SDPA takes these (B, H, S, D)
+    inputs, causal: "takes it", or "refused: " and what PyTorch said."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        try:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return "takes it"
+        except RuntimeError as e:
+            text = " ".join([str(w.message) for w in said] + [str(e)])
+            return "refused: " + re.sub(r"\s*\(Triggered internally at [^)]*\)", "", text)
+
+
 def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) -> list:
     """Each kernel's time at the causal (B, S, H, D) ``shape`` in ``dtype``
     (the forward at every compiled tile): ``ms`` one call at a time,
     ``ms_back_to_back`` ten in a row, the wrapper's host time a call, the
-    plain version's time, one library call's (PyTorch's SDPA, timed both
-    ways) and the card's bound. Returns the kernel rows."""
+    plain version's time, one library call's (PyTorch's SDPA with the
+    backend it picks, timed both ways; whether its flash backend takes the
+    shape is printed) and the card's bound. Returns the kernel rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1108,6 +1220,7 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) ->
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     lib_do = do.transpose(1, 2)
+    flash_backend = sdpa_flash_backend(qt.detach(), kt.detach(), vt.detach())
 
     def lib_fwd():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -1130,15 +1243,12 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) ->
         print(f"time {kname} ({label}) at {shape} {dtype}{tile}: kernel {ms:.4f} ms one call "
               f"at a time ({ms_b2b:.4f} ms back to back; host {wrapper_ms:.4f} ms a call), "
               f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_b2b:.4f} ms back to "
-              f"back), bound {bound_ms:.4f} ms ({bound_by})")
+              f"back; SDPA's flash backend {flash_backend}), bound {bound_ms:.4f} ms "
+              f"({bound_by})")
         err = worst[(kname, dtype, fa.padded_head_dim(D))]
         rows.append(dict(
             name=kname, route="cuda", source=SOURCE_F32 if f32 else SOURCE,
-            replaces=KERNELS[kname][1],
-            design=("f32 FMA tiles" if f32 else
-                    "wgmma+TMA, one consumer warpgroup a block"
-                    if kname == "bwd_dkv" and fa.padded_head_dim(D) == 128
-                    else DESIGNS[kname][1]),
+            replaces=KERNELS[kname][1], design=_design(fa, kname, dtype, D),
             head_dim=D, dtype=dtype, shape=[B, S, H, D], timed_at=label,
             block_k=bk if kname == "fwd" else None,
             max_abs_err=err["abs"][0],
@@ -1150,6 +1260,7 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) ->
             library_call=("scaled_dot_product_attention(is_causal=True)"
                           if kname == "fwd" else
                           "scaled_dot_product_attention backward: dq, dk and dv together"),
+            library_flash_backend=flash_backend,
         ))
     if host:
         bwd_host = host_ms(lambda: fa._bwd_kernel(*args, **opts))
@@ -1251,11 +1362,25 @@ def phase_kernels(device, table_out=None) -> tuple:
     rows = time_kernel_rows(fa, gen, device, (B, S, H, D), "bfloat16", worst, "slice",
                             host=True)
     rows += time_kernel_rows(fa, gen, device, LM_D128_ATTENTION, "bfloat16", worst, "lm_d128")
+    rows += time_kernel_rows(fa, gen, device, LM_D256_ATTENTION, "bfloat16", worst, "lm_d256")
+    rows += time_kernel_rows(fa, gen, device, D192_ATTENTION, "bfloat16", worst, "d192")
     rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[3][:4], "bfloat16", worst,
                              "jax check d128")
+    rows += time_kernel_rows(fa, gen, device, (B, S, H, D), "float16", worst, "slice f16")
+    rows += time_kernel_rows(fa, gen, device, LM_D128_ATTENTION, "float16", worst,
+                             "lm_d128 f16")
     rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[0][:4], "float32", worst,
                              "jax check f32")
     sweep = sweep_tiles(fa, gen, device, table_out)
+    # from a padded head dim of 192 one tile is compiled: the table's
+    # (128, 64) for the D-256 LM's key length resolves to it
+    d256 = fa.resolve_blocks(LM_D256["seq_len"], LM_D256_ATTENTION[3], torch.bfloat16)
+    compiled = fa.compiled_blocks(LM_D256_ATTENTION[3], torch.bfloat16)
+    print(f"tiles: the wrapper resolves {LM_D256_ATTENTION} bf16 to {d256}; compiled "
+          f"{list(compiled)}")
+    require(compiled == ((fa.TILE, fa.TILE),) and d256 == compiled[0],
+            f"the D-256 shape resolves to {d256}, compiled {compiled}")
+    sweep["resolved_d256"] = list(d256)
     return rows, {"onchip_cases": onchip, "sweep": sweep}
 
 
@@ -1653,15 +1778,17 @@ def phase_step_parity(device, widths=None, batch_size=None) -> dict:
             "loss_tolerance": TOL_STEP_LOSS, "grad_tolerance": TOL_STEP_GRAD}
 
 
-def phase_lm_d128(device) -> dict:
-    """The LM at head dim 128 (``LM_D128``, Pythia-1.4B's widths) trained by
-    the ``Trainer`` on the card: finite, falling losses, exactly 24 launches
-    of each kernel a timed step, all of the D-128 bf16 variants and the
-    forward at the tile the table resolves; one profiled step (tokens/s,
-    MFU, peak memory, each kernel's device ms a launch, the busy share).
-    Then one step at depth 2 through the kernels and through the plain
-    attention path from the same weights, and the ring's per-hop engine at
-    the LM's attention shape. Returns its record."""
+def phase_lm_wide(device, name: str, widths: dict, batch: int, steps: int, attention,
+                  source: str) -> dict:
+    """The LM at ``widths`` (``name``: lm_d128 or lm_d256) trained by the
+    ``Trainer`` on the card: finite, falling losses, exactly n_layers
+    launches of each kernel a timed step, each launch of its head dim's bf16
+    variants (every pass of a dkv that runs as two) and the forward at the
+    tile the table resolves; one profiled step (tokens/s, MFU, peak memory,
+    each kernel's device ms a call, the busy share). Then one step at depth
+    2 through the kernels and through the plain attention path from the same
+    weights, and the ring's per-hop engine at the LM's attention shape
+    ``attention``. Returns its record."""
     import torch
 
     from edl_tpu_torch.models.transformer import TransformerConfig, make_model
@@ -1669,48 +1796,63 @@ def phase_lm_d128(device) -> dict:
 
     fa = _flash_module()
     t0 = time.perf_counter()
-    cfg = TransformerConfig(flash=True, **LM_D128)
-    run = Run("transformer d128 (Pythia-1.4B widths)", make_model(cfg), TrainerConfig(
-        optimizer="adam", learning_rate=3e-4, seed=0), LM_D128_BATCH, device)
-    row = run.timed(reset_counts=fa.reset_launches, steps=LM_D128_STEPS)
+    cfg = TransformerConfig(flash=True, **widths)
+    run = Run(f"transformer {name} ({source} widths)", make_model(cfg), TrainerConfig(
+        optimizer="adam", learning_rate=3e-4, seed=0), batch, device)
+    row = run.timed(reset_counts=fa.reset_launches, steps=steps)
     launches, variants = dict(fa.LAUNCHES), dict(fa.VARIANT_LAUNCHES)
-    want = cfg.n_layers * LM_D128_STEPS
+    want = cfg.n_layers * steps
     require(all(n == want for n in launches.values()),
-            f"lm_d128 launch counts {launches}, want {want} each ({cfg.n_layers} layers x "
-            f"{LM_D128_STEPS} steps)")
+            f"{name} launch counts {launches}, want {want} each ({cfg.n_layers} layers x "
+            f"{steps} steps)")
     _, block_k = fa.resolve_blocks(cfg.seq_len, cfg.head_dim, torch.bfloat16)
-    want_variants = {("fwd", "bfloat16", 128, block_k): want, ("bwd_dq", "bfloat16", 128, None):
-                     want, ("bwd_dkv", "bfloat16", 128, None): want}
-    require(variants == want_variants, f"lm_d128 variants {variants}, want {want_variants}")
-    tokens = LM_D128_BATCH * cfg.seq_len / row["step_ms"] * 1e3
-    print(f"lm_d128: batch {LM_D128_BATCH} x {cfg.seq_len}, head dim {cfg.head_dim}, "
-          f"{tokens:.0f} tokens/s, MFU {row['mfu']}, peak memory "
-          f"{row['peak_memory_gib']:.3f} GiB, launches {launches}, the forward at keys a "
-          f"stage {block_k}")
+    dp = fa.padded_head_dim(cfg.head_dim)
+    passes = fa.dkv_passes(cfg.head_dim, torch.bfloat16)
+    want_variants = {("fwd", "bfloat16", dp, block_k): want,
+                     ("bwd_dq", "bfloat16", dp, None): want,
+                     **{("bwd_dkv", "bfloat16", dp, p): want for p in passes}}
+    require(variants == want_variants, f"{name} variants {variants}, want {want_variants}")
+    tokens = batch * cfg.seq_len / row["step_ms"] * 1e3
+    print(f"{name}: batch {batch} x {cfg.seq_len}, head dim {cfg.head_dim}, {cfg.n_layers} "
+          f"layers, {tokens:.0f} tokens/s, MFU {row['mfu']}, peak memory "
+          f"{row['peak_memory_gib']:.3f} GiB, launches {launches} ({len(passes)} CUDA "
+          f"launch(es) a dkv call), the forward at keys a stage {block_k}")
     kernels = run.profile(LM_GROUPS)
     in_step = {}
     for kname, (fn, _) in DESIGNS.items():
         hits = [e for e in kernels if fn in e.key]
-        n = sum(e.count for e in hits)
+        n = sum(e.count for e in hits) / (len(passes) if kname == "bwd_dkv" else 1)
         if n:
             in_step[kname] = sum(e.self_device_time_total for e in hits) / 1e3 / n
-    print("profile lm_d128: flash kernels' device ms a launch in the step: " + ", ".join(
+    print(f"profile {name}: flash kernels' device ms a call in the step: " + ", ".join(
         f"{k} {ms:.4f}" for k, ms in in_step.items()))
     del run, kernels
     torch.cuda.empty_cache()
-    row.update(config="Pythia-1.4B widths " + json.dumps(LM_D128), remat=False,
+    row.update(config=f"{source} widths " + json.dumps(widths), remat=False,
                launches=launches, tokens_per_s=tokens, block_k=block_k,
                variant_launches={" ".join(map(str, k)): n for k, n in variants.items()},
                in_step_ms=in_step)
-    row["step_parity"] = phase_step_parity(device, LM_D128, LM_D128_BATCH)
+    row["step_parity"] = phase_step_parity(device, widths, batch)
     torch.cuda.empty_cache()
     gen = torch.Generator(device=device).manual_seed(0)
-    hops = check_merged_hops(fa, gen, device, LM_D128_ATTENTION)
+    hops = check_merged_hops(fa, gen, device, attention)
     row["merged_hops"] = {str(n): e for n, e in hops.items()}
     torch.cuda.empty_cache()
     row["seconds"] = time.perf_counter() - t0
-    print(f"lm_d128: the phase {row['seconds']:.1f} s")
+    print(f"{name}: the phase {row['seconds']:.1f} s")
     return row
+
+
+def phase_lm_d128(device) -> dict:
+    """`phase_lm_wide` at Pythia-1.4B's widths (``LM_D128``, head dim 128)."""
+    return phase_lm_wide(device, "lm_d128", LM_D128, LM_D128_BATCH, LM_D128_STEPS,
+                         LM_D128_ATTENTION, "Pythia-1.4B")
+
+
+def phase_lm_d256(device) -> dict:
+    """`phase_lm_wide` at GPT-J-6B's widths (``LM_D256``, head dim 256)."""
+    return phase_lm_wide(device, "lm_d256", LM_D256, LM_D256_BATCH, LM_D256_STEPS,
+                         LM_D256_ATTENTION, "GPT-J-6B")
 
 
 # -- the MoE phase ---------------------------------------------------------------
@@ -6000,119 +6142,138 @@ def main(argv) -> int:
         return entry_record_main(argv[1:])
     if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
         return ctl_entry_main(argv[1:])
+    t0, seconds = time.perf_counter(), {}
     device = phase_device()
-    build = phase_build()
+    build = timed(seconds, "build", phase_build)
     table_out = argv[argv.index("--tile-table") + 1] if "--tile-table" in argv else None
-    rows, checks = phase_kernels(device, table_out)
+    rows, checks = timed(seconds, "kernels", phase_kernels, device, table_out)
     fa = _flash_module()
+    import torch
+
     for row in rows:
         f32 = row["dtype"] == "float32"
         fn = FLASH_F32_NAMES[list(KERNELS).index(row["name"])] if f32 else DESIGNS[row["name"]][0]
-        label = _label(row["dtype"], fa.padded_head_dim(row["head_dim"]), row["block_k"])
-        row["sass"] = build["sass"][fn].get(label)
-        row["ptxas"] = build["ptxas"].get(f"{fn} {label}")
+        dp = fa.padded_head_dim(row["head_dim"])
+        passes = (fa.dkv_passes(row["head_dim"], getattr(torch, row["dtype"]))
+                  if row["name"] == "bwd_dkv" else (None,))
+        if passes == (None,):
+            label = _label(row["dtype"], dp, row["block_k"])
+            row["sass"] = build["sass"][fn].get(label)
+            row["ptxas"] = build["ptxas"].get(f"{fn} {label}")
+        else:  # a launch a pass
+            labels = {p: _label(row["dtype"], dp, p) for p in passes}
+            row["sass"] = {p: build["sass"][fn].get(lb) for p, lb in labels.items()}
+            row["ptxas"] = {p: build["ptxas"].get(f"{fn} {lb}") for p, lb in labels.items()}
     checks["build_seconds"] = build["seconds"]
     # the rows of the D-64 bf16 kernels at the slice's shape, the forward at
-    # the tile the slice's LM resolves, which every model phase but lm_d128
-    # runs; kernels maps each kernel to its row
-    import torch
-
+    # the tile the slice's LM resolves, which every model phase but the wide
+    # LMs' runs; kernels maps each kernel to its row
     slice_bk = fa.resolve_blocks(SLICE["seq_len"], SLICE["d_model"] // SLICE["n_heads"],
                                  torch.bfloat16)[1]
     kernels = {r["name"]: r for r in rows if r["timed_at"] == "slice" and r["block_k"] in
                (None, slice_bk)}
 
-    def emit(main_variants, in_step=None, lm_d128=None) -> None:
-        """Each row's launches on the main path (by variant) and in-step ms,
-        then the kernels line and the phase 3 records."""
+    #: the wide LMs' phases: name -> the padded head dim of their kernels
+    wide_dp = {"lm_d128": 128, "lm_d256": 256}
+
+    def emit(main_variants, in_step=None, wide=None) -> None:
+        """Each row's launches on the main path (a call each, by variant) and
+        in-step ms, then the kernels line and the phase 3 records. ``wide``
+        maps a wide LM phase's name to its record."""
+        wide = wide or {}
         for row in rows:
-            key = (row["name"], row["dtype"], fa.padded_head_dim(row["head_dim"]),
-                   row["block_k"])
+            dp = fa.padded_head_dim(row["head_dim"])
+            key = (row["name"], row["dtype"], dp, row["block_k"])
             row["launches"] = main_variants.get(key, 0)
-            if lm_d128 is not None and row["head_dim"] == 128 and row["dtype"] == "bfloat16":
-                row["launches_lm_d128"] = row["launches"]
-                if row["launches"] and row["timed_at"] == "lm_d128":
-                    row["in_step_ms"] = lm_d128["in_step_ms"].get(row["name"])
+            lm_name = next((n for n in wide if wide_dp[n] == dp), None)
+            if lm_name is not None and row["dtype"] == "bfloat16":
+                row[f"launches_{lm_name}"] = row["launches"]
+                if row["launches"] and row["timed_at"] == lm_name:
+                    row["in_step_ms"] = wide[lm_name]["in_step_ms"].get(row["name"])
             elif in_step is not None and row in kernels.values():
                 row["in_step_ms"] = in_step.get(row["name"])
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"kernel_checks": checks}))
+        print(json.dumps({"phase_seconds": {**seconds, "script": time.perf_counter() - t0}}))
 
     def variants_of(launches: dict) -> dict:
         """The slice's variants' launches from per-kernel counts."""
         return {(name, "bfloat16", 64, slice_bk if name == "fwd" else None): n
                 for name, n in launches.items()}
 
-    def lm_d128_variants(lm_d128: dict) -> dict:
-        return {(name, "bfloat16", 128, lm_d128["block_k"] if name == "fwd" else None): n
-                for name, n in lm_d128["launches"].items()}
+    def wide_variants(name: str, lm: dict) -> dict:
+        """A wide LM phase's calls by kernel row."""
+        return {(k, "bfloat16", wide_dp[name], lm["block_k"] if k == "fwd" else None): n
+                for k, n in lm["launches"].items()}
 
     if "--kernels" in argv:
         emit({})
         return 0
-    if "--lm-d128" in argv:  # the kernels and the lm_d128 phase only
-        lm_d128 = phase_lm_d128(device)
-        emit(lm_d128_variants(lm_d128), lm_d128=lm_d128)
-        print(json.dumps({"lm_d128": lm_d128}))
-        return 0
+    for name, phase in (("lm_d128", phase_lm_d128), ("lm_d256", phase_lm_d256)):
+        if "--" + name.replace("_", "-") in argv:  # the kernels and this phase only
+            lm = timed(seconds, name, phase, device)
+            emit(wide_variants(name, lm), wide={name: lm})
+            print(json.dumps({name: lm}))
+            return 0
     if "--mp" in argv:  # the kernels and the mp phase only
-        mp = phase_mp(device)
+        mp = timed(seconds, "mp", phase_mp, device)
         for name, row in kernels.items():
             row["launches_mp"] = mp["launches"][name]
         emit(variants_of(mp["launches"]))
         print(json.dumps({"mp": mp}))
         return 0
     if "--entries" in argv:  # the kernels, phase 4's LM (part (c)) and the entries phase
-        launches, _, lm, lm_state = phase_slice(device)
+        launches, _, lm, lm_state = timed(seconds, "slice", phase_slice, device)
         del lm_state
-        entries = phase_entries(lm["profiler"])
+        entries = timed(seconds, "entries", phase_entries, lm["profiler"])
         emit(variants_of(launches))
         print(json.dumps({"entries": entries}))
         return 0
     if "--controller" in argv:  # the kernels and the controller phase only
-        controller = phase_controller()
+        controller = timed(seconds, "controller", phase_controller)
         for name, row in kernels.items():
             row["launches_controller"] = controller["launches"][name]
         emit(variants_of(controller["launches"]))
         print(json.dumps({"controller": controller}))
         return 0
     if "--chaos" in argv:  # the kernels and the chaos phase only
-        chaos = phase_chaos(device)
+        chaos = timed(seconds, "chaos", phase_chaos, device)
         for name, row in kernels.items():
             row["launches_chaos"] = chaos["launches"][name]
         emit(variants_of(chaos["launches"]))
         print(json.dumps({"chaos": chaos}))
         return 0
     if "--elastic" in argv:  # the kernels and the elastic phase only
-        elastic = phase_elastic(device)
+        elastic = timed(seconds, "elastic", phase_elastic, device)
         for name, row in kernels.items():
             row["launches_elastic"] = elastic["launches"][name]
         emit(variants_of(elastic["launches"]))
         print(json.dumps({"elastic": elastic}))
         return 0
     with tempfile.TemporaryDirectory(prefix="edl-serve-") as serve_root:
-        launches, in_step, lm, lm_state = phase_slice(device)
+        launches, in_step, lm, lm_state = timed(seconds, "slice", phase_slice, device)
         # exported as its run ends, as a trainer publishes; the state is then
         # freed, so the later phases' peak memory does not hold it
         lm_export = export_lm(lm_state, serve_root)
         del lm_state
-        moe = phase_moe(device, lm)
-        phase_step_parity(device)
-        lm_d128 = phase_lm_d128(device)
-        ctr_row, ctr_run = phase_ctr(device)
+        moe = timed(seconds, "moe", phase_moe, device, lm)
+        timed(seconds, "step_parity", phase_step_parity, device)
+        lm_d128 = timed(seconds, "lm_d128", phase_lm_d128, device)
+        lm_d256 = timed(seconds, "lm_d256", phase_lm_d256, device)
+        ctr_row, ctr_run = timed(seconds, "ctr", phase_ctr, device)
         ctr_staged = stage_ctr_versions(ctr_run, serve_root)
         del ctr_run
-        ctr_row["cpu_parity"] = phase_ctr_cpu_parity(device)
-        data_path = phase_data_path(device, ctr_row)
-        others = phase_zoo(device)
-        remat = phase_remat(device, lm)
-        serve = phase_serve(device, lm_export, ctr_staged)
-    dp = phase_dp(device)
-    elastic = phase_elastic(device)
-    mp = phase_mp(device)
-    entries = phase_entries(lm["profiler"])
-    controller = phase_controller()
-    chaos = phase_chaos(device)
+        ctr_row["cpu_parity"] = timed(seconds, "ctr_cpu_parity", phase_ctr_cpu_parity, device)
+        data_path = timed(seconds, "data_path", phase_data_path, device, ctr_row)
+        others = timed(seconds, "zoo", phase_zoo, device)
+        remat = timed(seconds, "remat", phase_remat, device, lm)
+        serve = timed(seconds, "serve", phase_serve, device, lm_export, ctr_staged)
+    dp = timed(seconds, "dp", phase_dp, device)
+    elastic = timed(seconds, "elastic", phase_elastic, device)
+    mp = timed(seconds, "mp", phase_mp, device)
+    entries = timed(seconds, "entries", phase_entries, lm["profiler"])
+    controller = timed(seconds, "controller", phase_controller)
+    chaos = timed(seconds, "chaos", phase_chaos, device)
     for name, row in kernels.items():
         row["launches_remat"] = remat["launches"][name]
         row["launches_serve"] = serve["lm"]["flash_launches"][name]
@@ -6123,9 +6284,12 @@ def main(argv) -> int:
         row["launches_mp"] = mp["launches"][name]
         row["launches_controller"] = controller["launches"][name]
         row["launches_chaos"] = chaos["launches"][name]
-    emit({**variants_of(launches), **lm_d128_variants(lm_d128)}, in_step, lm_d128)
+    emit({**variants_of(launches), **wide_variants("lm_d128", lm_d128),
+          **wide_variants("lm_d256", lm_d256)}, in_step,
+         {"lm_d128": lm_d128, "lm_d256": lm_d256})
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
     print(json.dumps({"lm_d128": lm_d128}))
+    print(json.dumps({"lm_d256": lm_d256}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"data_path": data_path}))
     print(json.dumps({"moe": moe}))

@@ -8,14 +8,17 @@
 // flash_bwd_dkv_kernel (flash_kernels.cuh, wgmma and TMA, for bf16 and f16)
 // and their f32 counterparts (flash_f32.cu). The compiled set:
 //
-//   element type   padded head dim     forward keys a stage
-//   bf16           16, 32, 64, 128     64; also 128 at 64 and 128
-//   f16            16, 32, 64, 128     64
-//   f32            any D up to 128     64 (64 query rows a block)
+//   element type   padded head dim               forward tile (rows, keys a stage)
+//   bf16           16, 32, 64, 128               (128, 64); also (128, 128) at 64 and 128
+//                  192, 256                      (64, 64)
+//   f16            16, 32, 64, 128               (128, 64)
+//                  192, 256                      (64, 64)
+//   f32            any D up to 256               (64, 64)
 //
 // A head dim D (a multiple of 8) runs the variant of the next padded head
 // dim; columns from D on load as zeros. flash_attention.py's
-// `compiled_blocks` mirrors this table.
+// `compiled_blocks` mirrors this table. From a padded head dim of 192 the
+// 16-bit dK and dV take two launches (flash_kernels.cuh, `dkv_passes`).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -32,10 +35,10 @@ using namespace edl_flash;
 enum Dtype { kBf16 = 0, kF16 = 1, kF32 = 2 };
 
 // The padded head dim a 16-bit kernel is compiled for: D a multiple of 8,
-// 8 <= D <= 128 (TMA moves rows of 16-byte multiples); 0 if none.
+// 8 <= D <= 256 (TMA moves rows of 16-byte multiples); 0 if none.
 int padded_head_dim(int D) {
-  if (D <= 0 || D % 8 || D > 128) return 0;
-  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  if (D <= 0 || D % 8 || D > 256) return 0;
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
 }
 
 template <typename T>
@@ -47,6 +50,8 @@ cudaError_t fwd16(const FwdArgs& a, int block_k, cudaStream_t s) {
       case 32: return launch_fwd<T, 32, 64>(a, s);
       case 64: return launch_fwd<T, 64, 64>(a, s);
       case 128: return launch_fwd<T, 128, 64>(a, s);
+      case 192: return launch_fwd<T, 192, 64>(a, s);
+      case 256: return launch_fwd<T, 256, 64>(a, s);
     }
   }
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
@@ -67,6 +72,8 @@ cudaError_t dq16(const BwdArgs& a, cudaStream_t s) {
     case 32: return launch_bwd_dq<T, 32>(a, s);
     case 64: return launch_bwd_dq<T, 64>(a, s);
     case 128: return launch_bwd_dq<T, 128>(a, s);
+    case 192: return launch_bwd_dq<T, 192>(a, s);
+    case 256: return launch_bwd_dq<T, 256>(a, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -78,6 +85,8 @@ cudaError_t dkv16(const BwdArgs& a, cudaStream_t s) {
     case 32: return launch_bwd_dkv<T, 32>(a, s);
     case 64: return launch_bwd_dkv<T, 64>(a, s);
     case 128: return launch_bwd_dkv<T, 128>(a, s);
+    case 192: return launch_bwd_dkv<T, 192>(a, s);
+    case 256: return launch_bwd_dkv<T, 256>(a, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -17,10 +17,14 @@
 // a visible pair) at the card's 67 TFLOP/s of f32 outside the tensor cores,
 // and twice their bytes. Design, simple and not tuned: a block of 256
 // threads owns 64 query rows (dkv: 64 keys) of one (batch, head) and walks
-// 64-key (dkv: 64-query) tiles staged in shared memory; four threads share a
-// row, each taking every fourth score of a tile and every fourth head-dim
-// column of the accumulators; the scores pass through shared memory to the
-// second product. Causally dead tiles are skipped, as in the 16-bit kernels.
+// COLS-key (dkv: COLS-query) tiles staged in shared memory; four threads
+// share a row, each taking every fourth score of a tile and every fourth
+// head-dim column of the accumulators; the scores pass through shared memory
+// to the second product. Causally dead tiles are skipped, as in the 16-bit
+// kernels. Each kernel is compiled for head dims up to DMAX: 128, whose
+// tiles are 64 wide, and 256 (accumulators of 64 floats a thread), where dq
+// and dkv stage tiles of COLS = 32 so that their shared memory fits the
+// H100's 227 KB (the forward's 64 fits).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,11 +35,7 @@ namespace edl_flash {
 namespace {
 
 constexpr int kRows = 64;              // query rows a block (dkv: keys a block)
-constexpr int kCols = 64;              // keys a tile (dkv: query rows a tile)
 constexpr int kThreadsF32 = 4 * kRows;  // four a row
-constexpr int kDMax = 128;             // the largest head dim
-constexpr int kLd = kDMax + 1;         // row stride of a staged tile: rows on distinct banks
-constexpr int kPLd = kCols + 1;        // row stride of a staged score tile
 constexpr float kNegInfF32 = -1e30f;   // the TPU kernels' _NEG_INF sentinel
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -48,66 +48,73 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Rows [row0, row0 + kRows) of head h, batch b of view x into shared memory
-// (row stride kLd); rows at or beyond S load as 0.
+// Rows [row0, row0 + ROWS) of head h, batch b of view x into shared memory
+// (row stride LD); rows at or beyond S load as 0.
+template <int ROWS, int LD>
 __device__ __forceinline__ void load_rows(float* dst, const View& x, int b, int h, int row0, int S,
                                           int D) {
   const float* src = static_cast<const float*>(x.ptr);
-  for (int i = threadIdx.x; i < kRows * D; i += kThreadsF32) {
+  for (int i = threadIdx.x; i < ROWS * D; i += kThreadsF32) {
     const int r = i / D, d = i % D, s = row0 + r;
-    dst[r * kLd + d] = s < S ? src[b * x.sb + s * x.ss + h * x.sh + d] : 0.f;
+    dst[r * LD + d] = s < S ? src[b * x.sb + s * x.ss + h * x.sh + d] : 0.f;
   }
 }
 
-// Key tiles [0, n) that some row of the query block at local row q0 sees.
+// Key tiles of COLS keys [0, n) that some row of the query block at local
+// row q0 sees.
+template <int COLS>
 __device__ __forceinline__ int key_tiles_f32(int Sk, int q0, int q_offset, int k_offset,
                                              int causal) {
-  int n = (Sk + kCols - 1) / kCols;
+  int n = (Sk + COLS - 1) / COLS;
   if (causal) {
     const long long last = (long long)q_offset + q0 + kRows - 1 - k_offset;
-    const long long lim = last < 0 ? 0 : last / kCols + 1;
+    const long long lim = last < 0 ? 0 : last / COLS + 1;
     if (lim < n) n = (int)lim;
   }
   return n;
 }
 
-// x[i] (+)= a · b[c + 4i] over the head dim for a thread's 16 columns of a
-// tile: a is a staged row, b the staged tile (row stride kLd). The head dim
-// is the outer loop, so each of a's elements is loaded once.
-__device__ __forceinline__ void dot_cols(float (&x)[kCols / 4], const float* a, const float* b,
+// x[i] (+)= a · b[c + 4i] over the head dim for a thread's COLS / 4 columns
+// of a tile: a is a staged row, b the staged tile (row stride LD). The head
+// dim is the outer loop, so each of a's elements is loaded once.
+template <int COLS, int LD>
+__device__ __forceinline__ void dot_cols(float (&x)[COLS / 4], const float* a, const float* b,
                                          int c, int D) {
 #pragma unroll
-  for (int i = 0; i < kCols / 4; ++i) x[i] = 0.f;
+  for (int i = 0; i < COLS / 4; ++i) x[i] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; ++d) {
     const float ad = a[d];
 #pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) x[i] = fmaf(ad, b[(c + 4 * i) * kLd + d], x[i]);
+    for (int i = 0; i < COLS / 4; ++i) x[i] = fmaf(ad, b[(c + 4 * i) * LD + d], x[i]);
   }
 }
 
 // acc[i] += Σ_j p[j] · b[j][c + 4i] for a thread's head-dim columns c + 4i <
-// D: p a staged score row, b a staged tile. The tile's rows are the outer
-// loop, so each score is loaded once.
-__device__ __forceinline__ void acc_cols(float (&acc)[kDMax / 4], const float* p, const float* b,
+// D: p a staged score row of COLS, b a staged tile. The tile's rows are the
+// outer loop, so each score is loaded once.
+template <int DMAX, int COLS, int LD>
+__device__ __forceinline__ void acc_cols(float (&acc)[DMAX / 4], const float* p, const float* b,
                                          int c, int D) {
 #pragma unroll 2
-  for (int j = 0; j < kCols; ++j) {
+  for (int j = 0; j < COLS; ++j) {
     const float pj = p[j];
 #pragma unroll
-    for (int i = 0; i < kDMax / 4; ++i) {
-      if (c + 4 * i < D) acc[i] = fmaf(pj, b[j * kLd + c + 4 * i], acc[i]);
+    for (int i = 0; i < DMAX / 4; ++i) {
+      if (c + 4 * i < D) acc[i] = fmaf(pj, b[j * LD + c + 4 * i], acc[i]);
     }
   }
 }
 
 // Replaces _fwd_kernel of edl_tpu/ops/flash_attention.py for f32 inputs.
+template <int DMAX, int COLS>
 __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(FwdArgs a) {
+  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
   extern __shared__ float smem[];
   float* sq = smem;
   float* sk = sq + kRows * kLd;
-  float* sv = sk + kCols * kLd;
-  float* sp = sv + kCols * kLd;
+  float* sv = sk + COLS * kLd;
+  float* sp = sv + COLS * kLd;
 
   const int n_qt = (a.Sq + kRows - 1) / kRows;
   const int BH = gridDim.x / n_qt;
@@ -115,25 +122,25 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(FwdArgs a) {
   const int bh = blockIdx.x % BH, b = bh / a.H, h = bh % a.H;
   const int q0 = qt * kRows, r = threadIdx.x >> 2, c = threadIdx.x & 3;
   const int qpos = a.q_offset + q0 + r;
-  const int n_kt = key_tiles_f32(a.Sk, q0, a.q_offset, a.k_offset, a.causal);
+  const int n_kt = key_tiles_f32<COLS>(a.Sk, q0, a.q_offset, a.k_offset, a.causal);
 
-  load_rows(sq, a.q, b, h, q0, a.Sq, a.D);
-  float acc[kDMax / 4];
+  load_rows<kRows, kLd>(sq, a.q, b, h, q0, a.Sq, a.D);
+  float acc[DMAX / 4];
 #pragma unroll
-  for (int i = 0; i < kDMax / 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DMAX / 4; ++i) acc[i] = 0.f;
   float m = kNegInfF32, l = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the last tile's reads are done
-    load_rows(sk, a.k, b, h, kt * kCols, a.Sk, a.D);
-    load_rows(sv, a.v, b, h, kt * kCols, a.Sk, a.D);
+    load_rows<COLS, kLd>(sk, a.k, b, h, kt * COLS, a.Sk, a.D);
+    load_rows<COLS, kLd>(sv, a.v, b, h, kt * COLS, a.Sk, a.D);
     __syncthreads();
-    float s[kCols / 4];
-    bool ok[kCols / 4];
+    float s[COLS / 4];
+    bool ok[COLS / 4];
     float mx = m;
-    dot_cols(s, sq + r * kLd, sk, c, a.D);
+    dot_cols<COLS, kLd>(s, sq + r * kLd, sk, c, a.D);
 #pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
-      const int key = kt * kCols + c + 4 * i;
+    for (int i = 0; i < COLS / 4; ++i) {
+      const int key = kt * COLS + c + 4 * i;
       ok[i] = key < a.Sk && (!a.causal || a.k_offset + key <= qpos);
       s[i] = ok[i] ? s[i] * a.scale : kNegInfF32;
       mx = fmaxf(mx, s[i]);
@@ -141,7 +148,7 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(FwdArgs a) {
     mx = quad_max(mx);
     float rs = 0.f;
 #pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
+    for (int i = 0; i < COLS / 4; ++i) {
       const float p = ok[i] ? expf(s[i] - mx) : 0.f;
       sp[r * kPLd + c + 4 * i] = p;
       rs += p;
@@ -151,15 +158,15 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(FwdArgs a) {
     m = mx;
     __syncwarp();  // the row's four threads share its P
 #pragma unroll
-    for (int i = 0; i < kDMax / 4; ++i) acc[i] *= alpha;
-    acc_cols(acc, sp + r * kPLd, sv, c, a.D);
+    for (int i = 0; i < DMAX / 4; ++i) acc[i] *= alpha;
+    acc_cols<DMAX, COLS, kLd>(acc, sp + r * kPLd, sv, c, a.D);
   }
   const int row = q0 + r;
   if (row >= a.Sq) return;
   const float safe = l > 0.f ? l : 1.f;  // a row with no key: acc is 0, so O = 0
   float* o = static_cast<float*>(a.o) + (((long long)b * a.Sq + row) * a.H + h) * a.D;
 #pragma unroll
-  for (int i = 0; i < kDMax / 4; ++i) {
+  for (int i = 0; i < DMAX / 4; ++i) {
     const int d = c + 4 * i;
     if (d < a.D) o[d] = acc[i] / safe;
   }
@@ -167,13 +174,15 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(FwdArgs a) {
 }
 
 // Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py for f32 inputs.
+template <int DMAX, int COLS>
 __global__ void __launch_bounds__(kThreadsF32) flash_bwd_dq_f32_kernel(BwdArgs a) {
+  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
   extern __shared__ float smem[];
   float* sq = smem;
   float* sdo = sq + kRows * kLd;
   float* sk = sdo + kRows * kLd;
-  float* sv = sk + kCols * kLd;
-  float* sds = sv + kCols * kLd;
+  float* sv = sk + COLS * kLd;
+  float* sds = sv + COLS * kLd;
 
   const int n_qt = (a.Sq + kRows - 1) / kRows;
   const int BH = gridDim.x / n_qt;
@@ -181,55 +190,57 @@ __global__ void __launch_bounds__(kThreadsF32) flash_bwd_dq_f32_kernel(BwdArgs a
   const int bh = blockIdx.x % BH, b = bh / a.H, h = bh % a.H;
   const int q0 = qt * kRows, r = threadIdx.x >> 2, c = threadIdx.x & 3;
   const int row = q0 + r, qpos = a.q_offset + row;
-  const int n_kt = key_tiles_f32(a.Sk, q0, a.q_offset, a.k_offset, a.causal);
+  const int n_kt = key_tiles_f32<COLS>(a.Sk, q0, a.q_offset, a.k_offset, a.causal);
   // rows at or beyond Sq stay finite and are never written
   const float lse = row < a.Sq ? a.lse[(long long)bh * a.Sq + row] : 0.f;
   const float delta = row < a.Sq ? a.delta[(long long)bh * a.Sq + row] : 0.f;
   const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
 
-  load_rows(sq, a.q, b, h, q0, a.Sq, a.D);
-  load_rows(sdo, dout, b, h, q0, a.Sq, a.D);
-  float acc[kDMax / 4];
+  load_rows<kRows, kLd>(sq, a.q, b, h, q0, a.Sq, a.D);
+  load_rows<kRows, kLd>(sdo, dout, b, h, q0, a.Sq, a.D);
+  float acc[DMAX / 4];
 #pragma unroll
-  for (int i = 0; i < kDMax / 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DMAX / 4; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_rows(sk, a.k, b, h, kt * kCols, a.Sk, a.D);
-    load_rows(sv, a.v, b, h, kt * kCols, a.Sk, a.D);
+    load_rows<COLS, kLd>(sk, a.k, b, h, kt * COLS, a.Sk, a.D);
+    load_rows<COLS, kLd>(sv, a.v, b, h, kt * COLS, a.Sk, a.D);
     __syncthreads();
-    float s[kCols / 4], dp[kCols / 4];
-    dot_cols(s, sq + r * kLd, sk, c, a.D);
-    dot_cols(dp, sdo + r * kLd, sv, c, a.D);
+    float s[COLS / 4], dp[COLS / 4];
+    dot_cols<COLS, kLd>(s, sq + r * kLd, sk, c, a.D);
+    dot_cols<COLS, kLd>(dp, sdo + r * kLd, sv, c, a.D);
 #pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
-      const int j = c + 4 * i, key = kt * kCols + j;
+    for (int i = 0; i < COLS / 4; ++i) {
+      const int j = c + 4 * i, key = kt * COLS + j;
       const bool ok = key < a.Sk && (!a.causal || a.k_offset + key <= qpos);
       const float p = ok ? expf(s[i] * a.scale - lse) : 0.f;
       sds[r * kPLd + j] = ok ? p * (dp[i] - delta) * a.scale : 0.f;
     }
     __syncwarp();
-    acc_cols(acc, sds + r * kPLd, sk, c, a.D);
+    acc_cols<DMAX, COLS, kLd>(acc, sds + r * kPLd, sk, c, a.D);
   }
   if (row >= a.Sq) return;
   float* dq = static_cast<float*>(a.dq) + (((long long)b * a.Sq + row) * a.H + h) * a.D;
 #pragma unroll
-  for (int i = 0; i < kDMax / 4; ++i) {
+  for (int i = 0; i < DMAX / 4; ++i) {
     const int d = c + 4 * i;
     if (d < a.D) dq[d] = acc[i];
   }
 }
 
 // Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py for f32 inputs.
+template <int DMAX, int COLS>
 __global__ void __launch_bounds__(kThreadsF32) flash_bwd_dkv_f32_kernel(BwdArgs a) {
+  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
   extern __shared__ float smem[];
   float* sk = smem;
   float* sv = sk + kRows * kLd;
   float* sq = sv + kRows * kLd;
-  float* sdo = sq + kCols * kLd;
-  float* sp = sdo + kCols * kLd;
+  float* sdo = sq + COLS * kLd;
+  float* sp = sdo + COLS * kLd;
   float* sds = sp + kRows * kPLd;
   float* slse = sds + kRows * kPLd;
-  float* sdelta = slse + kCols;
+  float* sdelta = slse + COLS;
 
   const int n_kt = (a.Sk + kRows - 1) / kRows;
   const int BH = gridDim.x / n_kt;
@@ -237,35 +248,35 @@ __global__ void __launch_bounds__(kThreadsF32) flash_bwd_dkv_f32_kernel(BwdArgs 
   const int bh = blockIdx.x % BH, b = bh / a.H, h = bh % a.H;
   const int k0 = kt * kRows, r = threadIdx.x >> 2, c = threadIdx.x & 3;
   const int key = k0 + r, kpos = a.k_offset + key;
-  const int n_qt = (a.Sq + kCols - 1) / kCols;
+  const int n_qt = (a.Sq + COLS - 1) / COLS;
   int qt0 = 0;  // the first query tile that sees some key of the block
   if (a.causal) {
-    const long long need = (long long)a.k_offset + k0 - a.q_offset - (kCols - 1);
-    qt0 = need <= 0 ? 0 : (int)((need + kCols - 1) / kCols);
+    const long long need = (long long)a.k_offset + k0 - a.q_offset - (COLS - 1);
+    qt0 = need <= 0 ? 0 : (int)((need + COLS - 1) / COLS);
   }
   const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
 
-  load_rows(sk, a.k, b, h, k0, a.Sk, a.D);
-  load_rows(sv, a.v, b, h, k0, a.Sk, a.D);
-  float dk[kDMax / 4], dv[kDMax / 4];
+  load_rows<kRows, kLd>(sk, a.k, b, h, k0, a.Sk, a.D);
+  load_rows<kRows, kLd>(sv, a.v, b, h, k0, a.Sk, a.D);
+  float dk[DMAX / 4], dv[DMAX / 4];
 #pragma unroll
-  for (int i = 0; i < kDMax / 4; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DMAX / 4; ++i) dk[i] = dv[i] = 0.f;
   for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kCols;
+    const int q0 = qt * COLS;
     __syncthreads();
-    load_rows(sq, a.q, b, h, q0, a.Sq, a.D);
-    load_rows(sdo, dout, b, h, q0, a.Sq, a.D);
-    if (threadIdx.x < kCols) {
+    load_rows<COLS, kLd>(sq, a.q, b, h, q0, a.Sq, a.D);
+    load_rows<COLS, kLd>(sdo, dout, b, h, q0, a.Sq, a.D);
+    if (threadIdx.x < COLS) {
       const int qi = q0 + threadIdx.x;
       slse[threadIdx.x] = qi < a.Sq ? a.lse[(long long)bh * a.Sq + qi] : 0.f;
       sdelta[threadIdx.x] = qi < a.Sq ? a.delta[(long long)bh * a.Sq + qi] : 0.f;
     }
     __syncthreads();
-    float st[kCols / 4], dpt[kCols / 4];
-    dot_cols(st, sk + r * kLd, sq, c, a.D);
-    dot_cols(dpt, sv + r * kLd, sdo, c, a.D);
+    float st[COLS / 4], dpt[COLS / 4];
+    dot_cols<COLS, kLd>(st, sk + r * kLd, sq, c, a.D);
+    dot_cols<COLS, kLd>(dpt, sv + r * kLd, sdo, c, a.D);
 #pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
+    for (int i = 0; i < COLS / 4; ++i) {
       const int j = c + 4 * i;
       const bool ok = key < a.Sk && q0 + j < a.Sq && (!a.causal || kpos <= a.q_offset + q0 + j);
       const float p = ok ? expf(st[i] * a.scale - slse[j]) : 0.f;
@@ -273,15 +284,15 @@ __global__ void __launch_bounds__(kThreadsF32) flash_bwd_dkv_f32_kernel(BwdArgs 
       sds[r * kPLd + j] = ok ? p * (dpt[i] - sdelta[j]) * a.scale : 0.f;
     }
     __syncwarp();
-    acc_cols(dv, sp + r * kPLd, sdo, c, a.D);
-    acc_cols(dk, sds + r * kPLd, sq, c, a.D);
+    acc_cols<DMAX, COLS, kLd>(dv, sp + r * kPLd, sdo, c, a.D);
+    acc_cols<DMAX, COLS, kLd>(dk, sds + r * kPLd, sq, c, a.D);
   }
   if (key >= a.Sk) return;
   const long long base = (((long long)b * a.Sk + key) * a.H + h) * a.D;
   float* dkp = static_cast<float*>(a.dk) + base;
   float* dvp = static_cast<float*>(a.dv) + base;
 #pragma unroll
-  for (int i = 0; i < kDMax / 4; ++i) {
+  for (int i = 0; i < DMAX / 4; ++i) {
     const int d = c + 4 * i;
     if (d < a.D) {
       dkp[d] = dk[i];
@@ -290,39 +301,81 @@ __global__ void __launch_bounds__(kThreadsF32) flash_bwd_dkv_f32_kernel(BwdArgs 
   }
 }
 
-constexpr size_t kFwdSmemF32 = (kRows * kLd + 2 * kCols * kLd + kRows * kPLd) * sizeof(float);
-constexpr size_t kDqSmemF32 = (2 * kRows * kLd + 2 * kCols * kLd + kRows * kPLd) * sizeof(float);
-constexpr size_t kDkvSmemF32 =
-    (2 * kRows * kLd + 2 * kCols * kLd + 2 * kRows * kPLd + 2 * kCols) * sizeof(float);
-static_assert(kDkvSmemF32 <= 232448, "shared memory");
+template <int DMAX, int COLS>
+constexpr size_t fwd_smem_f32() {
+  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
+  return (kRows * kLd + 2 * COLS * kLd + kRows * kPLd) * sizeof(float);
+}
+template <int DMAX, int COLS>
+constexpr size_t dq_smem_f32() {
+  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
+  return (2 * kRows * kLd + 2 * COLS * kLd + kRows * kPLd) * sizeof(float);
+}
+template <int DMAX, int COLS>
+constexpr size_t dkv_smem_f32() {
+  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
+  return (2 * kRows * kLd + 2 * COLS * kLd + 2 * kRows * kPLd + 2 * COLS) * sizeof(float);
+}
+
+constexpr size_t kSmemMaxF32 = 232448;  // dynamic shared memory a block can take on the H100
+
+// The compiled variants: (head dims up to DMAX, tile COLS) by kernel.
+static_assert(fwd_smem_f32<128, 64>() <= kSmemMaxF32 && fwd_smem_f32<256, 64>() <= kSmemMaxF32,
+              "forward shared memory");
+static_assert(dq_smem_f32<128, 64>() <= kSmemMaxF32 && dq_smem_f32<256, 32>() <= kSmemMaxF32,
+              "dq shared memory");
+static_assert(dkv_smem_f32<128, 64>() <= kSmemMaxF32 && dkv_smem_f32<256, 32>() <= kSmemMaxF32,
+              "dkv shared memory");
+
+template <int DMAX, int COLS>
+cudaError_t launch_fwd_f32_at(const FwdArgs& a, cudaStream_t stream) {
+  constexpr size_t kBytes = fwd_smem_f32<DMAX, COLS>();
+  cudaError_t rc = allow_smem(flash_fwd_f32_kernel<DMAX, COLS>, kBytes);
+  if (rc != cudaSuccess) return rc;
+  const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
+  flash_fwd_f32_kernel<DMAX, COLS><<<blocks, kThreadsF32, kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DMAX, int COLS>
+cudaError_t launch_bwd_dq_f32_at(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t kBytes = dq_smem_f32<DMAX, COLS>();
+  cudaError_t rc = allow_smem(flash_bwd_dq_f32_kernel<DMAX, COLS>, kBytes);
+  if (rc != cudaSuccess) return rc;
+  const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
+  flash_bwd_dq_f32_kernel<DMAX, COLS><<<blocks, kThreadsF32, kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DMAX, int COLS>
+cudaError_t launch_bwd_dkv_f32_at(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t kBytes = dkv_smem_f32<DMAX, COLS>();
+  cudaError_t rc = allow_smem(flash_bwd_dkv_f32_kernel<DMAX, COLS>, kBytes);
+  if (rc != cudaSuccess) return rc;
+  const int blocks = a.B * a.H * ((a.Sk + kRows - 1) / kRows);
+  flash_bwd_dkv_f32_kernel<DMAX, COLS><<<blocks, kThreadsF32, kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
+// Each call runs the variant for its head dim: up to 128, or up to 256.
+
 cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream) {
-  if (a.D <= 0 || a.D > kDMax || !a.out_f32) return cudaErrorInvalidValue;
-  cudaError_t rc = allow_smem(flash_fwd_f32_kernel, kFwdSmemF32);
-  if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
-  flash_fwd_f32_kernel<<<blocks, kThreadsF32, kFwdSmemF32, stream>>>(a);
-  return cudaGetLastError();
+  if (a.D <= 0 || a.D > 256 || !a.out_f32) return cudaErrorInvalidValue;
+  return a.D <= 128 ? launch_fwd_f32_at<128, 64>(a, stream) : launch_fwd_f32_at<256, 64>(a, stream);
 }
 
 cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream) {
-  if (a.D <= 0 || a.D > kDMax) return cudaErrorInvalidValue;
-  cudaError_t rc = allow_smem(flash_bwd_dq_f32_kernel, kDqSmemF32);
-  if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
-  flash_bwd_dq_f32_kernel<<<blocks, kThreadsF32, kDqSmemF32, stream>>>(a);
-  return cudaGetLastError();
+  if (a.D <= 0 || a.D > 256) return cudaErrorInvalidValue;
+  return a.D <= 128 ? launch_bwd_dq_f32_at<128, 64>(a, stream)
+                    : launch_bwd_dq_f32_at<256, 32>(a, stream);
 }
 
 cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream) {
-  if (a.D <= 0 || a.D > kDMax) return cudaErrorInvalidValue;
-  cudaError_t rc = allow_smem(flash_bwd_dkv_f32_kernel, kDkvSmemF32);
-  if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sk + kRows - 1) / kRows);
-  flash_bwd_dkv_f32_kernel<<<blocks, kThreadsF32, kDkvSmemF32, stream>>>(a);
-  return cudaGetLastError();
+  if (a.D <= 0 || a.D > 256) return cudaErrorInvalidValue;
+  return a.D <= 128 ? launch_bwd_dkv_f32_at<128, 64>(a, stream)
+                    : launch_bwd_dkv_f32_at<256, 32>(a, stream);
 }
 
 }  // namespace edl_flash

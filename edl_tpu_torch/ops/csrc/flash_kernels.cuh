@@ -39,13 +39,19 @@
 // rounded to the input's type before P·V, Pᵀ·dO, dS·K and dSᵀ·Q, where the
 // Pallas kernels multiply in f32: one rounding (relative 2^-9 in bf16, 2^-12
 // in f16) per term, which the tolerances against the plain PyTorch versions
-// cover. Every kernel takes exp as 2^x on the special-function unit with
-// scale·log2(e) folded into one multiply.
+// cover. The forward divides O by the sum of the rounded P that P·V
+// multiplied, so that O's weights sum to 1 as they do in exact arithmetic,
+// and takes lse from the sum of the unrounded P: a row whose O were off by
+// a scale (the rounded and unrounded sums differ by up to 2^-9 of the sum)
+// would carry that scale into delta = rowsum(dO ∘ O), and where a row's dQ
+// nearly cancels, delta's error is most of it. Every kernel takes exp as
+// 2^x on the special-function unit with scale·log2(e) folded into one
+// multiply.
 //
 // One design serves all three (see the note above each kernel): a producer
 // warp streams tiles by TMA into a ring of shared-memory stages guarded by
-// mbarriers, and two consumer warpgroups run every product as wgmma while the
-// next tiles load.
+// mbarriers, and one or two consumer warpgroups run every product as wgmma
+// while the next tiles load.
 
 #pragma once
 
@@ -114,63 +120,102 @@ __device__ __forceinline__ int open_key_tiles(int n_kt, int Sk, int wg_row0, int
 
 // -- shared pieces --------------------------------------------------------------
 //
-// Every kernel runs two consumer warpgroups and one producer warp: each
-// consumer warpgroup owns 64 rows of the block's tile and runs wgmma on them;
-// one thread of the producer warp issues the TMA loads (in dkv the whole warp
-// also stages lse and delta). With 9 warps a block, three share one quarter
-// of the SM's register file, so ptxas gives each thread at most 168
-// registers. The tiles are sized to that at head dims up to 64: 64 keys per
-// forward and dq stage (S, P and O, or S, dP, dS and dQ, in registers
-// together), and a dkv that forms Pᵀ and dSᵀ only between its products. At
-// DP 128 the accumulators double (dQ 64 registers a thread, dK and dV 128):
-// dq and the forward's 128-key tile spill a little, and dkv, whose dK and dV
-// alone take 128, runs one consumer warpgroup a block (`dkv_consumers`): with
-// 5 warps a block, two share a quarter of the register file, and ptxas gives
-// up to 255. (Handing the producer's registers to the consumers with
-// setmaxnreg left ptxas's allocation at 168: PERF.md.)
-
-constexpr int kConsumers = 2;  // consumer warpgroups
-constexpr int kThreads = kConsumers * 128 + 32;
+// Every kernel runs one or two consumer warpgroups and one producer warp:
+// each consumer warpgroup owns 64 rows of the block's tile and runs wgmma on
+// them; one thread of the producer warp issues the TMA loads (in dkv the
+// whole warp also stages lse and delta). With two consumer warpgroups (9
+// warps a block), three warps share one quarter of the SM's register file,
+// so ptxas gives each thread at most 168 registers; with one (5 warps), two
+// share a quarter, and ptxas gives up to 255. The tiles are sized to that.
+// Up to DP 64: two consumers, 64 keys per forward and dq stage (S, P and O,
+// or S, dP, dS and dQ, in registers together), and a dkv that forms Pᵀ and
+// dSᵀ only between its products. At DP 128 the accumulators double (dQ 64
+// registers a thread, dK and dV 128): dq and the forward's 128-key tile
+// spill a little, and dkv, whose dK and dV alone take 128, runs one consumer
+// warpgroup a block (`dkv_consumers`). (Handing the producer's registers to
+// the consumers with setmaxnreg left ptxas's allocation at 168: PERF.md.) At
+// DP 192 and 256 one warpgroup's O or dQ takes 96 or 128 registers a thread,
+// so the forward and dq run one consumer warpgroup a block too
+// (`row_consumers`), dq with 32-key stages (`dq_keys`: S, dP and dS then
+// take 40 registers, not 80); and dK plus dV (192 or 256) no longer fit one
+// thread's 255, so dkv runs as two passes over the same tiles
+// (`dkv_passes`): one recomputes P and sums dV, the other recomputes P and
+// dP and sums dK.
 
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block can take on the H100
 
-constexpr int kFwdRows = 128;   // query rows per forward block
-constexpr int kDqRows = 128;    // query rows per dq block
-constexpr int kDqKeys = 64;     // keys per dq pipeline stage
-constexpr int kDqStages = 4;
-constexpr int kDkvRows = 64;    // query rows per dkv pipeline stage
-constexpr int kDkvStages = 3;
+constexpr int kDkvRows = 64;  // query rows per dkv pipeline stage
+static_assert(kDkvRows == kTile, "first_query_tile() counts dkv query tiles of kTile rows");
 
-// dkv's consumer warpgroups a block, 64 keys each: one at DP 128, two below
+// The forward's and dq's consumer warpgroups a block, kTile query rows each:
+// two up to DP 128, one from DP 192.
+template <int DP>
+__host__ __device__ constexpr int row_consumers() {
+  return DP >= 192 ? 1 : 2;
+}
+
+// dq's keys a pipeline stage: 64, and 32 from DP 192.
+template <int DP>
+__host__ __device__ constexpr int dq_keys() {
+  return DP >= 192 ? 32 : 64;
+}
+
+// dkv's consumer warpgroups a block, 64 keys each: one from DP 128, two below.
 template <int DP>
 __host__ __device__ constexpr int dkv_consumers() {
-  return DP == 128 ? 1 : 2;
+  return DP >= 128 ? 1 : 2;
 }
-static_assert(kDkvRows == kTile, "first_query_tile() counts dkv query tiles of kTile rows");
-static_assert(kFwdRows == kConsumers * kTile && kDqRows == kConsumers * kTile,
-              "each consumer warpgroup owns kTile query rows");
 
-// The forward's shared memory at DP and KEYS keys a stage: the Q tile, the
-// K/V stages (as many as fit, at most 4) and the barriers.
-template <int DP, int KEYS>
+// What one dkv launch sums: dK and dV together, or (from DP 192, where they
+// do not fit one thread's registers together) dV alone, then dK alone.
+enum DkvPass { kDkvBoth = 0, kDkvDv = 1, kDkvDk = 2 };
+
+template <int DP>
+__host__ __device__ constexpr int dkv_passes() {
+  return DP >= 192 ? 2 : 1;
+}
+
+__host__ __device__ constexpr int block_threads(int consumers) { return consumers * 128 + 32; }
+
+// Every layout's shared memory below is checked against kSmemMax where it is
+// instantiated, so each compiled variant is known to fit.
+
+// The forward's shared memory at DP, ROWS query rows a block and KEYS keys a
+// stage: the Q tile, the K/V stages (as many as fit, at most 4) and the
+// barriers.
+template <int DP, int ROWS, int KEYS>
 struct FwdSmem {
-  static constexpr int kQBytes = kFwdRows * DP * 2, kKVBytes = KEYS * DP * 2;
+  static constexpr int kQBytes = ROWS * DP * 2, kKVBytes = KEYS * DP * 2;
   static constexpr int kFit = (kSmemMax - 1024 - kQBytes - 9 * 8) / (2 * kKVBytes);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr size_t kBytes = 1024 + kQBytes + 2 * kStages * kKVBytes + (1 + 2 * kStages) * 8;
   static_assert(kStages >= 2 && kBytes <= kSmemMax, "forward shared memory");
 };
 
-template <int DP>
-constexpr size_t dq_smem() {
-  return 1024 + (2 * kDqRows + 2 * kDqStages * kDqKeys) * DP * 2 + (1 + 2 * kDqStages) * 8;
-}
-template <int DP>
-constexpr size_t dkv_smem() {
-  return 1024 + (2 * dkv_consumers<DP>() * kTile + 2 * kDkvStages * kDkvRows) * DP * 2 +
-         2 * kDkvStages * kDkvRows * sizeof(float) + (1 + 2 * kDkvStages) * 8;
-}
-static_assert(dq_smem<128>() <= kSmemMax && dkv_smem<128>() <= kSmemMax, "shared memory");
+// dq's: the Q and dO tiles of ROWS rows, the K/V stages of KEYS keys (as
+// many as fit, at most 4) and the barriers.
+template <int DP, int ROWS, int KEYS>
+struct DqSmem {
+  static constexpr int kQBytes = ROWS * DP * 2, kKVBytes = KEYS * DP * 2;
+  static constexpr int kFit = (kSmemMax - 1024 - 2 * kQBytes - 9 * 8) / (2 * kKVBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr size_t kBytes =
+      1024 + 2 * kQBytes + 2 * kStages * kKVBytes + (1 + 2 * kStages) * 8;
+  static_assert(kStages >= 2 && kBytes <= kSmemMax, "dq shared memory");
+};
+
+// dkv's: the K and V tiles of KEYS keys, the Q/dO stages of kDkvRows rows
+// with their lse and delta (as many as fit, at most 3) and the barriers.
+template <int DP, int KEYS>
+struct DkvSmem {
+  static constexpr int kKVBytes = KEYS * DP * 2, kQBytes = kDkvRows * DP * 2;
+  static constexpr int kStageBytes = 2 * kQBytes + 2 * kDkvRows * (int)sizeof(float);
+  static constexpr int kFit = (kSmemMax - 1024 - 2 * kKVBytes - 7 * 8) / kStageBytes;
+  static constexpr int kStages = kFit < 3 ? kFit : 3;
+  static constexpr size_t kBytes =
+      1024 + 2 * kKVBytes + kStages * kStageBytes + (1 + 2 * kStages) * 8;
+  static_assert(kStages >= 2 && kBytes <= kSmemMax, "dkv shared memory");
+};
 
 // The block's dynamic shared memory, moved up to a 1024-byte boundary (the
 // 128-byte swizzle's period); launches ask for 1024 bytes of slack.
@@ -178,10 +223,20 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((1024u - (hopper::smem_addr(raw) & 1023u)) & 1023u);
 }
 
-// 64 x (16·NC) columns of a tile (f32, accumulator layout, NC chunks of 64
-// columns) to the A fragments of a product that reduces over those columns,
-// 16 columns each: the accumulator layout of a 64 x 16 slice is the A
+// 64 x (2·N) columns of a tile (f32, accumulator layout: N values a thread)
+// to the A fragments of a product that reduces over those columns, 16
+// columns each: the accumulator layout of a 64 x 16 slice is the A
 // operand's layout.
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 8][4], const float (&x)[N]) {
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[jj][e] = hopper::Elem<T>::pack(x[8 * jj + 2 * e], x[8 * jj + 2 * e + 1]);
+}
+
+// The same for NC chunks of 64 columns, each chunk's accumulator of its own.
 template <typename T, int NC>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[NC * 4][4], const float (&x)[NC][32]) {
 #pragma unroll
@@ -194,53 +249,59 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NC * 4][4], const float (&x
             hopper::Elem<T>::pack(x[c][8 * jj + 2 * e], x[c][8 * jj + 2 * e + 1]);
 }
 
-template <typename T>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
-  pack_a<T, 1>(a, reinterpret_cast<const float(&)[1][32]>(x));
-}
-
 // Two adjacent outputs of a thread's row to global memory in T.
 template <typename T>
 __device__ __forceinline__ void store2(T* p, float x0, float x1) {
   *reinterpret_cast<uint32_t*>(p) = hopper::Elem<T>::pack(x0, x1);
 }
 
-// X = A_x·B_xᵀ and Y = A_y·B_yᵀ (64 x 64 each) for one warpgroup, in one
-// commit group: A_x and A_y are the warpgroup's own 64 rows (descriptors ax,
-// ay, of tiles of AROWS rows), B_x and B_y tiles of BROWS = 64 rows, all
-// K-major. dq: S = Q·Kᵀ and dP = dO·Vᵀ; dkv: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.
+// X = A·Bᵀ (64 x BROWS) for one warpgroup, left uncommitted: A is the
+// warpgroup's own 64 rows (descriptor ax, of a tile of AROWS rows), B a tile
+// of BROWS rows (32 or 64), both K-major.
 template <typename T, int DP, int AROWS, int BROWS>
-__device__ __forceinline__ void issue_abt_pair(float (&x)[32], float (&y)[32], uint64_t ax,
-                                               uint64_t ay, const T* bx_tile, const T* by_tile) {
+__device__ __forceinline__ void issue_abt(float (&x)[BROWS / 2], uint64_t ax, const T* bx_tile) {
   using hopper::desc_add;
   using hopper::kmajor_step;
   const uint64_t bx = hopper::make_desc<DP, BROWS>(bx_tile);
-  const uint64_t by = hopper::make_desc<DP, BROWS>(by_tile);
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
-    hopper::wgmma_ss_n64<T>(x, desc_add(ax, kmajor_step<DP, AROWS>(kk)),
-                            desc_add(bx, kmajor_step<DP, BROWS>(kk)), kk);
+    hopper::wgmma_ss<T, BROWS>(x, desc_add(ax, kmajor_step<DP, AROWS>(kk)),
+                               desc_add(bx, kmajor_step<DP, BROWS>(kk)), kk);
   }
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    hopper::wgmma_ss_n64<T>(y, desc_add(ay, kmajor_step<DP, AROWS>(kk)),
-                            desc_add(by, kmajor_step<DP, BROWS>(kk)), kk);
-  }
+}
+
+// X = A_x·B_xᵀ and Y = A_y·B_yᵀ for one warpgroup, in one commit group.
+// dq: S = Q·Kᵀ and dP = dO·Vᵀ; dkv: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ.
+template <typename T, int DP, int AROWS, int BROWS>
+__device__ __forceinline__ void issue_abt_pair(float (&x)[BROWS / 2], float (&y)[BROWS / 2],
+                                               uint64_t ax, uint64_t ay, const T* bx_tile,
+                                               const T* by_tile) {
+  issue_abt<T, DP, AROWS, BROWS>(x, ax, bx_tile);
+  issue_abt<T, DP, AROWS, BROWS>(y, ay, by_tile);
   hopper::wgmma_commit();
 }
 
 // acc (64 x DP) += A·B for one warpgroup, left uncommitted: A (64 x K) in
 // fragments in registers, B a tile of K rows read MN-major (its rows are the
 // reduction index, its DP columns N, across the chunks). P·V, dS·K, Pᵀ·dO
-// and dSᵀ·Q.
+// and dSᵀ·Q. Past DP 128 each step is two products, on columns 0-127 and on
+// the rest (from chunk 2 on): a thread's accumulator of the 64 x DP product
+// is theirs laid end to end.
 template <typename T, int DP, int K>
 __device__ __forceinline__ void issue_rs_mn(float (&acc)[DP / 2], const uint32_t (&a)[K / 16][4],
                                             const T* b_tile) {
+  constexpr int kN0 = DP > 128 ? 128 : DP, kN1 = DP - kN0;
+  constexpr uint32_t kN1Offset = 2 * K * hopper::Span<DP>::kSpan * 2;  // chunk 2's bytes
   const uint64_t b = hopper::make_desc<DP, K>(b_tile);
+  float(&acc0)[kN0 / 2] = *reinterpret_cast<float(*)[kN0 / 2]>(&acc[0]);
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
-    hopper::wgmma_rs_mn<T, DP>(acc, a[kk],
-                               hopper::desc_add(b, kk * 16 * hopper::Span<DP>::kSpan * 2));
+    const uint32_t step = kk * 16 * hopper::Span<DP>::kSpan * 2;
+    hopper::wgmma_rs_mn<T, kN0>(acc0, a[kk], hopper::desc_add(b, step));
+    if constexpr (kN1 > 0) {
+      float(&acc1)[kN1 / 2] = *reinterpret_cast<float(*)[kN1 / 2]>(&acc[kN0 / 2]);
+      hopper::wgmma_rs_mn<T, kN1>(acc1, a[kk], hopper::desc_add(b, kN1Offset + step));
+    }
   }
 }
 
@@ -257,10 +318,11 @@ struct FwdRows {
 // One S tile's online-softmax step, in place: sc (Q·Kᵀ of keys key0 + ...)
 // becomes P = 2^(S·scale·log2 e − m_new) in f32, with every masked entry
 // exactly 0 through its validity, never through its score; m moves to the new
-// row max (log2 units), the per-thread partial sum l is rescaled and grows,
-// and alpha is the factor that rescales O. Unless kMasked, every entry is
-// visible and no mask is evaluated. The code is branch-free, so it can run
-// while a wgmma is in flight.
+// row max (log2 units), the per-thread partial sum l of P is rescaled and
+// grows, and alpha is the factor that rescales O (and the sum of the rounded
+// P, `packed_row_sums`). Unless kMasked, every entry is visible and no mask
+// is evaluated. The code is branch-free, so it can run while a wgmma is in
+// flight.
 template <bool kMasked, int NC>
 __device__ __forceinline__ void fwd_softmax(float (&sc)[NC][32], float (&m)[2], float (&l)[2],
                                             float (&alpha)[2], int key0, const FwdRows& q) {
@@ -302,10 +364,25 @@ __device__ __forceinline__ void fwd_softmax(float (&sc)[NC][32], float (&m)[2], 
   }
 }
 
+// lr (the two rows' per-thread partial sums of P as P·V multiplies it, in
+// T) rescaled by alpha and grown by this tile's packed P: the values the
+// pack rounded, read back from the pairs without a conversion.
+template <typename T, int N>
+__device__ __forceinline__ void packed_row_sums(float (&lr)[2], const float (&alpha)[2],
+                                                const uint32_t (&pa)[N][4]) {
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jj = 0; jj < N; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e & 1] += hopper::Elem<T>::sum2(pa[jj][e]);  // row e & 1
+  lr[0] = lr[0] * alpha[0] + s[0];
+  lr[1] = lr[1] * alpha[1] + s[1];
+}
+
 // S (64 x KEYS) = Q·Kᵀ for one warpgroup: its Q rows (descriptor dq, of the
-// kFwdRows-row Q tile) and a K tile of KEYS rows, both K-major, in chunks of
-// 64 keys.
-template <typename T, int DP, int KEYS>
+// ROWS-row Q tile) and a K tile of KEYS rows, both K-major, in chunks of 64
+// keys.
+template <typename T, int DP, int KEYS, int ROWS>
 __device__ __forceinline__ void fwd_issue_s(float (&sc)[KEYS / 64][32], uint64_t dq,
                                             const T* k_tile) {
   using hopper::desc_add;
@@ -315,7 +392,7 @@ __device__ __forceinline__ void fwd_issue_s(float (&sc)[KEYS / 64][32], uint64_t
     const uint64_t dk = hopper::make_desc<DP, KEYS>(k_tile + c * 64 * hopper::Span<DP>::kSpan);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      hopper::wgmma_ss_n64<T>(sc[c], desc_add(dq, kmajor_step<DP, kFwdRows>(kk)),
+      hopper::wgmma_ss<T, 64>(sc[c], desc_add(dq, kmajor_step<DP, ROWS>(kk)),
                               desc_add(dk, kmajor_step<DP, KEYS>(kk)), kk);
     }
   }
@@ -325,17 +402,17 @@ __device__ __forceinline__ void fwd_issue_s(float (&sc)[KEYS / 64][32], uint64_t
 // One step of a consumer warpgroup's pipeline at key tile kt >= 1: issue
 // S = Q·K_ktᵀ and O += P_(kt-1)·V_(kt-1), run the softmax of tile kt while
 // P·V runs, release tile kt - 1's stage, rescale O and pack P_kt.
-template <typename T, int DP, int KEYS, int STAGES, bool kMasked>
+template <typename T, int DP, int KEYS, int ROWS, int STAGES, bool kMasked>
 __device__ __forceinline__ void fwd_step(int kt, float (&sc)[KEYS / 64][32],
                                          uint32_t (&pa)[KEYS / 16][4], float (&acc)[DP / 2],
-                                         float (&m)[2], float (&l)[2], uint64_t dq, const T* sk,
-                                         const T* sv, uint64_t* full, uint64_t* empty,
-                                         const FwdRows& rows) {
+                                         float (&m)[2], float (&l)[2], float (&lr)[2], uint64_t dq,
+                                         const T* sk, const T* sv, uint64_t* full,
+                                         uint64_t* empty, const FwdRows& rows) {
   using namespace hopper;
   const int s = kt % STAGES, prev = (kt - 1) % STAGES;
   mbar_wait(&full[s], (kt / STAGES) & 1);
   wgmma_fence();
-  fwd_issue_s<T, DP, KEYS>(sc, dq, sk + s * KEYS * DP);
+  fwd_issue_s<T, DP, KEYS, ROWS>(sc, dq, sk + s * KEYS * DP);
   issue_rs_mn<T, DP, KEYS>(acc, pa, sv + prev * KEYS * DP);
   wgmma_commit();
   wgmma_wait<1>();  // S done, P·V may still run
@@ -350,14 +427,16 @@ __device__ __forceinline__ void fwd_step(int kt, float (&sc)[KEYS / 64][32],
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
   pack_a<T>(pa, sc);
+  packed_row_sums<T>(lr, alpha, pa);
 }
 
 // Replaces _fwd_kernel of edl_tpu/ops/flash_attention.py.
 // Bound on the H100: 4·D FLOPs per visible (query, key) pair against 8·D
 // bytes per row moved (16-bit q, k, v, o), so a causal sequence of 1024 at D
 // 64 sits near the ridge and the LM's 2048 at D 128 is FLOP-bound (~0.069 ms
-// of bf16 FLOPs at B 4, H 16). Design: one block owns 128 query rows of one
-// (batch, head), the heaviest query tiles launched first. The producer loads
+// of bf16 FLOPs at B 4, H 16; 0.139 ms at D 256). Design: one block owns 128
+// query rows (64 from DP 192: `row_consumers`) of one (batch, head), the
+// heaviest query tiles launched first. The producer loads
 // the Q tile once and streams KEYS-key K and V tiles by TMA through a ring of
 // stages (full/empty mbarriers), so later tiles load while this one is
 // multiplied. Each consumer warpgroup computes S = Q·Kᵀ for its 64 rows as
@@ -367,18 +446,19 @@ __device__ __forceinline__ void fwd_step(int kt, float (&sc)[KEYS / 64][32],
 // the register operand of O += P·V, with V read MN-major. The warpgroup
 // issues S of tile kt and P·V of tile kt - 1 together and runs the softmax
 // of tile kt while P·V runs, so the exponentials overlap the tensor cores.
-// S and P never leave registers; each K/V tile is read once per 128 rows.
+// S and P never leave registers; each K/V tile is read once per block.
 // KEYS (64 or 128) is the tile that the tuning table picks
 // (ops/flash_tuning.py): 128 halves the stages' barrier round trips and
-// doubles the softmax's registers.
-template <typename T, int DP, int KEYS>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
+// doubles the softmax's registers. NC is the consumer warpgroups a block.
+template <typename T, int DP, int KEYS, int NC>
+__global__ void __launch_bounds__(block_threads(NC), 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, void* __restrict__ o, float* __restrict__ lse,
     int H, int Sq, int Sk, int D, int q_offset, int k_offset, float scale_log2, int causal,
     int out_f32) {
   using namespace hopper;
-  using Smem = FwdSmem<DP, KEYS>;
+  constexpr int kRows = NC * kTile;  // query rows a block
+  using Smem = FwdSmem<DP, kRows, KEYS>;
   constexpr int kStages = Smem::kStages, kQBytes = Smem::kQBytes, kKVBytes = Smem::kKVBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -389,32 +469,32 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int n_qt = (Sq + kFwdRows - 1) / kFwdRows;
+  const int n_qt = (Sq + kRows - 1) / kRows;
   const int BH = gridDim.x / n_qt;
   const int qt = n_qt - 1 - blockIdx.x / BH;  // the last query tiles carry the most keys
   const int bh = blockIdx.x % BH, b = bh / H, h = bh % H;
-  const int q0 = qt * kFwdRows;
+  const int q0 = qt * kRows;
   // the key tiles that the block's last kTile rows see
-  const int n_kt = key_tiles<KEYS>(Sk, q0 + kFwdRows - kTile, q_offset, k_offset, causal);
+  const int n_kt = key_tiles<KEYS>(Sk, q0 + kRows - kTile, q_offset, k_offset, causal);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], NC * 4);  // one arrival per consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == kConsumers) {  // the producer warp
-    if (threadIdx.x == kConsumers * 128) {  // one thread issues every load
+  if (wg == NC) {  // the producer warp
+    if (threadIdx.x == NC * 128) {  // one thread issues every load
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
       mbar_arrive_expect_tx(q_full, kQBytes);
-      tma_load_tile<DP, kFwdRows>(sq, &tq, q_full, h, q0, b);
+      tma_load_tile<DP, kRows>(sq, &tq, q_full, h, q0, b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kStages;
         mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
@@ -432,13 +512,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g and g + 8, log2 units
+    float m[2] = {kNegInf, kNegInf};  // rows g and g + 8, log2 units
+    float l[2] = {0.f, 0.f}, lr[2] = {0.f, 0.f};  // the sums of P and of P rounded to T
     float sc[KEYS / 64][32];    // S, then P in f32, keys 64·c + ..., accumulator layout
     uint32_t pa[KEYS / 16][4];  // P in T: the A fragments of P·V
     float alpha[2];             // the first tile's: O is still 0
 
     mbar_wait(q_full, 0);
-    const uint64_t dq = make_desc<DP, kFwdRows>(sq + wg * 64 * Span<DP>::kSpan);
+    const uint64_t dq = make_desc<DP, kRows>(sq + wg * 64 * Span<DP>::kSpan);
     const int n_open = open_key_tiles<KEYS>(n_kt, Sk, wg_row0, q_offset, k_offset, causal);
 
     // Software pipeline inside the warpgroup: while the tensor cores run
@@ -448,7 +529,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     if (n_kt > 0) {
       mbar_wait(&full[0], 0);
       wgmma_fence();
-      fwd_issue_s<T, DP, KEYS>(sc, dq, sk);
+      fwd_issue_s<T, DP, KEYS, kRows>(sc, dq, sk);
       wgmma_wait<0>();
       fence_regs(sc);
       if (n_open > 0) {
@@ -457,12 +538,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
         fwd_softmax<true>(sc, m, l, alpha, 0, rows);
       }
       pack_a<T>(pa, sc);
+      packed_row_sums<T>(lr, alpha, pa);
     }
     for (int kt = 1; kt < n_open; ++kt) {
-      fwd_step<T, DP, KEYS, kStages, false>(kt, sc, pa, acc, m, l, dq, sk, sv, full, empty, rows);
+      fwd_step<T, DP, KEYS, kRows, kStages, false>(kt, sc, pa, acc, m, l, lr, dq, sk, sv, full,
+                                                   empty, rows);
     }
     for (int kt = n_open > 1 ? n_open : 1; kt < n_kt; ++kt) {
-      fwd_step<T, DP, KEYS, kStages, true>(kt, sc, pa, acc, m, l, dq, sk, sv, full, empty, rows);
+      fwd_step<T, DP, KEYS, kRows, kStages, true>(kt, sc, pa, acc, m, l, lr, dq, sk, sv, full,
+                                                  empty, rows);
     }
     if (n_kt > 0) {
       wgmma_fence();
@@ -474,19 +558,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     }
 
     const int g = lane >> 2;
-    l[0] = quad_sum(l[0]);
-    l[1] = quad_sum(l[1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      lr[r] = quad_sum(lr[r]);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + g + 8 * r;
       if (row >= Sq) continue;
-      const float safe = l[r] > 0.f ? l[r] : 1.f;  // a row with no key: acc is 0, so O = 0
+      // O's weights are the rounded P; a row with no key: acc is 0, so O = 0
+      const float norm = lr[r] > 0.f ? lr[r] : 1.f;
       const long long base = (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int d = j * 8 + 2 * t;
         if (d >= D) continue;
-        const float x0 = acc[4 * j + 2 * r] / safe, x1 = acc[4 * j + 2 * r + 1] / safe;
+        const float x0 = acc[4 * j + 2 * r] / norm, x1 = acc[4 * j + 2 * r + 1] / norm;
         if (out_f32) {
           *reinterpret_cast<float2*>(static_cast<float*>(o) + base + d) = make_float2(x0, x1);
         } else {
@@ -494,7 +582,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
         }
       }
       if (t == 0) {
-        lse[(long long)bh * Sq + row] = l[r] > 0.f ? m[r] * kLn2 + logf(safe) : kNegInf;
+        lse[(long long)bh * Sq + row] = l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNegInf;
       }
     }
   }
@@ -516,11 +604,11 @@ struct DqRows {
 // has lse = -1e30, where the exponent overflows). Unless kMasked, every entry
 // is visible and no mask is evaluated. Branch-free, so it can run while a
 // wgmma is in flight.
-template <bool kMasked>
-__device__ __forceinline__ void dq_probs(const float (&sc)[32], float (&dp)[32], int key0,
+template <bool kMasked, int N>
+__device__ __forceinline__ void dq_probs(const float (&sc)[N], float (&dp)[N], int key0,
                                          const DqRows& q) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     const int key = key0 + (i >> 2) * 8 + 2 * q.t + (i & 1);
     const bool ok =
@@ -533,23 +621,22 @@ __device__ __forceinline__ void dq_probs(const float (&sc)[32], float (&dp)[32],
 // One step of a consumer warpgroup's pipeline at key tile kt >= 1: issue
 // S = Q·K_ktᵀ and dP = dO·V_ktᵀ, then dQ += dS_(kt-1)·K_(kt-1); form dS_kt
 // while that product runs, release tile kt - 1's stage and pack dS_kt.
-template <typename T, int DP, bool kMasked>
-__device__ __forceinline__ void dq_step(int kt, float (&sc)[32], float (&dp)[32],
-                                        uint32_t (&da)[4][4], float (&acc)[DP / 2], uint64_t dqd,
-                                        uint64_t dod, const T* sk, const T* sv, uint64_t* full,
-                                        uint64_t* empty, const DqRows& rows) {
+template <typename T, int DP, int ROWS, int KEYS, int STAGES, bool kMasked>
+__device__ __forceinline__ void dq_step(int kt, float (&sc)[KEYS / 2], float (&dp)[KEYS / 2],
+                                        uint32_t (&da)[KEYS / 16][4], float (&acc)[DP / 2],
+                                        uint64_t dqd, uint64_t dod, const T* sk, const T* sv,
+                                        uint64_t* full, uint64_t* empty, const DqRows& rows) {
   using namespace hopper;
-  const int s = kt % kDqStages, prev = (kt - 1) % kDqStages;
-  mbar_wait(&full[s], (kt / kDqStages) & 1);
+  const int s = kt % STAGES, prev = (kt - 1) % STAGES;
+  mbar_wait(&full[s], (kt / STAGES) & 1);
   wgmma_fence();
-  issue_abt_pair<T, DP, kDqRows, kDqKeys>(sc, dp, dqd, dod, sk + s * kDqKeys * DP,
-                                         sv + s * kDqKeys * DP);
-  issue_rs_mn<T, DP, kDqKeys>(acc, da, sk + prev * kDqKeys * DP);
+  issue_abt_pair<T, DP, ROWS, KEYS>(sc, dp, dqd, dod, sk + s * KEYS * DP, sv + s * KEYS * DP);
+  issue_rs_mn<T, DP, KEYS>(acc, da, sk + prev * KEYS * DP);
   wgmma_commit();
   wgmma_wait<1>();  // S and dP done, dS·K may still run
   fence_regs(sc);
   fence_regs(dp);
-  dq_probs<kMasked>(sc, dp, kt * kDqKeys, rows);
+  dq_probs<kMasked>(sc, dp, kt * KEYS, rows);
   wgmma_wait<0>();
   fence_regs(acc);
   fence_regs(da);
@@ -562,10 +649,11 @@ __device__ __forceinline__ void dq_step(int kt, float (&sc)[32], float (&dp)[32]
 // Bound on the H100: 6·D FLOPs per visible pair (S, dP and dS·K products)
 // against 10·D bytes per row (q, k, v, dO in, dQ out): FLOP-bound at the
 // LM's shapes. Design: the forward's dataflow. One block owns 128 query rows
-// of one (batch, head), the heaviest query tiles launched first; each
-// consumer warpgroup owns 64 of them and keeps their lse (times log2 e) and
-// delta in registers. The producer loads the Q and dO tiles once and streams
-// 64-key K and V tiles by TMA through a 4-stage ring. S = Q·Kᵀ and dP = dO·Vᵀ
+// (64 from DP 192: `row_consumers`) of one (batch, head), the heaviest query
+// tiles launched first; each consumer warpgroup owns 64 of them and keeps
+// their lse (times log2 e) and delta in registers. The producer loads the Q
+// and dO tiles once and streams KEYS-key K and V tiles (`dq_keys`: 64, 32
+// from DP 192) by TMA through a ring of up to 4 stages. S = Q·Kᵀ and dP = dO·Vᵀ
 // are wgmma with both operands in shared memory; dS is formed in registers
 // (masked only on tiles that cross the warpgroup's diagonal or the ragged
 // edge), rounded to T and fed as the register operand of dQ += dS·K, with
@@ -576,60 +664,61 @@ __device__ __forceinline__ void dq_step(int kt, float (&sc)[32], float (&dp)[32]
 // deterministic. Both warpgroups wait on and release every stage the
 // producer fills, also where their rows see no key of it; a block that sees
 // no key loads nothing and writes dQ = 0.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
+template <typename T, int DP, int NC, int KEYS>
+__global__ void __launch_bounds__(block_threads(NC), 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
     int H, int Sq, int Sk, int D, int q_offset, int k_offset, float scale, float scale_log2,
     int causal) {
   using namespace hopper;
-  constexpr int kQBytes = kDqRows * DP * 2, kKVBytes = kDqKeys * DP * 2;
+  constexpr int kRows = NC * kTile;  // query rows a block
+  using Smem = DqSmem<DP, kRows, KEYS>;
+  constexpr int kStages = Smem::kStages, kQBytes = Smem::kQBytes, kKVBytes = Smem::kKVBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   T* sq = reinterpret_cast<T*>(smem);
   T* sdo = reinterpret_cast<T*>(smem + kQBytes);
   T* sk = reinterpret_cast<T*>(smem + 2 * kQBytes);
-  T* sv = reinterpret_cast<T*>(smem + 2 * kQBytes + kDqStages * kKVBytes);
-  uint64_t* qdo_full =
-      reinterpret_cast<uint64_t*>(smem + 2 * kQBytes + 2 * kDqStages * kKVBytes);
+  T* sv = reinterpret_cast<T*>(smem + 2 * kQBytes + kStages * kKVBytes);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + 2 * kQBytes + 2 * kStages * kKVBytes);
   uint64_t* full = qdo_full + 1;
-  uint64_t* empty = full + kDqStages;
+  uint64_t* empty = full + kStages;
 
-  const int n_qt = (Sq + kDqRows - 1) / kDqRows;
+  const int n_qt = (Sq + kRows - 1) / kRows;
   const int BH = gridDim.x / n_qt;
   const int qt = n_qt - 1 - blockIdx.x / BH;  // the last query tiles carry the most keys
   const int bh = blockIdx.x % BH, b = bh / H, h = bh % H;
-  const int q0 = qt * kDqRows;
+  const int q0 = qt * kRows;
   // the key tiles that the block's last kTile rows see
-  const int n_kt = key_tiles<kDqKeys>(Sk, q0 + kDqRows - kTile, q_offset, k_offset, causal);
+  const int n_kt = key_tiles<KEYS>(Sk, q0 + kRows - kTile, q_offset, k_offset, causal);
 
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], NC * 4);  // one arrival per consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == kConsumers) {  // the producer warp
-    if (threadIdx.x == kConsumers * 128 && n_kt > 0) {  // one thread issues every load
+  if (wg == NC) {  // the producer warp
+    if (threadIdx.x == NC * 128 && n_kt > 0) {  // one thread issues every load
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tdo);
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
       mbar_arrive_expect_tx(qdo_full, 2 * kQBytes);
-      tma_load_tile<DP, kDqRows>(sq, &tq, qdo_full, h, q0, b);
-      tma_load_tile<DP, kDqRows>(sdo, &tdo, qdo_full, h, q0, b);
+      tma_load_tile<DP, kRows>(sq, &tq, qdo_full, h, q0, b);
+      tma_load_tile<DP, kRows>(sdo, &tdo, qdo_full, h, q0, b);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kDqStages;
-        mbar_wait(&empty[s], ((kt / kDqStages) & 1) ^ 1);
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
-        tma_load_tile<DP, kDqKeys>(sk + s * kDqKeys * DP, &tk, &full[s], h, kt * kDqKeys, b);
-        tma_load_tile<DP, kDqKeys>(sv + s * kDqKeys * DP, &tv, &full[s], h, kt * kDqKeys, b);
+        tma_load_tile<DP, KEYS>(sk + s * KEYS * DP, &tk, &full[s], h, kt * KEYS, b);
+        tma_load_tile<DP, KEYS>(sv + s * KEYS * DP, &tv, &full[s], h, kt * KEYS, b);
       }
     }
   } else {  // consumer warpgroup wg: query rows q0 + 64·wg ...
@@ -652,18 +741,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
     if (n_kt > 0) {
-      float sc[32], dp[32];  // S and dP, then dS in dp: f32, accumulator layout
-      uint32_t da[4][4];     // dS in T: the A fragments of dS·K
+      float sc[KEYS / 2], dp[KEYS / 2];  // S and dP, then dS in dp: f32, accumulator layout
+      uint32_t da[KEYS / 16][4];         // dS in T: the A fragments of dS·K
       mbar_wait(qdo_full, 0);
-      const uint64_t dqd = make_desc<DP, kDqRows>(sq + wg * 64 * Span<DP>::kSpan);
-      const uint64_t dod = make_desc<DP, kDqRows>(sdo + wg * 64 * Span<DP>::kSpan);
-      const int n_open = open_key_tiles<kDqKeys>(n_kt, Sk, wg_row0, q_offset, k_offset, causal);
+      const uint64_t dqd = make_desc<DP, kRows>(sq + wg * 64 * Span<DP>::kSpan);
+      const uint64_t dod = make_desc<DP, kRows>(sdo + wg * 64 * Span<DP>::kSpan);
+      const int n_open = open_key_tiles<KEYS>(n_kt, Sk, wg_row0, q_offset, k_offset, causal);
 
       // The code between a wgmma's issue and its wait has no branch: the mask
       // is a template parameter of each loop, not a runtime test.
       mbar_wait(&full[0], 0);
       wgmma_fence();
-      issue_abt_pair<T, DP, kDqRows, kDqKeys>(sc, dp, dqd, dod, sk, sv);
+      issue_abt_pair<T, DP, kRows, KEYS>(sc, dp, dqd, dod, sk, sv);
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
@@ -674,13 +763,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
       }
       pack_a<T>(da, dp);
       for (int kt = 1; kt < n_open; ++kt) {
-        dq_step<T, DP, false>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full, empty, rows);
+        dq_step<T, DP, kRows, KEYS, kStages, false>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full,
+                                                    empty, rows);
       }
       for (int kt = n_open > 1 ? n_open : 1; kt < n_kt; ++kt) {
-        dq_step<T, DP, true>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full, empty, rows);
+        dq_step<T, DP, kRows, KEYS, kStages, true>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full,
+                                                   empty, rows);
       }
       wgmma_fence();
-      issue_rs_mn<T, DP, kDqKeys>(acc, da, sk + (n_kt - 1) % kDqStages * kDqKeys * DP);
+      issue_rs_mn<T, DP, KEYS>(acc, da, sk + (n_kt - 1) % kStages * KEYS * DP);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -713,8 +804,9 @@ struct DkvKeys {
 // Pᵀ = exp(Sᵀ·scale − lse) and dSᵀ = Pᵀ ∘ (dPᵀ − delta) · scale in place, for
 // the query tile at q0 whose lse (times log2 e) and delta are `ls` and `dl`;
 // masked entries are exactly 0 through their validity. Unless kMasked,
-// every entry is visible and no mask is evaluated.
-template <bool kMasked>
+// every entry is visible and no mask is evaluated. The dV pass forms Pᵀ
+// alone (dpt is not read), the dK pass dSᵀ alone (st is left as Sᵀ).
+template <bool kMasked, int PASS>
 __device__ __forceinline__ void dkv_probs(float (&st)[32], float (&dpt)[32], const float* ls,
                                           const float* dl, int q0, const DkvKeys& k) {
 #pragma unroll
@@ -724,8 +816,8 @@ __device__ __forceinline__ void dkv_probs(float (&st)[32], float (&dpt)[32], con
     const bool ok = !kMasked || (k.krow + 8 * r < k.Sk && q0 + qi < k.Sq &&
                                 (!k.causal || k.kpos + 8 * r <= k.q_offset + q0 + qi));
     const float p = ok ? hopper::exp2_approx(st[i] * k.scale_log2 - ls[qi]) : 0.f;
-    st[i] = p;
-    dpt[i] = p * (dpt[i] - dl[qi]) * k.scale;
+    if constexpr (PASS != kDkvDk) st[i] = p;
+    if constexpr (PASS != kDkvDv) dpt[i] = p * (dpt[i] - dl[qi]) * k.scale;
   }
 }
 
@@ -733,39 +825,43 @@ __device__ __forceinline__ void dkv_probs(float (&st)[32], float (&dpt)[32], con
 // Bound on the H100: 8·D FLOPs per visible pair (Sᵀ, dPᵀ, dV and dK products)
 // against 12·D bytes per row: FLOP-bound at the LM's shapes. Design:
 // key-tile outer, query-tile inner. One block owns 64 keys a consumer
-// warpgroup (`dkv_consumers`: 128 keys, 64 at DP 128) of one (batch, head),
+// warpgroup (`dkv_consumers`: 128 keys, 64 from DP 128) of one (batch, head),
 // the earliest (most-seen) key tiles launched first. K and V are loaded once
-// by TMA; 64-query tiles
-// of Q and dO stream through a 3-stage ring by TMA, with their lse
-// (pre-multiplied by log2 e) and delta stored beside them by the producer
-// warp, from the first query tile that can see the block's keys.
-// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma with both operands in shared memory;
-// Pᵀ and dSᵀ are formed in registers (masked only on tiles that cross the
-// diagonal or the ragged edge), rounded to T and fed as register operands
-// of dV += Pᵀ·dO and dK += dSᵀ·Q with dO and Q read MN-major. dK and dV stay
-// in f32 registers and are written once: each block owns its output rows, so
-// there are no atomics and the sums are deterministic.
-template <typename T, int DP>
-__global__ void __launch_bounds__(dkv_consumers<DP>() * 128 + 32, 1) flash_bwd_dkv_kernel(
+// by TMA; 64-query tiles of Q and dO stream through a ring of up to 3 stages
+// by TMA, with their lse (pre-multiplied by log2 e) and delta stored beside
+// them by the producer warp, from the first query tile that can see the
+// block's keys. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma with both operands in
+// shared memory; Pᵀ and dSᵀ are formed in registers (masked only on tiles
+// that cross the diagonal or the ragged edge), rounded to T and fed as
+// register operands of dV += Pᵀ·dO and dK += dSᵀ·Q with dO and Q read
+// MN-major. dK and dV stay in f32 registers and are written once: each block
+// owns its output rows, so there are no atomics and the sums are
+// deterministic. PASS (`DkvPass`) is what the launch sums: from DP 192 the
+// dV pass (Sᵀ, Pᵀ, Pᵀ·dO; V is not loaded) and then the dK pass (Sᵀ, dPᵀ,
+// dSᵀ, dSᵀ·Q) each recompute Pᵀ from lse, 10·D FLOPs a visible pair in all.
+template <typename T, int DP, int PASS>
+__global__ void __launch_bounds__(block_threads(dkv_consumers<DP>()), 1) flash_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
     T* __restrict__ dv, int H, int Sq, int Sk, int D, int q_offset, int k_offset,
     float scale, float scale_log2, int causal) {
   using namespace hopper;
+  constexpr bool kSumDv = PASS != kDkvDk, kSumDk = PASS != kDkvDv;
   constexpr int kConsumersDkv = dkv_consumers<DP>(), kKeys = kConsumersDkv * kTile;
-  constexpr int kKVBytes = kKeys * DP * 2, kQBytes = kDkvRows * DP * 2;
+  using Smem = DkvSmem<DP, kKeys>;
+  constexpr int kStages = Smem::kStages, kKVBytes = Smem::kKVBytes, kQBytes = Smem::kQBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   T* sk = reinterpret_cast<T*>(smem);
   T* sv = reinterpret_cast<T*>(smem + kKVBytes);
   T* sq = reinterpret_cast<T*>(smem + 2 * kKVBytes);
-  T* sdo = reinterpret_cast<T*>(smem + 2 * kKVBytes + kDkvStages * kQBytes);
-  float* slse = reinterpret_cast<float*>(smem + 2 * kKVBytes + 2 * kDkvStages * kQBytes);
-  float* sdelta = slse + kDkvStages * kDkvRows;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sdelta + kDkvStages * kDkvRows);
+  T* sdo = reinterpret_cast<T*>(smem + 2 * kKVBytes + kStages * kQBytes);
+  float* slse = reinterpret_cast<float*>(smem + 2 * kKVBytes + 2 * kStages * kQBytes);
+  float* sdelta = slse + kStages * kDkvRows;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sdelta + kStages * kDkvRows);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + kDkvStages;
+  uint64_t* empty = full + kStages;
 
   const int n_kt = (Sk + kKeys - 1) / kKeys;
   const int BH = gridDim.x / n_kt;
@@ -777,7 +873,7 @@ __global__ void __launch_bounds__(dkv_consumers<DP>() * 128 + 32, 1) flash_bwd_d
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);                  // the producer warp's 32 lanes
       mbar_init(&empty[s], kConsumersDkv * 4);  // one arrival per consumer warp
     }
@@ -791,15 +887,15 @@ __global__ void __launch_bounds__(dkv_consumers<DP>() * 128 + 32, 1) flash_bwd_d
     if (lane == 0) {
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tdo);
-      mbar_arrive_expect_tx(kv_full, 2 * kKVBytes);
+      mbar_arrive_expect_tx(kv_full, (kSumDk ? 2 : 1) * kKVBytes);
       tma_load_tile<DP, kKeys>(sk, &tk, kv_full, h, k0, b);
-      tma_load_tile<DP, kKeys>(sv, &tv, kv_full, h, k0, b);
+      if constexpr (kSumDk) tma_load_tile<DP, kKeys>(sv, &tv, kv_full, h, k0, b);
     }
     const float* lseb = lse + (long long)bh * Sq;
     const float* deltab = delta + (long long)bh * Sq;
     for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
-      const int s = it % kDkvStages, q0 = qt * kDkvRows;
-      mbar_wait(&empty[s], ((it / kDkvStages) & 1) ^ 1);
+      const int s = it % kStages, q0 = qt * kDkvRows;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
       for (int r = lane; r < kDkvRows; r += 32) {
         const bool ok = q0 + r < Sq;
         slse[s * kDkvRows + r] = ok ? lseb[q0 + r] * kLog2e : 0.f;
@@ -819,9 +915,13 @@ __global__ void __launch_bounds__(dkv_consumers<DP>() * 128 + 32, 1) flash_bwd_d
     const int krow0 = wg_key0 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's first key
     const int kpos = k_offset + krow0 + g;                       // global position of key g
 
-    float dk_acc[DP / 2], dv_acc[DP / 2];
+    // dK and dV, each only in the pass that sums it
+    float dk_acc[kSumDk ? DP / 2 : 1], dv_acc[kSumDv ? DP / 2 : 1];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) {
+      if constexpr (kSumDk) dk_acc[i] = 0.f;
+      if constexpr (kSumDv) dv_acc[i] = 0.f;
+    }
 
     float st[32], dpt[32];        // Sᵀ and dPᵀ, then Pᵀ and dSᵀ in f32: rows are keys
     uint32_t pa[4][4], da[4][4];  // Pᵀ and dSᵀ in T: the A fragments
@@ -836,31 +936,40 @@ __global__ void __launch_bounds__(dkv_consumers<DP>() * 128 + 32, 1) flash_bwd_d
     const int diag = k_offset + wg_key0 + 63 - q_offset;  // first query that sees all
 
     for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
-      const int s = it % kDkvStages, q0 = qt * kDkvRows;
+      const int s = it % kStages, q0 = qt * kDkvRows;
       const T* q_tile = sq + s * kDkvRows * DP;
       const T* do_tile = sdo + s * kDkvRows * DP;
-      mbar_wait(&full[s], (it / kDkvStages) & 1);
+      mbar_wait(&full[s], (it / kStages) & 1);
       wgmma_fence();
-      issue_abt_pair<T, DP, kKeys, kDkvRows>(st, dpt, dkd, dvd, q_tile, do_tile);
+      if constexpr (kSumDk) {
+        issue_abt_pair<T, DP, kKeys, kDkvRows>(st, dpt, dkd, dvd, q_tile, do_tile);
+      } else {
+        issue_abt<T, DP, kKeys, kDkvRows>(st, dkd, q_tile);
+        wgmma_commit();
+      }
       wgmma_wait<0>();
       fence_regs(st);
-      fence_regs(dpt);
+      if constexpr (kSumDk) fence_regs(dpt);
       if (keys_ragged || q0 + kDkvRows > Sq || (causal && q0 < diag)) {
-        dkv_probs<true>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
+        dkv_probs<true, PASS>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
       } else {
-        dkv_probs<false>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
+        dkv_probs<false, PASS>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
       }
-      pack_a<T>(pa, st);
-      pack_a<T>(da, dpt);
+      if constexpr (kSumDv) pack_a<T>(pa, st);
+      if constexpr (kSumDk) pack_a<T>(da, dpt);
       wgmma_fence();
-      issue_rs_mn<T, DP, kDkvRows>(dv_acc, pa, do_tile);
-      issue_rs_mn<T, DP, kDkvRows>(dk_acc, da, q_tile);
+      if constexpr (kSumDv) issue_rs_mn<T, DP, kDkvRows>(dv_acc, pa, do_tile);
+      if constexpr (kSumDk) issue_rs_mn<T, DP, kDkvRows>(dk_acc, da, q_tile);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
-      fence_regs(pa);
-      fence_regs(da);
+      if constexpr (kSumDv) {
+        fence_regs(dv_acc);
+        fence_regs(pa);
+      }
+      if constexpr (kSumDk) {
+        fence_regs(dk_acc);
+        fence_regs(da);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
@@ -874,8 +983,12 @@ __global__ void __launch_bounds__(dkv_consumers<DP>() * 128 + 32, 1) flash_bwd_d
       for (int j = 0; j < DP / 8; ++j) {
         const int d = j * 8 + 2 * t;
         if (d < D) {
-          store2(dk + base + d, dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-          store2(dv + base + d, dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+          if constexpr (kSumDk) {
+            store2(dk + base + d, dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+          }
+          if constexpr (kSumDv) {
+            store2(dv + base + d, dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+          }
         }
       }
     }
@@ -934,15 +1047,16 @@ cudaError_t view_map(CUtensorMap* map, const View& x, int B, int S, int H, int D
 
 template <typename T, int DP, int KEYS>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  using Smem = FwdSmem<DP, KEYS>;
+  constexpr int kNC = row_consumers<DP>(), kRows = kNC * kTile;
+  using Smem = FwdSmem<DP, kRows, KEYS>;
   CUtensorMap tq, tk, tv;
-  cudaError_t rc = allow_smem(flash_fwd_kernel<T, DP, KEYS>, Smem::kBytes);
-  if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kFwdRows);
+  cudaError_t rc = allow_smem(flash_fwd_kernel<T, DP, KEYS, kNC>, Smem::kBytes);
+  if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kRows);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, KEYS);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, KEYS);
   if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sq + kFwdRows - 1) / kFwdRows);
-  flash_fwd_kernel<T, DP, KEYS><<<blocks, kThreads, Smem::kBytes, stream>>>(
+  const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
+  flash_fwd_kernel<T, DP, KEYS, kNC><<<blocks, block_threads(kNC), Smem::kBytes, stream>>>(
       tq, tk, tv, a.o, a.lse, a.H, a.Sq, a.Sk, a.D, a.q_offset, a.k_offset, a.scale * kLog2e,
       a.causal, a.out_f32);
   return cudaGetLastError();
@@ -950,37 +1064,53 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
 
 template <typename T, int DP>
 cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int kNC = row_consumers<DP>(), kRows = kNC * kTile, kKeys = dq_keys<DP>();
+  using Smem = DqSmem<DP, kRows, kKeys>;
   const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t rc = allow_smem(flash_bwd_dq_kernel<T, DP>, dq_smem<DP>());
-  if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kDqRows);
-  if (rc == cudaSuccess) rc = view_map<T, DP>(&tdo, dout, a.B, a.Sq, a.H, a.D, kDqRows);
-  if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, kDqKeys);
-  if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, kDqKeys);
+  cudaError_t rc = allow_smem(flash_bwd_dq_kernel<T, DP, kNC, kKeys>, Smem::kBytes);
+  if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kRows);
+  if (rc == cudaSuccess) rc = view_map<T, DP>(&tdo, dout, a.B, a.Sq, a.H, a.D, kRows);
+  if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, kKeys);
+  if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, kKeys);
   if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sq + kDqRows - 1) / kDqRows);
-  flash_bwd_dq_kernel<T, DP><<<blocks, kThreads, dq_smem<DP>(), stream>>>(
+  const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
+  flash_bwd_dq_kernel<T, DP, kNC, kKeys><<<blocks, block_threads(kNC), Smem::kBytes, stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<T*>(a.dq), a.H, a.Sq, a.Sk, a.D, a.q_offset,
       a.k_offset, a.scale, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream) {
+// One dkv launch summing what PASS names (`DkvPass`).
+template <typename T, int DP, int PASS>
+cudaError_t launch_bwd_dkv_pass(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int kNC = dkv_consumers<DP>(), kKeys = kNC * kTile;
+  using Smem = DkvSmem<DP, kKeys>;
   const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
   CUtensorMap tq, tk, tv, tdo;
-  constexpr int kKeys = dkv_consumers<DP>() * kTile;
-  cudaError_t rc = allow_smem(flash_bwd_dkv_kernel<T, DP>, dkv_smem<DP>());
+  cudaError_t rc = allow_smem(flash_bwd_dkv_kernel<T, DP, PASS>, Smem::kBytes);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kDkvRows);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tdo, dout, a.B, a.Sq, a.H, a.D, kDkvRows);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, kKeys);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, kKeys);
   if (rc != cudaSuccess) return rc;
   const int blocks = a.B * a.H * ((a.Sk + kKeys - 1) / kKeys);
-  flash_bwd_dkv_kernel<T, DP><<<blocks, dkv_consumers<DP>() * 128 + 32, dkv_smem<DP>(), stream>>>(
+  flash_bwd_dkv_kernel<T, DP, PASS><<<blocks, block_threads(kNC), Smem::kBytes, stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.Sq,
       a.Sk, a.D, a.q_offset, a.k_offset, a.scale, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
+}
+
+// dK and dV: one launch, or (`dkv_passes`) the dV pass and then the dK pass
+// on the same stream.
+template <typename T, int DP>
+cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream) {
+  if constexpr (dkv_passes<DP>() == 1) {
+    return launch_bwd_dkv_pass<T, DP, kDkvBoth>(a, stream);
+  } else {
+    const cudaError_t rc = launch_bwd_dkv_pass<T, DP, kDkvDv>(a, stream);
+    return rc == cudaSuccess ? launch_bwd_dkv_pass<T, DP, kDkvDk>(a, stream) : rc;
+  }
 }
 
 }  // namespace edl_flash

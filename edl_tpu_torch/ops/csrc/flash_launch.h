@@ -38,7 +38,9 @@ struct BwdArgs {
 };
 
 // The wgmma kernels: T is __nv_bfloat16 or __half, DP the padded head dim
-// (16, 32, 64 or 128), KEYS the forward's keys a pipeline stage (64 or 128).
+// (16, 32, 64, 128, 192 or 256), KEYS the forward's keys a pipeline stage (64
+// or 128). From DP 192, launch_bwd_dkv launches two kernels (flash_kernels.cuh,
+// `dkv_passes`).
 template <typename T, int DP, int KEYS>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream);
 template <typename T, int DP>
@@ -46,7 +48,7 @@ cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream);
 template <typename T, int DP>
 cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream);
 
-// The f32 kernels (any head dim up to 128).
+// The f32 kernels (any head dim up to 256).
 cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream);

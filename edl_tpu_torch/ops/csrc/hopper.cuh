@@ -3,17 +3,17 @@
 // descriptors. Plain inline PTX, no CUTLASS or CuTe.
 //
 // Element types: bf16 and f16 take every path alike; `Elem<T>` names the TMA
-// data type and the packing of two f32 values, and the wgmma wrappers are
-// specialised for both.
+// data type, the packing of two f32 values and the sum of a packed pair, and
+// the wgmma wrappers are specialised for both.
 //
 // Shared-memory tiles are written by TMA with the swizzle whose span is one
 // tile row of up to 64 elements: a row of DP 16-bit elements is 2·DP bytes,
 // so DP 64 uses the 128-byte swizzle, DP 32 the 64-byte one and DP 16 the
-// 32-byte one. A row of DP 128 (256 bytes) is wider than the widest swizzle:
-// such a tile is stored as two chunks of 64 columns, each chunk a tile of its
-// own rows, 128B-swizzled, the second chunk right after the first. Every
-// tile and chunk starts on a 1024-byte boundary, so the swizzle pattern is
-// the same at every one. One descriptor then serves a tile both as a K-major
+// 32-byte one. A row of DP 128, 192 or 256 (256 to 512 bytes) is wider than
+// the widest swizzle: such a tile is stored as DP / 64 chunks of 64 columns,
+// each chunk a tile of its own rows, 128B-swizzled, each chunk right after
+// the one before. Every tile and chunk starts on a 1024-byte boundary, so the
+// swizzle pattern is the same at every one. One descriptor then serves a tile both as a K-major
 // operand (its rows are the M or N index, the head dim is the reduction,
 // stepped across the chunks) and as an MN-major one (its rows are the
 // reduction index; its N spans the chunks, whose stride is the descriptor's
@@ -46,6 +46,11 @@ struct Elem<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  // the sum of the two values `pack` packed, in f32 (a bf16 is the top half
+  // of an f32)
+  __device__ __forceinline__ static float sum2(uint32_t v) {
+    return __uint_as_float(v << 16) + __uint_as_float(v & 0xffff0000u);
+  }
 };
 
 template <>
@@ -55,6 +60,10 @@ struct Elem<__half> {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  __device__ __forceinline__ static float sum2(uint32_t v) {
+    const float2 f = __half22float2(*reinterpret_cast<__half2*>(&v));
+    return f.x + f.y;
+  }
 };
 
 // -- tile geometry ------------------------------------------------------------------
@@ -63,7 +72,8 @@ struct Elem<__half> {
 // each), kChunks of them.
 template <int DP>
 struct Span {
-  static_assert(DP == 16 || DP == 32 || DP == 64 || DP == 128, "head dim tile");
+  static_assert(DP == 16 || DP == 32 || DP == 64 || DP == 128 || DP == 192 || DP == 256,
+                "head dim tile");
   static constexpr int kSpan = DP < 64 ? DP : 64;
   static constexpr int kChunks = DP / kSpan;
   static constexpr uint64_t kSwizzle = kSpan == 64 ? 1 : kSpan == 32 ? 2 : 3;
@@ -162,8 +172,8 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
 // Descriptor of a tile of ROWS rows of DP 16-bit elements in shared memory,
 // from `tile` (a row of its first chunk). Bits 0-13: start address / 16;
 // 16-29: leading byte offset / 16, the stride between chunks, read only
-// where an MN-major operand's N spans more than one chunk (DP 128; K-major
-// operands and one-chunk tiles do not read it); 32-45: stride byte offset /
+// where an MN-major operand's N spans more than one chunk (DP 128 and up;
+// K-major operands and one-chunk tiles do not read it); 32-45: stride byte offset /
 // 16, the distance between groups of 8 rows; 62-63: swizzle (1: 128 B, 2: 64
 // B, 3: 32 B).
 template <int DP, int ROWS>
@@ -216,34 +226,51 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-// d (64 x 64, f32) (+)= A (64 x 16) · B (16 x 64), A and B in shared memory,
-// both K-major, of element type T. `accumulate` 0 overwrites d.
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate);
+// d (64 x N, f32) (+)= A (64 x 16) · B (16 x N), A and B in shared memory,
+// both K-major, of element type T; N is 32 or 64. `accumulate` 0 overwrites d.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate);
 
 // d (64 x N, f32) += A (64 x 16, T in registers) · B (16 x N) with B in
 // shared memory MN-major (its rows are the reduction index). A's fragment is
-// mma.sync's m16n8k16 A fragment, one 16-row slice per warp.
+// mma.sync's m16n8k16 A fragment, one 16-row slice per warp. N is 16 to 128:
+// a wider product is issued as two (flash_kernels.cuh, `issue_rs_mn`), whose
+// accumulators laid end to end are the wide one's.
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t b);
 
 template <>
-__device__ __forceinline__ void wgmma_ss_n64<__nv_bfloat16>(float (&d)[32], uint64_t a, uint64_t b,
-                                                      int accumulate) {
+__device__ __forceinline__ void wgmma_ss<__nv_bfloat16, 64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31},"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31},"
       " %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<__nv_bfloat16, 32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -319,20 +346,35 @@ __device__ __forceinline__ void wgmma_rs_mn<__nv_bfloat16, 128>(float (&d)[64],
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss_n64<__half>(float (&d)[32], uint64_t a, uint64_t b,
-                                                      int accumulate) {
+__device__ __forceinline__ void wgmma_ss<__half, 64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31},"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31},"
       " %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<__half, 32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

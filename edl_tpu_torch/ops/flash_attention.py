@@ -58,13 +58,16 @@ __all__ = ["flash_attention"]
 _NEG_INF = -1e30
 
 #: the rows one warpgroup owns in every 16-bit kernel (wgmma's 64-row M),
-#: the key tile that dq streams and the query tile that dkv streams; the f32
-#: kernels' tile is TILE x TILE
+#: the query tile that dkv streams, and the forward's tile from a padded head
+#: dim of 192; the f32 kernels' forward tile is TILE x TILE
 TILE = 64
 
 #: the largest head dim the kernels are compiled for (multiples of 8; the
-#: wrapper pads others); ROADMAP item B1 is head dims 129-256
-MAX_HEAD_DIM = 128
+#: wrapper pads others); ROADMAP item B6 is head dims past 256
+MAX_HEAD_DIM = 256
+
+#: the padded head dims the 16-bit kernels are compiled for
+_PADDED = (16, 32, 64, 128, 192, 256)
 
 #: the element types the kernels take, with the C interface's codes
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -75,8 +78,12 @@ _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 #: the same launches by variant: (kernel, dtype name, padded head dim, the
-#: forward's keys a stage or None) -> launches
-VARIANT_LAUNCHES: Dict[Tuple[str, str, int, Optional[int]], int] = {}
+#: forward's keys a stage, or the dkv pass) -> launches. Where dkv runs as
+#: two CUDA launches (16-bit, padded head dims 192 and 256: `dkv_passes`),
+#: each pass has its own entry, ``"dv"`` and ``"dk"``, while LAUNCHES counts
+#: the call once; every other variant's fourth field is the forward's keys a
+#: stage or None
+VARIANT_LAUNCHES: Dict[Tuple[str, str, int, object], int] = {}
 
 
 def reset_launches() -> None:
@@ -87,23 +94,38 @@ def reset_launches() -> None:
 
 def _count(kernel: str, dtype: torch.dtype, head_dim: int, block_k: Optional[int] = None) -> None:
     LAUNCHES[kernel] += 1
-    key = (kernel, flash_tuning.dtype_name(dtype), padded_head_dim(head_dim), block_k)
-    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+    passes = dkv_passes(head_dim, dtype) if kernel == "bwd_dkv" else (block_k,)
+    for tag in passes:
+        key = (kernel, flash_tuning.dtype_name(dtype), padded_head_dim(head_dim), tag)
+        VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 def padded_head_dim(head_dim: int) -> int:
     """The head dim the kernels are compiled for that serves ``head_dim`` (a
-    multiple of 8 up to `MAX_HEAD_DIM`): 16, 32, 64 or 128."""
-    return next(dp for dp in (16, 32, 64, 128, head_dim) if head_dim <= dp)
+    multiple of 8 up to `MAX_HEAD_DIM`): 16, 32, 64, 128, 192 or 256."""
+    return next(dp for dp in (*_PADDED, head_dim) if head_dim <= dp)
+
+
+def dkv_passes(head_dim: int, dtype: torch.dtype) -> Tuple[Optional[str], ...]:
+    """The CUDA launches of one dkv call, as `VARIANT_LAUNCHES` names them:
+    from a padded head dim of 192 the 16-bit dK and dV do not fit one
+    thread's registers together, and dkv runs a dV pass and then a dK pass
+    (``csrc/flash_kernels.cuh``, `dkv_passes`); else one launch, None."""
+    if dtype in (torch.bfloat16, torch.float16) and padded_head_dim(head_dim) > 128:
+        return ("dv", "dk")
+    return (None,)
 
 
 def compiled_blocks(head_dim: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
     """The forward tiles (block_q, block_k) compiled for this head dim and
     dtype, the default first (``csrc/flash_attention.cu`` has the table):
     bf16 and f16 at 128 query rows a block and 64 keys a stage, bf16 also at
-    128 keys from a padded head dim of 64; f32 at 64 x 64. None for a dtype
-    the kernels do not take."""
+    128 keys from a padded head dim of 64, and both at 64 x 64 alone from a
+    padded head dim of 192 (one consumer warpgroup a block); f32 at 64 x 64.
+    None for a dtype the kernels do not take."""
     if dtype == torch.float32:
+        return ((TILE, TILE),)
+    if dtype in (torch.bfloat16, torch.float16) and padded_head_dim(head_dim) > 128:
         return ((TILE, TILE),)
     if dtype == torch.bfloat16 and head_dim > 32:
         return (flash_tuning.DEFAULT_BLOCKS, (128, 128))
@@ -255,8 +277,8 @@ def _view_problem(shape, strides, itemsize: int, ptr: int) -> Optional[str]:
     D = shape[3]
     if D % 8 or not 0 < D <= MAX_HEAD_DIM:
         return (f"head_dim {D}: the kernels take head dims that are multiples "
-                f"of 8, up to {MAX_HEAD_DIM} (ROADMAP item B1: head dims "
-                f"{MAX_HEAD_DIM + 1}-256)")
+                f"of 8, up to {MAX_HEAD_DIM} (ROADMAP item B6: head dims past "
+                f"{MAX_HEAD_DIM})")
     return _layout_problem(strides, itemsize, ptr)
 
 
@@ -488,7 +510,7 @@ def flash_attention(
     if q.device.type == "cuda" and D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"head_dim {D}: the CUDA kernels take head dims up to {MAX_HEAD_DIM} "
-            f"(ROADMAP item B1: head dims {MAX_HEAD_DIM + 1}-256)")
+            f"(ROADMAP item B6: head dims past {MAX_HEAD_DIM})")
     _, block_k = resolve_blocks(k.shape[1], D, q.dtype, block_q, block_k)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out_dtype = torch.float32 if return_lse else q.dtype

@@ -51,7 +51,7 @@ def _problem(x: torch.Tensor, base: torch.Tensor, start: int = BASE):
     return fa._view_problem(x.shape, x.stride(), x.element_size(), ptr)
 
 
-@pytest.mark.parametrize("D", [8, 16, 32, 64])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 136, 192, 200, 256])
 @pytest.mark.parametrize("H", [1, 2, 12])
 def test_fused_qkv_views_are_accepted(D, H):
     qkv = torch.zeros((2, 24, 3, H, D), dtype=torch.bfloat16)
@@ -77,12 +77,50 @@ def test_stride_not_a_multiple_of_16_bytes_is_rejected():
     assert "multiples of 16" in _problem(x, x)
 
 
-@pytest.mark.parametrize("D", [4, 12, 60, 136, 256])
+@pytest.mark.parametrize("D", [4, 12, 60, 264, 512])
 def test_head_dims_off_the_compiled_set_are_rejected(D):
-    """Not a multiple of 8 (the wrapper pads those), or past 128 (ROADMAP
-    item B1)."""
+    """Not a multiple of 8 (the wrapper pads those), or past 256 (ROADMAP
+    item B6)."""
     x = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16)
     assert "head_dim" in _problem(x, x)
+
+
+@pytest.mark.parametrize("D,padded", [(8, 16), (40, 64), (128, 128), (129, 192), (136, 192),
+                                      (192, 192), (193, 256), (200, 256), (256, 256)])
+def test_padded_head_dim(D, padded):
+    """The compiled head dim that serves D, as ``csrc/flash_attention.cu``
+    picks it."""
+    assert fa.padded_head_dim(D) == padded
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_head_dim_256_compiles_one_64_by_64_tile(dtype):
+    """From a padded head dim of 192 every dtype's forward has one tile, 64
+    query rows by 64 keys a stage: the table's (128, 64) resolves to it, and
+    a pin of anything else raises."""
+    for D in (136, 256):
+        assert fa.compiled_blocks(D, dtype) == ((64, 64),)
+        assert fa.resolve_blocks(2048, D, dtype) == (64, 64)
+        assert fa.resolve_blocks(2048, D, dtype, block_q=64) == (64, 64)
+        with pytest.raises(NotImplementedError, match=r"compiled for \[\(64, 64\)\]"):
+            fa.resolve_blocks(2048, D, dtype, block_q=128, block_k=64)
+
+
+@pytest.mark.parametrize("dtype,passes", [(torch.bfloat16, ("dv", "dk")),
+                                          (torch.float16, ("dv", "dk")),
+                                          (torch.float32, (None,))])
+def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monkeypatch):
+    """A 16-bit dkv call at a padded head dim of 192 or 256 is two CUDA
+    launches: LAUNCHES counts the call once, VARIANT_LAUNCHES each pass."""
+    monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
+    monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
+    fa._count("bwd_dkv", dtype, 200)
+    fa._count("bwd_dkv", dtype, 128)
+    name = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+            torch.float32: "float32"}[dtype]
+    assert fa.LAUNCHES["bwd_dkv"] == 2
+    assert fa.VARIANT_LAUNCHES == {**{("bwd_dkv", name, 256, p): 1 for p in passes},
+                                   ("bwd_dkv", name, 128, None): 1}
 
 
 def test_non_unit_stride_along_the_head_dim_is_rejected():

@@ -76,16 +76,17 @@ def test_entry_points_raise_without_cuda_unless_the_cpu_is_asked_for():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["head_dim_136", "head_dim_256", "float64", "int32"])
+@pytest.mark.parametrize("case", ["head_dim_264", "head_dim_512", "float64", "int32"])
 def test_kernel_wrapper_raises_on_cuda_requests_it_cannot_serve(case):
-    """Head dims past 128 (ROADMAP item B1) and dtypes the kernels do not
+    """Head dims past 256 (ROADMAP item B6) and dtypes the kernels do not
     take raise on CUDA; nothing falls back to the plain versions. (f32, D
-    128 and the views TMA cannot read are served: chip_smoke.py phase 3.)"""
+    up to 256 and the views TMA cannot read are served: chip_smoke.py phase
+    3.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from edl_tpu_torch.ops import flash_attention
 
-    D = {"head_dim_136": 136, "head_dim_256": 256}.get(case, 64)
+    D = {"head_dim_264": 264, "head_dim_512": 512}.get(case, 64)
     dtype = {"float64": torch.float64, "int32": torch.int32}.get(case, torch.bfloat16)
     q = torch.zeros((1, 16, 2, D), dtype=dtype, device="cuda")
     with pytest.raises((NotImplementedError, ValueError)):

@@ -82,6 +82,15 @@ def test_head_dim_128_loss_and_grads_match_jax():
     test_loss_and_grads_match_jax(flash=True, cfg=cfg)
 
 
+def test_head_dim_256_loss_and_grads_match_jax():
+    """The LM at head dim 256 (d_model 512, 2 heads, 2 layers), the head dim
+    of the GPT-J-6B-width run on the card, through the flash path: loss and
+    every gradient after one step against the JAX LM."""
+    cfg = dict(CFG, d_model=512, n_heads=2)
+    assert torch_tf.TransformerConfig(**cfg).head_dim == 256
+    test_loss_and_grads_match_jax(flash=True, cfg=cfg)
+
+
 @pytest.mark.parametrize("flash", [True, False])
 def test_remat_gives_the_same_loss_and_grads_and_reruns_attention(flash, monkeypatch):
     fa = importlib.import_module("edl_tpu_torch.ops.flash_attention")
