@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --kernels  # phases 1-3 only: build, check, time, sweep
     python3 chip_smoke.py --lm-d128  # phases 1-3 and lm_d128 (the LM at head dim 128)
     python3 chip_smoke.py --lm-d256  # phases 1-3 and lm_d256 (the LM at head dim 256)
+    python3 chip_smoke.py --lm-d512  # phases 1-3 and lm_d512 (the LM at head dim 512)
     python3 chip_smoke.py --kernels --tile-table PATH  # also write the sweep's winners
     python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
     python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
@@ -25,27 +26,32 @@ exits non-zero without its last line:
 2. Build: compiles the CUDA sources for ``sm_90a``, one ``nvcc`` process
    a unit, all at once (each unit's seconds printed), prints ptxas's
    registers and spills of every variant, and counts with ``cuobjdump
-   -sass`` each kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``),
-   mbarrier (``SYNCS``), ``mma.sync`` (``HMMA``) and f32 FMA (``FFMA``)
+   -sass`` (on a thread while phase 3 runs, checked after it) each
+   kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``), mbarrier
+   (``SYNCS``), ``mma.sync`` (``HMMA``) and f32 FMA (``FFMA``)
    instructions; every bf16 and f16 flash kernel must have wgmma and TMA
    loads and no ``mma.sync``, and every variant compiled for head dims up
-   to 256 (the two dkv passes from 192 included) must be in the library;
-   the f32 kernels (head dims up to 128 and up to 256) print what they use.
+   to 256 (the two dkv passes from 192 included) and the sliced ones past
+   256 (``flash_sliced.cuh``) must be in the library; the f32 kernels (head
+   dims up to 128, up to 256, and sliced past 256) print what they use.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs (the forward at every tile compiled
    for the case), at the slice's shape, a ragged shape, the ring's offset
    cases (with an lse cotangent), cases with rows that see no key (one with
    a whole 128-row query block that sees none), head dims 8, 16, 32, 40,
    80, 96, 128, 136, 192, 200 and 256 (at 256 a whole 64-row block that
-   sees no key), f16 at 64, 128, 192 and 256, f32 at 64, 128, 192 and 256,
-   and fewer queries than keys, row by row and element by element; the JAX on-chip check's
+   sees no key), past 256 through the sliced kernels 264, 320, 512, 576
+   and 1024, f16 at 64, 128, 192, 256, 320 and 512, f32 at 64, 128, 192,
+   256, 264 and 512, and fewer queries than keys, row by row and element
+   by element; the JAX on-chip check's
    five cases (``ONCHIP_CASES``) through `flash_attention`, forward and
    backward, against the plain forward in f32 within that check's relative
    errors (2e-3 f32, 3e-2 bf16); views the kernels' loads cannot read,
    copied or padded by the wrapper and served (``SERVED_VIEWS``);
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
-   slice's shape, at D 128 and at the D-256 LM's attention; then the ring's
+   slice's shape, at D 128 and at the D-256 and D-512 LMs' attention; then
+   the ring's
    per-hop engine on one card:
    the slice's q, k, v cut into 2 and 4 blocks, each query block's offset
    hops through the kernels with ``return_lse=True`` merged by the ring's
@@ -55,9 +61,11 @@ exits non-zero without its last line:
    call (and, at the slice's shape, the whole backward's, inputs checked
    once), its plain version's time, one library call's (timed both ways)
    and the card's bound, at the slice's shape (bf16 and f16, D 64), the
-   D-128 LM's attention (bf16 and f16), the D-256 LM's attention and the
-   same shape at D 192 (bf16), and the JAX check's D-128 shape (bf16) and
-   its f32 shape, with whether SDPA's flash backend takes each; then the
+   D-128 LM's attention (bf16 and f16), the D-256 LM's attention (bf16 and
+   f16) and the same shape at D 192 (bf16), the D-512 LM's attention
+   (bf16), and the JAX check's D-128 shape (bf16) and its f32 shape, also
+   at D 256 and 512, with whether SDPA's flash backend takes each and which
+   of SDPA's backends serves it; then the
    tile sweep (``SWEEP_SHAPES``): every compiled forward tile timed,
    forward and forward plus backward, the winners printed (and written as
    a tile table with ``--tile-table PATH``), and the wrapper must resolve
@@ -96,8 +104,12 @@ exits non-zero without its last line:
    and the plain path; and the ring's per-hop engine at its attention
    shape. Then the ``lm_d256`` phase, the same at GPT-J-6B's widths
    (d_model 4096, 16 heads, so head dim 256; d_ff 16384, seq 2048, vocab
-   50400) at 12 of its 28 layers: 12 calls of each kernel a step, each dkv
-   call its two passes, all of the D-256 bf16 variants.
+   50400) at 4 of its 28 layers: 4 calls of each kernel a step, each dkv
+   call its two passes, all of the D-256 bf16 variants. Then the
+   ``lm_d512`` phase, the same widths with 8 heads, so head dim 512, at 12
+   layers: 12 calls of each sliced kernel a step, all of the D-512 bf16
+   variants (one launch a call, two column slices of O and dQ, four of dK
+   and dV).
 6. CTR, the flagship, at its published width (tables of 1000192 rows,
    embed 10, MLP 400-400-400) and batch 8192, trained with adagrad at lr
    0.05: a finite, falling loss; the padded table rows and a sample of rows
@@ -304,12 +316,19 @@ exits non-zero without its last line:
     {...}}`` (the build's seconds, the JAX check's cases, the sweep), one
     ``{"phase_seconds": {...}}``, one ``{"zoo": [...]}`` (a row per model,
     the remat LM included), one ``{"lm_d128": {...}}``, one ``{"lm_d256":
-    {...}}``, one ``{"serve": {...}}``, one
+    {...}}``, one ``{"lm_d512": {...}}``, one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
     {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}``, one
     ``{"entries": {...}}``, one ``{"controller": {...}}`` and one
     ``{"chaos": {...}}``.
 19. The last line: ``{"ok": true, "device": {...}}``.
+
+No process the script starts outlives it. It makes itself the reaper of
+its orphaned descendants (``PR_SET_CHILD_SUBREAPER`` on its own process):
+a pod's trainer whose launcher was SIGKILLed, a coordinator whose pod
+leader left first. When it ends, passed or failed, it SIGKILLs and reaps
+every descendant still there and reaps the zombies of those that ended
+(`stop_descendants`); it names on its standard error any it found alive.
 
 Every step time here is the host clock around one ``train_step`` and a
 ``torch.cuda.synchronize()``: the median of the timed steps after
@@ -382,10 +401,11 @@ LM_D128_ATTENTION = (4, 2048, 16, 128)
 #: the LM at GPT-J-6B's widths (EleutherAI/gpt-j-6b ``config.json``: n_embd
 #: 4096, n_head 16, n_inner null so 4 x 4096, n_positions 2048, vocab_size
 #: 50400), so head dim 256, with the repo's LM's blocks as above. n_layer 28
-#: is cut to 12, for memory: 28 layers' f32 parameters, gradients and Adam
-#: moments alone take 97 GB, past the card's 80 GB. Batch 4, Adam at 3e-4,
-#: remat off, 2 warm-up and 5 timed steps
-LM_D256 = dict(d_model=4096, n_layers=12, n_heads=16, d_ff=16384, seq_len=2048,
+#: is cut to 4, for the script's time limit once lm_d512 runs too (12 until
+#: then; 28 layers' f32 parameters, gradients and Adam moments alone take 97
+#: GB, past the card's 80 GB). Batch 4, Adam at 3e-4, remat off, 2 warm-up
+#: and 5 timed steps
+LM_D256 = dict(d_model=4096, n_layers=4, n_heads=16, d_ff=16384, seq_len=2048,
                vocab_size=50400)
 LM_D256_BATCH = 4
 LM_D256_STEPS = 5
@@ -393,6 +413,27 @@ LM_D256_STEPS = 5
 LM_D256_ATTENTION = (4, 2048, 16, 256)
 #: the D-192 kernels are timed at that shape with head dim 192
 D192_ATTENTION = (4, 2048, 16, 192)
+
+#: the LM at lm_d256's widths with 8 heads in place of 16, so head dim 512,
+#: the head_dim of DeepSeek-V4-Flash's ``config.json`` (hidden_size 4096,
+#: head_dim 512). Not a public model: DeepSeek-V4 pairs that head dim with
+#: shared K/V heads, and no public model with full multi-head attention has
+#: a head dim past 256, so this is the repo's own LM (full multi-head
+#: attention, head_dim = d_model // n_heads) at that head dim. 12 layers,
+#: cut from GPT-J-6B's 28 for memory as lm_d256 was (the same parameters,
+#: 2.84 B, and state). Batch 4, Adam at 3e-4, remat off, 2 warm-up and 5
+#: timed steps
+LM_D512 = dict(d_model=4096, n_layers=12, n_heads=8, d_ff=16384, seq_len=2048,
+               vocab_size=50400)
+LM_D512_BATCH = 4
+LM_D512_STEPS = 5
+#: its attention's causal (B, S, H, D): the D-256 LM's FLOPs (H·D is equal)
+LM_D512_ATTENTION = (4, 2048, 8, 512)
+#: the f32 kernels are timed at the JAX check's f32 (B, S, H) at these head
+#: dims too, and these rows and f16 at the D-256 LM's attention, which no
+#: model runs, over OFF_PATH_REPS runs a time (the rest over 20)
+F32_TIMED_HEAD_DIMS = (256, 512)
+OFF_PATH_REPS = 5
 
 SLICE = dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072, seq_len=1024,
              vocab_size=32000)
@@ -437,11 +478,18 @@ KERNELS = {  # name -> (plain version, TPU kernel it replaces)
     "bwd_dkv": ("_bwd_dkv_reference", "edl_tpu/ops/flash_attention.py:219"),
 }
 SOURCE = "edl_tpu_torch/ops/csrc/flash_kernels.cuh"
+SOURCE_SLICED = "edl_tpu_torch/ops/csrc/flash_sliced.cuh"
 SOURCE_F32 = "edl_tpu_torch/ops/csrc/flash_f32.cu"
 FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-#: the f32 kernels, which run on the CUDA cores (no wgmma, no TMA)
+#: the 16-bit kernels past a head dim of 256 (wgmma and TMA, column slices)
+FLASH_SLICED_NAMES = ("flash_fwd_sliced_kernel", "flash_bwd_dq_sliced_kernel",
+                      "flash_bwd_dkv_sliced_kernel")
+#: the f32 kernels, which run on the CUDA cores (no wgmma, no TMA), up to a
+#: head dim of 256 and past it
 FLASH_F32_NAMES = ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
                    "flash_bwd_dkv_f32_kernel")
+FLASH_F32_SLICED_NAMES = ("flash_fwd_f32_sliced_kernel", "flash_bwd_dq_f32_sliced_kernel",
+                          "flash_bwd_dkv_f32_sliced_kernel")
 #: the ring's hop counts held on one card: the merged (out, lse) of this many
 #: offset hops against the plain full attention (1: one kernel call on the
 #: whole sequence, the baseline)
@@ -522,12 +570,32 @@ CASES = [
     ("f32_head_dim_128", (1, 300, 300, 2, 128), True, 300, 0, True, False, "float32"),
     ("f32_head_dim_192", (1, 300, 300, 2, 192), True, 0, 69, True, False, "float32"),
     ("f32_head_dim_256", (1, 300, 300, 2, 256), True, 300, 0, True, False, "float32"),
+    # head dims past 256, through the sliced kernels: 264 has a last 64-column
+    # chunk of 8 columns and a second O slice of one chunk, 576 a short last
+    # slice of O (64 columns) and of dK and dV, 1024 four O slices and eight
+    # dK/dV slices; ragged S, the ring's offsets, an lse cotangent, rows that
+    # see no key (a whole 64-row block), fewer queries than keys, fused slices
+    ("head_dim_264_ring_past", (2, 300, 300, 2, 264), True, 300, 0, True, False, "bfloat16"),
+    ("head_dim_320_no_key_block", (1, 300, 300, 2, 320), True, 0, 200, True, True,
+     "bfloat16"),
+    ("head_dim_512_ragged", (2, 300, 300, 2, 512), False, 0, 0, False, True, "bfloat16"),
+    ("head_dim_512_ring_diagonal", (1, 300, 300, 2, 512), True, 300, 300, True, False,
+     "bfloat16"),
+    ("head_dim_576_uneven", (1, 100, 260, 2, 576), True, 160, 0, True, False, "bfloat16"),
+    ("head_dim_1024_no_key_rows", (1, 200, 200, 2, 1024), True, 0, 69, True, True,
+     "bfloat16"),
+    ("f16_head_dim_320", (2, 300, 300, 2, 320), True, 0, 69, True, False, "float16"),
+    ("f16_head_dim_512", (2, 300, 300, 2, 512), True, 300, 300, True, True, "float16"),
+    ("f32_head_dim_264", (1, 300, 300, 2, 264), True, 300, 0, True, False, "float32"),
+    ("f32_head_dim_512", (1, 300, 300, 2, 512), True, 0, 69, True, False, "float32"),
 ]
 #: the planted faults are also rejected at D 128, at the JAX on-chip check's
-#: D-128 shape, and at D 256, at the GPT-J-width LM's attention
+#: D-128 shape, at D 256, at the GPT-J-width LM's attention, and at D 512,
+#: at lm_d512's
 FAULT_CASES = (CASES[0], ("jax_check_d128", (1, 2048, 2048, 8, 128), True, 0, 0, False, True,
                           "bfloat16"),
-               ("lm_d256", (4, 2048, 2048, 16, 256), True, 0, 0, False, True, "bfloat16"))
+               ("lm_d256", (4, 2048, 2048, 16, 256), True, 0, 0, False, True, "bfloat16"),
+               ("lm_d512", (4, 2048, 2048, 8, 512), True, 0, 0, False, True, "bfloat16"))
 
 #: the JAX package's on-chip check (`onchip_flash_check.py:22-28`), letter
 #: for letter: (B, S, H, D, causal, dtype). Each runs forward and backward
@@ -653,8 +721,12 @@ def phase_device():
 
 def phase_build() -> dict:
     """Build the library, each unit in its own nvcc process; print ptxas's
-    registers and spills of every variant and its SASS counts. Returns
-    ``{"seconds", "sass", "ptxas"}``."""
+    registers and spills of every variant, and start counting its SASS on a
+    thread, which `check_sass` finishes (the disassembly takes tens of
+    seconds of host time, which phase 3's device work hides). Returns
+    ``{"seconds", "ptxas", "sass_counting"}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from edl_tpu_torch.ops import _build
 
     fa = _flash_module()
@@ -673,22 +745,38 @@ def phase_build() -> dict:
         if "warning" in line or line.startswith("nvcc: "):
             print(f"  {line.strip()}")
     require("setmaxnreg ignored" not in log, "ptxas ignored setmaxnreg (the warp roles rejoin)")
-    counts = sass_counts(path)
+    pool = ThreadPoolExecutor(max_workers=1)
+    counting = pool.submit(sass_counts, path)
+    pool.shutdown(wait=False)
+    return {"seconds": seconds, "sass_counting": counting,
+            "ptxas": {f"{fn} {label}": use for (fn, label), use in ptxas.items()}}
+
+
+def check_sass(build: dict) -> None:
+    """The build's SASS counts (`phase_build`'s thread), printed and held:
+    every bf16 and f16 flash kernel has wgmma and TMA loads and no
+    ``mma.sync``, and every compiled variant is in the library. Stores the
+    counts in ``build["sass"]``."""
+    import torch
+
+    from edl_tpu_torch.ops import flash_tuning
+
+    fa = _flash_module()
+    counts = build.pop("sass_counting").result()
     for fn, by_variant in counts.items():
         for label, ops in sorted(by_variant.items()):
             print(f"  sass: {fn} {label} " + ", ".join(f"{op} {n}" for op, n in ops.items()))
-    for fn in FLASH_NAMES:
+    for fn in FLASH_NAMES + FLASH_SLICED_NAMES:
         require(fn in counts, f"{fn} is not in the library's SASS")
         for label, ops in counts[fn].items():
             require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                     f"{fn} {label} lacks wgmma or TMA loads, or has mma.sync, in its "
                     f"SASS: {ops}")
-    import torch
-
-    from edl_tpu_torch.ops import flash_tuning
-
     want = {fn: [] for fn in FLASH_NAMES}
     want.update({fn: [_label("float32", dp) for dp in (128, 256)] for fn in FLASH_F32_NAMES})
+    # past 256 one variant a kernel and dtype, whatever the head dim
+    want.update({fn: ["bf16 sliced", "f16 sliced"] for fn in FLASH_SLICED_NAMES})
+    want.update({fn: ["f32 sliced"] for fn in FLASH_F32_SLICED_NAMES})
     for dtype in (torch.bfloat16, torch.float16):
         name = flash_tuning.dtype_name(dtype)
         for dp in fa._PADDED:
@@ -700,17 +788,20 @@ def phase_build() -> dict:
     for fn, labels in want.items():
         missing = [label for label in labels if label not in counts.get(fn, {})]
         require(not missing, f"{fn} {missing} not in the library's SASS")
-    return {"seconds": seconds, "sass": counts,
-            "ptxas": {f"{fn} {label}": use for (fn, label), use in ptxas.items()}}
+    build["sass"] = counts
 
 
 def _label(dtype: str, dp: int, tag=None) -> str:
     """A variant's label: its element type, padded head dim and the
     forward's keys a stage (``tag`` an int) or the dkv pass (``tag`` "dv" or
-    "dk"); the f32 kernels by the largest head dim they take, 128 or 256."""
+    "dk"); the f32 kernels by the largest head dim they take, 128 or 256;
+    past 256 the sliced kernels by their element type alone ("bf16
+    sliced"), one variant serving every head dim."""
+    ty = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}[dtype]
+    if dp > 256:
+        return f"{ty} sliced"
     if dtype == "float32":
         return f"f32 D{128 if dp <= 128 else 256}"
-    ty = {"bfloat16": "bf16", "float16": "f16"}[dtype]
     if tag is None:
         return f"{ty} D{dp}"
     return f"{ty} D{dp} " + (f"k{tag}" if isinstance(tag, int) else tag)
@@ -720,7 +811,12 @@ def _variant(mangled: str):
     """(kernel, variant label) of a flash kernel's mangled name, or None:
     its template arguments are (T, DP, KEYS, NC) for the forward, (T, DP, NC,
     KEYS) for dq, (T, DP, PASS) for dkv and (DMAX, COLS) for the f32
-    kernels."""
+    kernels; the sliced kernels' are (T) and (COLS)."""
+    sliced = next((n for n in FLASH_SLICED_NAMES + FLASH_F32_SLICED_NAMES if n in mangled), None)
+    if sliced is not None:  # one variant a dtype serves every head dim past 256
+        ty = ("f32" if sliced in FLASH_F32_SLICED_NAMES else
+              "f16" if "6__half" in mangled else "bf16")
+        return sliced, f"{ty} sliced"
     name = next((n for n in FLASH_NAMES + FLASH_F32_NAMES if n in mangled), None)
     if name is None:
         return None
@@ -1160,6 +1256,12 @@ def _kernel_bounds(B, S, H, D, itemsize: int, peak: float) -> dict:
 def _design(fa, kname: str, dtype: str, D: int) -> str:
     """The design a kernel row's variant is built on."""
     dp = fa.padded_head_dim(D)
+    if dp > 256:
+        cut = (f"{fa.SLICE_COLUMNS[kname]} columns of "
+               + {"fwd": "O", "bwd_dq": "dQ", "bwd_dkv": "dK and dV"}[kname]
+               + " a block, scores summed over 64-column chunks")
+        return ("f32 FMA tiles, " if dtype == "float32" else
+                "wgmma+TMA, one consumer warpgroup, ") + cut
     if dtype == "float32":
         return "f32 FMA tiles" + (", 32-wide tiles in dq and dkv" if dp > 128 else "")
     if dp > 128:
@@ -1169,6 +1271,32 @@ def _design(fa, kname: str, dtype: str, D: int) -> str:
     if kname == "bwd_dkv" and dp == 128:
         return "wgmma+TMA, one consumer warpgroup a block"
     return DESIGNS[kname][1]
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend of PyTorch's SDPA that serves these (B, H, S, D) inputs,
+    causal: the first in PyTorch's priority order that takes them."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    by_value = {int(b.value): b for b in SDPBackend.__members__.values()}
+    order = getattr(torch._C, "_get_sdp_priority_order", lambda: [1, 2, 0, 3])()
+    for value in order:
+        backend = by_value.get(int(value))
+        if backend is None or backend == SDPBackend.ERROR:
+            continue
+        try:
+            with warnings.catch_warnings():  # each refusal warns
+                warnings.simplefilter("ignore")
+                with sdpa_kernel(backend):
+                    F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return backend.name.lower()
+        except RuntimeError:
+            continue
+    return "none"
 
 
 def sdpa_flash_backend(q, k, v) -> str:
@@ -1190,10 +1318,12 @@ def sdpa_flash_backend(q, k, v) -> str:
             return "refused: " + re.sub(r"\s*\(Triggered internally at [^)]*\)", "", text)
 
 
-def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) -> list:
+def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
+                     reps: int = 20) -> list:
     """Each kernel's time at the causal (B, S, H, D) ``shape`` in ``dtype``
-    (the forward at every compiled tile): ``ms`` one call at a time,
-    ``ms_back_to_back`` ten in a row, the wrapper's host time a call, the
+    (the forward at every compiled tile), each the median of ``reps`` runs:
+    ``ms`` one call at a time, ``ms_back_to_back`` ten in a row, the
+    wrapper's host time a call, the
     plain version's time, one library call's (PyTorch's SDPA with the
     backend it picks, timed both ways; whether its flash backend takes the
     shape is printed) and the card's bound. Returns the kernel rows."""
@@ -1221,6 +1351,7 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) ->
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     lib_do = do.transpose(1, 2)
     flash_backend = sdpa_flash_backend(qt.detach(), kt.detach(), vt.detach())
+    lib_backend = sdpa_backend(qt.detach(), kt.detach(), vt.detach())
 
     def lib_fwd():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -1228,26 +1359,27 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) ->
     def lib_bwd():
         return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
 
-    fwd_times = (time_ms(lib_fwd), time_ms(lib_fwd, batch=BACK_TO_BACK))
-    bwd_times = (time_ms(lib_bwd), time_ms(lib_bwd, batch=BACK_TO_BACK))
+    fwd_times = (time_ms(lib_fwd, reps), time_ms(lib_fwd, reps, batch=BACK_TO_BACK))
+    bwd_times = (time_ms(lib_bwd, reps), time_ms(lib_bwd, reps, batch=BACK_TO_BACK))
     library = {"fwd": fwd_times, "bwd_dq": bwd_times, "bwd_dkv": bwd_times}
     f32 = dtype == "float32"
     bounds = _kernel_bounds(B, S, H, D, q.element_size(),
                             PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
     rows = []
     for (kname, bk), (kernel, plain) in timed.items():
-        ms, plain_ms = time_ms(kernel), time_ms(plain, reps=5, warmup=1)
-        ms_b2b, wrapper_ms = time_ms(kernel, batch=BACK_TO_BACK), host_ms(kernel)
+        ms, plain_ms = time_ms(kernel, reps), time_ms(plain, reps=5, warmup=1)
+        ms_b2b, wrapper_ms = time_ms(kernel, reps, batch=BACK_TO_BACK), host_ms(kernel, reps)
         (lib_ms, lib_b2b), (bound_ms, bound_by) = library[kname], bounds[kname]
         tile = f", keys a stage {bk}" if bk else ""
         print(f"time {kname} ({label}) at {shape} {dtype}{tile}: kernel {ms:.4f} ms one call "
               f"at a time ({ms_b2b:.4f} ms back to back; host {wrapper_ms:.4f} ms a call), "
               f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_b2b:.4f} ms back to "
-              f"back; SDPA's flash backend {flash_backend}), bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+              f"back; SDPA's {lib_backend} backend serves it, its flash backend "
+              f"{flash_backend}), bound {bound_ms:.4f} ms ({bound_by})")
         err = worst[(kname, dtype, fa.padded_head_dim(D))]
         rows.append(dict(
-            name=kname, route="cuda", source=SOURCE_F32 if f32 else SOURCE,
+            name=kname, route="cuda",
+            source=SOURCE_F32 if f32 else SOURCE_SLICED if D > 256 else SOURCE,
             replaces=KERNELS[kname][1], design=_design(fa, kname, dtype, D),
             head_dim=D, dtype=dtype, shape=[B, S, H, D], timed_at=label,
             block_k=bk if kname == "fwd" else None,
@@ -1260,7 +1392,7 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False) ->
             library_call=("scaled_dot_product_attention(is_causal=True)"
                           if kname == "fwd" else
                           "scaled_dot_product_attention backward: dq, dk and dv together"),
-            library_flash_backend=flash_backend,
+            library_flash_backend=flash_backend, library_backend=lib_backend,
         ))
     if host:
         bwd_host = host_ms(lambda: fa._bwd_kernel(*args, **opts))
@@ -1364,13 +1496,20 @@ def phase_kernels(device, table_out=None) -> tuple:
     rows += time_kernel_rows(fa, gen, device, LM_D128_ATTENTION, "bfloat16", worst, "lm_d128")
     rows += time_kernel_rows(fa, gen, device, LM_D256_ATTENTION, "bfloat16", worst, "lm_d256")
     rows += time_kernel_rows(fa, gen, device, D192_ATTENTION, "bfloat16", worst, "d192")
+    rows += time_kernel_rows(fa, gen, device, LM_D512_ATTENTION, "bfloat16", worst, "lm_d512")
     rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[3][:4], "bfloat16", worst,
                              "jax check d128")
     rows += time_kernel_rows(fa, gen, device, (B, S, H, D), "float16", worst, "slice f16")
     rows += time_kernel_rows(fa, gen, device, LM_D128_ATTENTION, "float16", worst,
                              "lm_d128 f16")
+    # rows off every model's path, timed over fewer runs
+    rows += time_kernel_rows(fa, gen, device, LM_D256_ATTENTION, "float16", worst,
+                             "lm_d256 f16", reps=OFF_PATH_REPS)
     rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[0][:4], "float32", worst,
                              "jax check f32")
+    for D in F32_TIMED_HEAD_DIMS:
+        rows += time_kernel_rows(fa, gen, device, (*ONCHIP_CASES[0][:3], D), "float32", worst,
+                                 f"jax check f32 d{D}", reps=OFF_PATH_REPS)
     sweep = sweep_tiles(fa, gen, device, table_out)
     # from a padded head dim of 192 one tile is compiled: the table's
     # (128, 64) for the D-256 LM's key length resolves to it
@@ -1386,9 +1525,12 @@ def phase_kernels(device, table_out=None) -> tuple:
 
 class Run:
     """One model trained by the ``Trainer`` on one placed synthetic batch
-    (made with numpy from ``seed``): `start` builds it, `timed` runs it."""
+    (made with numpy from ``seed``): `start` builds it, `timed` runs it.
+    The params are drawn from ``generator`` (default: the Trainer's CPU
+    generator)."""
 
-    def __init__(self, label: str, model, config, batch_size: int, device, seed: int = 0):
+    def __init__(self, label: str, model, config, batch_size: int, device, seed: int = 0,
+                 generator=None):
         import numpy as np
 
         from edl_tpu_torch.runtime import Trainer
@@ -1396,7 +1538,7 @@ class Run:
         self.label, self.model, self.config = label, model, config
         self.batch_size, self.device = batch_size, device
         self.trainer = Trainer(model, device=device, config=config)
-        self.state = self.trainer.init_state()
+        self.state = self.trainer.init_state(generator)
         self.host_batch = model.synthetic_batch(np.random.default_rng(seed), batch_size)
         self.batch = self.trainer.place_batch(self.host_batch)
 
@@ -1502,7 +1644,7 @@ def phase_slice(device) -> tuple:
 #: kernel groups of the profile, by a substring of the kernel's name, first
 #: match wins
 LM_GROUPS = {
-    "flash attention kernels": FLASH_NAMES,
+    "flash attention kernels": FLASH_NAMES + FLASH_SLICED_NAMES,
     "f32 matmuls (TF32 off)": ("sgemm", "f32f32_f32f32"),
     "bf16 matmuls": ("gemm", "xmma", "cutlass", "nvjet"),
 }
@@ -1743,7 +1885,13 @@ def phase_remat(device, off: dict) -> dict:
 
 def phase_step_parity(device, widths=None, batch_size=None) -> dict:
     """One step at depth 2 through the kernels and through dense attention,
-    at ``widths`` (default ``SLICE``) and ``batch_size`` (default ``BATCH``)."""
+    at ``widths`` (default ``SLICE``) and ``batch_size`` (default ``BATCH``).
+    The kernel module's weights are drawn on ``device`` (0.8 B of them at
+    d_model 4096, which the host draws in seconds); the plain module is a
+    copy of it with ``flash=False`` in every module's config (each block
+    reads it as it runs)."""
+    import copy
+
     import numpy as np
     import torch
 
@@ -1752,10 +1900,11 @@ def phase_step_parity(device, widths=None, batch_size=None) -> dict:
     widths = SLICE if widths is None else widths
     cfg = TransformerConfig(flash=True, **{**widths, "n_layers": 2})
     model = make_model(cfg)
-    kern = model.build(device=device, generator=torch.Generator().manual_seed(1))
-    plain = make_model(dataclasses.replace(cfg, flash=False)).build(
-        device=device, generator=torch.Generator().manual_seed(2))
-    plain.load_state_dict(kern.state_dict())
+    kern = model.build(device=device, generator=torch.Generator(device=device).manual_seed(1))
+    plain, plain_cfg = copy.deepcopy(kern), dataclasses.replace(cfg, flash=False)
+    for module in plain.modules():
+        if isinstance(getattr(module, "cfg", None), TransformerConfig):
+            module.cfg = plain_cfg
     batch = {k: torch.from_numpy(v).to(device) for k, v in model.synthetic_batch(
         np.random.default_rng(1), BATCH if batch_size is None else batch_size).items()}
     losses = []
@@ -1780,10 +1929,11 @@ def phase_step_parity(device, widths=None, batch_size=None) -> dict:
 
 def phase_lm_wide(device, name: str, widths: dict, batch: int, steps: int, attention,
                   source: str) -> dict:
-    """The LM at ``widths`` (``name``: lm_d128 or lm_d256) trained by the
-    ``Trainer`` on the card: finite, falling losses, exactly n_layers
+    """The LM at ``widths`` (``name``: lm_d128, lm_d256 or lm_d512) trained by
+    the ``Trainer`` on the card: finite, falling losses, exactly n_layers
     launches of each kernel a timed step, each launch of its head dim's bf16
-    variants (every pass of a dkv that runs as two) and the forward at the
+    variants (every pass of a dkv that runs as two; past a head dim of 256
+    the sliced kernels, named by their column slices) and the forward at the
     tile the table resolves; one profiled step (tokens/s, MFU, peak memory,
     each kernel's device ms a call, the busy share). Then one step at depth
     2 through the kernels and through the plain attention path from the same
@@ -1797,8 +1947,10 @@ def phase_lm_wide(device, name: str, widths: dict, batch: int, steps: int, atten
     fa = _flash_module()
     t0 = time.perf_counter()
     cfg = TransformerConfig(flash=True, **widths)
+    # billions of params, drawn on the card: the host takes tens of seconds
     run = Run(f"transformer {name} ({source} widths)", make_model(cfg), TrainerConfig(
-        optimizer="adam", learning_rate=3e-4, seed=0), batch, device)
+        optimizer="adam", learning_rate=3e-4, seed=0), batch, device,
+        generator=torch.Generator(device=device).manual_seed(0))
     row = run.timed(reset_counts=fa.reset_launches, steps=steps)
     launches, variants = dict(fa.LAUNCHES), dict(fa.VARIANT_LAUNCHES)
     want = cfg.n_layers * steps
@@ -1808,8 +1960,9 @@ def phase_lm_wide(device, name: str, widths: dict, batch: int, steps: int, atten
     _, block_k = fa.resolve_blocks(cfg.seq_len, cfg.head_dim, torch.bfloat16)
     dp = fa.padded_head_dim(cfg.head_dim)
     passes = fa.dkv_passes(cfg.head_dim, torch.bfloat16)
-    want_variants = {("fwd", "bfloat16", dp, block_k): want,
-                     ("bwd_dq", "bfloat16", dp, None): want,
+    want_variants = {("fwd", "bfloat16", dp, fa.column_slices("fwd", cfg.head_dim) or block_k):
+                     want,
+                     ("bwd_dq", "bfloat16", dp, fa.column_slices("bwd_dq", cfg.head_dim)): want,
                      **{("bwd_dkv", "bfloat16", dp, p): want for p in passes}}
     require(variants == want_variants, f"{name} variants {variants}, want {want_variants}")
     tokens = batch * cfg.seq_len / row["step_ms"] * 1e3
@@ -1820,7 +1973,8 @@ def phase_lm_wide(device, name: str, widths: dict, batch: int, steps: int, atten
     kernels = run.profile(LM_GROUPS)
     in_step = {}
     for kname, (fn, _) in DESIGNS.items():
-        hits = [e for e in kernels if fn in e.key]
+        sliced = FLASH_SLICED_NAMES[list(DESIGNS).index(kname)]
+        hits = [e for e in kernels if fn in e.key or sliced in e.key]
         n = sum(e.count for e in hits) / (len(passes) if kname == "bwd_dkv" else 1)
         if n:
             in_step[kname] = sum(e.self_device_time_total for e in hits) / 1e3 / n
@@ -1853,6 +2007,13 @@ def phase_lm_d256(device) -> dict:
     """`phase_lm_wide` at GPT-J-6B's widths (``LM_D256``, head dim 256)."""
     return phase_lm_wide(device, "lm_d256", LM_D256, LM_D256_BATCH, LM_D256_STEPS,
                          LM_D256_ATTENTION, "GPT-J-6B")
+
+
+def phase_lm_d512(device) -> dict:
+    """`phase_lm_wide` at GPT-J-6B's widths with 8 heads (``LM_D512``, head
+    dim 512, DeepSeek-V4-Flash's), through the sliced kernels."""
+    return phase_lm_wide(device, "lm_d512", LM_D512, LM_D512_BATCH, LM_D512_STEPS,
+                         LM_D512_ATTENTION, "GPT-J-6B with 8 heads")
 
 
 # -- the MoE phase ---------------------------------------------------------------
@@ -6142,20 +6303,95 @@ def main(argv) -> int:
         return entry_record_main(argv[1:])
     if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
         return ctl_entry_main(argv[1:])
+    adopt_orphans()
+    try:
+        return run(argv)
+    finally:
+        stop_descendants()
+
+
+#: ``PR_SET_CHILD_SUBREAPER`` of ``<linux/prctl.h>``
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its orphaned descendants, so that
+    none passes to the machine's init, where it would go on dying, or stay
+    a zombie, after the script has exited. `stop_descendants` ends them."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    require(libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0,
+            f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+
+
+def _children() -> dict:
+    """This process's children, from ``/proc``: pid -> (state, command)."""
+    import os
+
+    me, kids = os.getpid(), {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != me:
+                continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue  # exited while we looked
+        kids[int(pid)] = (fields[0], cmd)
+    return kids
+
+
+def stop_descendants(timeout: float = 60.0) -> list:
+    """SIGKILL and reap every child still alive, and reap the zombies of
+    those that ended, until no child is left: a killed child's own children
+    come to this process (`adopt_orphans`) and go in the next round. Prints
+    on standard error the command of each it found alive, and returns them."""
+    import os
+    import signal
+
+    alive = []
+    deadline = time.monotonic() + timeout
+    while kids := _children():
+        for pid, (state, cmd) in kids.items():
+            if state != "Z":
+                alive.append(cmd or str(pid))
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, 0)
+        if time.monotonic() > deadline:
+            print(f"chip_smoke: children {sorted(_children())} outlived {timeout} s of "
+                  "stopping", file=sys.stderr)
+            break
+    for cmd in alive:
+        print(f"chip_smoke: stopped a process left running: {cmd[:300]}", file=sys.stderr)
+    return alive
+
+
+def run(argv) -> int:
+    """Every phase, or those that ``argv``'s flag names (the docstring)."""
     t0, seconds = time.perf_counter(), {}
     device = phase_device()
     build = timed(seconds, "build", phase_build)
     table_out = argv[argv.index("--tile-table") + 1] if "--tile-table" in argv else None
     rows, checks = timed(seconds, "kernels", phase_kernels, device, table_out)
+    timed(seconds, "sass", check_sass, build)  # counted while phase 3 ran
     fa = _flash_module()
     import torch
 
     for row in rows:
         f32 = row["dtype"] == "float32"
-        fn = FLASH_F32_NAMES[list(KERNELS).index(row["name"])] if f32 else DESIGNS[row["name"]][0]
+        i = list(KERNELS).index(row["name"])
         dp = fa.padded_head_dim(row["head_dim"])
+        if dp > 256:
+            fn = (FLASH_F32_SLICED_NAMES if f32 else FLASH_SLICED_NAMES)[i]
+        else:
+            fn = FLASH_F32_NAMES[i] if f32 else DESIGNS[row["name"]][0]
         passes = (fa.dkv_passes(row["head_dim"], getattr(torch, row["dtype"]))
-                  if row["name"] == "bwd_dkv" else (None,))
+                  if row["name"] == "bwd_dkv" and dp <= 256 else (None,))
         if passes == (None,):
             label = _label(row["dtype"], dp, row["block_k"])
             row["sass"] = build["sass"][fn].get(label)
@@ -6174,7 +6410,7 @@ def main(argv) -> int:
                (None, slice_bk)}
 
     #: the wide LMs' phases: name -> the padded head dim of their kernels
-    wide_dp = {"lm_d128": 128, "lm_d256": 256}
+    wide_dp = {"lm_d128": 128, "lm_d256": 256, "lm_d512": 512}
 
     def emit(main_variants, in_step=None, wide=None) -> None:
         """Each row's launches on the main path (a call each, by variant) and
@@ -6209,7 +6445,8 @@ def main(argv) -> int:
     if "--kernels" in argv:
         emit({})
         return 0
-    for name, phase in (("lm_d128", phase_lm_d128), ("lm_d256", phase_lm_d256)):
+    for name, phase in (("lm_d128", phase_lm_d128), ("lm_d256", phase_lm_d256),
+                        ("lm_d512", phase_lm_d512)):
         if "--" + name.replace("_", "-") in argv:  # the kernels and this phase only
             lm = timed(seconds, name, phase, device)
             emit(wide_variants(name, lm), wide={name: lm})
@@ -6260,6 +6497,7 @@ def main(argv) -> int:
         timed(seconds, "step_parity", phase_step_parity, device)
         lm_d128 = timed(seconds, "lm_d128", phase_lm_d128, device)
         lm_d256 = timed(seconds, "lm_d256", phase_lm_d256, device)
+        lm_d512 = timed(seconds, "lm_d512", phase_lm_d512, device)
         ctr_row, ctr_run = timed(seconds, "ctr", phase_ctr, device)
         ctr_staged = stage_ctr_versions(ctr_run, serve_root)
         del ctr_run
@@ -6285,11 +6523,12 @@ def main(argv) -> int:
         row["launches_controller"] = controller["launches"][name]
         row["launches_chaos"] = chaos["launches"][name]
     emit({**variants_of(launches), **wide_variants("lm_d128", lm_d128),
-          **wide_variants("lm_d256", lm_d256)}, in_step,
-         {"lm_d128": lm_d128, "lm_d256": lm_d256})
+          **wide_variants("lm_d256", lm_d256), **wide_variants("lm_d512", lm_d512)}, in_step,
+         {"lm_d128": lm_d128, "lm_d256": lm_d256, "lm_d512": lm_d512})
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
     print(json.dumps({"lm_d128": lm_d128}))
     print(json.dumps({"lm_d256": lm_d256}))
+    print(json.dumps({"lm_d512": lm_d512}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"data_path": data_path}))
     print(json.dumps({"moe": moe}))

@@ -256,10 +256,11 @@ class Block(nn.Module):
         self.place = place
 
         def param(name, shape, std=None):
-            # drawn whole on the host (the generator's sequence is the
-            # one-device module's), then cut to this rank's part
-            t = (torch.randn(shape, generator=generator) * std if std is not None
-                 else torch.zeros(shape))
+            # drawn whole on the generator's device (the generator's
+            # sequence is the one-device module's), then cut to this rank's
+            # part
+            t = (torch.randn(shape, generator=generator, device=generator.device) * std
+                 if std is not None else torch.zeros(shape))
             if place is not None:
                 t = place.cut(name, t)
             setattr(self, name, nn.Parameter(t.to(device)))
@@ -448,7 +449,11 @@ class TransformerLM(nn.Module):
 
     ``mesh`` (a `parallel.mesh.Mesh`): this rank's part of the model (see
     the module docstring); its loss is the mean over its own rows and
-    sequence chunk. Given the whole sequence, a rank cuts its chunk itself."""
+    sequence chunk. Given the whole sequence, a rank cuts its chunk itself.
+    The params are drawn from ``generator`` on its own device (default: a
+    CPU generator seeded with 0): a CUDA generator draws them on the card,
+    in a fraction of the host's time at billions of params, as other
+    numbers than a CPU generator's."""
 
     def __init__(self, cfg: TransformerConfig, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None, mesh=None):
@@ -461,9 +466,10 @@ class TransformerLM(nn.Module):
         self.place = _Place(cfg, mesh) if mesh is not None else None
         #: ``max_stash`` of the last 1F1B schedule run (`parallel.pipeline`)
         self.pipeline_stats: dict = {}
-        self.embed = nn.Parameter((torch.randn((V, D), generator=g) * 0.02).to(device))
+        self.embed = nn.Parameter(
+            (torch.randn((V, D), generator=g, device=g.device) * 0.02).to(device))
         self.pos = nn.Parameter(
-            (torch.randn((cfg.seq_len, D), generator=g) * 0.02).to(device))
+            (torch.randn((cfg.seq_len, D), generator=g, device=g.device) * 0.02).to(device))
         if self.place is None:
             self.blocks = nn.ModuleList(Block(cfg, g, device) for _ in range(cfg.n_layers))
         else:
@@ -481,7 +487,8 @@ class TransformerLM(nn.Module):
             for i in self.place.layers():
                 self.blocks.add_module(str(i), drawn[i])
         self.lnf = nn.Parameter(torch.ones(D, device=device))
-        self.head = nn.Parameter((torch.randn((D, V), generator=g) * 0.02).to(device))
+        self.head = nn.Parameter(
+            (torch.randn((D, V), generator=g, device=g.device) * 0.02).to(device))
 
     def full_param_names(self) -> list:
         """The one-device module's param names, in its ``named_parameters``

@@ -5,20 +5,28 @@
 //
 // The kernels replace the three Pallas TPU kernels of
 // edl_tpu/ops/flash_attention.py: flash_fwd_kernel, flash_bwd_dq_kernel and
-// flash_bwd_dkv_kernel (flash_kernels.cuh, wgmma and TMA, for bf16 and f16)
-// and their f32 counterparts (flash_f32.cu). The compiled set:
+// flash_bwd_dkv_kernel (flash_kernels.cuh, wgmma and TMA, for bf16 and f16),
+// their sliced forms past a head dim of 256 (flash_sliced.cuh) and their f32
+// counterparts (flash_f32.cu). The compiled set:
 //
 //   element type   padded head dim               forward tile (rows, keys a stage)
 //   bf16           16, 32, 64, 128               (128, 64); also (128, 128) at 64 and 128
 //                  192, 256                      (64, 64)
+//                  past 256: D up to a multiple  (64, 64), sliced: a block owns 256
+//                  of 64, read at run time       columns of O or dQ, 128 of dK and dV
 //   f16            16, 32, 64, 128               (128, 64)
 //                  192, 256                      (64, 64)
+//                  past 256, as bf16             (64, 64), sliced
 //   f32            any D up to 256               (64, 64)
+//                  past 256, read at run time    (64, 64), sliced: 256 columns of O or
+//                                                dQ, 128 of dK and dV
 //
 // A head dim D (a multiple of 8) runs the variant of the next padded head
 // dim; columns from D on load as zeros. flash_attention.py's
-// `compiled_blocks` mirrors this table. From a padded head dim of 192 the
-// 16-bit dK and dV take two launches (flash_kernels.cuh, `dkv_passes`).
+// `compiled_blocks` mirrors this table. From a padded head dim of 192 up to
+// 256 the 16-bit dK and dV take two launches (flash_kernels.cuh,
+// `dkv_passes`); past 256 every kernel takes one, whose grid holds the
+// column slices.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -34,10 +42,12 @@ using namespace edl_flash;
 
 enum Dtype { kBf16 = 0, kF16 = 1, kF32 = 2 };
 
-// The padded head dim a 16-bit kernel is compiled for: D a multiple of 8,
-// 8 <= D <= 256 (TMA moves rows of 16-byte multiples); 0 if none.
+// The padded head dim a 16-bit kernel is compiled for: D a multiple of 8
+// (TMA moves rows of 16-byte multiples) up to 256; past 256, D up to a
+// multiple of 64, served by the sliced kernels; 0 if none.
 int padded_head_dim(int D) {
-  if (D <= 0 || D % 8 || D > 256) return 0;
+  if (D <= 0 || D % 8) return 0;
+  if (D > 256) return (D + 63) / 64 * 64;
   return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
 }
 
@@ -45,6 +55,7 @@ template <typename T>
 cudaError_t fwd16(const FwdArgs& a, int block_k, cudaStream_t s) {
   const int dp = padded_head_dim(a.D);
   if (block_k == 64) {
+    if (dp > 256) return launch_fwd_sliced<T>(a, s);
     switch (dp) {
       case 16: return launch_fwd<T, 16, 64>(a, s);
       case 32: return launch_fwd<T, 32, 64>(a, s);
@@ -67,6 +78,7 @@ cudaError_t fwd16(const FwdArgs& a, int block_k, cudaStream_t s) {
 
 template <typename T>
 cudaError_t dq16(const BwdArgs& a, cudaStream_t s) {
+  if (padded_head_dim(a.D) > 256) return launch_bwd_dq_sliced<T>(a, s);
   switch (padded_head_dim(a.D)) {
     case 16: return launch_bwd_dq<T, 16>(a, s);
     case 32: return launch_bwd_dq<T, 32>(a, s);
@@ -80,6 +92,7 @@ cudaError_t dq16(const BwdArgs& a, cudaStream_t s) {
 
 template <typename T>
 cudaError_t dkv16(const BwdArgs& a, cudaStream_t s) {
+  if (padded_head_dim(a.D) > 256) return launch_bwd_dkv_sliced<T>(a, s);
   switch (padded_head_dim(a.D)) {
     case 16: return launch_bwd_dkv<T, 16>(a, s);
     case 32: return launch_bwd_dkv<T, 32>(a, s);

@@ -1,7 +1,8 @@
 // The launchers of the flash-attention kernels, as the C interface
 // (flash_attention.cu) calls them. Each variant is compiled in its own
-// translation unit (flash_fwd_*.cu, flash_bwd_*.cu, flash_f32.cu), so that
-// the build runs one nvcc process per unit, all at once.
+// translation unit (flash_fwd_*.cu, flash_bwd_*.cu, flash_*_sliced.cu,
+// flash_f32.cu), so that the build runs one nvcc process per unit, all at
+// once.
 
 #pragma once
 
@@ -48,7 +49,18 @@ cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream);
 template <typename T, int DP>
 cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream);
 
-// The f32 kernels (any head dim up to 256).
+// The sliced wgmma kernels (flash_sliced.cuh): T is __nv_bfloat16 or __half,
+// the head dim any multiple of 8 past 256, read at run time; each block owns
+// a slice of the output's columns (256 of O or dQ, 128 of dK and dV). One
+// launch a call.
+template <typename T>
+cudaError_t launch_fwd_sliced(const FwdArgs& a, cudaStream_t stream);
+template <typename T>
+cudaError_t launch_bwd_dq_sliced(const BwdArgs& a, cudaStream_t stream);
+template <typename T>
+cudaError_t launch_bwd_dkv_sliced(const BwdArgs& a, cudaStream_t stream);
+
+// The f32 kernels (any head dim: whole rows up to 256, column slices past it).
 cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream);

@@ -11,12 +11,15 @@ sentinel for rows that see no key.
 Dispatch is by the tensors' device and nothing else: CPU tensors go through the
 plain versions, CUDA tensors through the kernels, and a CUDA request the
 kernels cannot serve raises. Nothing falls back. The kernels take bf16, f16
-and f32 at any head dim up to `MAX_HEAD_DIM`: bf16 and f16 through the wgmma
-kernels (``flash_kernels.cuh``), f32 through the f32 kernels
-(``flash_f32.cu``). What their loads cannot read, the wrapper first makes
-readable, on either device: a head dim that is not a multiple of 8 is
-zero-padded (zero columns change no score; the outputs are sliced back),
-and a view that TMA cannot read is copied to a contiguous one.
+and f32 at any head dim: bf16 and f16 through the wgmma kernels
+(``flash_kernels.cuh`` up to 256; past 256 the sliced kernels of
+``flash_sliced.cuh``, whose blocks each own a slice of the output's columns
+and sum the scores over 64-column chunks of the head dim), f32 through the
+f32 kernels (``flash_f32.cu``, sliced past 256 too). What their loads cannot
+read, the wrapper first makes readable, on either device: a head dim that
+is not a multiple of 8 is zero-padded (zero columns change no score; the
+outputs are sliced back), and a view that TMA cannot read is copied to a
+contiguous one.
 
 The forward's tile (``block_q`` query rows a block, ``block_k`` keys a stage)
 comes from the tile table (`flash_tuning.lookup`) unless the caller pins it;
@@ -62,12 +65,15 @@ _NEG_INF = -1e30
 #: dim of 192; the f32 kernels' forward tile is TILE x TILE
 TILE = 64
 
-#: the largest head dim the kernels are compiled for (multiples of 8; the
-#: wrapper pads others); ROADMAP item B6 is head dims past 256
-MAX_HEAD_DIM = 256
-
-#: the padded head dims the 16-bit kernels are compiled for
+#: the padded head dims the 16-bit kernels are compiled for up to 256; past
+#: it the sliced kernels take any multiple of 8, padded to one of `CHUNK`
 _PADDED = (16, 32, 64, 128, 192, 256)
+
+#: past a padded head dim of 256 (the sliced kernels, every dtype): the
+#: head-dim columns of a chunk of the scores' sum, and the output columns one
+#: block owns, by kernel (dkv: of dK and of dV, both summed by one block)
+CHUNK = 64
+SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 256, "bwd_dkv": 128}
 
 #: the element types the kernels take, with the C interface's codes
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -77,12 +83,13 @@ _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 #: its kernel and nowhere else
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
-#: the same launches by variant: (kernel, dtype name, padded head dim, the
-#: forward's keys a stage, or the dkv pass) -> launches. Where dkv runs as
-#: two CUDA launches (16-bit, padded head dims 192 and 256: `dkv_passes`),
-#: each pass has its own entry, ``"dv"`` and ``"dk"``, while LAUNCHES counts
-#: the call once; every other variant's fourth field is the forward's keys a
-#: stage or None
+#: the same launches by variant: (kernel, dtype name, padded head dim, how
+#: the call was cut) -> launches. The fourth field is the forward's keys a
+#: stage, or None for the backward, up to a padded head dim of 256; past it,
+#: the column slices of the call's one launch (`column_slices`, such as
+#: ``"2x256"``). Where dkv runs as two CUDA launches (16-bit, padded head
+#: dims 192 and 256: `dkv_passes`), each pass has its own entry, ``"dv"`` and
+#: ``"dk"``, while LAUNCHES counts the call once
 VARIANT_LAUNCHES: Dict[Tuple[str, str, int, object], int] = {}
 
 
@@ -94,7 +101,10 @@ def reset_launches() -> None:
 
 def _count(kernel: str, dtype: torch.dtype, head_dim: int, block_k: Optional[int] = None) -> None:
     LAUNCHES[kernel] += 1
-    passes = dkv_passes(head_dim, dtype) if kernel == "bwd_dkv" else (block_k,)
+    if kernel == "bwd_dkv":
+        passes = dkv_passes(head_dim, dtype)
+    else:
+        passes = (column_slices(kernel, head_dim) or block_k,)
     for tag in passes:
         key = (kernel, flash_tuning.dtype_name(dtype), padded_head_dim(head_dim), tag)
         VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
@@ -102,16 +112,38 @@ def _count(kernel: str, dtype: torch.dtype, head_dim: int, block_k: Optional[int
 
 def padded_head_dim(head_dim: int) -> int:
     """The head dim the kernels are compiled for that serves ``head_dim`` (a
-    multiple of 8 up to `MAX_HEAD_DIM`): 16, 32, 64, 128, 192 or 256."""
-    return next(dp for dp in (*_PADDED, head_dim) if head_dim <= dp)
+    multiple of 8): 16, 32, 64, 128, 192 or 256; past 256, ``head_dim``
+    rounded up to a multiple of `CHUNK` (264 -> 320, 520 -> 576), which the
+    sliced kernels read at run time."""
+    if head_dim > _PADDED[-1]:
+        return -(-head_dim // CHUNK) * CHUNK
+    return next(dp for dp in _PADDED if head_dim <= dp)
+
+
+def column_slices(kernel: str, head_dim: int) -> Optional[str]:
+    """How one launch of ``kernel`` cuts the output's columns, as
+    `VARIANT_LAUNCHES` names it: past a padded head dim of 256, ``"NxW"``,
+    N blocks a row tile each owning W columns (`SLICE_COLUMNS`; the last
+    slice short where W does not divide the padded head dim:
+    ``csrc/flash_sliced.cuh``, ``csrc/flash_f32.cu``); else None."""
+    dp = padded_head_dim(head_dim)
+    if dp <= _PADDED[-1]:
+        return None
+    width = SLICE_COLUMNS[kernel]
+    return f"{-(-dp // width)}x{width}"
 
 
 def dkv_passes(head_dim: int, dtype: torch.dtype) -> Tuple[Optional[str], ...]:
     """The CUDA launches of one dkv call, as `VARIANT_LAUNCHES` names them:
-    from a padded head dim of 192 the 16-bit dK and dV do not fit one
+    at a padded head dim of 192 or 256 the 16-bit dK and dV do not fit one
     thread's registers together, and dkv runs a dV pass and then a dK pass
-    (``csrc/flash_kernels.cuh``, `dkv_passes`); else one launch, None."""
-    if dtype in (torch.bfloat16, torch.float16) and padded_head_dim(head_dim) > 128:
+    (``csrc/flash_kernels.cuh``, `dkv_passes`); past 256 one launch in every
+    dtype, named by its column slices (`column_slices`); else one launch,
+    None."""
+    dp = padded_head_dim(head_dim)
+    if dp > _PADDED[-1]:
+        return (column_slices("bwd_dkv", head_dim),)
+    if dtype in (torch.bfloat16, torch.float16) and dp > 128:
         return ("dv", "dk")
     return (None,)
 
@@ -121,8 +153,9 @@ def compiled_blocks(head_dim: int, dtype: torch.dtype) -> Tuple[Tuple[int, int],
     dtype, the default first (``csrc/flash_attention.cu`` has the table):
     bf16 and f16 at 128 query rows a block and 64 keys a stage, bf16 also at
     128 keys from a padded head dim of 64, and both at 64 x 64 alone from a
-    padded head dim of 192 (one consumer warpgroup a block); f32 at 64 x 64.
-    None for a dtype the kernels do not take."""
+    padded head dim of 192 (one consumer warpgroup a block), the sliced
+    kernels past 256 included; f32 at 64 x 64. None for a dtype the kernels
+    do not take."""
     if dtype == torch.float32:
         return ((TILE, TILE),)
     if dtype in (torch.bfloat16, torch.float16) and padded_head_dim(head_dim) > 128:
@@ -270,15 +303,12 @@ def _view_problem(shape, strides, itemsize: int, ptr: int) -> Optional[str]:
     """Why the kernels cannot read a (B, S, H, D) view of this layout, or
     None if they can. The 16-bit kernels load q, k and v by TMA: unit stride
     along D, a start aligned to 16 bytes, byte strides that are multiples of
-    16, and a head dim that is a multiple of 8 (rows of 16-byte multiples)
-    and at most `MAX_HEAD_DIM`; the f32 kernels are held to the same. The
-    wrapper pads or copies whatever this refuses at D <= `MAX_HEAD_DIM`
-    (`_kernel_layout`)."""
+    16, and a head dim that is a multiple of 8 (rows of 16-byte multiples);
+    the f32 kernels are held to the same. The wrapper pads or copies
+    whatever this refuses (`_kernel_layout`)."""
     D = shape[3]
-    if D % 8 or not 0 < D <= MAX_HEAD_DIM:
-        return (f"head_dim {D}: the kernels take head dims that are multiples "
-                f"of 8, up to {MAX_HEAD_DIM} (ROADMAP item B6: head dims past "
-                f"{MAX_HEAD_DIM})")
+    if D % 8 or D <= 0:
+        return f"head_dim {D}: the kernels take head dims that are multiples of 8"
     return _layout_problem(strides, itemsize, ptr)
 
 
@@ -330,8 +360,12 @@ def _check_kernel_inputs(q, k, v) -> None:
             raise NotImplementedError(f"{name}: {problem}")
     B, H = q.shape[0], q.shape[2]
     tiles = -(-max(q.shape[1], k.shape[1]) // TILE)
-    if B * H * tiles >= 2**31:
-        raise ValueError("too many (batch, head, tile) blocks for one launch")
+    # past a padded head dim of 256 a row tile is a block for each column
+    # slice, most in dkv's narrowest slices
+    dp = padded_head_dim(q.shape[3])
+    slices = -(-dp // min(SLICE_COLUMNS.values())) if dp > _PADDED[-1] else 1
+    if B * H * tiles * slices >= 2**31:
+        raise ValueError("too many (batch, head, tile, column slice) blocks for one launch")
 
 
 def _strides(*xs) -> list:
@@ -498,8 +532,8 @@ def flash_attention(
     block, keys a stage). Left out, they come from the tile table
     (`resolve_blocks`); pinned, they must name a tile the kernels were
     compiled for (`compiled_blocks`), or ``NotImplementedError`` is raised.
-    q, k and v take any float dtype on the CPU and bf16, f16 or f32 at a head
-    dim up to `MAX_HEAD_DIM` on CUDA.
+    q, k and v take any float dtype on the CPU and bf16, f16 or f32 at any
+    head dim on CUDA.
     """
     B, Sq, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
@@ -507,10 +541,6 @@ def flash_attention(
                          f"match q {tuple(q.shape)}")
     if Sq == 0 or k.shape[1] == 0:
         raise ValueError("flash attention needs at least one query and key")
-    if q.device.type == "cuda" and D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"head_dim {D}: the CUDA kernels take head dims up to {MAX_HEAD_DIM} "
-            f"(ROADMAP item B6: head dims past {MAX_HEAD_DIM})")
     _, block_k = resolve_blocks(k.shape[1], D, q.dtype, block_q, block_k)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out_dtype = torch.float32 if return_lse else q.dtype

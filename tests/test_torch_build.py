@@ -77,16 +77,26 @@ def test_stride_not_a_multiple_of_16_bytes_is_rejected():
     assert "multiples of 16" in _problem(x, x)
 
 
-@pytest.mark.parametrize("D", [4, 12, 60, 264, 512])
+@pytest.mark.parametrize("D", [4, 12, 60])
 def test_head_dims_off_the_compiled_set_are_rejected(D):
-    """Not a multiple of 8 (the wrapper pads those), or past 256 (ROADMAP
-    item B6)."""
+    """Not a multiple of 8 (the wrapper pads those)."""
     x = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16)
     assert "head_dim" in _problem(x, x)
 
 
+@pytest.mark.parametrize("D", [264, 512])
+def test_head_dims_past_256_are_accepted(D):
+    """Past 256 the sliced kernels read any multiple of 8, contiguous or as
+    the fused projection's slices."""
+    x = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16)
+    assert _problem(x, x) is None
+    qkv = torch.zeros((1, 16, 3, 2, D), dtype=torch.bfloat16)
+    assert _problem(qkv[:, :, 1], qkv) is None
+
+
 @pytest.mark.parametrize("D,padded", [(8, 16), (40, 64), (128, 128), (129, 192), (136, 192),
-                                      (192, 192), (193, 256), (200, 256), (256, 256)])
+                                      (192, 192), (193, 256), (200, 256), (256, 256),
+                                      (264, 320), (512, 512), (520, 576), (1024, 1024)])
 def test_padded_head_dim(D, padded):
     """The compiled head dim that serves D, as ``csrc/flash_attention.cu``
     picks it."""
@@ -96,9 +106,9 @@ def test_padded_head_dim(D, padded):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_head_dim_256_compiles_one_64_by_64_tile(dtype):
     """From a padded head dim of 192 every dtype's forward has one tile, 64
-    query rows by 64 keys a stage: the table's (128, 64) resolves to it, and
-    a pin of anything else raises."""
-    for D in (136, 256):
+    query rows by 64 keys a stage, the sliced kernels past 256 included: the
+    table's (128, 64) resolves to it, and a pin of anything else raises."""
+    for D in (136, 256, 512):
         assert fa.compiled_blocks(D, dtype) == ((64, 64),)
         assert fa.resolve_blocks(2048, D, dtype) == (64, 64)
         assert fa.resolve_blocks(2048, D, dtype, block_q=64) == (64, 64)
@@ -111,16 +121,25 @@ def test_head_dim_256_compiles_one_64_by_64_tile(dtype):
                                           (torch.float32, (None,))])
 def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monkeypatch):
     """A 16-bit dkv call at a padded head dim of 192 or 256 is two CUDA
-    launches: LAUNCHES counts the call once, VARIANT_LAUNCHES each pass."""
+    launches: LAUNCHES counts the call once, VARIANT_LAUNCHES each pass. Past
+    256 a call is one launch in every dtype, named by its column slices (520
+    pads to 576: five slices of 128 columns, the last 64 wide), as the
+    forward and dq calls are."""
     monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
     monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
     fa._count("bwd_dkv", dtype, 200)
     fa._count("bwd_dkv", dtype, 128)
+    fa._count("bwd_dkv", dtype, 520)
+    fa._count("fwd", dtype, 520, 64)
+    fa._count("bwd_dq", dtype, 512)
     name = {torch.bfloat16: "bfloat16", torch.float16: "float16",
             torch.float32: "float32"}[dtype]
-    assert fa.LAUNCHES["bwd_dkv"] == 2
+    assert fa.LAUNCHES == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 3}
     assert fa.VARIANT_LAUNCHES == {**{("bwd_dkv", name, 256, p): 1 for p in passes},
-                                   ("bwd_dkv", name, 128, None): 1}
+                                   ("bwd_dkv", name, 128, None): 1,
+                                   ("bwd_dkv", name, 576, "5x128"): 1,
+                                   ("fwd", name, 576, "3x256"): 1,
+                                   ("bwd_dq", name, 512, "2x256"): 1}
 
 
 def test_non_unit_stride_along_the_head_dim_is_rejected():

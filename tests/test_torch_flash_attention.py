@@ -239,12 +239,13 @@ def _lse_loss_grads(q, k, v, w, kw, dtype=(jnp.float32, torch.float32)):
     return both_grads(jloss, tloss, q, k, v, dtype=dtype)
 
 
-@pytest.mark.parametrize("D", [40, 80, 96, 128, 136, 192, 200, 256])
+@pytest.mark.parametrize("D", [40, 80, 96, 128, 136, 192, 200, 256, 264, 320, 512, 576])
 def test_head_dims_past_64_match_jax(D):
     """The head dims that the D-64 (40, its last 24 columns zero), D-128 (80,
-    96, 128), D-192 (136, 192) and D-256 (200, 256) kernels serve: forward,
-    lse and gradients through lse, with a ragged sequence and the ring's
-    offsets, and rows that see no key."""
+    96, 128), D-192 (136, 192) and D-256 (200, 256) kernels serve, and past
+    256 the sliced kernels (264: a last chunk of 8 columns; 320, 512; 576: a
+    short last slice): forward, lse and gradients through lse, with a ragged
+    sequence and the ring's offsets, and rows that see no key."""
     rng = np.random.default_rng(7)
     q, k, v = rand_qkv(rng, 1, 70, 2, D)
     w = rng.standard_normal((1, 2, 70)).astype(np.float32)
@@ -261,7 +262,7 @@ def test_head_dims_past_64_match_jax(D):
         np.testing.assert_allclose(a, b, **F32_GRAD, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
 @pytest.mark.parametrize("dtype", ["float16", "float32"])
 def test_float16_and_float32_match_jax(dtype, D):
     """f16 and f32 through the same wrapper, with offsets and a ragged

@@ -76,18 +76,18 @@ def test_entry_points_raise_without_cuda_unless_the_cpu_is_asked_for():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["head_dim_264", "head_dim_512", "float64", "int32"])
+@pytest.mark.parametrize("case", ["mixed_16_bit_dtypes", "k_on_the_cpu", "float64", "int32"])
 def test_kernel_wrapper_raises_on_cuda_requests_it_cannot_serve(case):
-    """Head dims past 256 (ROADMAP item B6) and dtypes the kernels do not
-    take raise on CUDA; nothing falls back to the plain versions. (f32, D
-    up to 256 and the views TMA cannot read are served: chip_smoke.py phase
-    3.)"""
+    """q, k and v of different 16-bit dtypes, k off the card, and dtypes the
+    kernels do not take raise on CUDA; nothing falls back to the plain
+    versions. (f32, every head dim and the views TMA cannot read are served:
+    chip_smoke.py phase 3.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from edl_tpu_torch.ops import flash_attention
 
-    D = {"head_dim_264": 264, "head_dim_512": 512}.get(case, 64)
     dtype = {"float64": torch.float64, "int32": torch.int32}.get(case, torch.bfloat16)
-    q = torch.zeros((1, 16, 2, D), dtype=dtype, device="cuda")
+    q = torch.zeros((1, 16, 2, 64), dtype=dtype, device="cuda")
+    k = {"mixed_16_bit_dtypes": q.to(torch.float16), "k_on_the_cpu": q.cpu()}.get(case, q)
     with pytest.raises((NotImplementedError, ValueError)):
-        flash_attention(q, q, q)
+        flash_attention(q, k, q)

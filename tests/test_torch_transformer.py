@@ -91,6 +91,16 @@ def test_head_dim_256_loss_and_grads_match_jax():
     test_loss_and_grads_match_jax(flash=True, cfg=cfg)
 
 
+def test_head_dim_512_loss_and_grads_match_jax():
+    """The LM at head dim 512 (d_model 1024, 2 heads, 2 layers), the head dim
+    of the lm_d512 run on the card, which the sliced kernels serve, through
+    the flash path: loss and every gradient after one step against the JAX
+    LM, with the weights carried across."""
+    cfg = dict(CFG, d_model=1024, n_heads=2)
+    assert torch_tf.TransformerConfig(**cfg).head_dim == 512
+    test_loss_and_grads_match_jax(flash=True, cfg=cfg)
+
+
 @pytest.mark.parametrize("flash", [True, False])
 def test_remat_gives_the_same_loss_and_grads_and_reruns_attention(flash, monkeypatch):
     fa = importlib.import_module("edl_tpu_torch.ops.flash_attention")
