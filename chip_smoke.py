@@ -28,11 +28,15 @@ exits non-zero without its last line:
    registers and spills of every variant, and counts with ``cuobjdump
    -sass`` (on a thread while phase 3 runs, checked after it) each
    kernel's wgmma (``HGMMA``), TMA load (``UTMALDG``), mbarrier
-   (``SYNCS``), ``mma.sync`` (``HMMA``) and f32 FMA (``FFMA``)
-   instructions; every bf16 and f16 flash kernel must have wgmma and TMA
-   loads and no ``mma.sync``, and every variant compiled for head dims up
-   to 256 (the two dkv passes from 192 included) and the sliced ones past
-   256 (``flash_sliced.cuh``) must be in the library; the f32 kernels (head
+   (``SYNCS``), ``mma.sync`` (``HMMA``), f32 FMA (``FFMA``) and
+   local-memory load and store (``LDL``, ``STL``) instructions and the
+   highest register it names, beside ptxas's line; every bf16 and f16
+   flash kernel must have wgmma and TMA loads and no ``mma.sync``, the
+   forward and dkv variants up to 256 (a producer warpgroup and two
+   consumer warpgroups with setmaxnreg, so ptxas reports their registers at
+   launch) no local-memory access and no spill, and every variant compiled
+   for head dims up to 256 and the sliced ones past 256
+   (``flash_sliced.cuh``) must be in the library; the f32 kernels (head
    dims up to 128, up to 256, and sliced past 256) print what they use.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs (the forward at every tile compiled
@@ -40,7 +44,7 @@ exits non-zero without its last line:
    cases (with an lse cotangent), cases with rows that see no key (one with
    a whole 128-row query block that sees none), head dims 8, 16, 32, 40,
    80, 96, 128, 136, 192, 200 and 256 (at 256 a whole 64-row block that
-   sees no key), past 256 through the sliced kernels 264, 320, 512, 576
+   sees no key, and a 128-row block whose first 64 rows see none), past 256 through the sliced kernels 264, 320, 512, 576
    and 1024, f16 at 64, 128, 192, 256, 320 and 512, f32 at 64, 128, 192,
    256, 264 and 512, and fewer queries than keys, row by row and element
    by element; the JAX on-chip check's
@@ -50,7 +54,8 @@ exits non-zero without its last line:
    copied or padded by the wrapper and served (``SERVED_VIEWS``);
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
-   slice's shape, at D 128 and at the D-256 and D-512 LMs' attention; then
+   slice's shape, at D 128, at the D-256 LM's attention and a ragged D-256
+   ring case, and at the D-512 LM's attention; then
    the ring's
    per-hop engine on one card:
    the slice's q, k, v cut into 2 and 4 blocks, each query block's offset
@@ -104,8 +109,8 @@ exits non-zero without its last line:
    and the plain path; and the ring's per-hop engine at its attention
    shape. Then the ``lm_d256`` phase, the same at GPT-J-6B's widths
    (d_model 4096, 16 heads, so head dim 256; d_ff 16384, seq 2048, vocab
-   50400) at 4 of its 28 layers: 4 calls of each kernel a step, each dkv
-   call its two passes, all of the D-256 bf16 variants. Then the
+   50400) at 4 of its 28 layers: 4 launches of each kernel a step, all of
+   the D-256 bf16 variants. Then the
    ``lm_d512`` phase, the same widths with 8 heads, so head dim 512, at 12
    layers: 12 calls of each sliced kernel a step, all of the D-512 bf16
    variants (one launch a call, two column slices of O and dQ, four of dK
@@ -510,16 +515,21 @@ TOL_COMPOSED_ELEM = 2**-4
 COMPOSED_HOPS_OVER_ONE = 1.25
 #: kernel -> (its function in the library, the design it is built on)
 DESIGNS = {
-    "fwd": ("flash_fwd_kernel", "wgmma+TMA, PR 2"),
+    "fwd": ("flash_fwd_kernel", "wgmma+TMA, a producer warpgroup and two consumer warpgroups "
+                                "(setmaxnreg), 128 rows a block, ping-pong"),
     "bwd_dq": ("flash_bwd_dq_kernel", "wgmma+TMA, PR 3"),
-    "bwd_dkv": ("flash_bwd_dkv_kernel", "wgmma+TMA, PR 2"),
+    "bwd_dkv": ("flash_bwd_dkv_kernel", "wgmma+TMA, a producer warpgroup and two consumer "
+                                        "warpgroups (setmaxnreg), dV and dK in one pass"),
 }
-#: the dkv kernel's PASS template argument (csrc/flash_kernels.cuh
-#: `DkvPass`) -> the pass's name in `VARIANT_LAUNCHES`
-DKV_PASSES = {0: None, 1: "dv", 2: "dk"}
 #: SASS instructions counted per kernel: wgmma, TMA tile load, mbarrier,
-#: mma.sync, and the f32 kernels' fused multiply-add
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA")
+#: mma.sync, the f32 kernels' fused multiply-add, and local-memory loads and
+#: stores (spills)
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA", "LDL", "STL")
+#: the kernels whose 16-bit variants up to a padded head dim of 256 run a
+#: producer warpgroup and two consumer warpgroups with setmaxnreg
+#: (csrc/flash_kernels.cuh): ptxas reports their registers at launch (168),
+#: so their SASS must show no local-memory load or store, and ptxas no spill
+SETMAXNREG_NAMES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
 
 #: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused,
 #: dtype): ``fused`` cases take q, k and v as strided slices of one
@@ -596,6 +606,22 @@ FAULT_CASES = (CASES[0], ("jax_check_d128", (1, 2048, 2048, 8, 128), True, 0, 0,
                           "bfloat16"),
                ("lm_d256", (4, 2048, 2048, 16, 256), True, 0, 0, False, True, "bfloat16"),
                ("lm_d512", (4, 2048, 2048, 8, 512), True, 0, 0, False, True, "bfloat16"))
+
+#: cases and planted faults checked after the ring's merged hops, so that
+#: every check before them draws the inputs it drew before they were added
+#: (the composed checks' bounds are tight for a few rows of some draws:
+#: PERF.md §7). The forward's 128-row block at D 256: in the first block,
+#: queries 0-63 (consumer warpgroup 0) see no key and queries 64-127
+#: (warpgroup 1) do; and the planted faults at D 256 at a ragged length with
+#: the ring's offsets and an lse cotangent
+LATE_CASES = [
+    ("head_dim_256_no_key_warpgroup", (1, 300, 300, 2, 256), True, 0, 64, True, False,
+     "bfloat16"),
+]
+LATE_FAULT_CASES = (
+    ("head_dim_256_ring_ragged", (2, 700, 700, 2, 256), True, 300, 300, True, False,
+     "bfloat16"),
+)
 
 #: the JAX package's on-chip check (`onchip_flash_check.py:22-28`), letter
 #: for letter: (B, S, H, D, causal, dtype). Each runs forward and backward
@@ -753,10 +779,12 @@ def phase_build() -> dict:
 
 
 def check_sass(build: dict) -> None:
-    """The build's SASS counts (`phase_build`'s thread), printed and held:
-    every bf16 and f16 flash kernel has wgmma and TMA loads and no
-    ``mma.sync``, and every compiled variant is in the library. Stores the
-    counts in ``build["sass"]``."""
+    """The build's SASS counts (`phase_build`'s thread), printed beside
+    ptxas's line and held: every bf16 and f16 flash kernel has wgmma and TMA
+    loads and no ``mma.sync``; the setmaxnreg kernels (``SETMAXNREG_NAMES``)
+    have no local-memory load or store in their SASS and no spill in ptxas's
+    line; and every compiled variant is in the library. Stores the counts in
+    ``build["sass"]``."""
     import torch
 
     from edl_tpu_torch.ops import flash_tuning
@@ -765,13 +793,22 @@ def check_sass(build: dict) -> None:
     counts = build.pop("sass_counting").result()
     for fn, by_variant in counts.items():
         for label, ops in sorted(by_variant.items()):
-            print(f"  sass: {fn} {label} " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+            use = build["ptxas"].get(f"{fn} {label}", {})
+            print(f"  sass: {fn} {label} " + ", ".join(f"{op} {n}" for op, n in ops.items())
+                  + f" (ptxas: {use.get('registers')} registers, {use.get('spill_stores')} "
+                  f"bytes spill stores)")
     for fn in FLASH_NAMES + FLASH_SLICED_NAMES:
         require(fn in counts, f"{fn} is not in the library's SASS")
         for label, ops in counts[fn].items():
             require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                     f"{fn} {label} lacks wgmma or TMA loads, or has mma.sync, in its "
                     f"SASS: {ops}")
+    for fn in SETMAXNREG_NAMES:
+        for label, ops in counts[fn].items():
+            use = build["ptxas"].get(f"{fn} {label}", {})
+            require(ops["LDL"] == 0 and ops["STL"] == 0 and use.get("spill_stores") == 0
+                    and use.get("spill_loads") == 0,
+                    f"{fn} {label} spills: SASS {ops}, ptxas {use}")
     want = {fn: [] for fn in FLASH_NAMES}
     want.update({fn: [_label("float32", dp) for dp in (128, 256)] for fn in FLASH_F32_NAMES})
     # past 256 one variant a kernel and dtype, whatever the head dim
@@ -783,35 +820,34 @@ def check_sass(build: dict) -> None:
             want["flash_fwd_kernel"] += [_label(name, dp, bk)
                                          for _, bk in fa.compiled_blocks(dp, dtype)]
             want["flash_bwd_dq_kernel"] += [_label(name, dp)]
-            want["flash_bwd_dkv_kernel"] += [_label(name, dp, p)
-                                             for p in fa.dkv_passes(dp, dtype)]
+            want["flash_bwd_dkv_kernel"] += [_label(name, dp)]
     for fn, labels in want.items():
         missing = [label for label in labels if label not in counts.get(fn, {})]
         require(not missing, f"{fn} {missing} not in the library's SASS")
     build["sass"] = counts
 
 
-def _label(dtype: str, dp: int, tag=None) -> str:
+def _label(dtype: str, dp: int, block_k=None) -> str:
     """A variant's label: its element type, padded head dim and the
-    forward's keys a stage (``tag`` an int) or the dkv pass (``tag`` "dv" or
-    "dk"); the f32 kernels by the largest head dim they take, 128 or 256;
-    past 256 the sliced kernels by their element type alone ("bf16
-    sliced"), one variant serving every head dim."""
+    forward's keys a stage (``block_k``); the f32 kernels by the largest
+    head dim they take, 128 or 256; past 256 the sliced kernels by their
+    element type alone ("bf16 sliced"), one variant serving every head
+    dim."""
     ty = {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}[dtype]
     if dp > 256:
         return f"{ty} sliced"
     if dtype == "float32":
         return f"f32 D{128 if dp <= 128 else 256}"
-    if tag is None:
+    if block_k is None:
         return f"{ty} D{dp}"
-    return f"{ty} D{dp} " + (f"k{tag}" if isinstance(tag, int) else tag)
+    return f"{ty} D{dp} k{block_k}"
 
 
 def _variant(mangled: str):
     """(kernel, variant label) of a flash kernel's mangled name, or None:
-    its template arguments are (T, DP, KEYS, NC) for the forward, (T, DP, NC,
-    KEYS) for dq, (T, DP, PASS) for dkv and (DMAX, COLS) for the f32
-    kernels; the sliced kernels' are (T) and (COLS)."""
+    its template arguments are (T, DP, KEYS) for the forward, (T, DP, NC,
+    KEYS) for dq, (T, DP) for dkv and (DMAX, COLS) for the f32 kernels; the
+    sliced kernels' are (T) and (COLS)."""
     sliced = next((n for n in FLASH_SLICED_NAMES + FLASH_F32_SLICED_NAMES if n in mangled), None)
     if sliced is not None:  # one variant a dtype serves every head dim past 256
         ty = ("f32" if sliced in FLASH_F32_SLICED_NAMES else
@@ -824,12 +860,7 @@ def _variant(mangled: str):
     if name in FLASH_F32_NAMES:
         return name, _label("float32", ints[0])
     dtype = "float16" if "6__half" in mangled else "bfloat16"
-    tag = None
-    if name == "flash_fwd_kernel":
-        tag = ints[1]
-    elif name == "flash_bwd_dkv_kernel":
-        tag = DKV_PASSES[ints[1]]
-    return name, _label(dtype, ints[0], tag)
+    return name, _label(dtype, ints[0], ints[1] if name == "flash_fwd_kernel" else None)
 
 
 def ptxas_usage(log: str) -> dict:
@@ -854,8 +885,8 @@ def ptxas_usage(log: str) -> dict:
 
 
 def sass_counts(path) -> dict:
-    """{kernel: {variant: {op: instructions}}} for the flash kernels, from
-    ``cuobjdump -sass`` of the built library."""
+    """{kernel: {variant: counts}} for the flash kernels, from ``cuobjdump
+    -sass`` of the built library (`parse_sass`)."""
     from pathlib import Path
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -863,18 +894,29 @@ def sass_counts(path) -> dict:
     sass = subprocess.run(
         [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(path)],
         check=True, capture_output=True, text=True, timeout=300).stdout
+    return parse_sass(sass)
+
+
+def parse_sass(sass: str) -> dict:
+    """{kernel: {variant: counts}} from a ``cuobjdump -sass`` listing: the
+    instructions of each of ``SASS_OPS`` (an op with modifiers, such as
+    ``LDL.64``, counts as its op) and ``max_register``, the highest general
+    register (``R<n>``) the function names, or -1. Functions that are not
+    flash kernels are skipped."""
     counts, ops = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             hit = _variant(line.split("Function :")[1].strip())
             ops = None
             if hit is not None:
-                ops = counts.setdefault(hit[0], {}).setdefault(hit[1],
-                                                               dict.fromkeys(SASS_OPS, 0))
+                ops = counts.setdefault(hit[0], {}).setdefault(
+                    hit[1], {**dict.fromkeys(SASS_OPS, 0), "max_register": -1})
         elif ops is not None:
             hit = re.search(r"\b(" + "|".join(SASS_OPS) + r")\b", line)
             if hit:
                 ops[hit.group(1)] += 1
+            for reg in re.findall(r"\bR(\d+)\b", line):
+                ops["max_register"] = max(ops["max_register"], int(reg))
     return counts
 
 
@@ -1106,16 +1148,17 @@ def check_hop_backward_calls(fa, n, calls) -> None:
     torch.cuda.synchronize()
 
 
-def check_cases(fa, gen, device) -> dict:
-    """Every kernel against its plain version on every case of ``CASES``, the
+def check_cases(fa, gen, device, cases, worst=None) -> dict:
+    """Every kernel against its plain version on every case of ``cases``, the
     forward at every tile compiled for the case's head dim and dtype; returns
     the worst errors by (kernel, dtype, padded head dim), each with the case
-    and output it came from."""
+    and output it came from, added to ``worst`` if given."""
     import torch
 
     outputs = {"fwd": ("o", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
-    worst = {}  # (kernel, dtype, padded head dim) -> metric -> (value, "case output")
-    for name, shape, causal, qo, ko, ret_lse, fused, dtype in CASES:
+    # (kernel, dtype, padded head dim) -> metric -> (value, "case output")
+    worst = {} if worst is None else worst
+    for name, shape, causal, qo, ko, ret_lse, fused, dtype in cases:
         q, k, v, do, dlse, out_dtype = _case_inputs(shape, fused, ret_lse, gen, device, dtype)
         opts = dict(scale=1.0 / math.sqrt(shape[4]), causal=causal,
                     q_offset=qo, k_offset=ko)
@@ -1264,12 +1307,12 @@ def _design(fa, kname: str, dtype: str, D: int) -> str:
                 "wgmma+TMA, one consumer warpgroup, ") + cut
     if dtype == "float32":
         return "f32 FMA tiles" + (", 32-wide tiles in dq and dkv" if dp > 128 else "")
-    if dp > 128:
-        return {"fwd": "wgmma+TMA, one consumer warpgroup a block",
-                "bwd_dq": "wgmma+TMA, one consumer warpgroup a block, 32-key stages",
-                "bwd_dkv": "wgmma+TMA, one consumer warpgroup, a dV pass and a dK pass"}[kname]
-    if kname == "bwd_dkv" and dp == 128:
-        return "wgmma+TMA, one consumer warpgroup a block"
+    if kname == "bwd_dq":
+        return ("wgmma+TMA, one consumer warpgroup a block, 32-key stages" if dp > 128 else
+                DESIGNS[kname][1])
+    if kname == "bwd_dkv":
+        return DESIGNS[kname][1] + (", 64 keys a warpgroup" if dp <= 128 else
+                                    ", 64 keys a block shared, Pᵀ and dSᵀ through shared memory")
     return DESIGNS[kname][1]
 
 
@@ -1484,12 +1527,15 @@ def phase_kernels(device, table_out=None) -> tuple:
 
     fa = _flash_module()
     gen = torch.Generator(device=device).manual_seed(0)
-    worst = check_cases(fa, gen, device)
+    worst = check_cases(fa, gen, device, CASES)
     onchip = check_onchip_cases(fa, gen, device)
     check_served_views(fa, gen, device)
     for case in FAULT_CASES:
         check_planted_faults(fa, gen, device, case)
     check_merged_hops(fa, gen, device, (lambda B, S, _, H, D: (B, S, H, D))(*CASES[0][1]))
+    check_cases(fa, gen, device, LATE_CASES, worst)
+    for case in LATE_FAULT_CASES:
+        check_planted_faults(fa, gen, device, case)
     B, S, _, H, D = CASES[0][1]
     rows = time_kernel_rows(fa, gen, device, (B, S, H, D), "bfloat16", worst, "slice",
                             host=True)
@@ -1511,13 +1557,13 @@ def phase_kernels(device, table_out=None) -> tuple:
         rows += time_kernel_rows(fa, gen, device, (*ONCHIP_CASES[0][:3], D), "float32", worst,
                                  f"jax check f32 d{D}", reps=OFF_PATH_REPS)
     sweep = sweep_tiles(fa, gen, device, table_out)
-    # from a padded head dim of 192 one tile is compiled: the table's
-    # (128, 64) for the D-256 LM's key length resolves to it
+    # from a padded head dim of 192 one tile is compiled, 128 rows by 64 keys:
+    # the D-256 LM's key length resolves to it
     d256 = fa.resolve_blocks(LM_D256["seq_len"], LM_D256_ATTENTION[3], torch.bfloat16)
     compiled = fa.compiled_blocks(LM_D256_ATTENTION[3], torch.bfloat16)
     print(f"tiles: the wrapper resolves {LM_D256_ATTENTION} bf16 to {d256}; compiled "
           f"{list(compiled)}")
-    require(compiled == ((fa.TILE, fa.TILE),) and d256 == compiled[0],
+    require(compiled == ((2 * fa.TILE, fa.TILE),) and d256 == compiled[0],
             f"the D-256 shape resolves to {d256}, compiled {compiled}")
     sweep["resolved_d256"] = list(d256)
     return rows, {"onchip_cases": onchip, "sweep": sweep}
@@ -1932,8 +1978,8 @@ def phase_lm_wide(device, name: str, widths: dict, batch: int, steps: int, atten
     """The LM at ``widths`` (``name``: lm_d128, lm_d256 or lm_d512) trained by
     the ``Trainer`` on the card: finite, falling losses, exactly n_layers
     launches of each kernel a timed step, each launch of its head dim's bf16
-    variants (every pass of a dkv that runs as two; past a head dim of 256
-    the sliced kernels, named by their column slices) and the forward at the
+    variants (past a head dim of 256 the sliced kernels, named by their
+    column slices) and the forward at the
     tile the table resolves; one profiled step (tokens/s, MFU, peak memory,
     each kernel's device ms a call, the busy share). Then one step at depth
     2 through the kernels and through the plain attention path from the same
@@ -1959,23 +2005,20 @@ def phase_lm_wide(device, name: str, widths: dict, batch: int, steps: int, atten
             f"{steps} steps)")
     _, block_k = fa.resolve_blocks(cfg.seq_len, cfg.head_dim, torch.bfloat16)
     dp = fa.padded_head_dim(cfg.head_dim)
-    passes = fa.dkv_passes(cfg.head_dim, torch.bfloat16)
-    want_variants = {("fwd", "bfloat16", dp, fa.column_slices("fwd", cfg.head_dim) or block_k):
-                     want,
-                     ("bwd_dq", "bfloat16", dp, fa.column_slices("bwd_dq", cfg.head_dim)): want,
-                     **{("bwd_dkv", "bfloat16", dp, p): want for p in passes}}
+    want_variants = {(k, "bfloat16", dp, fa.column_slices(k, cfg.head_dim)
+                      or (block_k if k == "fwd" else None)): want for k in KERNELS}
     require(variants == want_variants, f"{name} variants {variants}, want {want_variants}")
     tokens = batch * cfg.seq_len / row["step_ms"] * 1e3
     print(f"{name}: batch {batch} x {cfg.seq_len}, head dim {cfg.head_dim}, {cfg.n_layers} "
           f"layers, {tokens:.0f} tokens/s, MFU {row['mfu']}, peak memory "
-          f"{row['peak_memory_gib']:.3f} GiB, launches {launches} ({len(passes)} CUDA "
-          f"launch(es) a dkv call), the forward at keys a stage {block_k}")
+          f"{row['peak_memory_gib']:.3f} GiB, launches {launches}, the forward at keys a "
+          f"stage {block_k}")
     kernels = run.profile(LM_GROUPS)
     in_step = {}
     for kname, (fn, _) in DESIGNS.items():
         sliced = FLASH_SLICED_NAMES[list(DESIGNS).index(kname)]
         hits = [e for e in kernels if fn in e.key or sliced in e.key]
-        n = sum(e.count for e in hits) / (len(passes) if kname == "bwd_dkv" else 1)
+        n = sum(e.count for e in hits)
         if n:
             in_step[kname] = sum(e.self_device_time_total for e in hits) / 1e3 / n
     print(f"profile {name}: flash kernels' device ms a call in the step: " + ", ".join(
@@ -6390,16 +6433,9 @@ def run(argv) -> int:
             fn = (FLASH_F32_SLICED_NAMES if f32 else FLASH_SLICED_NAMES)[i]
         else:
             fn = FLASH_F32_NAMES[i] if f32 else DESIGNS[row["name"]][0]
-        passes = (fa.dkv_passes(row["head_dim"], getattr(torch, row["dtype"]))
-                  if row["name"] == "bwd_dkv" and dp <= 256 else (None,))
-        if passes == (None,):
-            label = _label(row["dtype"], dp, row["block_k"])
-            row["sass"] = build["sass"][fn].get(label)
-            row["ptxas"] = build["ptxas"].get(f"{fn} {label}")
-        else:  # a launch a pass
-            labels = {p: _label(row["dtype"], dp, p) for p in passes}
-            row["sass"] = {p: build["sass"][fn].get(lb) for p, lb in labels.items()}
-            row["ptxas"] = {p: build["ptxas"].get(f"{fn} {lb}") for p, lb in labels.items()}
+        label = _label(row["dtype"], dp, row["block_k"])
+        row["sass"] = build["sass"][fn].get(label)
+        row["ptxas"] = build["ptxas"].get(f"{fn} {label}")
     checks["build_seconds"] = build["seconds"]
     # the rows of the D-64 bf16 kernels at the slice's shape, the forward at
     # the tile the slice's LM resolves, which every model phase but the wide

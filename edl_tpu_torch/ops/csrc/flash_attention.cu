@@ -11,11 +11,11 @@
 //
 //   element type   padded head dim               forward tile (rows, keys a stage)
 //   bf16           16, 32, 64, 128               (128, 64); also (128, 128) at 64 and 128
-//                  192, 256                      (64, 64)
+//                  192, 256                      (128, 64)
 //                  past 256: D up to a multiple  (64, 64), sliced: a block owns 256
 //                  of 64, read at run time       columns of O or dQ, 128 of dK and dV
 //   f16            16, 32, 64, 128               (128, 64)
-//                  192, 256                      (64, 64)
+//                  192, 256                      (128, 64)
 //                  past 256, as bf16             (64, 64), sliced
 //   f32            any D up to 256               (64, 64)
 //                  past 256, read at run time    (64, 64), sliced: 256 columns of O or
@@ -23,10 +23,8 @@
 //
 // A head dim D (a multiple of 8) runs the variant of the next padded head
 // dim; columns from D on load as zeros. flash_attention.py's
-// `compiled_blocks` mirrors this table. From a padded head dim of 192 up to
-// 256 the 16-bit dK and dV take two launches (flash_kernels.cuh,
-// `dkv_passes`); past 256 every kernel takes one, whose grid holds the
-// column slices.
+// `compiled_blocks` mirrors this table. Every call is one launch; past 256
+// its grid holds the column slices.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

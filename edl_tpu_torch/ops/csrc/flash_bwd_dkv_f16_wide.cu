@@ -1,6 +1,6 @@
 // The f16 variants of flash_bwd_dkv_kernel (flash_kernels.cuh) at padded head
-// dims 192 and 256 (each as its dV pass and its dK pass), compiled on their own
-// so that the build runs one nvcc process per unit (flash_launch.h).
+// dims 192 and 256, compiled on their own so that the build runs one nvcc
+// process per unit (flash_launch.h).
 
 #include "flash_kernels.cuh"
 

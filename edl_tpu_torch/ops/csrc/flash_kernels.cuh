@@ -49,10 +49,12 @@
 // 2^x on the special-function unit with scale·log2(e) folded into one
 // multiply.
 //
-// One design serves all three (see the note above each kernel): a producer
-// warp streams tiles by TMA into a ring of shared-memory stages guarded by
-// mbarriers, and one or two consumer warpgroups run every product as wgmma
-// while the next tiles load.
+// One dataflow serves all three (see the note above each kernel): a producer
+// streams tiles by TMA into a ring of shared-memory stages guarded by
+// mbarriers, and consumer warpgroups run every product as wgmma while the
+// next tiles load. The forward and dkv run a producer warpgroup and two
+// consumer warpgroups, with the registers moved to the consumers by
+// setmaxnreg; dq a producer warp and one or two consumer warpgroups.
 
 #pragma once
 
@@ -73,6 +75,13 @@ constexpr float kLn2 = 0.6931471805599453f;
 struct Strides {  // element strides of a (B, S, H, D) view; D has unit stride
   long long b, s, h;
 };
+
+// The warpgroup of this thread, broadcast from lane 0, so that the compiler
+// knows the role branches that test it are warp-uniform: ptxas allocates the
+// code after a setmaxnreg against its new limit only in such a branch.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -121,59 +130,74 @@ __device__ __forceinline__ int open_key_tiles(int n_kt, int Sk, int wg_row0, int
 
 // -- shared pieces --------------------------------------------------------------
 //
-// Every kernel runs one or two consumer warpgroups and one producer warp:
-// each consumer warpgroup owns 64 rows of the block's tile and runs wgmma on
-// them; one thread of the producer warp issues the TMA loads (in dkv the
-// whole warp also stages lse and delta). With two consumer warpgroups (9
-// warps a block), three warps share one quarter of the SM's register file,
-// so ptxas gives each thread at most 168 registers; with one (5 warps), two
-// share a quarter, and ptxas gives up to 255. The tiles are sized to that.
-// Up to DP 64: two consumers, 64 keys per forward and dq stage (S, P and O,
-// or S, dP, dS and dQ, in registers together), and a dkv that forms Pᵀ and
-// dSᵀ only between its products. At DP 128 the accumulators double (dQ 64
-// registers a thread, dK and dV 128): dq and the forward's 128-key tile
-// spill a little, and dkv, whose dK and dV alone take 128, runs one consumer
-// warpgroup a block (`dkv_consumers`). (Handing the producer's registers to
-// the consumers with setmaxnreg left ptxas's allocation at 168: PERF.md.) At
-// DP 192 and 256 one warpgroup's O or dQ takes 96 or 128 registers a thread,
-// so the forward and dq run one consumer warpgroup a block too
-// (`row_consumers`), dq with 32-key stages (`dq_keys`: S, dP and dS then
-// take 40 registers, not 80); and dK plus dV (192 or 256) no longer fit one
-// thread's 255, so dkv runs as two passes over the same tiles
-// (`dkv_passes`): one recomputes P and sums dV, the other recomputes P and
-// dP and sums dK.
+// The register budget. The forward and dkv run three warpgroups a block (384
+// threads): a producer warpgroup, one thread of which issues every TMA load
+// (in dkv one warp of it also stages lse and delta), and two consumer
+// warpgroups that run every product as wgmma. At launch the SM's 65,536
+// registers give each of the 384 threads 168, which is what `ptxas -v`
+// reports for these kernels. Right after the role split the producer
+// warpgroup drops to kProducerRegs with setmaxnreg.dec and the consumers
+// rise to kConsumerRegs with setmaxnreg.inc (128·24 + 256·240 = 64,512), and
+// ptxas allocates each role's code against its own limit: the consumers'
+// SASS names registers past 168 (up to R219 in the forward at DP 256, R189
+// in dkv) and holds no local-memory load or store (chip_smoke.py checks
+// both). That holds only while the kernel holds no `trap`: with the bounded
+// mbarrier wait (`mbar_wait`, which traps after 10 s) ptxas still names
+// registers past 168 but chooses its spills against 168, so these two
+// kernels wait with `mbar_wait_spin` (PERF.md §7). At DP 256 a forward
+// consumer holds O (128 registers a thread) and S (32) or P packed (16); a
+// dkv consumer holds dV or dK (128) and its 32 query columns of Sᵀ and dPᵀ
+// (16 each). dq keeps a producer warp: with two consumer warpgroups (9 warps) three
+// warps share a quarter of the register file, so ptxas gives each thread at
+// most 168, and with one (5 warps) up to 255; its tiles are sized to that:
+// two consumers up to DP 128, one from DP 192 (`row_consumers`) with 32-key
+// stages (`dq_keys`: S, dP and dS then take 40 registers, not 80).
+
+constexpr int kWsThreads = 384;  // the forward's and dkv's block: 2 consumer + 1 producer warpgroups
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kPingBarrier = 1;  // named barriers 1 and 2: the forward's ping-pong
+constexpr int kDkvBarrier = 1;   // dkv's hand-over of Pᵀ and dSᵀ
 
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block can take on the H100
 
 constexpr int kDkvRows = 64;  // query rows per dkv pipeline stage
 static_assert(kDkvRows == kTile, "first_query_tile() counts dkv query tiles of kTile rows");
 
-// The forward's and dq's consumer warpgroups a block, kTile query rows each:
-// two up to DP 128, one from DP 192.
+// dq's consumer warpgroups a block, kTile query rows each: two up to DP 128,
+// one from DP 192.
 template <int DP>
 __host__ __device__ constexpr int row_consumers() {
   return DP >= 192 ? 1 : 2;
+}
+
+// Whether a forward consumer warpgroup issues S of key tile kt together with
+// P·V of tile kt - 1 and runs the softmax of tile kt while P·V runs: up to DP
+// 128. From DP 192 O, S and P together with the products in flight need more
+// than the consumers' kConsumerRegs, so a warpgroup runs S, the softmax and
+// P·V of a tile in turn, and the other warpgroup's products fill the tensor
+// cores meanwhile (`PingPong`).
+template <int DP>
+__host__ __device__ constexpr bool fwd_overlap() {
+  return DP <= 128;
+}
+
+// How dkv's two consumer warpgroups share a block's keys. Up to DP 128 each
+// owns 64 of the block's 128 keys and forms its Pᵀ and dSᵀ in registers, the
+// register operands of its own dV and dK products (at DP 128 dK, dV, Sᵀ,
+// dPᵀ and their packed forms take up to R223 of the consumers' 240); 64 keys
+// a block would stream Q and dO twice as often for the same sums. From DP
+// 192 (dK and dV together no longer fit a thread) the two share 64 keys:
+// each forms Pᵀ and dSᵀ for half of a query tile's columns into shared
+// memory, then warpgroup 0 sums dV and warpgroup 1 dK.
+template <int DP>
+__host__ __device__ constexpr bool dkv_own_keys() {
+  return DP <= 128;
 }
 
 // dq's keys a pipeline stage: 64, and 32 from DP 192.
 template <int DP>
 __host__ __device__ constexpr int dq_keys() {
   return DP >= 192 ? 32 : 64;
-}
-
-// dkv's consumer warpgroups a block, 64 keys each: one from DP 128, two below.
-template <int DP>
-__host__ __device__ constexpr int dkv_consumers() {
-  return DP >= 128 ? 1 : 2;
-}
-
-// What one dkv launch sums: dK and dV together, or (from DP 192, where they
-// do not fit one thread's registers together) dV alone, then dK alone.
-enum DkvPass { kDkvBoth = 0, kDkvDv = 1, kDkvDk = 2 };
-
-template <int DP>
-__host__ __device__ constexpr int dkv_passes() {
-  return DP >= 192 ? 2 : 1;
 }
 
 __host__ __device__ constexpr int block_threads(int consumers) { return consumers * 128 + 32; }
@@ -205,16 +229,21 @@ struct DqSmem {
   static_assert(kStages >= 2 && kBytes <= kSmemMax, "dq shared memory");
 };
 
-// dkv's: the K and V tiles of KEYS keys, the Q/dO stages of kDkvRows rows
-// with their lse and delta (as many as fit, at most 3) and the barriers.
-template <int DP, int KEYS>
+// dkv's: the K and V tiles of kKeys keys (`dkv_own_keys`: 128 or 64), where
+// the warpgroups share the keys two Pᵀ and two dSᵀ tiles (kTile keys x
+// kDkvRows queries, one for the query tile being formed and one for the
+// tile being summed), the Q/dO stages of kDkvRows rows with their lse and
+// delta (as many as fit, at most 3) and the barriers.
+template <int DP>
 struct DkvSmem {
-  static constexpr int kKVBytes = KEYS * DP * 2, kQBytes = kDkvRows * DP * 2;
+  static constexpr int kKeys = dkv_own_keys<DP>() ? 2 * kTile : kTile;
+  static constexpr int kKVBytes = kKeys * DP * 2, kQBytes = kDkvRows * DP * 2;
+  static constexpr int kPBytes = dkv_own_keys<DP>() ? 0 : 2 * 2 * kTile * kDkvRows * 2;
   static constexpr int kStageBytes = 2 * kQBytes + 2 * kDkvRows * (int)sizeof(float);
-  static constexpr int kFit = (kSmemMax - 1024 - 2 * kKVBytes - 7 * 8) / kStageBytes;
+  static constexpr int kFit = (kSmemMax - 1024 - 2 * kKVBytes - kPBytes - 7 * 8) / kStageBytes;
   static constexpr int kStages = kFit < 3 ? kFit : 3;
   static constexpr size_t kBytes =
-      1024 + 2 * kKVBytes + kStages * kStageBytes + (1 + 2 * kStages) * 8;
+      1024 + 2 * kKVBytes + kPBytes + kStages * kStageBytes + (1 + 2 * kStages) * 8;
   static_assert(kStages >= 2 && kBytes <= kSmemMax, "dkv shared memory");
 };
 
@@ -256,18 +285,18 @@ __device__ __forceinline__ void store2(T* p, float x0, float x1) {
   *reinterpret_cast<uint32_t*>(p) = hopper::Elem<T>::pack(x0, x1);
 }
 
-// X = A·Bᵀ (64 x BROWS) for one warpgroup, left uncommitted: A is the
-// warpgroup's own 64 rows (descriptor ax, of a tile of AROWS rows), B a tile
-// of BROWS rows (32 or 64), both K-major.
-template <typename T, int DP, int AROWS, int BROWS>
-__device__ __forceinline__ void issue_abt(float (&x)[BROWS / 2], uint64_t ax, const T* bx_tile) {
+// X = A·Bᵀ (64 x N) for one warpgroup, left uncommitted: A is the
+// warpgroup's own 64 rows (descriptor ax, of a tile of AROWS rows), B the N
+// rows (32 or 64) from bx_rows of a tile of BROWS rows, both K-major.
+template <typename T, int DP, int AROWS, int BROWS, int N = BROWS>
+__device__ __forceinline__ void issue_abt(float (&x)[N / 2], uint64_t ax, const T* bx_rows) {
   using hopper::desc_add;
   using hopper::kmajor_step;
-  const uint64_t bx = hopper::make_desc<DP, BROWS>(bx_tile);
+  const uint64_t bx = hopper::make_desc<DP, BROWS>(bx_rows);
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
-    hopper::wgmma_ss<T, BROWS>(x, desc_add(ax, kmajor_step<DP, AROWS>(kk)),
-                               desc_add(bx, kmajor_step<DP, BROWS>(kk)), kk);
+    hopper::wgmma_ss<T, N>(x, desc_add(ax, kmajor_step<DP, AROWS>(kk)),
+                           desc_add(bx, kmajor_step<DP, BROWS>(kk)), kk);
   }
 }
 
@@ -305,6 +334,65 @@ __device__ __forceinline__ void issue_rs_mn(float (&acc)[DP / 2], const uint32_t
     }
   }
 }
+
+// The same with A (64 x K) in shared memory, a kTile-row tile of K
+// 16-bit columns stored K-major and 128B-swizzled (`store_swizzled`;
+// descriptor a): dkv's Pᵀ·dO and dSᵀ·Q.
+template <typename T, int DP, int K>
+__device__ __forceinline__ void issue_ss_mn(float (&acc)[DP / 2], uint64_t a, const T* b_tile) {
+  constexpr int kN0 = DP > 128 ? 128 : DP, kN1 = DP - kN0;
+  constexpr uint32_t kN1Offset = 2 * K * hopper::Span<DP>::kSpan * 2;  // chunk 2's bytes
+  const uint64_t b = hopper::make_desc<DP, K>(b_tile);
+  float(&acc0)[kN0 / 2] = *reinterpret_cast<float(*)[kN0 / 2]>(&acc[0]);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t step = kk * 16 * hopper::Span<DP>::kSpan * 2;
+    const uint64_t ak = hopper::desc_add(a, hopper::kmajor_step<K, kTile>(kk));
+    hopper::wgmma_ss_mn<T, kN0>(acc0, ak, hopper::desc_add(b, step));
+    if constexpr (kN1 > 0) {
+      float(&acc1)[kN1 / 2] = *reinterpret_cast<float(*)[kN1 / 2]>(&acc[kN0 / 2]);
+      hopper::wgmma_ss_mn<T, kN1>(acc1, ak, hopper::desc_add(b, kN1Offset + step));
+    }
+  }
+}
+
+// A thread's part of a kTile x 64 tile in the accumulator layout (x: N / 4
+// groups of 8 columns from column col0, rows row and row + 8), rounded to T
+// and stored as TMA stores a tile of 64 16-bit columns: 128-byte rows,
+// 128B-swizzled (the 16-byte unit u of row R at unit u ^ (R mod 8)), so that
+// `make_desc<64, kTile>` reads it. The tile starts on a 1024-byte boundary.
+template <typename T, int N>
+__device__ __forceinline__ void store_swizzled(T* tile, const float (&x)[N], int row, int col0) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int R = row + 8 * r, C = col0 + 8 * j;
+      const int off = R * 128 + ((((C >> 3) ^ R) & 7) << 4) + (C & 7) * 2;
+      *reinterpret_cast<uint32_t*>(base + off) =
+          hopper::Elem<T>::pack(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+    }
+}
+
+// The order of the two consumer warpgroups' wgmma issues (the ping-pong),
+// over named barriers kPingBarrier (warpgroup 0 waits there) and
+// kPingBarrier + 1 (warpgroup 1): before each issue a warpgroup waits for
+// the other's arrival after its previous issue, and after the issue it
+// arrives for the other, so that one warpgroup's products run on the tensor
+// cores while the other runs its softmax. Warpgroup 0 issues first: it skips
+// its first wait and warpgroup 1 its last arrival, so each barrier completes
+// as often as it is waited on. Both pass the same n issue points.
+struct PingPong {
+  int wg, n, i;
+  __device__ __forceinline__ void before() {
+    if (wg == 1 || i > 0) hopper::named_bar_sync(kPingBarrier + wg, 256);
+  }
+  __device__ __forceinline__ void after() {
+    if (wg == 0 || i < n - 1) hopper::named_bar_arrive(kPingBarrier + (wg ^ 1), 256);
+    ++i;
+  }
+};
 
 // -- forward ------------------------------------------------------------------
 
@@ -401,21 +489,24 @@ __device__ __forceinline__ void fwd_issue_s(float (&sc)[KEYS / 64][32], uint64_t
 }
 
 // One step of a consumer warpgroup's pipeline at key tile kt >= 1: issue
-// S = Q·K_ktᵀ and O += P_(kt-1)·V_(kt-1), run the softmax of tile kt while
-// P·V runs, release tile kt - 1's stage, rescale O and pack P_kt.
+// S = Q·K_ktᵀ and O += P_(kt-1)·V_(kt-1) in the warpgroups' turn (`pp`), run
+// the softmax of tile kt while P·V runs, release tile kt - 1's stage,
+// rescale O and pack P_kt.
 template <typename T, int DP, int KEYS, int ROWS, int STAGES, bool kMasked>
 __device__ __forceinline__ void fwd_step(int kt, float (&sc)[KEYS / 64][32],
                                          uint32_t (&pa)[KEYS / 16][4], float (&acc)[DP / 2],
                                          float (&m)[2], float (&l)[2], float (&lr)[2], uint64_t dq,
                                          const T* sk, const T* sv, uint64_t* full,
-                                         uint64_t* empty, const FwdRows& rows) {
+                                         uint64_t* empty, const FwdRows& rows, PingPong& pp) {
   using namespace hopper;
   const int s = kt % STAGES, prev = (kt - 1) % STAGES;
-  mbar_wait(&full[s], (kt / STAGES) & 1);
+  mbar_wait_spin(&full[s], (kt / STAGES) & 1);
+  pp.before();
   wgmma_fence();
   fwd_issue_s<T, DP, KEYS, ROWS>(sc, dq, sk + s * KEYS * DP);
   issue_rs_mn<T, DP, KEYS>(acc, pa, sv + prev * KEYS * DP);
   wgmma_commit();
+  pp.after();
   wgmma_wait<1>();  // S done, P·V may still run
   fence_regs(sc);
   float alpha[2];
@@ -431,34 +522,70 @@ __device__ __forceinline__ void fwd_step(int kt, float (&sc)[KEYS / 64][32],
   packed_row_sums<T>(lr, alpha, pa);
 }
 
+// One tile of a consumer warpgroup that does not overlap its own products
+// (`fwd_overlap`): S = Q·K_ktᵀ in the warpgroups' turn, the softmax, O
+// rescaled, P packed, O += P·V, and tile kt's stage released.
+template <typename T, int DP, int KEYS, int ROWS, int STAGES, bool kMasked>
+__device__ __forceinline__ void fwd_tile(int kt, float (&sc)[KEYS / 64][32],
+                                         uint32_t (&pa)[KEYS / 16][4], float (&acc)[DP / 2],
+                                         float (&m)[2], float (&l)[2], float (&lr)[2], uint64_t dq,
+                                         const T* sk, const T* sv, uint64_t* full,
+                                         uint64_t* empty, const FwdRows& rows, PingPong& pp) {
+  using namespace hopper;
+  const int s = kt % STAGES;
+  mbar_wait_spin(&full[s], (kt / STAGES) & 1);
+  pp.before();
+  wgmma_fence();
+  fwd_issue_s<T, DP, KEYS, ROWS>(sc, dq, sk + s * KEYS * DP);
+  pp.after();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  float alpha[2];
+  fwd_softmax<kMasked>(sc, m, l, alpha, kt * KEYS, rows);
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+  pack_a<T>(pa, sc);
+  packed_row_sums<T>(lr, alpha, pa);
+  wgmma_fence();
+  issue_rs_mn<T, DP, KEYS>(acc, pa, sv + s * KEYS * DP);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(pa);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);
+}
+
 // Replaces _fwd_kernel of edl_tpu/ops/flash_attention.py.
 // Bound on the H100: 4·D FLOPs per visible (query, key) pair against 8·D
 // bytes per row moved (16-bit q, k, v, o), so a causal sequence of 1024 at D
 // 64 sits near the ridge and the LM's 2048 at D 128 is FLOP-bound (~0.069 ms
 // of bf16 FLOPs at B 4, H 16; 0.139 ms at D 256). Design: one block owns 128
-// query rows (64 from DP 192: `row_consumers`) of one (batch, head), the
-// heaviest query tiles launched first. The producer loads
-// the Q tile once and streams KEYS-key K and V tiles by TMA through a ring of
-// stages (full/empty mbarriers), so later tiles load while this one is
-// multiplied. Each consumer warpgroup computes S = Q·Kᵀ for its 64 rows as
+// query rows of one (batch, head) at every DP, the heaviest query tiles
+// launched first, so each K/V tile read from L2 serves 128 rows. A producer
+// warpgroup (setmaxnreg down to kProducerRegs) loads the Q tile once and
+// streams KEYS-key K and V tiles by TMA through a ring of stages
+// (full/empty mbarriers). Two consumer warpgroups (setmaxnreg up to
+// kConsumerRegs) own 64 rows each: each computes S = Q·Kᵀ for its rows as
 // wgmma with both operands in shared memory, runs the online softmax on the
 // accumulator fragment (the mask is evaluated only on tiles that cross the
 // diagonal or the ragged edge), rounds P to T in registers and feeds it as
-// the register operand of O += P·V, with V read MN-major. The warpgroup
-// issues S of tile kt and P·V of tile kt - 1 together and runs the softmax
-// of tile kt while P·V runs, so the exponentials overlap the tensor cores.
-// S and P never leave registers; each K/V tile is read once per block.
-// KEYS (64 or 128) is the tile that the tuning table picks
-// (ops/flash_tuning.py): 128 halves the stages' barrier round trips and
-// doubles the softmax's registers. NC is the consumer warpgroups a block.
-template <typename T, int DP, int KEYS, int NC>
-__global__ void __launch_bounds__(block_threads(NC), 1) flash_fwd_kernel(
+// the register operand of O += P·V, with V read MN-major. Inside a
+// warpgroup, S of tile kt and P·V of tile kt - 1 issue together and the
+// softmax of tile kt runs while P·V runs (up to DP 128: `fwd_overlap`);
+// between the warpgroups, named barriers take turns (`PingPong`), so one
+// warpgroup's products run while the other's softmax does. S and P never leave registers; each K/V tile is
+// read once per block. KEYS (64 or 128) is the tile that the tuning table
+// picks (ops/flash_tuning.py): 128 halves the stages' barrier round trips
+// and doubles the softmax's registers.
+template <typename T, int DP, int KEYS>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, void* __restrict__ o, float* __restrict__ lse,
     int H, int Sq, int Sk, int D, int q_offset, int k_offset, float scale_log2, int causal,
     int out_f32) {
   using namespace hopper;
-  constexpr int kRows = NC * kTile;  // query rows a block
+  constexpr int kRows = 2 * kTile;  // query rows a block
   using Smem = FwdSmem<DP, kRows, KEYS>;
   constexpr int kStages = Smem::kStages, kQBytes = Smem::kQBytes, kKVBytes = Smem::kKVBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -482,15 +609,16 @@ __global__ void __launch_bounds__(block_threads(NC), 1) flash_fwd_kernel(
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], NC * 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == NC) {  // the producer warp
-    if (threadIdx.x == NC * 128) {  // one thread issues every load
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {  // one thread issues every load
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
@@ -498,13 +626,14 @@ __global__ void __launch_bounds__(block_threads(NC), 1) flash_fwd_kernel(
       tma_load_tile<DP, kRows>(sq, &tq, q_full, h, q0, b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kStages;
-        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_wait_spin(&empty[s], ((kt / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
         tma_load_tile<DP, KEYS>(sk + s * KEYS * DP, &tk, &full[s], h, kt * KEYS, b);
         tma_load_tile<DP, KEYS>(sv + s * KEYS * DP, &tv, &full[s], h, kt * KEYS, b);
       }
     }
   } else {  // consumer warpgroup wg: query rows q0 + 64·wg ...
+    setmaxnreg_inc<kConsumerRegs>();
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int wg_row0 = q0 + wg * 64;
     const int row0 = wg_row0 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's first row
@@ -517,45 +646,63 @@ __global__ void __launch_bounds__(block_threads(NC), 1) flash_fwd_kernel(
     float l[2] = {0.f, 0.f}, lr[2] = {0.f, 0.f};  // the sums of P and of P rounded to T
     float sc[KEYS / 64][32];    // S, then P in f32, keys 64·c + ..., accumulator layout
     uint32_t pa[KEYS / 16][4];  // P in T: the A fragments of P·V
-    float alpha[2];             // the first tile's: O is still 0
 
-    mbar_wait(q_full, 0);
+    mbar_wait_spin(q_full, 0);
     const uint64_t dq = make_desc<DP, kRows>(sq + wg * 64 * Span<DP>::kSpan);
     const int n_open = open_key_tiles<KEYS>(n_kt, Sk, wg_row0, q_offset, k_offset, causal);
 
-    // Software pipeline inside the warpgroup: while the tensor cores run
-    // O += P·V of tile kt - 1, the softmax of tile kt runs on S. The code
-    // between a wgmma's issue and its wait has no branch: the mask is a
-    // template parameter of each loop, not a runtime test.
-    if (n_kt > 0) {
-      mbar_wait(&full[0], 0);
-      wgmma_fence();
-      fwd_issue_s<T, DP, KEYS, kRows>(sc, dq, sk);
-      wgmma_wait<0>();
-      fence_regs(sc);
-      if (n_open > 0) {
-        fwd_softmax<false>(sc, m, l, alpha, 0, rows);
-      } else {
-        fwd_softmax<true>(sc, m, l, alpha, 0, rows);
+    // The code between a wgmma's issue and its wait has no branch: the mask
+    // is a template parameter of each loop, not a runtime test.
+    if constexpr (fwd_overlap<DP>()) {
+      // Software pipeline inside the warpgroup: while the tensor cores run
+      // O += P·V of tile kt - 1, the softmax of tile kt runs on S. n_kt + 1
+      // issue points: S of tile 0, the n_kt - 1 steps, the last P·V.
+      PingPong pp = {wg, n_kt + 1, 0};
+      float alpha[2];  // the first tile's: O is still 0
+      if (n_kt > 0) {
+        mbar_wait_spin(&full[0], 0);
+        pp.before();
+        wgmma_fence();
+        fwd_issue_s<T, DP, KEYS, kRows>(sc, dq, sk);
+        pp.after();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (n_open > 0) {
+          fwd_softmax<false>(sc, m, l, alpha, 0, rows);
+        } else {
+          fwd_softmax<true>(sc, m, l, alpha, 0, rows);
+        }
+        pack_a<T>(pa, sc);
+        packed_row_sums<T>(lr, alpha, pa);
       }
-      pack_a<T>(pa, sc);
-      packed_row_sums<T>(lr, alpha, pa);
-    }
-    for (int kt = 1; kt < n_open; ++kt) {
-      fwd_step<T, DP, KEYS, kRows, kStages, false>(kt, sc, pa, acc, m, l, lr, dq, sk, sv, full,
-                                                   empty, rows);
-    }
-    for (int kt = n_open > 1 ? n_open : 1; kt < n_kt; ++kt) {
-      fwd_step<T, DP, KEYS, kRows, kStages, true>(kt, sc, pa, acc, m, l, lr, dq, sk, sv, full,
-                                                  empty, rows);
-    }
-    if (n_kt > 0) {
-      wgmma_fence();
-      issue_rs_mn<T, DP, KEYS>(acc, pa, sv + (n_kt - 1) % kStages * KEYS * DP);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(pa);
+      for (int kt = 1; kt < n_open; ++kt) {
+        fwd_step<T, DP, KEYS, kRows, kStages, false>(kt, sc, pa, acc, m, l, lr, dq, sk, sv,
+                                                     full, empty, rows, pp);
+      }
+      for (int kt = n_open > 1 ? n_open : 1; kt < n_kt; ++kt) {
+        fwd_step<T, DP, KEYS, kRows, kStages, true>(kt, sc, pa, acc, m, l, lr, dq, sk, sv,
+                                                    full, empty, rows, pp);
+      }
+      if (n_kt > 0) {
+        pp.before();
+        wgmma_fence();
+        issue_rs_mn<T, DP, KEYS>(acc, pa, sv + (n_kt - 1) % kStages * KEYS * DP);
+        wgmma_commit();
+        pp.after();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+      }
+    } else {
+      PingPong pp = {wg, n_kt, 0};  // one issue point a tile: its S
+      for (int kt = 0; kt < n_open; ++kt) {
+        fwd_tile<T, DP, KEYS, kRows, kStages, false>(kt, sc, pa, acc, m, l, lr, dq, sk, sv,
+                                                     full, empty, rows, pp);
+      }
+      for (int kt = n_open; kt < n_kt; ++kt) {
+        fwd_tile<T, DP, KEYS, kRows, kStages, true>(kt, sc, pa, acc, m, l, lr, dq, sk, sv,
+                                                    full, empty, rows, pp);
+      }
     }
 
     const int g = lane >> 2;
@@ -802,63 +949,73 @@ struct DkvKeys {
   float scale, scale_log2;
 };
 
-// Pᵀ = exp(Sᵀ·scale − lse) and dSᵀ = Pᵀ ∘ (dPᵀ − delta) · scale in place, for
-// the query tile at q0 whose lse (times log2 e) and delta are `ls` and `dl`;
-// masked entries are exactly 0 through their validity. Unless kMasked,
-// every entry is visible and no mask is evaluated. The dV pass forms Pᵀ
-// alone (dpt is not read), the dK pass dSᵀ alone (st is left as Sᵀ).
-template <bool kMasked, int PASS>
-__device__ __forceinline__ void dkv_probs(float (&st)[32], float (&dpt)[32], const float* ls,
+// Pᵀ = exp(Sᵀ·scale − lse) and dSᵀ = Pᵀ ∘ (dPᵀ − delta) · scale in place, on
+// a thread's part of N / 4 groups of 8 query columns whose first query is
+// q0, with their lse (times log2 e) and delta at `ls` and `dl`; masked
+// entries are exactly 0 through their validity. Unless kMasked, every entry
+// is visible and no mask is evaluated.
+template <bool kMasked, int N>
+__device__ __forceinline__ void dkv_probs(float (&st)[N], float (&dpt)[N], const float* ls,
                                           const float* dl, int q0, const DkvKeys& k) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
-    const int qi = (i >> 2) * 8 + 2 * k.t + (i & 1);  // query row within the tile
+    const int qi = (i >> 2) * 8 + 2 * k.t + (i & 1);  // query column from q0
     const bool ok = !kMasked || (k.krow + 8 * r < k.Sk && q0 + qi < k.Sq &&
                                 (!k.causal || k.kpos + 8 * r <= k.q_offset + q0 + qi));
     const float p = ok ? hopper::exp2_approx(st[i] * k.scale_log2 - ls[qi]) : 0.f;
-    if constexpr (PASS != kDkvDk) st[i] = p;
-    if constexpr (PASS != kDkvDv) dpt[i] = p * (dpt[i] - dl[qi]) * k.scale;
+    st[i] = p;
+    dpt[i] = p * (dpt[i] - dl[qi]) * k.scale;
   }
 }
 
 // Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py.
 // Bound on the H100: 8·D FLOPs per visible pair (Sᵀ, dPᵀ, dV and dK products)
 // against 12·D bytes per row: FLOP-bound at the LM's shapes. Design:
-// key-tile outer, query-tile inner. One block owns 64 keys a consumer
-// warpgroup (`dkv_consumers`: 128 keys, 64 from DP 128) of one (batch, head),
-// the earliest (most-seen) key tiles launched first. K and V are loaded once
-// by TMA; 64-query tiles of Q and dO stream through a ring of up to 3 stages
-// by TMA, with their lse (pre-multiplied by log2 e) and delta stored beside
-// them by the producer warp, from the first query tile that can see the
-// block's keys. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are wgmma with both operands in
-// shared memory; Pᵀ and dSᵀ are formed in registers (masked only on tiles
-// that cross the diagonal or the ragged edge), rounded to T and fed as
-// register operands of dV += Pᵀ·dO and dK += dSᵀ·Q with dO and Q read
-// MN-major. dK and dV stay in f32 registers and are written once: each block
-// owns its output rows, so there are no atomics and the sums are
-// deterministic. PASS (`DkvPass`) is what the launch sums: from DP 192 the
-// dV pass (Sᵀ, Pᵀ, Pᵀ·dO; V is not loaded) and then the dK pass (Sᵀ, dPᵀ,
-// dSᵀ, dSᵀ·Q) each recompute Pᵀ from lse, 10·D FLOPs a visible pair in all.
-template <typename T, int DP, int PASS>
-__global__ void __launch_bounds__(block_threads(dkv_consumers<DP>()), 1) flash_bwd_dkv_kernel(
+// key-tile outer, query-tile inner, one launch at every DP and no product
+// recomputed. One block owns kKeys keys of one (batch, head), the earliest
+// (most-seen) key tiles launched first. A producer warpgroup (setmaxnreg
+// down) loads K and V once by TMA and streams 64-query tiles of Q and dO
+// through a ring of stages, with their lse (pre-multiplied by log2 e) and
+// delta stored beside them by its first warp, from the first query tile
+// that can see the block's keys. Two consumer warpgroups (setmaxnreg up)
+// compute Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as wgmma with both operands in shared
+// memory and form Pᵀ and dSᵀ in f32 (masked only on tiles that cross the
+// diagonal or the ragged edge), in one of two layouts (`dkv_own_keys`):
+//  * up to DP 128, 128 keys a block, 64 a warpgroup: each warpgroup forms
+//    all of its tile's Pᵀ and dSᵀ, rounds them to T in registers and feeds
+//    them as the register operands of dV += Pᵀ·dO and dK += dSᵀ·Q, with dO
+//    and Q read MN-major;
+//  * from DP 192, 64 keys a block, shared: warpgroup w computes Sᵀ and dPᵀ
+//    for queries 32w ... 32w + 31 (N = 32) and stores Pᵀ and dSᵀ, rounded
+//    to T, into shared memory as 128B-swizzled K-major tiles; a named
+//    barrier hands the two halves over, and warpgroup 0 sums dV += Pᵀ·dO
+//    and warpgroup 1 dK += dSᵀ·Q, each a wgmma with A the whole 64 x 64
+//    tile in shared memory. The Pᵀ and dSᵀ tiles are double-buffered, so a
+//    warpgroup may form tile i + 1 while the other still sums tile i.
+// dK and dV stay in f32 registers and are written once: each block owns its
+// output rows, so there are no atomics and the sums are deterministic.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
     T* __restrict__ dv, int H, int Sq, int Sk, int D, int q_offset, int k_offset,
     float scale, float scale_log2, int causal) {
   using namespace hopper;
-  constexpr bool kSumDv = PASS != kDkvDk, kSumDk = PASS != kDkvDv;
-  constexpr int kConsumersDkv = dkv_consumers<DP>(), kKeys = kConsumersDkv * kTile;
-  using Smem = DkvSmem<DP, kKeys>;
+  using Smem = DkvSmem<DP>;
   constexpr int kStages = Smem::kStages, kKVBytes = Smem::kKVBytes, kQBytes = Smem::kQBytes;
+  constexpr int kKeys = Smem::kKeys;
+  constexpr int kPTile = Smem::kPBytes ? kTile * kDkvRows : 0;  // one Pᵀ or dSᵀ tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   T* sk = reinterpret_cast<T*>(smem);
   T* sv = reinterpret_cast<T*>(smem + kKVBytes);
   T* sq = reinterpret_cast<T*>(smem + 2 * kKVBytes);
   T* sdo = reinterpret_cast<T*>(smem + 2 * kKVBytes + kStages * kQBytes);
-  float* slse = reinterpret_cast<float*>(smem + 2 * kKVBytes + 2 * kStages * kQBytes);
+  T* spt = reinterpret_cast<T*>(smem + 2 * kKVBytes + 2 * kStages * kQBytes);  // 2 Pᵀ tiles
+  T* sdst = spt + 2 * kPTile;                                                   // 2 dSᵀ tiles
+  float* slse = reinterpret_cast<float*>(sdst + 2 * kPTile);
   float* sdelta = slse + kStages * kDkvRows;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sdelta + kStages * kDkvRows);
   uint64_t* full = kv_full + 1;
@@ -875,62 +1032,61 @@ __global__ void __launch_bounds__(block_threads(dkv_consumers<DP>()), 1) flash_b
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 32);                  // the producer warp's 32 lanes
-      mbar_init(&empty[s], kConsumersDkv * 4);  // one arrival per consumer warp
+      mbar_init(&full[s], 32);  // the producer warp's 32 lanes
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  const int wg = warpgroup_index();
   const int lane = threadIdx.x & 31;
-  if (wg == kConsumersDkv) {  // the producer warp
-    if (lane == 0) {
-      tma_prefetch_map(&tq);
-      tma_prefetch_map(&tdo);
-      mbar_arrive_expect_tx(kv_full, (kSumDk ? 2 : 1) * kKVBytes);
-      tma_load_tile<DP, kKeys>(sk, &tk, kv_full, h, k0, b);
-      if constexpr (kSumDk) tma_load_tile<DP, kKeys>(sv, &tv, kv_full, h, k0, b);
-    }
-    const float* lseb = lse + (long long)bh * Sq;
-    const float* deltab = delta + (long long)bh * Sq;
-    for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
-      const int s = it % kStages, q0 = qt * kDkvRows;
-      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-      for (int r = lane; r < kDkvRows; r += 32) {
-        const bool ok = q0 + r < Sq;
-        slse[s * kDkvRows + r] = ok ? lseb[q0 + r] * kLog2e : 0.f;
-        sdelta[s * kDkvRows + r] = ok ? deltab[q0 + r] : 0.f;
+  if (wg == 2) {  // the producer warpgroup; its first warp works
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 256 + 32) {
+      if (lane == 0) {
+        tma_prefetch_map(&tq);
+        tma_prefetch_map(&tdo);
+        mbar_arrive_expect_tx(kv_full, 2 * kKVBytes);
+        tma_load_tile<DP, kKeys>(sk, &tk, kv_full, h, k0, b);
+        tma_load_tile<DP, kKeys>(sv, &tv, kv_full, h, k0, b);
       }
-      if (lane == 0) {  // its arrival releases its own stores, as every lane's does
-        mbar_arrive_expect_tx(&full[s], 2 * kQBytes);
-        tma_load_tile<DP, kDkvRows>(sq + s * kDkvRows * DP, &tq, &full[s], h, q0, b);
-        tma_load_tile<DP, kDkvRows>(sdo + s * kDkvRows * DP, &tdo, &full[s], h, q0, b);
-      } else {
-        mbar_arrive(&full[s]);
+      const float* lseb = lse + (long long)bh * Sq;
+      const float* deltab = delta + (long long)bh * Sq;
+      for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
+        const int s = it % kStages, q0 = qt * kDkvRows;
+        mbar_wait_spin(&empty[s], ((it / kStages) & 1) ^ 1);
+        for (int r = lane; r < kDkvRows; r += 32) {
+          const bool ok = q0 + r < Sq;
+          slse[s * kDkvRows + r] = ok ? lseb[q0 + r] * kLog2e : 0.f;
+          sdelta[s * kDkvRows + r] = ok ? deltab[q0 + r] : 0.f;
+        }
+        if (lane == 0) {  // its arrival releases its own stores, as every lane's does
+          mbar_arrive_expect_tx(&full[s], 2 * kQBytes);
+          tma_load_tile<DP, kDkvRows>(sq + s * kDkvRows * DP, &tq, &full[s], h, q0, b);
+          tma_load_tile<DP, kDkvRows>(sdo + s * kDkvRows * DP, &tdo, &full[s], h, q0, b);
+        } else {
+          mbar_arrive(&full[s]);
+        }
       }
     }
-  } else {  // consumer warpgroup wg: keys k0 + 64·wg ...
+  } else if constexpr (dkv_own_keys<DP>()) {  // consumer warpgroup wg: keys k0 + 64·wg ...
+    setmaxnreg_inc<kConsumerRegs>();
     const int g = lane >> 2, t = lane & 3;
     const int wg_key0 = k0 + wg * 64;
     const int krow0 = wg_key0 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's first key
-    const int kpos = k_offset + krow0 + g;                       // global position of key g
+    const DkvKeys keys = {k_offset + krow0 + g, krow0 + g, t, Sq, Sk, causal, q_offset,
+                          scale, scale_log2};
 
-    // dK and dV, each only in the pass that sums it
-    float dk_acc[kSumDk ? DP / 2 : 1], dv_acc[kSumDv ? DP / 2 : 1];
+    float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) {
-      if constexpr (kSumDk) dk_acc[i] = 0.f;
-      if constexpr (kSumDv) dv_acc[i] = 0.f;
-    }
-
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     float st[32], dpt[32];        // Sᵀ and dPᵀ, then Pᵀ and dSᵀ in f32: rows are keys
     uint32_t pa[4][4], da[4][4];  // Pᵀ and dSᵀ in T: the A fragments
 
-    mbar_wait(kv_full, 0);
-    const uint64_t dkd = make_desc<DP, kKeys>(sk + wg * 64 * Span<DP>::kSpan);
-    const uint64_t dvd = make_desc<DP, kKeys>(sv + wg * 64 * Span<DP>::kSpan);
-    const DkvKeys keys = {kpos, krow0 + g, t, Sq, Sk, causal, q_offset, scale, scale_log2};
+    mbar_wait_spin(kv_full, 0);
+    const uint64_t kd = make_desc<DP, kKeys>(sk + wg * 64 * Span<DP>::kSpan);
+    const uint64_t vd = make_desc<DP, kKeys>(sv + wg * 64 * Span<DP>::kSpan);
     // Query tile qt is masked iff it crosses the ragged edge or this
     // warpgroup's diagonal (its first query does not see all 64 keys).
     const bool keys_ragged = wg_key0 + 64 > Sk;
@@ -940,37 +1096,30 @@ __global__ void __launch_bounds__(block_threads(dkv_consumers<DP>()), 1) flash_b
       const int s = it % kStages, q0 = qt * kDkvRows;
       const T* q_tile = sq + s * kDkvRows * DP;
       const T* do_tile = sdo + s * kDkvRows * DP;
-      mbar_wait(&full[s], (it / kStages) & 1);
+      mbar_wait_spin(&full[s], (it / kStages) & 1);
       wgmma_fence();
-      if constexpr (kSumDk) {
-        issue_abt_pair<T, DP, kKeys, kDkvRows>(st, dpt, dkd, dvd, q_tile, do_tile);
-      } else {
-        issue_abt<T, DP, kKeys, kDkvRows>(st, dkd, q_tile);
-        wgmma_commit();
-      }
+      issue_abt_pair<T, DP, kKeys, kDkvRows>(st, dpt, kd, vd, q_tile, do_tile);
       wgmma_wait<0>();
       fence_regs(st);
-      if constexpr (kSumDk) fence_regs(dpt);
+      fence_regs(dpt);
+      const float* ls = slse + s * kDkvRows;
+      const float* dl = sdelta + s * kDkvRows;
       if (keys_ragged || q0 + kDkvRows > Sq || (causal && q0 < diag)) {
-        dkv_probs<true, PASS>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
+        dkv_probs<true>(st, dpt, ls, dl, q0, keys);
       } else {
-        dkv_probs<false, PASS>(st, dpt, slse + s * kDkvRows, sdelta + s * kDkvRows, q0, keys);
+        dkv_probs<false>(st, dpt, ls, dl, q0, keys);
       }
-      if constexpr (kSumDv) pack_a<T>(pa, st);
-      if constexpr (kSumDk) pack_a<T>(da, dpt);
+      pack_a<T>(pa, st);
+      pack_a<T>(da, dpt);
       wgmma_fence();
-      if constexpr (kSumDv) issue_rs_mn<T, DP, kDkvRows>(dv_acc, pa, do_tile);
-      if constexpr (kSumDk) issue_rs_mn<T, DP, kDkvRows>(dk_acc, da, q_tile);
+      issue_rs_mn<T, DP, kDkvRows>(dv_acc, pa, do_tile);
+      issue_rs_mn<T, DP, kDkvRows>(dk_acc, da, q_tile);
       wgmma_commit();
       wgmma_wait<0>();
-      if constexpr (kSumDv) {
-        fence_regs(dv_acc);
-        fence_regs(pa);
-      }
-      if constexpr (kSumDk) {
-        fence_regs(dk_acc);
-        fence_regs(da);
-      }
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(da);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
@@ -984,13 +1133,77 @@ __global__ void __launch_bounds__(block_threads(dkv_consumers<DP>()), 1) flash_b
       for (int j = 0; j < DP / 8; ++j) {
         const int d = j * 8 + 2 * t;
         if (d < D) {
-          if constexpr (kSumDk) {
-            store2(dk + base + d, dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-          }
-          if constexpr (kSumDv) {
-            store2(dv + base + d, dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
-          }
+          store2(dk + base + d, dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+          store2(dv + base + d, dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
         }
+      }
+    }
+  } else {  // consumer warpgroup wg: queries 32·wg ... of each tile; dV (0) or dK (1)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int g = lane >> 2, t = lane & 3;
+    const int krow = ((threadIdx.x >> 5) & 3) * 16 + g;  // this thread's first key row
+    const int col0 = 32 * wg;                            // this warpgroup's first query column
+    const DkvKeys keys = {k_offset + k0 + krow, k0 + krow, t, Sq, Sk, causal, q_offset,
+                          scale, scale_log2};
+
+    float acc[DP / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float st[16], dpt[16];  // Sᵀ and dPᵀ, then Pᵀ and dSᵀ in f32: rows keys, 32 query columns
+
+    mbar_wait_spin(kv_full, 0);
+    const uint64_t kd = make_desc<DP, kTile>(sk);
+    const uint64_t vd = make_desc<DP, kTile>(sv);
+    // Query tile qt is masked iff it crosses the ragged edge or the block's
+    // diagonal (its first query does not see all 64 keys).
+    const bool keys_ragged = k0 + kTile > Sk;
+    const int diag = k_offset + k0 + kTile - 1 - q_offset;  // first query that sees all
+
+    for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
+      const int s = it % kStages, q0 = qt * kDkvRows;
+      const T* q_tile = sq + s * kDkvRows * DP;
+      const T* do_tile = sdo + s * kDkvRows * DP;
+      mbar_wait_spin(&full[s], (it / kStages) & 1);
+      wgmma_fence();
+      issue_abt<T, DP, kTile, kDkvRows, 32>(st, kd, q_tile + col0 * Span<DP>::kSpan);
+      issue_abt<T, DP, kTile, kDkvRows, 32>(dpt, vd, do_tile + col0 * Span<DP>::kSpan);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      const float* ls = slse + s * kDkvRows + col0;
+      const float* dl = sdelta + s * kDkvRows + col0;
+      if (keys_ragged || q0 + kDkvRows > Sq || (causal && q0 < diag)) {
+        dkv_probs<true>(st, dpt, ls, dl, q0 + col0, keys);
+      } else {
+        dkv_probs<false>(st, dpt, ls, dl, q0 + col0, keys);
+      }
+      T* pt = spt + (it & 1) * kPTile;
+      T* dst = sdst + (it & 1) * kPTile;
+      store_swizzled<T>(pt, st, krow, col0 + 2 * t);
+      store_swizzled<T>(dst, dpt, krow, col0 + 2 * t);
+      fence_proxy_async();
+      named_bar_sync(kDkvBarrier, 256);  // both halves of Pᵀ and dSᵀ are in place
+      wgmma_fence();
+      issue_ss_mn<T, DP, kDkvRows>(acc, make_desc<64, kTile>(wg == 0 ? pt : dst),
+                                   wg == 0 ? do_tile : q_tile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    T* out = wg == 0 ? dv : dk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = k0 + krow + 8 * r;
+      if (row >= Sk) continue;
+      const long long base = (((long long)b * Sk + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < D) store2(out + base + d, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -1048,16 +1261,16 @@ cudaError_t view_map(CUtensorMap* map, const View& x, int B, int S, int H, int D
 
 template <typename T, int DP, int KEYS>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  constexpr int kNC = row_consumers<DP>(), kRows = kNC * kTile;
+  constexpr int kRows = 2 * kTile;
   using Smem = FwdSmem<DP, kRows, KEYS>;
   CUtensorMap tq, tk, tv;
-  cudaError_t rc = allow_smem(flash_fwd_kernel<T, DP, KEYS, kNC>, Smem::kBytes);
+  cudaError_t rc = allow_smem(flash_fwd_kernel<T, DP, KEYS>, Smem::kBytes);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kRows);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, KEYS);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, KEYS);
   if (rc != cudaSuccess) return rc;
   const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
-  flash_fwd_kernel<T, DP, KEYS, kNC><<<blocks, block_threads(kNC), Smem::kBytes, stream>>>(
+  flash_fwd_kernel<T, DP, KEYS><<<blocks, kWsThreads, Smem::kBytes, stream>>>(
       tq, tk, tv, a.o, a.lse, a.H, a.Sq, a.Sk, a.D, a.q_offset, a.k_offset, a.scale * kLog2e,
       a.causal, a.out_f32);
   return cudaGetLastError();
@@ -1082,36 +1295,22 @@ cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One dkv launch summing what PASS names (`DkvPass`).
-template <typename T, int DP, int PASS>
-cudaError_t launch_bwd_dkv_pass(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int kNC = dkv_consumers<DP>(), kKeys = kNC * kTile;
-  using Smem = DkvSmem<DP, kKeys>;
+template <typename T, int DP>
+cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream) {
+  using Smem = DkvSmem<DP>;
   const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t rc = allow_smem(flash_bwd_dkv_kernel<T, DP, PASS>, Smem::kBytes);
+  cudaError_t rc = allow_smem(flash_bwd_dkv_kernel<T, DP>, Smem::kBytes);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kDkvRows);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tdo, dout, a.B, a.Sq, a.H, a.D, kDkvRows);
-  if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, kKeys);
-  if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, kKeys);
+  if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, Smem::kKeys);
+  if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, Smem::kKeys);
   if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sk + kKeys - 1) / kKeys);
-  flash_bwd_dkv_kernel<T, DP, PASS><<<blocks, block_threads(kNC), Smem::kBytes, stream>>>(
+  const int blocks = a.B * a.H * ((a.Sk + Smem::kKeys - 1) / Smem::kKeys);
+  flash_bwd_dkv_kernel<T, DP><<<blocks, kWsThreads, Smem::kBytes, stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.Sq,
       a.Sk, a.D, a.q_offset, a.k_offset, a.scale, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
-}
-
-// dK and dV: one launch, or (`dkv_passes`) the dV pass and then the dK pass
-// on the same stream.
-template <typename T, int DP>
-cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream) {
-  if constexpr (dkv_passes<DP>() == 1) {
-    return launch_bwd_dkv_pass<T, DP, kDkvBoth>(a, stream);
-  } else {
-    const cudaError_t rc = launch_bwd_dkv_pass<T, DP, kDkvDv>(a, stream);
-    return rc == cudaSuccess ? launch_bwd_dkv_pass<T, DP, kDkvDk>(a, stream) : rc;
-  }
 }
 
 }  // namespace edl_flash

@@ -40,8 +40,7 @@ struct BwdArgs {
 
 // The wgmma kernels: T is __nv_bfloat16 or __half, DP the padded head dim
 // (16, 32, 64, 128, 192 or 256), KEYS the forward's keys a pipeline stage (64
-// or 128). From DP 192, launch_bwd_dkv launches two kernels (flash_kernels.cuh,
-// `dkv_passes`).
+// or 128).
 template <typename T, int DP, int KEYS>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream);
 template <typename T, int DP>

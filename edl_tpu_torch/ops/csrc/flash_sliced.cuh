@@ -588,9 +588,9 @@ __global__ void __launch_bounds__(block_threads(1), 1) flash_bwd_dkv_sliced_kern
       const int qs = i % kQStages;
       mbar_wait(&qfull[qs], (i / kQStages) & 1);
       if (keys_ragged || q0 + kTile > Sq || (causal && q0 < diag)) {
-        dkv_probs<true, kDkvBoth>(st, dpt, slse + qs * kTile, sdelta + qs * kTile, q0, keys);
+        dkv_probs<true>(st, dpt, slse + qs * kTile, sdelta + qs * kTile, q0, keys);
       } else {
-        dkv_probs<false, kDkvBoth>(st, dpt, slse + qs * kTile, sdelta + qs * kTile, q0, keys);
+        dkv_probs<false>(st, dpt, slse + qs * kTile, sdelta + qs * kTile, q0, keys);
       }
       pack_a<T>(pa, st);
       pack_a<T>(da, dpt);

@@ -61,8 +61,9 @@ __all__ = ["flash_attention"]
 _NEG_INF = -1e30
 
 #: the rows one warpgroup owns in every 16-bit kernel (wgmma's 64-row M),
-#: the query tile that dkv streams, and the forward's tile from a padded head
-#: dim of 192; the f32 kernels' forward tile is TILE x TILE
+#: the keys a dkv block owns and the query tile it streams, and the sliced
+#: forward's tile past a padded head dim of 256; the f32 kernels' forward
+#: tile is TILE x TILE
 TILE = 64
 
 #: the padded head dims the 16-bit kernels are compiled for up to 256; past
@@ -87,9 +88,7 @@ LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 #: the call was cut) -> launches. The fourth field is the forward's keys a
 #: stage, or None for the backward, up to a padded head dim of 256; past it,
 #: the column slices of the call's one launch (`column_slices`, such as
-#: ``"2x256"``). Where dkv runs as two CUDA launches (16-bit, padded head
-#: dims 192 and 256: `dkv_passes`), each pass has its own entry, ``"dv"`` and
-#: ``"dk"``, while LAUNCHES counts the call once
+#: ``"2x256"``). Every call is one CUDA launch
 VARIANT_LAUNCHES: Dict[Tuple[str, str, int, object], int] = {}
 
 
@@ -101,13 +100,9 @@ def reset_launches() -> None:
 
 def _count(kernel: str, dtype: torch.dtype, head_dim: int, block_k: Optional[int] = None) -> None:
     LAUNCHES[kernel] += 1
-    if kernel == "bwd_dkv":
-        passes = dkv_passes(head_dim, dtype)
-    else:
-        passes = (column_slices(kernel, head_dim) or block_k,)
-    for tag in passes:
-        key = (kernel, flash_tuning.dtype_name(dtype), padded_head_dim(head_dim), tag)
-        VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+    key = (kernel, flash_tuning.dtype_name(dtype), padded_head_dim(head_dim),
+           column_slices(kernel, head_dim) or block_k)
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 def padded_head_dim(head_dim: int) -> int:
@@ -133,33 +128,19 @@ def column_slices(kernel: str, head_dim: int) -> Optional[str]:
     return f"{-(-dp // width)}x{width}"
 
 
-def dkv_passes(head_dim: int, dtype: torch.dtype) -> Tuple[Optional[str], ...]:
-    """The CUDA launches of one dkv call, as `VARIANT_LAUNCHES` names them:
-    at a padded head dim of 192 or 256 the 16-bit dK and dV do not fit one
-    thread's registers together, and dkv runs a dV pass and then a dK pass
-    (``csrc/flash_kernels.cuh``, `dkv_passes`); past 256 one launch in every
-    dtype, named by its column slices (`column_slices`); else one launch,
-    None."""
-    dp = padded_head_dim(head_dim)
-    if dp > _PADDED[-1]:
-        return (column_slices("bwd_dkv", head_dim),)
-    if dtype in (torch.bfloat16, torch.float16) and dp > 128:
-        return ("dv", "dk")
-    return (None,)
-
-
 def compiled_blocks(head_dim: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
     """The forward tiles (block_q, block_k) compiled for this head dim and
     dtype, the default first (``csrc/flash_attention.cu`` has the table):
-    bf16 and f16 at 128 query rows a block and 64 keys a stage, bf16 also at
-    128 keys from a padded head dim of 64, and both at 64 x 64 alone from a
-    padded head dim of 192 (one consumer warpgroup a block), the sliced
-    kernels past 256 included; f32 at 64 x 64. None for a dtype the kernels
-    do not take."""
-    if dtype == torch.float32:
+    bf16 and f16 at 128 query rows a block (two consumer warpgroups) and 64
+    keys a stage up to a padded head dim of 256, bf16 also at 128 keys at
+    padded head dims 64 and 128; the sliced kernels past 256 at 64 x 64; f32
+    at 64 x 64. None for a dtype the kernels do not take."""
+    dp = padded_head_dim(head_dim)
+    if dtype == torch.float32 or (dtype in (torch.bfloat16, torch.float16)
+                                  and dp > _PADDED[-1]):
         return ((TILE, TILE),)
-    if dtype in (torch.bfloat16, torch.float16) and padded_head_dim(head_dim) > 128:
-        return ((TILE, TILE),)
+    if dtype in (torch.bfloat16, torch.float16) and dp > 128:
+        return (flash_tuning.DEFAULT_BLOCKS,)
     if dtype == torch.bfloat16 and head_dim > 32:
         return (flash_tuning.DEFAULT_BLOCKS, (128, 128))
     if dtype in (torch.bfloat16, torch.float16):

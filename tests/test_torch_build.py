@@ -105,10 +105,11 @@ def test_padded_head_dim(D, padded):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_head_dim_256_compiles_one_64_by_64_tile(dtype):
-    """From a padded head dim of 192 every dtype's forward has one tile, 64
-    query rows by 64 keys a stage, the sliced kernels past 256 included: the
+    """The forward has one tile, 64 query rows by 64 keys a stage, in f32 at
+    every head dim and in 16 bits past 256 (the sliced kernels): the
     table's (128, 64) resolves to it, and a pin of anything else raises."""
-    for D in (136, 256, 512):
+    head_dims = (136, 256, 512) if dtype == torch.float32 else (512,)
+    for D in head_dims:
         assert fa.compiled_blocks(D, dtype) == ((64, 64),)
         assert fa.resolve_blocks(2048, D, dtype) == (64, 64)
         assert fa.resolve_blocks(2048, D, dtype, block_q=64) == (64, 64)
@@ -116,26 +117,43 @@ def test_head_dim_256_compiles_one_64_by_64_tile(dtype):
             fa.resolve_blocks(2048, D, dtype, block_q=128, block_k=64)
 
 
-@pytest.mark.parametrize("dtype,passes", [(torch.bfloat16, ("dv", "dk")),
-                                          (torch.float16, ("dv", "dk")),
+@pytest.mark.parametrize("D", [136, 192, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_head_dims_past_128_compile_one_128_by_64_tile(dtype, D):
+    """At padded head dims 192 and 256 the 16-bit forward runs two consumer
+    warpgroups, 128 query rows a block, at 64 keys a stage: the table's tile
+    resolves to it without raising, and a pin of the old 64 x 64 tile or of
+    128 keys a stage raises."""
+    assert fa.compiled_blocks(D, dtype) == ((128, 64),)
+    assert fa.resolve_blocks(2048, D, dtype) == (128, 64)
+    assert fa.resolve_blocks(2048, D, dtype, block_q=128) == (128, 64)
+    for pin in ((64, 64), (128, 128)):
+        with pytest.raises(NotImplementedError, match=r"compiled for \[\(128, 64\)\]"):
+            fa.resolve_blocks(2048, D, dtype, *pin)
+
+
+@pytest.mark.parametrize("dtype,passes", [(torch.bfloat16, (None,)),
+                                          (torch.float16, (None,)),
                                           (torch.float32, (None,))])
 def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monkeypatch):
-    """A 16-bit dkv call at a padded head dim of 192 or 256 is two CUDA
-    launches: LAUNCHES counts the call once, VARIANT_LAUNCHES each pass. Past
-    256 a call is one launch in every dtype, named by its column slices (520
-    pads to 576: five slices of 128 columns, the last 64 wide), as the
-    forward and dq calls are."""
+    """A dkv call is one CUDA launch in every dtype at every head dim: up to
+    a padded head dim of 256 named None (the 16-bit kernel sums dK and dV in
+    one pass at 192 and 256 too), past 256 by its column slices (520 pads to
+    576: five slices of 128 columns, the last 64 wide), as the forward and
+    dq calls are."""
     monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
     monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
     fa._count("bwd_dkv", dtype, 200)
+    fa._count("bwd_dkv", dtype, 136)
     fa._count("bwd_dkv", dtype, 128)
     fa._count("bwd_dkv", dtype, 520)
     fa._count("fwd", dtype, 520, 64)
     fa._count("bwd_dq", dtype, 512)
     name = {torch.bfloat16: "bfloat16", torch.float16: "float16",
             torch.float32: "float32"}[dtype]
-    assert fa.LAUNCHES == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 3}
+    assert fa.LAUNCHES == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 4}
     assert fa.VARIANT_LAUNCHES == {**{("bwd_dkv", name, 256, p): 1 for p in passes},
+                                   **{("bwd_dkv", name, 192, p): 1 for p in passes},
                                    ("bwd_dkv", name, 128, None): 1,
                                    ("bwd_dkv", name, 576, "5x128"): 1,
                                    ("fwd", name, 576, "3x256"): 1,
