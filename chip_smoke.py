@@ -14,6 +14,10 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
     python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
     python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
+    python3 chip_smoke.py --turns ROOT  # time the backward kernels of the checkout at ROOT
+
+``--turns`` compares two trees on one card: run it on each in turn, parent,
+tree, tree, parent, each in a process of its own (`turns_main`).
 
 It imports nothing of JAX and nothing of ``edl_tpu``. Phases, in order (each
 phase's wall seconds printed as it ends, and all of them in a
@@ -32,9 +36,10 @@ exits non-zero without its last line:
    local-memory load and store (``LDL``, ``STL``) instructions and the
    highest register it names, beside ptxas's line; every bf16 and f16
    flash kernel must have wgmma and TMA loads and no ``mma.sync``, the
-   forward and dkv variants up to 256 (a producer warpgroup and two
-   consumer warpgroups with setmaxnreg, so ptxas reports their registers at
-   launch) no local-memory access and no spill, and every variant compiled
+   variants of all three kernels up to 256 and of the sliced dkv (a
+   producer warpgroup and two consumer warpgroups with setmaxnreg, so
+   ptxas reports their registers at launch) no local-memory access and no
+   spill, and every variant compiled
    for head dims up to 256 and the sliced ones past 256
    (``flash_sliced.cuh``) must be in the library; the f32 kernels (head
    dims up to 128, up to 256, and sliced past 256) print what they use.
@@ -51,7 +56,8 @@ exits non-zero without its last line:
    five cases (``ONCHIP_CASES``) through `flash_attention`, forward and
    backward, against the plain forward in f32 within that check's relative
    errors (2e-3 f32, 3e-2 bf16); views the kernels' loads cannot read,
-   copied or padded by the wrapper and served (``SERVED_VIEWS``);
+   copied or padded by the wrapper and served (``SERVED_VIEWS``), each
+   backward kernel call held against the plain backward on its own inputs;
    then proof that the comparison rejects two planted faults (one key tile
    left out for the later query tiles; the later rows off by 2 %) at the
    slice's shape, at D 128, at the D-256 LM's attention and a ragged D-256
@@ -113,7 +119,7 @@ exits non-zero without its last line:
    the D-256 bf16 variants. Then the
    ``lm_d512`` phase, the same widths with 8 heads, so head dim 512, at 12
    layers: 12 calls of each sliced kernel a step, all of the D-512 bf16
-   variants (one launch a call, two column slices of O and dQ, four of dK
+   variants (one launch a call, two column slices of O, of dQ and of dK
    and dV).
 6. CTR, the flagship, at its published width (tables of 1000192 rows,
    embed 10, MLP 400-400-400) and batch 8192, trained with adagrad at lr
@@ -517,7 +523,8 @@ COMPOSED_HOPS_OVER_ONE = 1.25
 DESIGNS = {
     "fwd": ("flash_fwd_kernel", "wgmma+TMA, a producer warpgroup and two consumer warpgroups "
                                 "(setmaxnreg), 128 rows a block, ping-pong"),
-    "bwd_dq": ("flash_bwd_dq_kernel", "wgmma+TMA, PR 3"),
+    "bwd_dq": ("flash_bwd_dq_kernel", "wgmma+TMA, a producer warpgroup and two consumer "
+                                      "warpgroups (setmaxnreg), 128 rows a block, ping-pong"),
     "bwd_dkv": ("flash_bwd_dkv_kernel", "wgmma+TMA, a producer warpgroup and two consumer "
                                         "warpgroups (setmaxnreg), dV and dK in one pass"),
 }
@@ -525,11 +532,13 @@ DESIGNS = {
 #: mma.sync, the f32 kernels' fused multiply-add, and local-memory loads and
 #: stores (spills)
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA", "LDL", "STL")
-#: the kernels whose 16-bit variants up to a padded head dim of 256 run a
-#: producer warpgroup and two consumer warpgroups with setmaxnreg
-#: (csrc/flash_kernels.cuh): ptxas reports their registers at launch (168),
-#: so their SASS must show no local-memory load or store, and ptxas no spill
-SETMAXNREG_NAMES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+#: the kernels whose 16-bit variants run a producer warpgroup and two
+#: consumer warpgroups with setmaxnreg (csrc/flash_kernels.cuh up to a
+#: padded head dim of 256, and the sliced dkv past it): ptxas reports their
+#: registers at launch (168), so their SASS must show no local-memory load or
+#: store, and ptxas no spill
+SETMAXNREG_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                    "flash_bwd_dkv_sliced_kernel")
 
 #: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused,
 #: dtype): ``fused`` cases take q, k and v as strided slices of one
@@ -845,9 +854,9 @@ def _label(dtype: str, dp: int, block_k=None) -> str:
 
 def _variant(mangled: str):
     """(kernel, variant label) of a flash kernel's mangled name, or None:
-    its template arguments are (T, DP, KEYS) for the forward, (T, DP, NC,
-    KEYS) for dq, (T, DP) for dkv and (DMAX, COLS) for the f32 kernels; the
-    sliced kernels' are (T) and (COLS)."""
+    its template arguments are (T, DP, KEYS) for the forward and dq, (T, DP)
+    for dkv and (DMAX, COLS) for the f32 kernels; the sliced kernels' are (T)
+    and (COLS)."""
     sliced = next((n for n in FLASH_SLICED_NAMES + FLASH_F32_SLICED_NAMES if n in mangled), None)
     if sliced is not None:  # one variant a dtype serves every head dim past 256
         ty = ("f32" if sliced in FLASH_F32_SLICED_NAMES else
@@ -1055,8 +1064,6 @@ def check_merged_hops(fa, gen, device, shape) -> dict:
     composed bounds allow is then the forward's error carried through delta,
     not a fault of the backward kernels on the f32-out path. Launches made
     here are not the main path's. Returns each hop count's errors."""
-    from unittest import mock
-
     import torch
 
     from edl_tpu_torch.parallel.ring_attention import merge_hops
@@ -1069,16 +1076,9 @@ def check_merged_hops(fa, gen, device, shape) -> dict:
     with torch.no_grad():
         want = _plain_full(fa, q, k, v, ct, opts)
     one, out = {}, {}
-    kernel = fa._bwd_kernel
     for n in MERGED_HOPS:
         s = S // n
-        outs, calls = [], []
-
-        def recorded(*args, **kw):
-            out = kernel(*args, **kw)
-            calls.append((args, kw, out))
-            return out
-
+        outs = []
         for i in range(n):
             qi = q[:, i * s:(i + 1) * s]
             acc = None
@@ -1090,11 +1090,12 @@ def check_merged_hops(fa, gen, device, shape) -> dict:
                 acc = blk if acc is None else merge_hops(acc, blk)
             outs.append(acc[0])
         o = torch.cat(outs, dim=1)
-        with mock.patch.object(fa, "_bwd_kernel", recorded):
+        with recorded_backward(fa) as calls:
             got = dict(zip(("dq", "dk", "dv"),
                            torch.autograd.grad((o * ct).sum(), (q, k, v))))
         got["o"] = o.detach()
-        check_hop_backward_calls(fa, n, calls)
+        # two a hop: the bf16 part of dO and its remainder
+        check_backward_calls(fa, f"merged {n} hops", calls, 2 * n * n)
         errs = {name: _compare(got[name], want[name]) for name in ("o", "dq", "dk", "dv")}
         out[n] = errs
         print(f"merged hops: {n} offset hop(s) a query block at {(B, S, H, D)}, against "
@@ -1117,35 +1118,56 @@ def check_merged_hops(fa, gen, device, shape) -> dict:
                         f"merged {n} hops: {name} {metric} {e[metric]:.3e} off the plain "
                         f"full attention (bound {bound:.3e})")
     return out
-def check_hop_backward_calls(fa, n, calls) -> None:
-    """Each backward kernel call recorded on the merged-hops path against the
-    plain backward on the same (q, k, v, dO, lse, delta): outputs the plain
-    version makes zero (a hop whose keys no query sees) exactly zero, the
-    rest within TOL_ROW / TOL_ELEM."""
-    import torch
 
-    require(len(calls) == 2 * n * n, f"merged {n} hops: {len(calls)} backward calls, "
-                                     f"expected {2 * n * n} (two a hop)")
+
+@contextlib.contextmanager
+def recorded_backward(fa):
+    """Record every call of the backward kernels (`_bwd_kernel`) made
+    inside: yields the list that gets each call's ``(args, kw, (dq, dk,
+    dv))``."""
+    from unittest import mock
+
+    kernel, calls = fa._bwd_kernel, []
+
+    def recorded(*args, **kw):
+        out = kernel(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    with mock.patch.object(fa, "_bwd_kernel", recorded):
+        yield calls
+
+
+def check_backward_calls(fa, label: str, calls, expected: int) -> dict:
+    """Each backward kernel call recorded on a path (`recorded_backward`)
+    against the plain backward on the same (q, k, v, dO, lse, delta), which
+    hold the kernel forward's own o and lse and the delta made from them:
+    outputs the plain version makes zero (a hop whose keys no query sees)
+    exactly zero, the rest within TOL_ROW / TOL_ELEM. There must be
+    ``expected`` calls; ``label`` names the path. Returns the worst errors by
+    (output, metric)."""
+    require(len(calls) == expected, f"{label}: {len(calls)} backward calls, expected "
+                                    f"{expected}")
     worst = {}
     for args, kw, out in calls:
         want = fa._bwd_reference(*args, **kw)
         for name, g, w in zip(("dq", "dk", "dv"), out, want):
             if not bool(w.any()):
-                require(not bool(g.any()), f"merged {n} hops: a hop that sees no key "
+                require(not bool(g.any()), f"{label}: a call whose keys no query sees "
                                            f"gave a nonzero {name}")
                 continue
             e = _compare(g, w)
-            require(_passes(e), f"merged {n} hops: a backward call's {name} off the plain "
-                                f"backward on the same inputs: {_fmt(e)} "
+            require(_passes(e), f"{label}: a backward call's {name} off the plain backward "
+                                f"on the same inputs: {_fmt(e)} "
                                 f"(tolerances: row {TOL_ROW}, elem {TOL_ELEM})")
             for metric, x in e.items():
                 worst[(name, metric)] = max(worst.get((name, metric), 0.0), x)
-    print(f"merged hops: {n} offset hop(s), {len(calls)} backward calls, each against "
-          f"the plain backward on its own inputs (the kernel forward's o and lse): " +
+    print(f"{label}: {len(calls)} backward calls, each against the plain backward on its "
+          f"own inputs (the kernel forward's o and lse): " +
           "; ".join(f"{x} " + " ".join(f"{m} {worst[(x, m)]:.3e}"
                                       for m in ("abs", "row", "elem") if (x, m) in worst)
                     for x in ("dq", "dk", "dv")))
-    torch.cuda.synchronize()
+    return worst
 
 
 def check_cases(fa, gen, device, cases, worst=None) -> dict:
@@ -1245,9 +1267,14 @@ def check_onchip_cases(fa, gen, device) -> list:
 
 def check_served_views(fa, gen, device) -> None:
     """Views the kernels' loads cannot read (``SERVED_VIEWS``), through
-    `flash_attention` on the card, forward and backward, against the plain
-    versions on the CPU on the same values: the output within the kernel
-    tolerances, the gradients within the composed path's."""
+    `flash_attention` on the card, forward and backward. The output against
+    the plain forward on the CPU on the same values, within the kernel
+    tolerances. The backward kernel call against the plain backward on its
+    own inputs (`check_backward_calls`): the kernel forward's o, so both
+    chains hold one O. The gradients against the whole plain chain on the
+    CPU are printed, not held: that chain makes its own O, and a one-step
+    bf16 difference in O moves delta, which is most of the dq of a causal
+    row whose true dq is near 0 (the merged hops hold that composed path)."""
     import torch
 
     for name, D, how in SERVED_VIEWS:
@@ -1262,21 +1289,21 @@ def check_served_views(fa, gen, device) -> None:
         q, k, v = (x.detach().requires_grad_() for x in views)
         ct = torch.randn((B, S, H, D), generator=gen, device=device)
         out = fa.flash_attention(q, k, v, causal=True)
-        grads = torch.autograd.grad((out.float() * ct).sum(), (q, k, v))
+        with recorded_backward(fa) as calls:
+            grads = torch.autograd.grad((out.float() * ct).sum(), (q, k, v))
         cq, ck, cv = (x.detach().cpu().requires_grad_() for x in (q, k, v))
         want = fa.flash_attention(cq, ck, cv, causal=True)
         wgrads = torch.autograd.grad((want.float() * ct.cpu()).sum(), (cq, ck, cv))
         errs = {"o": _compare(out.cpu(), want)}
         errs.update({f"d{n}": _compare(g.cpu(), w) for n, g, w in zip("qkv", grads, wgrads)})
         print(f"served view {name} ({how}; the kernels refuse it as it is: {problem}): "
-              + "; ".join(f"{n} {_fmt(e)}" for n, e in errs.items()))
-        require(_passes(errs.pop("o")), f"served view {name}: o off the plain version")
-        # the gradients compose the kernel forward's o through delta: the
-        # composed path's bounds, as for the merged hops
-        for n, e in errs.items():
-            require(e["row"] <= TOL_COMPOSED_ROW and e["elem"] <= TOL_COMPOSED_ELEM,
-                    f"served view {name}: {n} off the plain version: {_fmt(e)} (bounds: "
-                    f"row {TOL_COMPOSED_ROW}, elem {TOL_COMPOSED_ELEM})")
+              + "; ".join(f"{n} {_fmt(e)}" for n, e in errs.items())
+              + " (the gradients against the whole plain chain, printed)")
+        require(_passes(errs["o"]), f"served view {name}: o off the plain version")
+        for g in grads:
+            require(bool(torch.isfinite(g).all()), f"served view {name}: a non-finite gradient")
+        # a bf16 dO: one call of the backward kernels
+        check_backward_calls(fa, f"served view {name}", calls, 1)
 
 
 def _kernel_bounds(B, S, H, D, itemsize: int, peak: float) -> dict:
@@ -1298,18 +1325,23 @@ def _kernel_bounds(B, S, H, D, itemsize: int, peak: float) -> dict:
 
 def _design(fa, kname: str, dtype: str, D: int) -> str:
     """The design a kernel row's variant is built on."""
+    import torch
+
     dp = fa.padded_head_dim(D)
     if dp > 256:
-        cut = (f"{fa.SLICE_COLUMNS[kname]} columns of "
+        cut = (f"{fa.slice_columns(kname, getattr(torch, dtype))} columns of "
                + {"fwd": "O", "bwd_dq": "dQ", "bwd_dkv": "dK and dV"}[kname]
                + " a block, scores summed over 64-column chunks")
-        return ("f32 FMA tiles, " if dtype == "float32" else
-                "wgmma+TMA, one consumer warpgroup, ") + cut
+        if dtype == "float32":
+            return "f32 FMA tiles, " + cut
+        if kname == "bwd_dkv":
+            return ("wgmma+TMA, a producer warpgroup and two consumer warpgroups (setmaxnreg), "
+                    + cut + ", the slice's Q and dO from the chunk stream")
+        return "wgmma+TMA, one consumer warpgroup, " + cut
     if dtype == "float32":
         return "f32 FMA tiles" + (", 32-wide tiles in dq and dkv" if dp > 128 else "")
     if kname == "bwd_dq":
-        return ("wgmma+TMA, one consumer warpgroup a block, 32-key stages" if dp > 128 else
-                DESIGNS[kname][1])
+        return DESIGNS[kname][1] + (", 32-key stages" if dp > 128 else ", 64-key stages")
     if kname == "bwd_dkv":
         return DESIGNS[kname][1] + (", 64 keys a warpgroup" if dp <= 128 else
                                     ", 64 keys a block shared, Pᵀ and dSᵀ through shared memory")
@@ -1444,6 +1476,78 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
               f"call, against {by['bwd_dq']['host_ms'] + by['bwd_dkv']['host_ms']:.4f} "
               f"ms for the two wrappers called one after the other")
     return rows
+
+
+#: the rows ``--turns`` times: (kernel, dtype, causal (B, S, H, D)); the
+#: sliced dq at D 512, whose code the trees compared so far share, is the
+#: control for the card's drift between turns
+TURNS = [("bwd_dq", "bfloat16", (8, 1024, 12, 64)), ("bwd_dq", "bfloat16", LM_D128_ATTENTION),
+         ("bwd_dq", "bfloat16", D192_ATTENTION), ("bwd_dq", "bfloat16", LM_D256_ATTENTION),
+         ("bwd_dq", "float16", (8, 1024, 12, 64)), ("bwd_dq", "float16", LM_D128_ATTENTION),
+         ("bwd_dq", "float16", LM_D256_ATTENTION), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION),
+         ("bwd_dkv", "float16", LM_D512_ATTENTION), ("bwd_dq", "bfloat16", LM_D512_ATTENTION)]
+
+
+def turns_main(root: str) -> int:
+    """Time the backward kernels of the checkout at ``root`` (``TURNS``), so
+    that two trees can be compared on one card in turns (parent, tree, tree,
+    parent), each turn a process of its own: the package is imported from
+    ``root`` and its library built there. Each row's kernel is first held
+    against its plain version on the same inputs (the kernel tolerances),
+    then timed one call at a time and ten back to back (medians of 20),
+    beside the bound and PyTorch's SDPA backward (dq, dk and dv together).
+    Prints one JSON line ``{"turns": ...}``."""
+    from pathlib import Path
+
+    root = str(Path(root).resolve())
+    sys.path.insert(0, root)
+    import torch
+
+    fa = _flash_module()
+    require(str(Path(fa.__file__).resolve()).startswith(root + "/"),
+            f"imported {fa.__file__}, not the checkout at {root}")
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    fa._kernels()
+    print(f"turns: {root}: the library built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for kname, dtype, (B, S, H, D) in TURNS:
+        q, k, v, do, dlse, out_dtype = _case_inputs((B, S, S, H, D), True, False, gen, device,
+                                                    dtype)
+        opts = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=0, k_offset=0)
+        o, lse = fa._fwd_kernel(q, k, v, out_dtype=out_dtype, **opts)
+        do, delta = fa._backward_inputs(q, o, do, dlse)
+        args = (q, k, v, do, lse, delta)
+        kernel = getattr(fa, f"_{kname}_kernel")
+        got = kernel(*args, **opts)
+        want = getattr(fa, f"_{kname}_reference")(*args, **opts)
+        got, want = ((got,), (want,)) if kname == "bwd_dq" else (got, want)
+        errs = [_compare(g, w) for g, w in zip(got, want)]
+        del got, want
+        require(all(_passes(e) for e in errs), f"turns: {kname} {dtype} {(B, S, H, D)} off its "
+                                               f"plain version: {[_fmt(e) for e in errs]}")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_do = do.transpose(1, 2)
+        bound_ms, bound_by = _kernel_bounds(B, S, H, D, q.element_size(), PEAK_BF16_FLOPS)[kname]
+        row = dict(name=kname, dtype=dtype, shape=[B, S, H, D],
+                   ms=time_ms(lambda: kernel(*args, **opts)),
+                   ms_back_to_back=time_ms(lambda: kernel(*args, **opts), batch=BACK_TO_BACK),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms_back_to_back=time_ms(
+                       lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
+                                                   retain_graph=True), batch=BACK_TO_BACK),
+                   row_err=max(e["row"] for e in errs))
+        print(f"turns: {kname} {dtype} {(B, S, H, D)}: {row['ms']:.4f} ms one call at a time, "
+              f"{row['ms_back_to_back']:.4f} ms back to back, bound {bound_ms:.4f} ms, SDPA "
+              f"backward {row['library_ms_back_to_back']:.4f} ms back to back; row error "
+              f"{row['row_err']:.3e}")
+        rows.append(row)
+    print(json.dumps({"turns": {"root": root, "card": card(), "rows": rows}}))
+    return 0
 
 
 def card() -> str:
@@ -6346,6 +6450,8 @@ def main(argv) -> int:
         return entry_record_main(argv[1:])
     if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
         return ctl_entry_main(argv[1:])
+    if argv and argv[0] == "--turns":  # the backward kernels of a checkout, timed
+        return turns_main(argv[1])
     adopt_orphans()
     try:
         return run(argv)

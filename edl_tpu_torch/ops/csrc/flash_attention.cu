@@ -13,7 +13,7 @@
 //   bf16           16, 32, 64, 128               (128, 64); also (128, 128) at 64 and 128
 //                  192, 256                      (128, 64)
 //                  past 256: D up to a multiple  (64, 64), sliced: a block owns 256
-//                  of 64, read at run time       columns of O or dQ, 128 of dK and dV
+//                  of 64, read at run time       columns of O, of dQ, or of dK and dV
 //   f16            16, 32, 64, 128               (128, 64)
 //                  192, 256                      (128, 64)
 //                  past 256, as bf16             (64, 64), sliced

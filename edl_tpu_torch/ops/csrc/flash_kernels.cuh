@@ -52,9 +52,8 @@
 // One dataflow serves all three (see the note above each kernel): a producer
 // streams tiles by TMA into a ring of shared-memory stages guarded by
 // mbarriers, and consumer warpgroups run every product as wgmma while the
-// next tiles load. The forward and dkv run a producer warpgroup and two
-// consumer warpgroups, with the registers moved to the consumers by
-// setmaxnreg; dq a producer warp and one or two consumer warpgroups.
+// next tiles load. All three run a producer warpgroup and two consumer
+// warpgroups, with the registers moved to the consumers by setmaxnreg.
 
 #pragma once
 
@@ -130,12 +129,12 @@ __device__ __forceinline__ int open_key_tiles(int n_kt, int Sk, int wg_row0, int
 
 // -- shared pieces --------------------------------------------------------------
 //
-// The register budget. The forward and dkv run three warpgroups a block (384
-// threads): a producer warpgroup, one thread of which issues every TMA load
-// (in dkv one warp of it also stages lse and delta), and two consumer
-// warpgroups that run every product as wgmma. At launch the SM's 65,536
-// registers give each of the 384 threads 168, which is what `ptxas -v`
-// reports for these kernels. Right after the role split the producer
+// The register budget. Every kernel of this file runs three warpgroups a
+// block (384 threads): a producer warpgroup, one thread of which issues every
+// TMA load (in dkv one warp of it also stages lse and delta), and two
+// consumer warpgroups that run every product as wgmma. At launch the SM's
+// 65,536 registers give each of the 384 threads 168, which is what `ptxas
+// -v` reports for these kernels. Right after the role split the producer
 // warpgroup drops to kProducerRegs with setmaxnreg.dec and the consumers
 // rise to kConsumerRegs with setmaxnreg.inc (128·24 + 256·240 = 64,512), and
 // ptxas allocates each role's code against its own limit: the consumers'
@@ -143,32 +142,22 @@ __device__ __forceinline__ int open_key_tiles(int n_kt, int Sk, int wg_row0, int
 // in dkv) and holds no local-memory load or store (chip_smoke.py checks
 // both). That holds only while the kernel holds no `trap`: with the bounded
 // mbarrier wait (`mbar_wait`, which traps after 10 s) ptxas still names
-// registers past 168 but chooses its spills against 168, so these two
-// kernels wait with `mbar_wait_spin` (PERF.md §7). At DP 256 a forward
-// consumer holds O (128 registers a thread) and S (32) or P packed (16); a
-// dkv consumer holds dV or dK (128) and its 32 query columns of Sᵀ and dPᵀ
-// (16 each). dq keeps a producer warp: with two consumer warpgroups (9 warps) three
-// warps share a quarter of the register file, so ptxas gives each thread at
-// most 168, and with one (5 warps) up to 255; its tiles are sized to that:
-// two consumers up to DP 128, one from DP 192 (`row_consumers`) with 32-key
-// stages (`dq_keys`: S, dP and dS then take 40 registers, not 80).
+// registers past 168 but chooses its spills against 168, so these kernels
+// wait with `mbar_wait_spin` (PERF.md §7). At DP 256 a forward consumer
+// holds O (128 registers a thread) and S (32) or P packed (16); a dkv
+// consumer holds dV or dK (128) and its 32 query columns of Sᵀ and dPᵀ (16
+// each); a dq consumer holds dQ (128), S and dP of a 32-key stage (16 each)
+// and dS packed (8).
 
-constexpr int kWsThreads = 384;  // the forward's and dkv's block: 2 consumer + 1 producer warpgroups
+constexpr int kWsThreads = 384;  // a block: 2 consumer + 1 producer warpgroups
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kPingBarrier = 1;  // named barriers 1 and 2: the forward's ping-pong
+constexpr int kPingBarrier = 1;  // named barriers 1 and 2: the forward's and dq's ping-pong
 constexpr int kDkvBarrier = 1;   // dkv's hand-over of Pᵀ and dSᵀ
 
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block can take on the H100
 
 constexpr int kDkvRows = 64;  // query rows per dkv pipeline stage
 static_assert(kDkvRows == kTile, "first_query_tile() counts dkv query tiles of kTile rows");
-
-// dq's consumer warpgroups a block, kTile query rows each: two up to DP 128,
-// one from DP 192.
-template <int DP>
-__host__ __device__ constexpr int row_consumers() {
-  return DP >= 192 ? 1 : 2;
-}
 
 // Whether a forward consumer warpgroup issues S of key tile kt together with
 // P·V of tile kt - 1 and runs the softmax of tile kt while P·V runs: up to DP
@@ -194,12 +183,16 @@ __host__ __device__ constexpr bool dkv_own_keys() {
   return DP <= 128;
 }
 
-// dq's keys a pipeline stage: 64, and 32 from DP 192.
+// dq's keys a pipeline stage: 64, and 32 from DP 192. At DP 256 a stage of
+// 64 keys (64 KB of K and V) leaves room for one stage beside the 128 KB of
+// Q and dO; 32 keys leave room for three. At DP 192, 32 keys (four stages)
+// ran faster on the H100 than 64 (two stages): PERF.md §6.
 template <int DP>
 __host__ __device__ constexpr int dq_keys() {
   return DP >= 192 ? 32 : 64;
 }
 
+// The sliced kernels' block with one consumer warpgroup and a producer warp.
 __host__ __device__ constexpr int block_threads(int consumers) { return consumers * 128 + 32; }
 
 // Every layout's shared memory below is checked against kSmemMax where it is
@@ -767,20 +760,24 @@ __device__ __forceinline__ void dq_probs(const float (&sc)[N], float (&dp)[N], i
 }
 
 // One step of a consumer warpgroup's pipeline at key tile kt >= 1: issue
-// S = Q·K_ktᵀ and dP = dO·V_ktᵀ, then dQ += dS_(kt-1)·K_(kt-1); form dS_kt
-// while that product runs, release tile kt - 1's stage and pack dS_kt.
+// S = Q·K_ktᵀ and dP = dO·V_ktᵀ, then dQ += dS_(kt-1)·K_(kt-1), in the
+// warpgroups' turn (`pp`); form dS_kt while that product runs, release
+// tile kt - 1's stage and pack dS_kt.
 template <typename T, int DP, int ROWS, int KEYS, int STAGES, bool kMasked>
 __device__ __forceinline__ void dq_step(int kt, float (&sc)[KEYS / 2], float (&dp)[KEYS / 2],
                                         uint32_t (&da)[KEYS / 16][4], float (&acc)[DP / 2],
                                         uint64_t dqd, uint64_t dod, const T* sk, const T* sv,
-                                        uint64_t* full, uint64_t* empty, const DqRows& rows) {
+                                        uint64_t* full, uint64_t* empty, const DqRows& rows,
+                                        PingPong& pp) {
   using namespace hopper;
   const int s = kt % STAGES, prev = (kt - 1) % STAGES;
-  mbar_wait(&full[s], (kt / STAGES) & 1);
+  mbar_wait_spin(&full[s], (kt / STAGES) & 1);
+  pp.before();
   wgmma_fence();
   issue_abt_pair<T, DP, ROWS, KEYS>(sc, dp, dqd, dod, sk + s * KEYS * DP, sv + s * KEYS * DP);
   issue_rs_mn<T, DP, KEYS>(acc, da, sk + prev * KEYS * DP);
   wgmma_commit();
+  pp.after();
   wgmma_wait<1>();  // S and dP done, dS·K may still run
   fence_regs(sc);
   fence_regs(dp);
@@ -796,31 +793,34 @@ __device__ __forceinline__ void dq_step(int kt, float (&sc)[KEYS / 2], float (&d
 // Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py.
 // Bound on the H100: 6·D FLOPs per visible pair (S, dP and dS·K products)
 // against 10·D bytes per row (q, k, v, dO in, dQ out): FLOP-bound at the
-// LM's shapes. Design: the forward's dataflow. One block owns 128 query rows
-// (64 from DP 192: `row_consumers`) of one (batch, head), the heaviest query
-// tiles launched first; each consumer warpgroup owns 64 of them and keeps
-// their lse (times log2 e) and delta in registers. The producer loads the Q
-// and dO tiles once and streams KEYS-key K and V tiles (`dq_keys`: 64, 32
-// from DP 192) by TMA through a ring of up to 4 stages. S = Q·Kᵀ and dP = dO·Vᵀ
-// are wgmma with both operands in shared memory; dS is formed in registers
-// (masked only on tiles that cross the warpgroup's diagonal or the ragged
-// edge), rounded to T and fed as the register operand of dQ += dS·K, with
-// the same K tile read MN-major. The warpgroup issues S and dP of tile kt
-// together with dS·K of tile kt - 1 and forms dS of tile kt while that
-// product runs. dQ stays in f32 registers and is written once: each block
-// owns its output rows, so there are no atomics and the sums are
-// deterministic. Both warpgroups wait on and release every stage the
-// producer fills, also where their rows see no key of it; a block that sees
-// no key loads nothing and writes dQ = 0.
-template <typename T, int DP, int NC, int KEYS>
-__global__ void __launch_bounds__(block_threads(NC), 1) flash_bwd_dq_kernel(
+// LM's shapes (~0.104 ms at B 4, S 2048, H 16, D 128; 0.209 ms at D 256).
+// Design: the forward's. One block owns 128 query rows of one (batch, head)
+// at every DP, the heaviest query tiles launched first, so each K/V tile
+// read from L2 serves 128 rows. A producer warpgroup (setmaxnreg down to
+// kProducerRegs) loads the Q and dO tiles once and streams KEYS-key K and V
+// tiles (`dq_keys`: 64, 32 from DP 192) by TMA through a ring of up to 4
+// stages. Two consumer warpgroups (setmaxnreg up to kConsumerRegs) own 64
+// rows each and keep their lse (times log2 e) and delta in registers: S =
+// Q·Kᵀ and dP = dO·Vᵀ are wgmma with both operands in shared memory; dS is
+// formed in registers (masked only on tiles that cross the warpgroup's
+// diagonal or the ragged edge), rounded to T and fed as the register
+// operand of dQ += dS·K, with the same K tile read MN-major. A warpgroup
+// issues S and dP of tile kt together with dS·K of tile kt - 1 and forms dS
+// of tile kt while that product runs; between the warpgroups, named
+// barriers take turns at the issues (`PingPong`). dQ stays in
+// f32 registers and is written once: each block owns its output rows, so
+// there are no atomics and the sums are deterministic. Both warpgroups wait
+// on and release every stage the producer fills, also where their rows see
+// no key of it; a block that sees no key loads nothing and writes dQ = 0.
+template <typename T, int DP, int KEYS>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dq,
     int H, int Sq, int Sk, int D, int q_offset, int k_offset, float scale, float scale_log2,
     int causal) {
   using namespace hopper;
-  constexpr int kRows = NC * kTile;  // query rows a block
+  constexpr int kRows = 2 * kTile;  // query rows a block
   using Smem = DqSmem<DP, kRows, KEYS>;
   constexpr int kStages = Smem::kStages, kQBytes = Smem::kQBytes, kKVBytes = Smem::kKVBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -845,15 +845,16 @@ __global__ void __launch_bounds__(block_threads(NC), 1) flash_bwd_dq_kernel(
     mbar_init(qdo_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], NC * 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == NC) {  // the producer warp
-    if (threadIdx.x == NC * 128 && n_kt > 0) {  // one thread issues every load
+  const int wg = warpgroup_index();
+  if (wg == 2) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256 && n_kt > 0) {  // one thread issues every load
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tdo);
       tma_prefetch_map(&tk);
@@ -863,13 +864,14 @@ __global__ void __launch_bounds__(block_threads(NC), 1) flash_bwd_dq_kernel(
       tma_load_tile<DP, kRows>(sdo, &tdo, qdo_full, h, q0, b);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kStages;
-        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_wait_spin(&empty[s], ((kt / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
         tma_load_tile<DP, KEYS>(sk + s * KEYS * DP, &tk, &full[s], h, kt * KEYS, b);
         tma_load_tile<DP, KEYS>(sv + s * KEYS * DP, &tv, &full[s], h, kt * KEYS, b);
       }
     }
   } else {  // consumer warpgroup wg: query rows q0 + 64·wg ...
+    setmaxnreg_inc<kConsumerRegs>();
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int wg_row0 = q0 + wg * 64;
     const int row0 = wg_row0 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's first row
@@ -891,16 +893,20 @@ __global__ void __launch_bounds__(block_threads(NC), 1) flash_bwd_dq_kernel(
     if (n_kt > 0) {
       float sc[KEYS / 2], dp[KEYS / 2];  // S and dP, then dS in dp: f32, accumulator layout
       uint32_t da[KEYS / 16][4];         // dS in T: the A fragments of dS·K
-      mbar_wait(qdo_full, 0);
+      // n_kt + 1 issue points: S and dP of tile 0, the n_kt - 1 steps, the last dS·K
+      PingPong pp = {wg, n_kt + 1, 0};
+      mbar_wait_spin(qdo_full, 0);
       const uint64_t dqd = make_desc<DP, kRows>(sq + wg * 64 * Span<DP>::kSpan);
       const uint64_t dod = make_desc<DP, kRows>(sdo + wg * 64 * Span<DP>::kSpan);
       const int n_open = open_key_tiles<KEYS>(n_kt, Sk, wg_row0, q_offset, k_offset, causal);
 
       // The code between a wgmma's issue and its wait has no branch: the mask
       // is a template parameter of each loop, not a runtime test.
-      mbar_wait(&full[0], 0);
+      mbar_wait_spin(&full[0], 0);
+      pp.before();
       wgmma_fence();
       issue_abt_pair<T, DP, kRows, KEYS>(sc, dp, dqd, dod, sk, sv);
+      pp.after();
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
@@ -912,15 +918,17 @@ __global__ void __launch_bounds__(block_threads(NC), 1) flash_bwd_dq_kernel(
       pack_a<T>(da, dp);
       for (int kt = 1; kt < n_open; ++kt) {
         dq_step<T, DP, kRows, KEYS, kStages, false>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full,
-                                                    empty, rows);
+                                                    empty, rows, pp);
       }
       for (int kt = n_open > 1 ? n_open : 1; kt < n_kt; ++kt) {
         dq_step<T, DP, kRows, KEYS, kStages, true>(kt, sc, dp, da, acc, dqd, dod, sk, sv, full,
-                                                   empty, rows);
+                                                   empty, rows, pp);
       }
+      pp.before();
       wgmma_fence();
       issue_rs_mn<T, DP, KEYS>(acc, da, sk + (n_kt - 1) % kStages * KEYS * DP);
       wgmma_commit();
+      pp.after();
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(da);
@@ -1278,18 +1286,18 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
 
 template <typename T, int DP>
 cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int kNC = row_consumers<DP>(), kRows = kNC * kTile, kKeys = dq_keys<DP>();
+  constexpr int kRows = 2 * kTile, kKeys = dq_keys<DP>();
   using Smem = DqSmem<DP, kRows, kKeys>;
   const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t rc = allow_smem(flash_bwd_dq_kernel<T, DP, kNC, kKeys>, Smem::kBytes);
+  cudaError_t rc = allow_smem(flash_bwd_dq_kernel<T, DP, kKeys>, Smem::kBytes);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tq, a.q, a.B, a.Sq, a.H, a.D, kRows);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tdo, dout, a.B, a.Sq, a.H, a.D, kRows);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tk, a.k, a.B, a.Sk, a.H, a.D, kKeys);
   if (rc == cudaSuccess) rc = view_map<T, DP>(&tv, a.v, a.B, a.Sk, a.H, a.D, kKeys);
   if (rc != cudaSuccess) return rc;
   const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
-  flash_bwd_dq_kernel<T, DP, kNC, kKeys><<<blocks, block_threads(kNC), Smem::kBytes, stream>>>(
+  flash_bwd_dq_kernel<T, DP, kKeys><<<blocks, kWsThreads, Smem::kBytes, stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<T*>(a.dq), a.H, a.Sq, a.Sk, a.D, a.q_offset,
       a.k_offset, a.scale, a.scale * kLog2e, a.causal);
   return cudaGetLastError();

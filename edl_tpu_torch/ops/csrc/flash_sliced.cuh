@@ -16,10 +16,10 @@
 // 64-row tile of D 512 is 64 KB. So no block holds a whole row of the output
 // or of an input:
 //  * Column slices. A block owns the rows of one tile and one slice of the
-//    output's columns: 256 of O or dQ, 128 of dK and dV (both together, 64 +
-//    64 registers a thread). The last slice is short where D is not a
-//    multiple of the slice: only its 64-column chunks that hold a column
-//    below D are loaded and multiplied.
+//    output's columns: 256 of O, of dQ, and of dK and dV (dkv's two consumer
+//    warpgroups sum one each, 128 registers a thread). The last slice is
+//    short where D is not a multiple of the slice: only its 64-column chunks
+//    that hold a column below D are loaded and multiplied.
 //  * Chunked scores. Every block recomputes the full-width scores as a sum
 //    over 64-column chunks of the head dim, S = Σ_c Q_c·K_cᵀ (K-major wgmma,
 //    f32 accumulation), with each chunk pair streamed by TMA through a ring
@@ -32,10 +32,10 @@
 //
 // Work per visible (query, key) pair, against the bound's 4·D (fwd), 6·D (dq)
 // and 8·D (dkv) FLOPs: the forward 2·D·(slices) + 2·D, dq 4·D·(slices) + 2·D,
-// dkv 4·D·(slices) + 4·D; at D 512 6·D, 10·D and 20·D. Every block also
+// dkv 4·D·(slices) + 4·D; at D 512 6·D, 10·D and 12·D. Every block also
 // re-reads its row operand's chunks (Q; dkv: K and V) from L2 for each tile
-// it walks. Simple and right first: keeping the row operand whole in shared
-// memory where it fits, or a wider slice, is later work (PERF.md).
+// it walks. Keeping the row operand whole in shared memory where it fits is
+// later work (PERF.md).
 
 #pragma once
 
@@ -47,7 +47,7 @@ constexpr int kChunk = 64;                    // head-dim columns a chunk (a 128
 constexpr int kChunkElems = kTile * kChunk;   // a 64-row chunk
 constexpr int kChunkBytes = kChunkElems * 2;  // 8 KB in 16 bits
 constexpr int kRowSlice = 256;                // O's and dQ's columns a block
-constexpr int kKeySlice = 128;                // dK's and dV's columns a block
+constexpr int kKeySlice = 256;                // dK's and dV's columns a block
 
 __host__ __device__ constexpr int chunks_of(int D) { return (D + kChunk - 1) / kChunk; }
 __host__ __device__ constexpr int slices_of(int D, int width) { return (D + width - 1) / width; }
@@ -71,15 +71,22 @@ struct DqSlicedSmem {
   static_assert(kBytes <= kSmemMax, "sliced dq shared memory");
 };
 
-// dkv's: stages of the K, V, Q and dO chunks, stages of a Q slice and a dO
-// slice (128 columns each) with the query tile's lse and delta, the barriers.
+// dkv's: ring stages of the K, V, Q and dO chunks (64 rows each; four
+// stages, 128 KB in flight from L2); the Q slice and the dO slice (256
+// columns of 64 rows each, as 64-column chunks), into which the chunk stream
+// loads the Q and dO chunks of the block's slice, so that they are read
+// once; two buffers of Pᵀ and dSᵀ tiles (64 keys x 64 queries: query tile i
+// in buffer i mod 2, so that one warpgroup may form tile i + 1 while the
+// other still sums tile i); the tile's lse and delta; the barriers. 230,992
+// bytes of the 232,448.
 struct DkvSlicedSmem {
-  static constexpr int kStages = 4, kQStages = 2;
+  static constexpr int kStages = 4;
   static constexpr int kStageBytes = 4 * kChunkBytes;
   static constexpr int kSliceBytes = kKeySlice / kChunk * kChunkBytes;  // one of Q's, dO's
-  static constexpr size_t kBytes = 1024 + kStages * kStageBytes + kQStages * 2 * kSliceBytes +
-                                   kQStages * 2 * kTile * sizeof(float) +
-                                   2 * (kStages + kQStages) * 8;
+  static constexpr int kPBytes = kTile * kTile * 2;                     // one of Pᵀ, dSᵀ
+  static constexpr size_t kBytes = 1024 + kStages * kStageBytes + 2 * kSliceBytes +
+                                   2 * 2 * kPBytes + 2 * kTile * sizeof(float) +
+                                   (2 * kStages + 2) * 8;
   static_assert(kBytes <= kSmemMax, "sliced dkv shared memory");
 };
 
@@ -96,15 +103,17 @@ __device__ __forceinline__ void release_stage(uint64_t* bar) {
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(bar);
 }
 
-// X (64 x 64) (+)= A_c·B_cᵀ over one 64-column chunk for one warpgroup: A and
-// B are 64-row chunks, K-major; the first chunk (`first`) overwrites X.
-template <typename T>
-__device__ __forceinline__ void issue_chunk(float (&x)[32], const T* a, const T* b, bool first) {
+// X (64 x N) (+)= A_c·B_cᵀ over one 64-column chunk for one warpgroup: A a
+// 64-row chunk, B N rows (64, or 32 from a multiple of 8 rows into a chunk),
+// both K-major; the first chunk (`first`) overwrites X.
+template <typename T, int N = 64>
+__device__ __forceinline__ void issue_chunk(float (&x)[N / 2], const T* a, const T* b,
+                                            bool first) {
   const uint64_t da = hopper::make_desc<64, kTile>(a), db = hopper::make_desc<64, kTile>(b);
 #pragma unroll
   for (int kk = 0; kk < kChunk / 16; ++kk) {
-    hopper::wgmma_ss<T, 64>(x, hopper::desc_add(da, kk * 32), hopper::desc_add(db, kk * 32),
-                            !first || kk > 0);
+    hopper::wgmma_ss<T, N>(x, hopper::desc_add(da, kk * 32), hopper::desc_add(db, kk * 32),
+                           !first || kk > 0);
   }
 }
 
@@ -131,6 +140,32 @@ __device__ __forceinline__ void issue_rs_slice(float (&acc)[W / 2], const uint32
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         hopper::wgmma_rs_mn<T, 64>(acc64, a[kk], hopper::desc_add(b, kk * 16 * kChunk * 2));
+    }
+  }
+}
+
+// The same with A (64 x 64) in shared memory, a tile stored K-major and
+// 128B-swizzled (`store_swizzled`; descriptor a).
+template <typename T, int W>
+__device__ __forceinline__ void issue_ss_slice(float (&acc)[W / 2], uint64_t a,
+                                               const T* b_tile, int chunks) {
+#pragma unroll
+  for (int p = 0; p < W / 128; ++p) {
+    const int left = chunks - 2 * p;
+    if (left <= 0) break;
+    const uint64_t b = hopper::make_desc<128, kTile>(b_tile + 2 * p * kChunkElems);
+    if (left >= 2) {
+      float(&acc128)[64] = *reinterpret_cast<float(*)[64]>(&acc[64 * p]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_ss_mn<T, 128>(acc128, hopper::desc_add(a, kk * 32),
+                                    hopper::desc_add(b, kk * 16 * kChunk * 2));
+    } else {
+      float(&acc64)[32] = *reinterpret_cast<float(*)[32]>(&acc[64 * p]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_ss_mn<T, 64>(acc64, hopper::desc_add(a, kk * 32),
+                                   hopper::desc_add(b, kk * 16 * kChunk * 2));
     }
   }
 }
@@ -453,18 +488,33 @@ __global__ void __launch_bounds__(block_threads(1), 1) flash_bwd_dq_sliced_kerne
 
 // Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py for D > 256.
 // Bound: 8·D FLOPs a visible pair (0.278 ms at the LM's D-512 shape). Design:
-// one block owns 64 keys and one 128-column slice of dK and of dV of one
-// (batch, head), the earliest key tiles first; one consumer warpgroup sums
-// both (64 + 64 registers a thread), so one launch serves a call. For each
-// 64-query tile from the first that sees the block's keys, the producer
-// warp streams (K_c, V_c, Q_c, dO_c) chunk quadruples through a 4-stage ring,
-// then the tile's Q slice and dO slice through a 2-stage ring, with the
-// tile's lse (times log2 e) and delta stored beside them by its 32 lanes. The
-// consumer sums Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over the chunks, forms Pᵀ and dSᵀ
-// as flash_kernels.cuh's dkv does, rounds them to T and sums dV_slice +=
-// Pᵀ·dO_slice and dK_slice += dSᵀ·Q_slice.
+// one block owns 64 keys and one 256-column slice of dK and of dV of one
+// (batch, head), the earliest key tiles first, so one launch serves a call
+// and the scores are summed once a slice (12·D FLOPs a pair at D 512). The
+// block runs flash_kernels.cuh's dkv layout from DP 192: a producer
+// warpgroup (setmaxnreg down; its first warp works) and two consumer
+// warpgroups (setmaxnreg up) that share the 64 keys. For each 64-query tile
+// from the first that sees the keys, the producer streams the tile's (K_c,
+// V_c, Q_c, dO_c) chunk quadruples through a 4-stage ring, the slice's own
+// chunks last (`chunk_at`), and stores the tile's lse (times log2 e) and
+// delta; the Q and dO chunks of the block's slice land in the slice buffer
+// instead of the ring, so that they are read from L2 once, not once for
+// the scores and once for the products. Consumer warpgroup w sums Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ over the chunks for queries 32w ... 32w + 31 (N = 32),
+// forms Pᵀ and dSᵀ as flash_kernels.cuh's dkv does and stores them, rounded
+// to T, into 128B-swizzled K-major tiles; a named barrier hands the two
+// halves over, and warpgroup 0 issues dV_slice += Pᵀ·dO_slice and warpgroup
+// 1 dK_slice += dSᵀ·Q_slice, each a wgmma with A the whole 64 x 64 tile in
+// shared memory, which runs while the next tile's first chunks are summed.
+// The kernel is bound by the chunks' reads from L2 (every tile re-reads
+// the block's K and V chunks), so the ring holds as many bytes in flight as
+// shared memory leaves. dK and dV stay in f32 registers and are written
+// once: no atomics, deterministic sums. The slices sum a tile's chunks in
+// different orders, so their Pᵀ differ by f32 rounding. Every wait spins
+// without a bound (`mbar_wait_spin`): a trap in the kernel would make ptxas
+// spill against the launch's 168 registers (flash_kernels.cuh).
 template <typename T>
-__global__ void __launch_bounds__(block_threads(1), 1) flash_bwd_dkv_sliced_kernel(
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkv_sliced_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
@@ -472,19 +522,19 @@ __global__ void __launch_bounds__(block_threads(1), 1) flash_bwd_dkv_sliced_kern
     float scale, float scale_log2, int causal) {
   using namespace hopper;
   using Smem = DkvSlicedSmem;
-  constexpr int kStages = Smem::kStages, kQStages = Smem::kQStages;
-  constexpr int kSliceElems = Smem::kSliceBytes / 2;
+  constexpr int kStages = Smem::kStages;
+  constexpr int kSliceElems = Smem::kSliceBytes / 2, kPElems = Smem::kPBytes / 2;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   T* schunks = reinterpret_cast<T*>(smem);  // stage s: the K, V, Q and dO chunks
-  T* sslice = reinterpret_cast<T*>(smem + kStages * Smem::kStageBytes);  // stage: Q, then dO
-  float* slse = reinterpret_cast<float*>(smem + kStages * Smem::kStageBytes +
-                                         kQStages * 2 * Smem::kSliceBytes);
-  float* sdelta = slse + kQStages * kTile;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sdelta + kQStages * kTile);
+  T* sslice = schunks + kStages * 4 * kChunkElems;  // the Q slice, then the dO slice
+  T* spt = sslice + 2 * kSliceElems;                // buffer: the Pᵀ tile, then dSᵀ
+  float* slse = reinterpret_cast<float*>(spt + 2 * 2 * kPElems);
+  float* sdelta = slse + kTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sdelta + kTile);
   uint64_t* empty = full + kStages;
-  uint64_t* qfull = empty + kStages;
-  uint64_t* qempty = qfull + kQStages;
+  uint64_t* tfull = empty + kStages;  // the tile's lse and delta are stored
+  uint64_t* sfree = tfull + 1;        // the last tile's slice products are done
 
   const int n_ch = chunks_of(D), n_sl = slices_of(D, kKeySlice);
   const int n_kt = (Sk + kTile - 1) / kTile;
@@ -492,133 +542,142 @@ __global__ void __launch_bounds__(block_threads(1), 1) flash_bwd_dkv_sliced_kern
   const int kt = blockIdx.x / per_kt;  // the first key tiles are seen by the most queries
   const int sl = blockIdx.x % per_kt / BH, bh = blockIdx.x % BH, b = bh / H, h = bh % H;
   const int k0 = kt * kTile, col0 = sl * kKeySlice;
-  const int q_chunks = slice_chunks(D, col0, kKeySlice);
+  const int c0 = col0 / kChunk, q_chunks = slice_chunks(D, col0, kKeySlice);
+  const int n_other = n_ch - q_chunks;  // the chunks outside the slice, streamed first
+  // the chunk streamed j-th in a tile: the others in order after the slice's,
+  // then the slice's own (chunk c0 + j - n_other)
+  auto chunk_at = [&](int j) { return (c0 + q_chunks + j) % n_ch; };
   const int n_qt = (Sq + kTile - 1) / kTile;
   const int qt0 = first_query_tile(k0, q_offset, k_offset, causal);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    for (int s = 0; s < kQStages; ++s) {
-      mbar_init(&qfull[s], 32);  // the producer warp's 32 lanes
-      mbar_init(&qempty[s], 4);
-    }
+    mbar_init(tfull, 32);  // the producer warp's 32 lanes
+    mbar_init(sfree, 8);
     mbar_init_fence();
   }
   __syncthreads();
 
+  const int wg = warpgroup_index();
   const int lane = threadIdx.x & 31;
-  if (threadIdx.x >= 128) {  // the producer warp
-    if (lane == 0) {
-      tma_prefetch_map(&tq);
-      tma_prefetch_map(&tdo);
-      tma_prefetch_map(&tk);
-      tma_prefetch_map(&tv);
-    }
-    const float* lseb = lse + (long long)bh * Sq;
-    const float* deltab = delta + (long long)bh * Sq;
-    for (int qt = qt0, i = 0, it = 0; qt < n_qt; ++qt, ++i) {
-      const int q0 = qt * kTile;
+  if (wg == 2) {  // the producer warpgroup; its first warp works
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 256 + 32) {
       if (lane == 0) {
-        for (int c = 0; c < n_ch; ++c, ++it) {
-          const int s = it % kStages;
-          T* dst = schunks + s * 4 * kChunkElems;
-          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-          mbar_arrive_expect_tx(&full[s], 4 * kChunkBytes);
-          tma_load_4d(dst, &tk, &full[s], c * kChunk, h, k0, b);
-          tma_load_4d(dst + kChunkElems, &tv, &full[s], c * kChunk, h, k0, b);
-          tma_load_4d(dst + 2 * kChunkElems, &tq, &full[s], c * kChunk, h, q0, b);
-          tma_load_4d(dst + 3 * kChunkElems, &tdo, &full[s], c * kChunk, h, q0, b);
-        }
+        tma_prefetch_map(&tq);
+        tma_prefetch_map(&tdo);
+        tma_prefetch_map(&tk);
+        tma_prefetch_map(&tv);
       }
-      __syncwarp();
-      const int qs = i % kQStages;
-      mbar_wait(&qempty[qs], ((i / kQStages) & 1) ^ 1);
-      for (int r = lane; r < kTile; r += 32) {
-        const bool ok = q0 + r < Sq;
-        slse[qs * kTile + r] = ok ? lseb[q0 + r] * kLog2e : 0.f;
-        sdelta[qs * kTile + r] = ok ? deltab[q0 + r] : 0.f;
-      }
-      if (lane == 0) {  // its arrival releases its own stores, as every lane's does
-        T* dst = sslice + qs * 2 * kSliceElems;
-        mbar_arrive_expect_tx(&qfull[qs], 2 * q_chunks * kChunkBytes);
-        for (int c = 0; c < q_chunks; ++c) {
-          tma_load_4d(dst + c * kChunkElems, &tq, &qfull[qs], col0 + c * kChunk, h, q0, b);
-          tma_load_4d(dst + kSliceElems + c * kChunkElems, &tdo, &qfull[qs], col0 + c * kChunk,
-                      h, q0, b);
+      const float* lseb = lse + (long long)bh * Sq;
+      const float* deltab = delta + (long long)bh * Sq;
+      for (int qt = qt0, i = 0, it = 0; qt < n_qt; ++qt, ++i) {
+        const int q0 = qt * kTile;
+        for (int j = 0; j < n_ch; ++j, ++it) {
+          if (j == n_other) {
+            // the last tile's slice products, and its reads of lse and
+            // delta, are done: the slice buffer and lse and delta are free
+            mbar_wait_spin(sfree, (i & 1) ^ 1);
+            for (int r = lane; r < kTile; r += 32) {
+              const bool ok = q0 + r < Sq;
+              slse[r] = ok ? lseb[q0 + r] * kLog2e : 0.f;
+              sdelta[r] = ok ? deltab[q0 + r] : 0.f;
+            }
+            mbar_arrive(tfull);  // each lane's arrival releases its own stores
+          }
+          if (lane == 0) {
+            const int c = chunk_at(j), s = it % kStages;
+            T* dst = schunks + s * 4 * kChunkElems;
+            const bool mine = j >= n_other;  // a chunk of the block's slice
+            T* qc = mine ? sslice + (c - c0) * kChunkElems : dst + 2 * kChunkElems;
+            T* doc = mine ? sslice + kSliceElems + (c - c0) * kChunkElems
+                          : dst + 3 * kChunkElems;
+            mbar_wait_spin(&empty[s], ((it / kStages) & 1) ^ 1);
+            mbar_arrive_expect_tx(&full[s], 4 * kChunkBytes);
+            tma_load_4d(dst, &tk, &full[s], c * kChunk, h, k0, b);
+            tma_load_4d(dst + kChunkElems, &tv, &full[s], c * kChunk, h, k0, b);
+            tma_load_4d(qc, &tq, &full[s], c * kChunk, h, q0, b);
+            tma_load_4d(doc, &tdo, &full[s], c * kChunk, h, q0, b);
+          }
+          __syncwarp();
         }
-      } else {
-        mbar_arrive(&qfull[qs]);
       }
     }
-  } else {  // the consumer warpgroup: keys k0 ...
+  } else {  // consumer warpgroup wg: queries 32·wg ... of each tile; dV (0) or dK (1)
+    setmaxnreg_inc<kConsumerRegs>();
     const int g = lane >> 2, t = lane & 3;
-    const int krow0 = k0 + (threadIdx.x >> 5) * 16;  // this warp's first key
-    const DkvKeys keys = {k_offset + krow0 + g, krow0 + g, t, Sq, Sk, causal, q_offset, scale,
+    const int krow = ((threadIdx.x >> 5) & 3) * 16 + g;  // this thread's first key row
+    const int qcol0 = 32 * wg;                           // this warpgroup's first query column
+    const DkvKeys keys = {k_offset + k0 + krow, k0 + krow, t, Sq, Sk, causal, q_offset, scale,
                           scale_log2};
     // a query tile is masked iff it crosses the ragged edge or the diagonal
     const bool keys_ragged = k0 + kTile > Sk;
     const int diag = k_offset + k0 + kTile - 1 - q_offset;  // the first query that sees all
 
-    float dk_acc[kKeySlice / 2], dv_acc[kKeySlice / 2];
+    float acc[kKeySlice / 2];  // dV (warpgroup 0) or dK (warpgroup 1) of the slice
 #pragma unroll
-    for (int i = 0; i < kKeySlice / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    float st[32], dpt[32];        // Sᵀ and dPᵀ, then Pᵀ and dSᵀ in f32: rows are keys
-    uint32_t pa[4][4], da[4][4];  // Pᵀ and dSᵀ in T: the A fragments
+    for (int i = 0; i < kKeySlice / 2; ++i) acc[i] = 0.f;
+    float st[16], dpt[16];  // Sᵀ and dPᵀ, then Pᵀ and dSᵀ in f32: rows keys, 32 query columns
 
     for (int qt = qt0, i = 0, it = 0; qt < n_qt; ++qt, ++i) {
       const int q0 = qt * kTile;
-      for (int c = 0; c < n_ch; ++c, ++it) {
-        const int s = it % kStages;
+      for (int j = 0; j < n_ch; ++j, ++it) {
+        const int c = chunk_at(j), s = it % kStages;
         const T* stage = schunks + s * 4 * kChunkElems;
-        mbar_wait(&full[s], (it / kStages) & 1);
+        const bool mine = j >= n_other;
+        const T* qc = mine ? sslice + (c - c0) * kChunkElems : stage + 2 * kChunkElems;
+        const T* doc = mine ? sslice + kSliceElems + (c - c0) * kChunkElems
+                            : stage + 3 * kChunkElems;
+        mbar_wait_spin(&full[s], (it / kStages) & 1);
         wgmma_fence();
-        issue_chunk<T>(st, stage, stage + 2 * kChunkElems, c == 0);
-        issue_chunk<T>(dpt, stage + kChunkElems, stage + 3 * kChunkElems, c == 0);
+        issue_chunk<T, 32>(st, stage, qc + qcol0 * kChunk, j == 0);
+        issue_chunk<T, 32>(dpt, stage + kChunkElems, doc + qcol0 * kChunk, j == 0);
         wgmma_commit();
-        wgmma_wait<1>();
-        if (c > 0) release_stage(&empty[(it - 1) % kStages]);
+        wgmma_wait<1>();  // every product but this chunk's is done
+        if (j > 0) {
+          release_stage(&empty[(it - 1) % kStages]);
+        } else if (i > 0) {
+          release_stage(sfree);  // tile i - 1's slice products are done
+        }
       }
       wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
+      fence_regs(acc);
       release_stage(&empty[(it - 1) % kStages]);
-      const int qs = i % kQStages;
-      mbar_wait(&qfull[qs], (i / kQStages) & 1);
+      mbar_wait_spin(tfull, i & 1);
       if (keys_ragged || q0 + kTile > Sq || (causal && q0 < diag)) {
-        dkv_probs<true>(st, dpt, slse + qs * kTile, sdelta + qs * kTile, q0, keys);
+        dkv_probs<true>(st, dpt, slse + qcol0, sdelta + qcol0, q0 + qcol0, keys);
       } else {
-        dkv_probs<false>(st, dpt, slse + qs * kTile, sdelta + qs * kTile, q0, keys);
+        dkv_probs<false>(st, dpt, slse + qcol0, sdelta + qcol0, q0 + qcol0, keys);
       }
-      pack_a<T>(pa, st);
-      pack_a<T>(da, dpt);
-      const T* q_slice = sslice + qs * 2 * kSliceElems;
+      T* pt = spt + (i & 1) * 2 * kPElems;
+      T* dst = pt + kPElems;
+      store_swizzled<T>(pt, st, krow, qcol0 + 2 * t);
+      store_swizzled<T>(dst, dpt, krow, qcol0 + 2 * t);
+      fence_proxy_async();
+      named_bar_sync(kDkvBarrier, 256);  // both halves of Pᵀ and dSᵀ are in place
       wgmma_fence();
-      issue_rs_slice<T, kKeySlice>(dv_acc, pa, q_slice + kSliceElems, q_chunks);
-      issue_rs_slice<T, kKeySlice>(dk_acc, da, q_slice, q_chunks);
+      issue_ss_slice<T, kKeySlice>(acc, make_desc<64, kTile>(wg == 0 ? pt : dst),
+                                   wg == 0 ? sslice + kSliceElems : sslice, q_chunks);
       wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(pa);
-      fence_regs(dk_acc);
-      fence_regs(da);
-      release_stage(&qempty[qs]);
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
 
+    T* out = wg == 0 ? dv : dk;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = krow0 + g + 8 * r;
+      const int row = k0 + krow + 8 * r;
       if (row >= Sk) continue;
       const long long base = (((long long)b * Sk + row) * H + h) * D;
 #pragma unroll
       for (int j = 0; j < kKeySlice / 8; ++j) {
         const int d = col0 + j * 8 + 2 * t;
-        if (d < D) {
-          store2(dk + base + d, dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
-          store2(dv + base + d, dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
-        }
+        if (d < D) store2(out + base + d, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -682,7 +741,7 @@ cudaError_t launch_bwd_dkv_sliced(const BwdArgs& a, cudaStream_t stream) {
   if (rc == cudaSuccess) rc = view_map<T, 256>(&tk, a.k, a.B, a.Sk, a.H, a.D, kTile);
   if (rc == cudaSuccess) rc = view_map<T, 256>(&tv, a.v, a.B, a.Sk, a.H, a.D, kTile);
   if (rc != cudaSuccess) return rc;
-  flash_bwd_dkv_sliced_kernel<T><<<blocks, block_threads(1), kBytes, stream>>>(
+  flash_bwd_dkv_sliced_kernel<T><<<blocks, kWsThreads, kBytes, stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.Sq,
       a.Sk, a.D, a.q_offset, a.k_offset, a.scale, a.scale * kLog2e, a.causal);
   return cudaGetLastError();

@@ -138,12 +138,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // The same wait with no bound, for the kernels that move registers between
-// warpgroups with setmaxnreg (flash_kernels.cuh's forward and dkv): a trap
-// anywhere in a kernel makes ptxas size its spills against the register
-// count at launch (168 a thread at 384 threads), not against the consumers'
-// raised limit, so that at DP 256 they spilled and with this wait they do
-// not (PERF.md §7). A protocol fault in those kernels hangs the launch
-// instead of trapping: run one under development under `timeout`.
+// warpgroups with setmaxnreg (all three of flash_kernels.cuh and the sliced
+// dkv of flash_sliced.cuh): a trap anywhere in a kernel makes ptxas size its
+// spills against the register count at launch (168 a thread at 384
+// threads), not against the consumers' raised limit, so that at DP 256 they
+// spilled and with this wait they do not (PERF.md §7). A protocol fault in
+// those kernels hangs the launch instead of trapping: run one under
+// development under `timeout`.
 __device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
   uint32_t done = 0;

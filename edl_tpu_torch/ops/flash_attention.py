@@ -72,9 +72,12 @@ _PADDED = (16, 32, 64, 128, 192, 256)
 
 #: past a padded head dim of 256 (the sliced kernels, every dtype): the
 #: head-dim columns of a chunk of the scores' sum, and the output columns one
-#: block owns, by kernel (dkv: of dK and of dV, both summed by one block)
+#: block owns, by kernel (dkv: of dK and of dV), in bf16 and f16
+#: (``csrc/flash_sliced.cuh``: dkv's two consumer warpgroups sum one each)
+#: and in f32 (``csrc/flash_f32.cu``: one block sums both)
 CHUNK = 64
-SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 256, "bwd_dkv": 128}
+SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 256, "bwd_dkv": 256}
+SLICE_COLUMNS_F32 = {"fwd": 256, "bwd_dq": 256, "bwd_dkv": 128}
 
 #: the element types the kernels take, with the C interface's codes
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -101,7 +104,7 @@ def reset_launches() -> None:
 def _count(kernel: str, dtype: torch.dtype, head_dim: int, block_k: Optional[int] = None) -> None:
     LAUNCHES[kernel] += 1
     key = (kernel, flash_tuning.dtype_name(dtype), padded_head_dim(head_dim),
-           column_slices(kernel, head_dim) or block_k)
+           column_slices(kernel, head_dim, dtype) or block_k)
     VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
@@ -115,16 +118,23 @@ def padded_head_dim(head_dim: int) -> int:
     return next(dp for dp in _PADDED if head_dim <= dp)
 
 
-def column_slices(kernel: str, head_dim: int) -> Optional[str]:
-    """How one launch of ``kernel`` cuts the output's columns, as
-    `VARIANT_LAUNCHES` names it: past a padded head dim of 256, ``"NxW"``,
-    N blocks a row tile each owning W columns (`SLICE_COLUMNS`; the last
-    slice short where W does not divide the padded head dim:
+def slice_columns(kernel: str, dtype: torch.dtype) -> int:
+    """The output columns one block of ``kernel``'s sliced form owns in
+    ``dtype`` (`SLICE_COLUMNS`, `SLICE_COLUMNS_F32`)."""
+    return (SLICE_COLUMNS_F32 if dtype == torch.float32 else SLICE_COLUMNS)[kernel]
+
+
+def column_slices(kernel: str, head_dim: int,
+                  dtype: torch.dtype = torch.bfloat16) -> Optional[str]:
+    """How one launch of ``kernel`` in ``dtype`` cuts the output's columns,
+    as `VARIANT_LAUNCHES` names it: past a padded head dim of 256,
+    ``"NxW"``, N blocks a row tile each owning W columns (`slice_columns`;
+    the last slice short where W does not divide the padded head dim:
     ``csrc/flash_sliced.cuh``, ``csrc/flash_f32.cu``); else None."""
     dp = padded_head_dim(head_dim)
     if dp <= _PADDED[-1]:
         return None
-    width = SLICE_COLUMNS[kernel]
+    width = slice_columns(kernel, dtype)
     return f"{-(-dp // width)}x{width}"
 
 
@@ -342,9 +352,10 @@ def _check_kernel_inputs(q, k, v) -> None:
     B, H = q.shape[0], q.shape[2]
     tiles = -(-max(q.shape[1], k.shape[1]) // TILE)
     # past a padded head dim of 256 a row tile is a block for each column
-    # slice, most in dkv's narrowest slices
+    # slice, most in the narrowest slices
     dp = padded_head_dim(q.shape[3])
-    slices = -(-dp // min(SLICE_COLUMNS.values())) if dp > _PADDED[-1] else 1
+    width = min(slice_columns(name, q.dtype) for name in LAUNCHES)
+    slices = -(-dp // width) if dp > _PADDED[-1] else 1
     if B * H * tiles * slices >= 2**31:
         raise ValueError("too many (batch, head, tile, column slice) blocks for one launch")
 

@@ -5,6 +5,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+import pytest
+import torch
+
 ROOT = Path(__file__).resolve().parents[1]
 
 # A pod-like child: a new session whose leader starts a sleeper and is then
@@ -83,3 +87,86 @@ def test_sass_parser_counts_local_memory_and_the_highest_register():
     dkv = counts["flash_bwd_dkv_kernel"]["f16 D128"]
     assert (dkv["LDL"], dkv["STL"], dkv["max_register"]) == (0, 0, 40)
     assert (dkv["HGMMA"], dkv["SYNCS"]) == (1, 1)
+
+
+@pytest.fixture
+def cs():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def _recorded_call(fa, dq_row_scale=None):
+    """One backward call as `recorded_backward` records it, on the CPU: the
+    plain backward stands in for the kernels, on inputs made as
+    `_Flash.backward` makes them (the forward's own o and lse), with the
+    ring's offsets; ``dq_row_scale`` plants a fault, query row 40 of dq off
+    by that scale."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, 2, 16), dtype=np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    opts = dict(scale=0.25, causal=True, q_offset=10, k_offset=0)
+    o, lse = fa._fwd_reference(q, k, v, out_dtype=torch.bfloat16, **opts)
+    ct = torch.from_numpy(rng.standard_normal((1, 70, 2, 16), dtype=np.float32))
+    do, delta = fa._backward_inputs(q, o, ct, torch.zeros_like(lse))
+    args = (q, k, v, do, lse, delta)
+    dq, dk, dv = fa._bwd_reference(*args, **opts)
+    if dq_row_scale is not None:
+        dq = dq.clone()
+        dq[:, 40] = (dq[:, 40].float() * dq_row_scale).to(dq.dtype)
+    return args, opts, (dq, dk, dv)
+
+
+def test_backward_call_check_passes_a_healthy_call(cs):
+    fa = cs._flash_module()
+    worst = cs.check_backward_calls(fa, "cpu", [_recorded_call(fa)], 1)
+    assert worst[("dq", "row")] == 0.0 and worst[("dv", "elem")] == 0.0
+
+
+def test_backward_call_check_raises_on_a_dq_row_off_by_a_scale(cs):
+    fa = cs._flash_module()
+    with pytest.raises(cs.SmokeFailure, match="backward call's dq off the plain backward"):
+        cs.check_backward_calls(fa, "cpu", [_recorded_call(fa, dq_row_scale=1.05)], 1)
+    with pytest.raises(cs.SmokeFailure, match="2 backward calls, expected 1"):
+        cs.check_backward_calls(fa, "cpu", [_recorded_call(fa)] * 2, 1)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_served_views_hold_each_backward_call_on_its_own_inputs(cs, planted, monkeypatch):
+    """`check_served_views` on the CPU, the plain versions standing in for
+    the kernels (the route takes the kernel path on every device): it passes
+    as it is, and with a backward whose dq has one row off by 5 % it fails
+    on the recorded call, not on the whole plain chain's composed error."""
+    fa = cs._flash_module()
+    plain_bwd = fa._bwd_reference
+
+    def bwd(*args, **opts):
+        dq, dk, dv = plain_bwd(*args, **opts)
+        if planted:
+            dq = dq.clone()
+            dq[:, 100] = (dq[:, 100].float() * 1.05).to(dq.dtype)
+        return dq, dk, dv
+
+    monkeypatch.setattr(fa, "_route", lambda x, plain, kernel: kernel)
+    monkeypatch.setattr(fa, "_fwd_kernel", lambda q, k, v, block_k=None, **opts:
+                        fa._fwd_reference(q, k, v, **opts))
+    monkeypatch.setattr(fa, "_bwd_kernel", bwd)
+    gen = torch.Generator().manual_seed(0)
+    if planted:
+        with pytest.raises(cs.SmokeFailure, match="served view stride_not_16B: a backward "
+                                                  "call's dq off"):
+            cs.check_served_views(fa, gen, torch.device("cpu"))
+    else:
+        cs.check_served_views(fa, gen, torch.device("cpu"))
+
+
+def test_setmaxnreg_names_every_kernel_with_a_producer_warpgroup(cs):
+    """The SASS check requires no local-memory access and no spill of every
+    variant of the kernels that move registers with setmaxnreg: the three
+    of ``csrc/flash_kernels.cuh`` and the sliced dkv."""
+    assert set(cs.SETMAXNREG_NAMES) == {"flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                        "flash_bwd_dkv_kernel", "flash_bwd_dkv_sliced_kernel"}
+    assert set(cs.SETMAXNREG_NAMES) <= set(cs.FLASH_NAMES + cs.FLASH_SLICED_NAMES)
