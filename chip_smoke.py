@@ -14,7 +14,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
     python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
     python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
-    python3 chip_smoke.py --turns ROOT  # time the backward kernels of the checkout at ROOT
+    python3 chip_smoke.py --turns ROOT  # time the sliced kernels of the checkout at ROOT
 
 ``--turns`` compares two trees on one card: run it on each in turn, parent,
 tree, tree, parent, each in a process of its own (`turns_main`).
@@ -36,7 +36,7 @@ exits non-zero without its last line:
    local-memory load and store (``LDL``, ``STL``) instructions and the
    highest register it names, beside ptxas's line; every bf16 and f16
    flash kernel must have wgmma and TMA loads and no ``mma.sync``, the
-   variants of all three kernels up to 256 and of the sliced dkv (a
+   variants of all three kernels up to 256 and of the three sliced ones (a
    producer warpgroup and two consumer warpgroups with setmaxnreg, so
    ptxas reports their registers at launch) no local-memory access and no
    spill, and every variant compiled
@@ -119,8 +119,8 @@ exits non-zero without its last line:
    the D-256 bf16 variants. Then the
    ``lm_d512`` phase, the same widths with 8 heads, so head dim 512, at 12
    layers: 12 calls of each sliced kernel a step, all of the D-512 bf16
-   variants (one launch a call, two column slices of O, of dQ and of dK
-   and dV).
+   variants (one launch a call: two 256-column slices of O and of dK and
+   dV, one 512-column slice of dQ).
 6. CTR, the flagship, at its published width (tables of 1000192 rows,
    embed 10, MLP 400-400-400) and batch 8192, trained with adagrad at lr
    0.05: a finite, falling loss; the padded table rows and a sample of rows
@@ -162,6 +162,13 @@ exits non-zero without its last line:
     ``/predict``), with version 2 (two more adagrad steps) exported
     mid-traffic and swapped in with no failed request; every answer against
     the module's ``predict``. The serving path launches no flash kernel.
+Phases 12-15 run at once, in groups of processes of their own
+(``PHASE_GROUPS``: 13's part (c) then 12; 13's parts (a) and (b) then 14;
+15; each group ``chip_smoke.py --phases JOB``, its standard output printed
+whole as it ends), so that their processes' start-ups overlap; their times
+are taken beside the other groups' load. Phases 16 and 17 run after them,
+each alone.
+
 12. Data parallelism (``dp``): (a) an NCCL process group at world 1,
     formed by the port's ``distributed_init`` against an
     ``InProcessCoordinator``, and over it a ``Mesh``; phase 4's LM and
@@ -441,8 +448,8 @@ LM_D512_STEPS = 5
 #: its attention's causal (B, S, H, D): the D-256 LM's FLOPs (H·D is equal)
 LM_D512_ATTENTION = (4, 2048, 8, 512)
 #: the f32 kernels are timed at the JAX check's f32 (B, S, H) at these head
-#: dims too, and these rows and f16 at the D-256 LM's attention, which no
-#: model runs, over OFF_PATH_REPS runs a time (the rest over 20)
+#: dims too, and these rows and f16 at the D-256 and D-512 LMs' attention,
+#: which no model runs, over OFF_PATH_REPS runs a time (the rest over 20)
 F32_TIMED_HEAD_DIMS = (256, 512)
 OFF_PATH_REPS = 5
 
@@ -534,10 +541,11 @@ DESIGNS = {
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA", "LDL", "STL")
 #: the kernels whose 16-bit variants run a producer warpgroup and two
 #: consumer warpgroups with setmaxnreg (csrc/flash_kernels.cuh up to a
-#: padded head dim of 256, and the sliced dkv past it): ptxas reports their
-#: registers at launch (168), so their SASS must show no local-memory load or
-#: store, and ptxas no spill
+#: padded head dim of 256, csrc/flash_sliced.cuh past it): ptxas reports
+#: their registers at launch (168), so their SASS must show no local-memory
+#: load or store, and ptxas no spill
 SETMAXNREG_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                    "flash_fwd_sliced_kernel", "flash_bwd_dq_sliced_kernel",
                     "flash_bwd_dkv_sliced_kernel")
 
 #: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused,
@@ -1334,10 +1342,11 @@ def _design(fa, kname: str, dtype: str, D: int) -> str:
                + " a block, scores summed over 64-column chunks")
         if dtype == "float32":
             return "f32 FMA tiles, " + cut
-        if kname == "bwd_dkv":
-            return ("wgmma+TMA, a producer warpgroup and two consumer warpgroups (setmaxnreg), "
-                    + cut + ", the slice's Q and dO from the chunk stream")
-        return "wgmma+TMA, one consumer warpgroup, " + cut
+        return ("wgmma+TMA, a producer warpgroup and two consumer warpgroups (setmaxnreg), "
+                + cut + {"fwd": ", 128 rows a block, Q held in shared memory up to D 512",
+                         "bwd_dq": ", the scores split by keys between the consumers, "
+                                   "K read once",
+                         "bwd_dkv": ", the slice's Q and dO from the chunk stream"}[kname])
     if dtype == "float32":
         return "f32 FMA tiles" + (", 32-wide tiles in dq and dkv" if dp > 128 else "")
     if kname == "bwd_dq":
@@ -1478,25 +1487,25 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
     return rows
 
 
-#: the rows ``--turns`` times: (kernel, dtype, causal (B, S, H, D)); the
-#: sliced dq at D 512, whose code the trees compared so far share, is the
-#: control for the card's drift between turns
-TURNS = [("bwd_dq", "bfloat16", (8, 1024, 12, 64)), ("bwd_dq", "bfloat16", LM_D128_ATTENTION),
-         ("bwd_dq", "bfloat16", D192_ATTENTION), ("bwd_dq", "bfloat16", LM_D256_ATTENTION),
-         ("bwd_dq", "float16", (8, 1024, 12, 64)), ("bwd_dq", "float16", LM_D128_ATTENTION),
-         ("bwd_dq", "float16", LM_D256_ATTENTION), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION),
-         ("bwd_dkv", "float16", LM_D512_ATTENTION), ("bwd_dq", "bfloat16", LM_D512_ATTENTION)]
+#: the rows ``--turns`` times: (kernel, dtype, causal (B, S, H, D)): the
+#: sliced forward and dq at the D-512 LM's attention in bf16 and f16, and at
+#: the other head dims past 256 that the kernels' cases hold (264: a short
+#: last slice and chunk; 576: Q streamed in the forward, a one-chunk second
+#: slice; 1024) in bf16; the sliced dkv at D 512, whose code the trees
+#: compared so far share, is the control for the card's drift between turns
+TURNS = [("fwd", "bfloat16", LM_D512_ATTENTION), ("fwd", "float16", LM_D512_ATTENTION),
+         ("bwd_dq", "bfloat16", LM_D512_ATTENTION), ("bwd_dq", "float16", LM_D512_ATTENTION),
+         ("fwd", "bfloat16", (4, 2048, 8, 264)), ("fwd", "bfloat16", (4, 2048, 8, 576)),
+         ("fwd", "bfloat16", (4, 2048, 8, 1024)), ("bwd_dq", "bfloat16", (4, 2048, 8, 576)),
+         ("bwd_dq", "bfloat16", (4, 2048, 8, 1024)), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION)]
 
 
 def turns_main(root: str) -> int:
-    """Time the backward kernels of the checkout at ``root`` (``TURNS``), so
-    that two trees can be compared on one card in turns (parent, tree, tree,
-    parent), each turn a process of its own: the package is imported from
-    ``root`` and its library built there. Each row's kernel is first held
-    against its plain version on the same inputs (the kernel tolerances),
-    then timed one call at a time and ten back to back (medians of 20),
-    beside the bound and PyTorch's SDPA backward (dq, dk and dv together).
-    Prints one JSON line ``{"turns": ...}``."""
+    """Time the kernels of the checkout at ``root`` (``TURNS``, `turn_row`),
+    so that two trees can be compared on one card in turns (parent, tree,
+    tree, parent), each turn a process of its own: the package is imported
+    from ``root`` and its library built there. Prints one JSON line
+    ``{"turns": ...}``."""
     from pathlib import Path
 
     root = str(Path(root).resolve())
@@ -1513,41 +1522,70 @@ def turns_main(root: str) -> int:
     fa._kernels()
     print(f"turns: {root}: the library built in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=device).manual_seed(0)
-    rows = []
-    for kname, dtype, (B, S, H, D) in TURNS:
-        q, k, v, do, dlse, out_dtype = _case_inputs((B, S, S, H, D), True, False, gen, device,
-                                                    dtype)
-        opts = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=0, k_offset=0)
+    rows = [turn_row(fa, kname, dtype, shape, gen, device) for kname, dtype, shape in TURNS]
+    print(json.dumps({"turns": {"root": root, "card": card(), "rows": rows}}))
+    return 0
+
+
+def turn_row(fa, kname: str, dtype: str, shape, gen, device) -> dict:
+    """One row of ``--turns``: kernel ``kname`` at the causal (B, S, H, D)
+    ``shape`` in ``dtype``, first held against its plain version on the same
+    inputs (the kernel tolerances; the forward's lse too), then timed one
+    call at a time and ten back to back (medians of 20), beside the bound
+    and PyTorch's SDPA (the forward, or the backward: dq, dk and dv
+    together)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, H, D = shape
+    q, k, v, do, dlse, out_dtype = _case_inputs((B, S, S, H, D), True, False, gen, device,
+                                                dtype)
+    opts = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=0, k_offset=0)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    if kname == "fwd":
+        def kernel():
+            return fa._fwd_kernel(q, k, v, out_dtype=out_dtype, **opts)
+
+        (got, lse_k), (want, lse_p) = kernel(), fa._fwd_reference(q, k, v, out_dtype=out_dtype,
+                                                                  **opts)
+        lse_err = (lse_k - lse_p).abs().max().item()
+        require(lse_err <= TOL_LSE, f"turns: fwd {dtype} {shape}: lse off its plain version "
+                                    f"by {lse_err:.3e}")
+        got, want = (got,), (want,)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
         o, lse = fa._fwd_kernel(q, k, v, out_dtype=out_dtype, **opts)
         do, delta = fa._backward_inputs(q, o, do, dlse)
         args = (q, k, v, do, lse, delta)
-        kernel = getattr(fa, f"_{kname}_kernel")
-        got = kernel(*args, **opts)
-        want = getattr(fa, f"_{kname}_reference")(*args, **opts)
+        bwd = getattr(fa, f"_{kname}_kernel")
+
+        def kernel():
+            return bwd(*args, **opts)
+
+        got, want = kernel(), getattr(fa, f"_{kname}_reference")(*args, **opts)
         got, want = ((got,), (want,)) if kname == "bwd_dq" else (got, want)
-        errs = [_compare(g, w) for g, w in zip(got, want)]
-        del got, want
-        require(all(_passes(e) for e in errs), f"turns: {kname} {dtype} {(B, S, H, D)} off its "
-                                               f"plain version: {[_fmt(e) for e in errs]}")
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         lib_do = do.transpose(1, 2)
-        bound_ms, bound_by = _kernel_bounds(B, S, H, D, q.element_size(), PEAK_BF16_FLOPS)[kname]
-        row = dict(name=kname, dtype=dtype, shape=[B, S, H, D],
-                   ms=time_ms(lambda: kernel(*args, **opts)),
-                   ms_back_to_back=time_ms(lambda: kernel(*args, **opts), batch=BACK_TO_BACK),
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms_back_to_back=time_ms(
-                       lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do,
-                                                   retain_graph=True), batch=BACK_TO_BACK),
-                   row_err=max(e["row"] for e in errs))
-        print(f"turns: {kname} {dtype} {(B, S, H, D)}: {row['ms']:.4f} ms one call at a time, "
-              f"{row['ms_back_to_back']:.4f} ms back to back, bound {bound_ms:.4f} ms, SDPA "
-              f"backward {row['library_ms_back_to_back']:.4f} ms back to back; row error "
-              f"{row['row_err']:.3e}")
-        rows.append(row)
-    print(json.dumps({"turns": {"root": root, "card": card(), "rows": rows}}))
-    return 0
+
+        def library():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
+    errs = [_compare(g, w) for g, w in zip(got, want)]
+    del got, want
+    require(all(_passes(e) for e in errs), f"turns: {kname} {dtype} {shape} off its plain "
+                                           f"version: {[_fmt(e) for e in errs]}")
+    bound_ms, bound_by = _kernel_bounds(B, S, H, D, q.element_size(), PEAK_BF16_FLOPS)[kname]
+    row = dict(name=kname, dtype=dtype, shape=[B, S, H, D], ms=time_ms(kernel),
+               ms_back_to_back=time_ms(kernel, batch=BACK_TO_BACK), bound_ms=bound_ms,
+               bound_by=bound_by, library_ms_back_to_back=time_ms(library, batch=BACK_TO_BACK),
+               row_err=max(e["row"] for e in errs))
+    print(f"turns: {kname} {dtype} {tuple(shape)}: {row['ms']:.4f} ms one call at a time, "
+          f"{row['ms_back_to_back']:.4f} ms back to back, bound {bound_ms:.4f} ms, "
+          f"{'SDPA' if kname == 'fwd' else 'SDPA backward'} "
+          f"{row['library_ms_back_to_back']:.4f} ms back to back; row error "
+          f"{row['row_err']:.3e}")
+    return row
 
 
 def card() -> str:
@@ -1655,6 +1693,8 @@ def phase_kernels(device, table_out=None) -> tuple:
     # rows off every model's path, timed over fewer runs
     rows += time_kernel_rows(fa, gen, device, LM_D256_ATTENTION, "float16", worst,
                              "lm_d256 f16", reps=OFF_PATH_REPS)
+    rows += time_kernel_rows(fa, gen, device, LM_D512_ATTENTION, "float16", worst,
+                             "lm_d512 f16", reps=OFF_PATH_REPS)
     rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[0][:4], "float32", worst,
                              "jax check f32")
     for D in F32_TIMED_HEAD_DIMS:
@@ -4819,13 +4859,20 @@ def phase_elastic(device) -> dict:
     """The elastic phase: part (a) the `ElasticWorker` rows on the card,
     part (b) the `MultiHostWorker` through the launcher, the checkpoint
     plane's smoke, part (c) the model-parallel LM through the launcher."""
-    rows = elastic_rows(device)
-    multihost = elastic_multihost(device)
-    plane = elastic_ckpt_plane()
-    mp = elastic_mp(device)
-    launches = {k: rows["lm"]["launches"][k] + mp["launches"][k] for k in mp["launches"]}
-    return {"rows": rows, "multihost": multihost, "ckpt_plane": plane, "mp": mp,
-            "launches": launches}
+    return elastic_record(elastic_local(device), elastic_mp(device))
+
+
+def elastic_local(device) -> dict:
+    """The elastic phase's parts (a) and (b) and the checkpoint plane's smoke."""
+    return {"rows": elastic_rows(device), "multihost": elastic_multihost(device),
+            "ckpt_plane": elastic_ckpt_plane()}
+
+
+def elastic_record(local: dict, mp: dict) -> dict:
+    """The elastic phase's record from `elastic_local`'s and part (c)'s."""
+    launches = {k: local["rows"]["lm"]["launches"][k] + mp["launches"][k]
+                for k in mp["launches"]}
+    return {**local, "mp": mp, "launches": launches}
 
 
 # -- mp: model parallelism of the LM on one card --------------------------------
@@ -6437,6 +6484,94 @@ def phase_chaos(device) -> dict:
     return out
 
 
+# -- phases 12-16 at once --------------------------------------------------------
+
+#: phases 12-15 drive processes of their own (ranks, launchers, entries),
+#: whose start-ups take most of their time while the card idles: each group
+#: runs in a process of its own (`phases_main`), every group at once, its
+#: phases in order; the elastic phase is cut in two (`elastic_local`, part
+#: (c)) to even the groups out. The controller and chaos phases run after
+#: them, each alone: the controller's regrow must come while lm-grow's
+#: queue lasts, and chaos's faults gate on heartbeats timed to the second
+PHASE_GROUPS = (("elastic_mp", "dp"), ("elastic_local", "mp"), ("entries",))
+#: the seconds the groups may take together before the script stops them
+PHASE_GROUPS_TIMEOUT = 720
+#: name -> the phase, called with the device and the group's job
+GROUP_PHASES = {
+    "dp": lambda device, job: phase_dp(device),
+    "elastic_local": lambda device, job: elastic_local(device),
+    "elastic_mp": lambda device, job: elastic_mp(device),
+    "mp": lambda device, job: phase_mp(device),
+    "entries": lambda device, job: phase_entries(job["profiler"]),
+}
+
+
+def phases_main(job_path: str) -> int:
+    """One group of `PHASE_GROUPS` (``chip_smoke.py --phases JOB``): its
+    phases in order on the job's device, TF32 off as phase 1 leaves it; each
+    phase's record and seconds written to the job's ``out``."""
+    import torch
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device, seconds, records = torch.device(job["device"]), {}, {}
+    for name in job["phases"]:
+        records[name] = timed(seconds, name, GROUP_PHASES[name], device, job)
+    with open(job["out"], "w") as f:
+        json.dump({"records": records, "seconds": seconds}, f)
+    return 0
+
+
+def run_phase_groups(device, seconds: dict, profiler: dict,
+                     groups=PHASE_GROUPS, timeout: float = PHASE_GROUPS_TIMEOUT) -> dict:
+    """Every group of ``groups`` at once, each in a process of its own;
+    returns each phase's record by name and adds its seconds to
+    ``seconds``. A group's standard output is printed whole once it has
+    ended, so that the groups' lines do not interleave. A group that fails,
+    or that is still running ``timeout`` seconds after the start, fails the
+    run once every group has ended or been stopped."""
+    import os
+
+    from edl_tpu_torch.coordinator.server import ensure_built
+
+    ensure_built()  # once here, so that no two groups' first `make` race
+    sys.stdout.flush()
+    records, failed = {}, []
+    with tempfile.TemporaryDirectory(prefix="edl-groups-") as root:
+        started = []
+        for i, names in enumerate(groups):
+            job = os.path.join(root, f"group{i}.json")
+            with open(job, "w") as f:
+                json.dump({"phases": list(names), "device": str(device), "profiler": profiler,
+                           "out": f"{job}.out"}, f)
+            log = open(f"{job}.log", "w+")
+            started.append((names, job, log, subprocess.Popen(
+                [sys.executable, __file__, "--phases", job], stdout=log)))
+        deadline = time.monotonic() + timeout
+        for names, job, log, proc in started:
+            try:
+                code = proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                code = f"stopped after {timeout} s"
+            with log:
+                log.seek(0)
+                sys.stdout.write(log.read())
+            sys.stdout.flush()
+            if code != 0:
+                failed.append(f"{' + '.join(names)}: exit {code}")
+                continue
+            with open(f"{job}.out") as f:
+                done = json.load(f)
+            records.update(done["records"])
+            seconds.update(done["seconds"])
+    require(not failed, f"phase groups failed: {'; '.join(failed)}")
+    return records
+
+
 def main(argv) -> int:
     if "--dp-rank" in argv:  # one rank of the dp phase's part (b)
         i = argv.index("--dp-rank")
@@ -6450,10 +6585,12 @@ def main(argv) -> int:
         return entry_record_main(argv[1:])
     if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
         return ctl_entry_main(argv[1:])
-    if argv and argv[0] == "--turns":  # the backward kernels of a checkout, timed
+    if argv and argv[0] == "--turns":  # the sliced kernels of a checkout, timed
         return turns_main(argv[1])
     adopt_orphans()
     try:
+        if argv and argv[0] == "--phases":  # one group of phases 12-16
+            return phases_main(argv[1])
         return run(argv)
     finally:
         stop_descendants()
@@ -6648,10 +6785,9 @@ def run(argv) -> int:
         others = timed(seconds, "zoo", phase_zoo, device)
         remat = timed(seconds, "remat", phase_remat, device, lm)
         serve = timed(seconds, "serve", phase_serve, device, lm_export, ctr_staged)
-    dp = timed(seconds, "dp", phase_dp, device)
-    elastic = timed(seconds, "elastic", phase_elastic, device)
-    mp = timed(seconds, "mp", phase_mp, device)
-    entries = timed(seconds, "entries", phase_entries, lm["profiler"])
+    grouped = timed(seconds, "groups", run_phase_groups, device, seconds, lm["profiler"])
+    dp, mp, entries = grouped["dp"], grouped["mp"], grouped["entries"]
+    elastic = elastic_record(grouped["elastic_local"], grouped["elastic_mp"])
     controller = timed(seconds, "controller", phase_controller)
     chaos = timed(seconds, "chaos", phase_chaos, device)
     for name, row in kernels.items():

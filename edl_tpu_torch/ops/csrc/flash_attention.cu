@@ -12,11 +12,12 @@
 //   element type   padded head dim               forward tile (rows, keys a stage)
 //   bf16           16, 32, 64, 128               (128, 64); also (128, 128) at 64 and 128
 //                  192, 256                      (128, 64)
-//                  past 256: D up to a multiple  (64, 64), sliced: a block owns 256
-//                  of 64, read at run time       columns of O, of dQ, or of dK and dV
+//                  past 256: D up to a multiple  (128, 64), sliced: a block owns 256
+//                  of 64, read at run time       columns of O, 512 of dQ, or 256 of
+//                                                dK and of dV
 //   f16            16, 32, 64, 128               (128, 64)
 //                  192, 256                      (128, 64)
-//                  past 256, as bf16             (64, 64), sliced
+//                  past 256, as bf16             (128, 64), sliced
 //   f32            any D up to 256               (64, 64)
 //                  past 256, read at run time    (64, 64), sliced: 256 columns of O or
 //                                                dQ, 128 of dK and dV

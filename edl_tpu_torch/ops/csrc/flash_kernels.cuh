@@ -140,10 +140,10 @@ __device__ __forceinline__ int open_key_tiles(int n_kt, int Sk, int wg_row0, int
 // ptxas allocates each role's code against its own limit: the consumers'
 // SASS names registers past 168 (up to R219 in the forward at DP 256, R189
 // in dkv) and holds no local-memory load or store (chip_smoke.py checks
-// both). That holds only while the kernel holds no `trap`: with the bounded
-// mbarrier wait (`mbar_wait`, which traps after 10 s) ptxas still names
-// registers past 168 but chooses its spills against 168, so these kernels
-// wait with `mbar_wait_spin` (PERF.md §7). At DP 256 a forward consumer
+// both). That holds only while the kernel holds no `trap`: with an
+// mbarrier wait that traps after a time bound ptxas still named registers
+// past 168 but chose its spills against 168, so every wait spins without a
+// bound (`mbar_wait_spin`; PERF.md §7). At DP 256 a forward consumer
 // holds O (128 registers a thread) and S (32) or P packed (16); a dkv
 // consumer holds dV or dK (128) and its 32 query columns of Sᵀ and dPᵀ (16
 // each); a dq consumer holds dQ (128), S and dP of a 32-key stage (16 each)
@@ -191,9 +191,6 @@ template <int DP>
 __host__ __device__ constexpr int dq_keys() {
   return DP >= 192 ? 32 : 64;
 }
-
-// The sliced kernels' block with one consumer warpgroup and a producer warp.
-__host__ __device__ constexpr int block_threads(int consumers) { return consumers * 128 + 32; }
 
 // Every layout's shared memory below is checked against kSmemMax where it is
 // instantiated, so each compiled variant is known to fit.

@@ -50,8 +50,8 @@ cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream);
 
 // The sliced wgmma kernels (flash_sliced.cuh): T is __nv_bfloat16 or __half,
 // the head dim any multiple of 8 past 256, read at run time; each block owns
-// a slice of the output's columns (256 of O, of dQ, or of dK and dV). One
-// launch a call.
+// a slice of the output's columns (256 of O, 512 of dQ, or 256 of dK and of
+// dV). One launch a call.
 template <typename T>
 cudaError_t launch_fwd_sliced(const FwdArgs& a, cudaStream_t stream);
 template <typename T>

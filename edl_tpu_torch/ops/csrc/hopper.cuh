@@ -111,39 +111,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-// Waits until the phase of parity `parity` has completed. The wait is bounded:
-// a barrier that never completes (a protocol fault) traps after 10 seconds, so
-// a hang ends instead of holding the card. The trap is not seen at the launch:
-// it surfaces at the process's next synchronising CUDA call as a sticky error,
-// after which the process's CUDA context is unusable and the process must
-// restart. A healthy kernel slowed past the bound (under a debugger) traps too.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  if (done) return;
-  uint64_t t0, t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    if (!done && t - t0 > 10000000000ull) __trap();
-  } while (!done);
-}
-
-// The same wait with no bound, for the kernels that move registers between
-// warpgroups with setmaxnreg (all three of flash_kernels.cuh and the sliced
-// dkv of flash_sliced.cuh): a trap anywhere in a kernel makes ptxas size its
-// spills against the register count at launch (168 a thread at 384
-// threads), not against the consumers' raised limit, so that at DP 256 they
-// spilled and with this wait they do not (PERF.md §7). A protocol fault in
-// those kernels hangs the launch instead of trapping: run one under
+// Waits until the phase of parity `parity` has completed, with no time
+// bound. Every kernel that waits here moves registers between warpgroups
+// with setmaxnreg, and a trap anywhere in a kernel (a bounded wait's way out)
+// makes ptxas size its spills against the register count at launch (168 a
+// thread at 384 threads), not against the consumers' raised limit: at DP
+// 256 such kernels spilled and with this wait they do not (PERF.md §7). A
+// protocol fault hangs the launch instead of trapping: run a kernel under
 // development under `timeout`.
 __device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);

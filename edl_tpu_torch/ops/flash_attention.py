@@ -62,7 +62,7 @@ _NEG_INF = -1e30
 
 #: the rows one warpgroup owns in every 16-bit kernel (wgmma's 64-row M),
 #: the keys a dkv block owns and the query tile it streams, and the sliced
-#: forward's tile past a padded head dim of 256; the f32 kernels' forward
+#: dq's rows a block past a padded head dim of 256; the f32 kernels' forward
 #: tile is TILE x TILE
 TILE = 64
 
@@ -73,10 +73,12 @@ _PADDED = (16, 32, 64, 128, 192, 256)
 #: past a padded head dim of 256 (the sliced kernels, every dtype): the
 #: head-dim columns of a chunk of the scores' sum, and the output columns one
 #: block owns, by kernel (dkv: of dK and of dV), in bf16 and f16
-#: (``csrc/flash_sliced.cuh``: dkv's two consumer warpgroups sum one each)
-#: and in f32 (``csrc/flash_f32.cu``: one block sums both)
+#: (``csrc/flash_sliced.cuh``: dq's and dkv's two consumer warpgroups sum
+#: 256 columns each, dq's of dQ, dkv's one of dK and dV; the forward's
+#: consumers split the block's 128 rows) and in f32 (``csrc/flash_f32.cu``:
+#: one block sums both)
 CHUNK = 64
-SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 256, "bwd_dkv": 256}
+SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 512, "bwd_dkv": 256}
 SLICE_COLUMNS_F32 = {"fwd": 256, "bwd_dq": 256, "bwd_dkv": 128}
 
 #: the element types the kernels take, with the C interface's codes
@@ -142,12 +144,11 @@ def compiled_blocks(head_dim: int, dtype: torch.dtype) -> Tuple[Tuple[int, int],
     """The forward tiles (block_q, block_k) compiled for this head dim and
     dtype, the default first (``csrc/flash_attention.cu`` has the table):
     bf16 and f16 at 128 query rows a block (two consumer warpgroups) and 64
-    keys a stage up to a padded head dim of 256, bf16 also at 128 keys at
-    padded head dims 64 and 128; the sliced kernels past 256 at 64 x 64; f32
-    at 64 x 64. None for a dtype the kernels do not take."""
+    keys a stage at every head dim (past 256 the sliced forward), bf16 also
+    at 128 keys at padded head dims 64 and 128; f32 at 64 x 64. None for a
+    dtype the kernels do not take."""
     dp = padded_head_dim(head_dim)
-    if dtype == torch.float32 or (dtype in (torch.bfloat16, torch.float16)
-                                  and dp > _PADDED[-1]):
+    if dtype == torch.float32:
         return ((TILE, TILE),)
     if dtype in (torch.bfloat16, torch.float16) and dp > 128:
         return (flash_tuning.DEFAULT_BLOCKS,)

@@ -106,10 +106,17 @@ def test_padded_head_dim(D, padded):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_head_dim_256_compiles_one_64_by_64_tile(dtype):
     """The forward has one tile, 64 query rows by 64 keys a stage, in f32 at
-    every head dim and in 16 bits past 256 (the sliced kernels): the
-    table's (128, 64) resolves to it, and a pin of anything else raises."""
-    head_dims = (136, 256, 512) if dtype == torch.float32 else (512,)
-    for D in head_dims:
+    every head dim: the table's (128, 64) resolves to it, and a pin of
+    anything else raises. In 16 bits no head dim compiles it: past 256 the
+    sliced forward's block holds 128 query rows too (two consumer
+    warpgroups of 64), so a pin of 64 x 64 raises there."""
+    if dtype != torch.float32:
+        for D in (264, 512, 1024):
+            assert (64, 64) not in fa.compiled_blocks(D, dtype)
+            with pytest.raises(NotImplementedError, match=r"compiled for \[\(128, 64\)\]"):
+                fa.resolve_blocks(2048, D, dtype, block_q=64, block_k=64)
+        return
+    for D in (136, 256, 512):
         assert fa.compiled_blocks(D, dtype) == ((64, 64),)
         assert fa.resolve_blocks(2048, D, dtype) == (64, 64)
         assert fa.resolve_blocks(2048, D, dtype, block_q=64) == (64, 64)
@@ -117,13 +124,13 @@ def test_head_dim_256_compiles_one_64_by_64_tile(dtype):
             fa.resolve_blocks(2048, D, dtype, block_q=128, block_k=64)
 
 
-@pytest.mark.parametrize("D", [136, 192, 200, 256])
+@pytest.mark.parametrize("D", [136, 192, 200, 256, 264, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_head_dims_past_128_compile_one_128_by_64_tile(dtype, D):
-    """At padded head dims 192 and 256 the 16-bit forward runs two consumer
-    warpgroups, 128 query rows a block, at 64 keys a stage: the table's tile
-    resolves to it without raising, and a pin of the old 64 x 64 tile or of
-    128 keys a stage raises."""
+    """From padded head dim 192 on, past 256 too (the sliced forward), the
+    16-bit forward runs two consumer warpgroups, 128 query rows a block, at
+    64 keys a stage: the table's tile resolves to it without raising, and a
+    pin of a 64 x 64 tile or of 128 keys a stage raises."""
     assert fa.compiled_blocks(D, dtype) == ((128, 64),)
     assert fa.resolve_blocks(2048, D, dtype) == (128, 64)
     assert fa.resolve_blocks(2048, D, dtype, block_q=128) == (128, 64)
@@ -140,7 +147,8 @@ def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monke
     a padded head dim of 256 named None (the 16-bit kernel sums dK and dV in
     one pass at 192 and 256 too), past 256 by its column slices (520 pads to
     576: three slices of 256 columns in 16 bits, the last 64 wide; five of
-    128 in f32, the last 64 wide), as the forward and dq calls are."""
+    128 in f32, the last 64 wide), as the forward and dq calls are (dq at
+    512: one slice of 512 columns in 16 bits, two of 256 in f32)."""
     monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
     monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
     fa._count("bwd_dkv", dtype, 200)
@@ -158,7 +166,8 @@ def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monke
                                    ("bwd_dkv", name, 576,
                                     "5x128" if dtype == torch.float32 else "3x256"): 1,
                                    ("fwd", name, 576, "3x256"): 1,
-                                   ("bwd_dq", name, 512, "2x256"): 1}
+                                   ("bwd_dq", name, 512,
+                                    "2x256" if dtype == torch.float32 else "1x512"): 1}
 
 
 @pytest.mark.parametrize("D,bf16,f32", [(264, "2x256", "3x128"), (320, "2x256", "3x128"),
@@ -182,6 +191,29 @@ def test_dkv_column_slices_past_256(D, bf16, f32, dtype, monkeypatch):
             torch.float32: "float32"}[dtype]
     assert fa.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 1}
     assert fa.VARIANT_LAUNCHES == {("bwd_dkv", name, fa.padded_head_dim(D), want): 1}
+
+
+@pytest.mark.parametrize("D,bf16,f32", [(264, "1x512", "2x256"), (320, "1x512", "2x256"),
+                                        (512, "1x512", "2x256"), (576, "2x512", "3x256"),
+                                        (1024, "2x512", "4x256")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_dq_column_slices_past_256(D, bf16, f32, dtype, monkeypatch):
+    """Past a padded head dim of 256 a dq block owns 512 columns of dQ in
+    bf16 and f16 (``csrc/flash_sliced.cuh``: the scores are summed once for
+    both 256-column halves, each consumer warpgroup sums one), so one block
+    covers a row up to 512 and two at 576 and 1024; in f32 a block owns 256
+    (``csrc/flash_f32.cu``). Every call is one launch, named by its
+    slices."""
+    monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
+    monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
+    want = f32 if dtype == torch.float32 else bf16
+    assert fa.column_slices("bwd_dq", D, dtype) == want
+    assert fa.slice_columns("bwd_dq", dtype) == int(want.split("x")[1])
+    fa._count("bwd_dq", dtype, D)
+    name = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+            torch.float32: "float32"}[dtype]
+    assert fa.LAUNCHES == {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 0}
+    assert fa.VARIANT_LAUNCHES == {("bwd_dq", name, fa.padded_head_dim(D), want): 1}
 
 
 def test_non_unit_stride_along_the_head_dim_is_rejected():

@@ -1,6 +1,7 @@
 """``chip_smoke.py`` leaves no process behind: orphans of its children come
 to it, and its end stops and reaps every descendant."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -166,7 +167,163 @@ def test_served_views_hold_each_backward_call_on_its_own_inputs(cs, planted, mon
 def test_setmaxnreg_names_every_kernel_with_a_producer_warpgroup(cs):
     """The SASS check requires no local-memory access and no spill of every
     variant of the kernels that move registers with setmaxnreg: the three
-    of ``csrc/flash_kernels.cuh`` and the sliced dkv."""
+    of ``csrc/flash_kernels.cuh`` and the three sliced ones of
+    ``csrc/flash_sliced.cuh``, every 16-bit flash kernel."""
     assert set(cs.SETMAXNREG_NAMES) == {"flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                        "flash_bwd_dkv_kernel", "flash_bwd_dkv_sliced_kernel"}
-    assert set(cs.SETMAXNREG_NAMES) <= set(cs.FLASH_NAMES + cs.FLASH_SLICED_NAMES)
+                                        "flash_bwd_dkv_kernel", "flash_fwd_sliced_kernel",
+                                        "flash_bwd_dq_sliced_kernel",
+                                        "flash_bwd_dkv_sliced_kernel"}
+    assert set(cs.SETMAXNREG_NAMES) == set(cs.FLASH_NAMES + cs.FLASH_SLICED_NAMES)
+
+
+def test_turns_time_the_sliced_forward_and_dq_beside_an_unchanged_control(cs):
+    """``--turns`` times the sliced forward and dq at the D-512 LM's
+    attention in bf16 and f16, the forward at the other head dims past 256
+    that the kernel cases hold, and the sliced dkv at D 512 as the control
+    for the card's drift between turns."""
+    rows = {(k, dtype, tuple(shape)) for k, dtype, shape in cs.TURNS}
+    for kname in ("fwd", "bwd_dq"):
+        for dtype in ("bfloat16", "float16"):
+            assert (kname, dtype, cs.LM_D512_ATTENTION) in rows
+    assert {shape[3] for k, dtype, shape in cs.TURNS if k == "fwd"} == {264, 512, 576, 1024}
+    assert [row for row in cs.TURNS if row[0] == "bwd_dkv"] == [
+        ("bwd_dkv", "bfloat16", cs.LM_D512_ATTENTION)]
+
+
+def _stand_in_kernels(fa, monkeypatch, fwd_scale=None):
+    """The kernels replaced by their plain versions on the CPU; ``fwd_scale``
+    plants a fault, the forward's O off by that scale."""
+    def fwd(q, k, v, block_k=None, **opts):
+        o, lse = fa._fwd_reference(q, k, v, **opts)
+        return (o if fwd_scale is None else (o.float() * fwd_scale).to(o.dtype)), lse
+
+    monkeypatch.setattr(fa, "_fwd_kernel", fwd)
+    monkeypatch.setattr(fa, "_bwd_dq_kernel", fa._bwd_dq_reference)
+    monkeypatch.setattr(fa, "_bwd_dkv_kernel", fa._bwd_dkv_reference)
+
+
+@pytest.mark.parametrize("kname", ["fwd", "bwd_dq", "bwd_dkv"])
+def test_a_turn_row_holds_the_kernel_and_times_it(cs, kname, monkeypatch):
+    """A row of ``--turns`` (`turn_row`), rehearsed on the CPU with the plain
+    versions standing in for the kernels and a stub clock: the forward rows
+    take the forward path (its lse held too), the backward rows the
+    backward's, each row with its bound and SDPA's time."""
+    fa = cs._flash_module()
+    _stand_in_kernels(fa, monkeypatch)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps=20, warmup=3, batch=1: (fn(), 1.0)[1])
+    row = cs.turn_row(fa, kname, "bfloat16", (1, 70, 2, 264), torch.Generator().manual_seed(0),
+                      torch.device("cpu"))
+    assert row["name"] == kname and row["shape"] == [1, 70, 2, 264]
+    assert row["row_err"] == 0.0 and row["bound_ms"] > 0.0
+    assert row["ms"] == row["ms_back_to_back"] == row["library_ms_back_to_back"] == 1.0
+
+
+def test_a_turn_row_rejects_a_forward_off_its_plain_version(cs, monkeypatch):
+    fa = cs._flash_module()
+    _stand_in_kernels(fa, monkeypatch, fwd_scale=1.05)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps=20, warmup=3, batch=1: 1.0)
+    with pytest.raises(cs.SmokeFailure, match="turns: fwd bfloat16 .* off its plain version"):
+        cs.turn_row(fa, "fwd", "bfloat16", (1, 70, 2, 264), torch.Generator().manual_seed(0),
+                    torch.device("cpu"))
+
+
+# Phases 12-16's group runner on the CPU, with stub phases: groups "a + b"
+# and "c" must meet at a barrier (each waits for the other's file, which
+# only groups running at once can pass); group "bad" fails while group "a"
+# passes; group "slow" outlasts the runner's timeout. The children run this
+# same script (``cs.__file__`` points at it), so they see the stubs too.
+GROUPS = """
+import json, os, sys, time
+sys.path.insert(0, ROOT)
+import chip_smoke as cs
+import torch
+
+cs.__file__ = os.path.abspath(__file__)
+BARRIER = os.path.join(os.path.dirname(cs.__file__), "barrier")
+
+
+def meet(me, other):
+    open(f"{BARRIER}.{me}", "w").close()
+    deadline = time.monotonic() + 60
+    while not os.path.exists(f"{BARRIER}.{other}"):
+        cs.require(time.monotonic() < deadline, f"{me}: {other} never came")
+        time.sleep(0.05)
+
+
+def stub(name, fn=None):
+    def phase(device, job):
+        if fn is not None:
+            fn()
+        print(f"phase {name} ran")
+        return {"name": name, "device": str(device), "profiler": job["profiler"]}
+    return phase
+
+
+cs.GROUP_PHASES.update(a=stub("a", lambda: meet("a", "c")), b=stub("b"),
+                       c=stub("c", lambda: meet("c", "a")),
+                       bad=stub("bad", lambda: cs.require(False, "planted")),
+                       slow=stub("slow", lambda: time.sleep(300)))
+if sys.argv[1:2] == ["--phases"]:
+    sys.exit(cs.main(sys.argv[1:]))
+out = {}
+for label, groups, timeout in (("met", (("a", "b"), ("c",)), 120),
+                               ("bad", (("bad",), ("b",)), 120),
+                               ("slow", (("slow",),), 8)):
+    seconds = {}
+    try:
+        records = cs.run_phase_groups(torch.device("cpu"), seconds, {"p": 1}, groups, timeout)
+        out[label] = {"records": records, "seconds": sorted(seconds)}
+    except cs.SmokeFailure as e:
+        out[label] = {"failure": str(e), "seconds": sorted(seconds)}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def grouped(tmp_path_factory):
+    script = tmp_path_factory.mktemp("groups") / "groups.py"
+    script.write_text(GROUPS.replace("ROOT", repr(str(ROOT)), 1))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout, out.stderr
+
+
+def test_phase_groups_run_at_once_and_merge_their_records(grouped):
+    stdout, _ = grouped
+    met = json.loads(stdout.strip().splitlines()[-1])["met"]
+    assert "failure" not in met, met
+    assert set(met["records"]) == {"a", "b", "c"} and met["seconds"] == ["a", "b", "c"]
+    assert met["records"]["c"] == {"name": "c", "device": "cpu", "profiler": {"p": 1}}
+    # each group's lines printed whole: a's and b's together
+    assert "phase a ran\nseconds: the a phase took" in stdout
+    assert "phase b ran\nseconds: the b phase took" in stdout
+
+
+def test_a_failing_phase_group_fails_the_run_after_the_others_end(grouped):
+    stdout, stderr = grouped
+    bad = json.loads(stdout.strip().splitlines()[-1])["bad"]
+    assert bad["failure"] == "phase groups failed: bad: exit 1"
+    assert bad["seconds"] == ["b"]  # the other group ran to its end
+    assert "SmokeFailure: planted" in stderr
+
+
+def test_a_phase_group_past_the_timeout_is_stopped_and_fails_the_run(grouped):
+    stdout, _ = grouped
+    slow = json.loads(stdout.strip().splitlines()[-1])["slow"]
+    assert slow["failure"] == "phase groups failed: slow: exit stopped after 8 s"
+
+
+def test_phase_groups_hold_each_process_phase_once_and_leave_controller_and_chaos_alone(cs):
+    """Phases 12-15 run at once in `PHASE_GROUPS`, each in one group; the
+    elastic phase's two halves compose its record; the controller and chaos
+    phases, whose checks are timed against their own processes, run alone."""
+    names = [name for group in cs.PHASE_GROUPS for name in group]
+    assert sorted(names) == sorted(cs.GROUP_PHASES) == [
+        "dp", "elastic_local", "elastic_mp", "entries", "mp"]
+    local = {"rows": {"lm": {"launches": {"fwd": 3, "bwd_dq": 2, "bwd_dkv": 2}}},
+             "multihost": {}, "ckpt_plane": {}}
+    mp = {"launches": {"fwd": 16, "bwd_dq": 8, "bwd_dkv": 8}}
+    record = cs.elastic_record(local, mp)
+    assert record["launches"] == {"fwd": 19, "bwd_dq": 10, "bwd_dkv": 10}
+    assert set(record) == {"rows", "multihost", "ckpt_plane", "mp", "launches"}
