@@ -14,7 +14,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
     python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
     python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
-    python3 chip_smoke.py --turns ROOT  # time the sliced kernels of the checkout at ROOT
+    python3 chip_smoke.py --turns ROOT  # time the f32 sliced backward of the checkout at ROOT
 
 ``--turns`` compares two trees on one card: run it on each in turn, parent,
 tree, tree, parent, each in a process of its own (`turns_main`).
@@ -42,7 +42,9 @@ exits non-zero without its last line:
    spill, and every variant compiled
    for head dims up to 256 and the sliced ones past 256
    (``flash_sliced.cuh``) must be in the library; the f32 kernels (head
-   dims up to 128, up to 256, and sliced past 256) print what they use.
+   dims up to 128, up to 256, and sliced past 256) print what they use,
+   and the f32 backward past 256 (3xTF32, setmaxnreg) must have
+   ``mma.sync`` and TMA loads and neither local-memory access nor spill.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs (the forward at every tile compiled
    for the case), at the slice's shape, a ragged shape, the ring's offset
@@ -51,8 +53,10 @@ exits non-zero without its last line:
    80, 96, 128, 136, 192, 200 and 256 (at 256 a whole 64-row block that
    sees no key, and a 128-row block whose first 64 rows see none), past 256 through the sliced kernels 264, 320, 512, 576
    and 1024, f16 at 64, 128, 192, 256, 320 and 512, f32 at 64, 128, 192,
-   256, 264 and 512, and fewer queries than keys, row by row and element
-   by element; the JAX on-chip check's
+   256, 264, 512, 576 and 1024, and fewer queries than keys, row by row
+   and element by element, f32 outputs also within the f32 bound
+   (``TOL_ROW_F32``, ``TOL_ELEM_F32``), which the plain versions on inputs
+   rounded to TF32 must fail at every f32 case; the JAX on-chip check's
    five cases (``ONCHIP_CASES``) through `flash_attention`, forward and
    backward, against the plain forward in f32 within that check's relative
    errors (2e-3 f32, 3e-2 bf16); views the kernels' loads cannot read,
@@ -75,8 +79,9 @@ exits non-zero without its last line:
    D-128 LM's attention (bf16 and f16), the D-256 LM's attention (bf16 and
    f16) and the same shape at D 192 (bf16), the D-512 LM's attention
    (bf16), and the JAX check's D-128 shape (bf16) and its f32 shape, also
-   at D 256 and 512, with whether SDPA's flash backend takes each and which
-   of SDPA's backends serves it; then the
+   at D 128, 192, 256 and 512 (each f32 row with its FMA and its 3xTF32
+   bound, the smaller its bound), with whether SDPA's flash backend takes
+   each and which of SDPA's backends serves it; then the
    tile sweep (``SWEEP_SHAPES``): every compiled forward tile timed,
    forward and forward plus backward, the winners printed (and written as
    a tile table with ``--tile-table PATH``), and the wrapper must resolve
@@ -368,9 +373,12 @@ import tempfile
 import time
 
 #: NVIDIA H100 SXM data sheet: dense bf16 (and fp16) tensor-core peak, f32
-#: outside the tensor cores (the f32 kernels' FMAs), and the HBM3 rate
+#: outside the tensor cores (the f32 kernels' FMAs), dense TF32 on the tensor
+#: cores (an f32 product in 3xTF32 takes three: 165 TFLOP/s of f32 work),
+#: and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 #: kernel vs plain version, both on the card, compared row by row (a row is
@@ -392,6 +400,21 @@ ROW_FLOOR = 1e-2
 #: lse is f32 from f32 statistics in both versions (summation order only);
 #: absolute, since an error in lse is a relative error of the softmax's sum
 TOL_LSE = 1e-4
+#: every f32 kernel output is also held to f32, by the same metrics: the
+#: kernels multiply in f32 (FMA) or 3xTF32 (about 2^-21 a product), where one
+#: TF32 rounding of the inputs (2^-11) puts a row off by 2e-3 to 5e-1 (the
+#: planted TF32 fault, `tf32_fault_outputs`, which must fail the bound). The
+#: FMA kernels sum in the plain version's order and stay within 4.7e-7 of a
+#: row and 1.9e-6 of an element of it on an H100 (PERF.md §6). A kernel that
+#: sums in another order is off the f32 plain version by the plain version's
+#: own rounding, largest in a row whose dq cancels (the ROW_FLOOR clamp
+#: weighs it): the function in f64 is off it by 6.8e-5 of a row at the D-512
+#: case and 1.4e-3 at the D-512 LM shape. So an output's f32 bound
+#: (`f32_bounds`) is the larger of TOL_*_F32 and F32_OWN_HEADROOM times the
+#: plain version's own error against the function in f64 (`_exact_outputs`)
+TOL_ROW_F32 = 1e-4
+TOL_ELEM_F32 = 2e-4
+F32_OWN_HEADROOM = 4
 #: the planted faults that the comparison must reject at the slice's shape:
 #: key tile FAULT_K_TILE left out for query tiles FAULT_Q_TILE and later, and
 #: the rows of those query tiles (keys, for dK and dV) off by FAULT_SCALE
@@ -450,7 +473,7 @@ LM_D512_ATTENTION = (4, 2048, 8, 512)
 #: the f32 kernels are timed at the JAX check's f32 (B, S, H) at these head
 #: dims too, and these rows and f16 at the D-256 and D-512 LMs' attention,
 #: which no model runs, over OFF_PATH_REPS runs a time (the rest over 20)
-F32_TIMED_HEAD_DIMS = (256, 512)
+F32_TIMED_HEAD_DIMS = (128, 192, 256, 512)
 OFF_PATH_REPS = 5
 
 SLICE = dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072, seq_len=1024,
@@ -498,16 +521,22 @@ KERNELS = {  # name -> (plain version, TPU kernel it replaces)
 SOURCE = "edl_tpu_torch/ops/csrc/flash_kernels.cuh"
 SOURCE_SLICED = "edl_tpu_torch/ops/csrc/flash_sliced.cuh"
 SOURCE_F32 = "edl_tpu_torch/ops/csrc/flash_f32.cu"
+#: the f32 backward kernels past a head dim of 256 (3xTF32 on the tensor cores)
+SOURCE_F32_SLICED = {"bwd_dq": "edl_tpu_torch/ops/csrc/flash_bwd_dq_f32_sliced.cu",
+                     "bwd_dkv": "edl_tpu_torch/ops/csrc/flash_bwd_dkv_f32_sliced.cu"}
 FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 #: the 16-bit kernels past a head dim of 256 (wgmma and TMA, column slices)
 FLASH_SLICED_NAMES = ("flash_fwd_sliced_kernel", "flash_bwd_dq_sliced_kernel",
                       "flash_bwd_dkv_sliced_kernel")
-#: the f32 kernels, which run on the CUDA cores (no wgmma, no TMA), up to a
-#: head dim of 256 and past it
+#: the f32 kernels, up to a head dim of 256 and past it: on the CUDA cores
+#: (no tensor cores, no TMA), but for the backward past 256
 FLASH_F32_NAMES = ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
                    "flash_bwd_dkv_f32_kernel")
 FLASH_F32_SLICED_NAMES = ("flash_fwd_f32_sliced_kernel", "flash_bwd_dq_f32_sliced_kernel",
                           "flash_bwd_dkv_f32_sliced_kernel")
+#: the f32 backward kernels past 256: 3xTF32 on the tensor cores (mma.sync,
+#: HMMA), fed by TMA
+FLASH_TF32_NAMES = ("flash_bwd_dq_f32_sliced_kernel", "flash_bwd_dkv_f32_sliced_kernel")
 #: the ring's hop counts held on one card: the merged (out, lse) of this many
 #: offset hops against the plain full attention (1: one kernel call on the
 #: whole sequence, the baseline)
@@ -539,14 +568,14 @@ DESIGNS = {
 #: mma.sync, the f32 kernels' fused multiply-add, and local-memory loads and
 #: stores (spills)
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA", "LDL", "STL")
-#: the kernels whose 16-bit variants run a producer warpgroup and two
-#: consumer warpgroups with setmaxnreg (csrc/flash_kernels.cuh up to a
-#: padded head dim of 256, csrc/flash_sliced.cuh past it): ptxas reports
-#: their registers at launch (168), so their SASS must show no local-memory
-#: load or store, and ptxas no spill
+#: the kernels that run a producer warpgroup and two consumer warpgroups
+#: with setmaxnreg (the 16-bit ones of csrc/flash_kernels.cuh up to a padded
+#: head dim of 256 and of csrc/flash_sliced.cuh past it, and the f32
+#: backward past 256): ptxas reports their registers at launch (168), so
+#: their SASS must show no local-memory load or store, and ptxas no spill
 SETMAXNREG_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                     "flash_fwd_sliced_kernel", "flash_bwd_dq_sliced_kernel",
-                    "flash_bwd_dkv_sliced_kernel")
+                    "flash_bwd_dkv_sliced_kernel") + FLASH_TF32_NAMES
 
 #: (name, (B, Sq, Sk, H, D), causal, q_offset, k_offset, return_lse, fused,
 #: dtype): ``fused`` cases take q, k and v as strided slices of one
@@ -634,6 +663,12 @@ FAULT_CASES = (CASES[0], ("jax_check_d128", (1, 2048, 2048, 8, 128), True, 0, 0,
 LATE_CASES = [
     ("head_dim_256_no_key_warpgroup", (1, 300, 300, 2, 256), True, 0, 64, True, False,
      "bfloat16"),
+    # the f32 backward past 256 (3xTF32): fewer queries than keys and a short
+    # last slice of dQ (64 of 512 columns) and of dK and dV (64 of 256); two
+    # slices of dQ and four of dK and dV, rows that see no key, fused slices
+    ("f32_head_dim_576_uneven", (1, 100, 260, 2, 576), True, 160, 0, True, False, "float32"),
+    ("f32_head_dim_1024_no_key_rows", (1, 200, 200, 2, 1024), True, 0, 69, True, True,
+     "float32"),
 ]
 LATE_FAULT_CASES = (
     ("head_dim_256_ring_ragged", (2, 700, 700, 2, 256), True, 300, 300, True, False,
@@ -798,10 +833,11 @@ def phase_build() -> dict:
 def check_sass(build: dict) -> None:
     """The build's SASS counts (`phase_build`'s thread), printed beside
     ptxas's line and held: every bf16 and f16 flash kernel has wgmma and TMA
-    loads and no ``mma.sync``; the setmaxnreg kernels (``SETMAXNREG_NAMES``)
-    have no local-memory load or store in their SASS and no spill in ptxas's
-    line; and every compiled variant is in the library. Stores the counts in
-    ``build["sass"]``."""
+    loads and no ``mma.sync``; the f32 backward past 256
+    (``FLASH_TF32_NAMES``) has ``mma.sync`` and TMA loads; the setmaxnreg
+    kernels (``SETMAXNREG_NAMES``) have no local-memory load or store in
+    their SASS and no spill in ptxas's line; and every compiled variant is in
+    the library. Stores the counts in ``build["sass"]``."""
     import torch
 
     from edl_tpu_torch.ops import flash_tuning
@@ -820,6 +856,11 @@ def check_sass(build: dict) -> None:
             require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
                     f"{fn} {label} lacks wgmma or TMA loads, or has mma.sync, in its "
                     f"SASS: {ops}")
+    for fn in FLASH_TF32_NAMES:
+        require(fn in counts, f"{fn} is not in the library's SASS")
+        for label, ops in counts[fn].items():
+            require(ops["HMMA"] > 0 and ops["UTMALDG"] > 0,
+                    f"{fn} {label} lacks mma.sync or TMA loads in its SASS: {ops}")
     for fn in SETMAXNREG_NAMES:
         for label, ops in counts[fn].items():
             use = build["ptxas"].get(f"{fn} {label}", {})
@@ -975,6 +1016,70 @@ def _compare(got, want) -> dict:
 
 def _passes(err: dict) -> bool:
     return err["row"] <= TOL_ROW and err["elem"] <= TOL_ELEM
+
+
+def _passes_f32(err: dict, bound: dict = None) -> bool:
+    """The f32 bound (`f32_bounds`; ``TOL_*_F32`` if none is given), which
+    f32 outputs are held to besides `_passes`."""
+    bound = bound or {"row": TOL_ROW_F32, "elem": TOL_ELEM_F32}
+    return err["row"] <= bound["row"] and err["elem"] <= bound["elem"]
+
+
+def f32_bounds(outputs, want, exact) -> dict:
+    """Each f32 output's bound: the larger of ``TOL_*_F32`` and
+    ``F32_OWN_HEADROOM`` times the plain version's own error (``want``)
+    against the function in f64 (``exact``, `_exact_outputs`), by metric,
+    with that error under "own"."""
+    out = {}
+    for n, x in zip(outputs, exact):
+        own = _compare(want[n], x)
+        out[n] = {"row": max(TOL_ROW_F32, F32_OWN_HEADROOM * own["row"]),
+                  "elem": max(TOL_ELEM_F32, F32_OWN_HEADROOM * own["elem"]), "own": own}
+    return out
+
+
+def case_f32_bounds(fa, q, k, v, want, opts) -> dict:
+    """`f32_bounds` of a case's four outputs (o, dq, dk, dv; the backward
+    given the plain forward's lse and delta)."""
+    bwd = (q, k, v, want["do"], want["lse"], want["delta"])
+    exact = (*_exact_outputs(fa, "fwd", q, k, v, None, None, None, opts),
+             *_exact_outputs(fa, "bwd_dq", *bwd, opts), *_exact_outputs(fa, "bwd_dkv", *bwd, opts))
+    return f32_bounds(("o", "dq", "dk", "dv"), want, exact)
+
+
+def tf32_rounded(x):
+    """``x`` in f32 with the low 13 bits of every mantissa cleared: its TF32
+    value (rounded toward zero)."""
+    import torch
+
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_fault_outputs(fa, q, k, v, want, out_dtype, opts) -> dict:
+    """A planted fault for the f32 bound: the plain versions' outputs from
+    q, k, v and dO rounded to TF32 (`tf32_rounded`), what a kernel that
+    multiplied in one TF32 rounding would give; the backward given the true
+    lse and delta (``want``, `_plain_outputs`)."""
+    tq, tk, tv, tdo = (tf32_rounded(x) for x in (q, k, v, want["do"]))
+    o, _ = fa._fwd_reference(tq, tk, tv, out_dtype=out_dtype, **opts)
+    args = (tq, tk, tv, tdo, want["lse"], want["delta"])
+    dk, dv = fa._bwd_dkv_reference(*args, **opts)
+    return dict(o=o, dq=fa._bwd_dq_reference(*args, **opts), dk=dk, dv=dv)
+
+
+def check_tf32_fault(fa, name, q, k, v, want, out_dtype, opts, bounds) -> dict:
+    """Every output of the planted TF32 fault (`tf32_fault_outputs`) must
+    fail its f32 bound (``bounds``, `case_f32_bounds`) against the true
+    plain outputs; returns their errors."""
+    got = tf32_fault_outputs(fa, q, k, v, want, out_dtype, opts)
+    errs = {n: _compare(g, want[n]) for n, g in got.items()}
+    print(f"planted TF32 fault ({name}): the plain versions on inputs rounded to TF32: "
+          + "; ".join(f"{n} {_fmt(e)}" for n, e in errs.items()) + "; f32 bounds: "
+          + "; ".join(f"{n} row {b['row']:.3e} elem {b['elem']:.3e}" for n, b in bounds.items()))
+    for n, e in errs.items():
+        require(not _passes_f32(e, bounds[n]), f"the f32 bound passes the planted TF32 fault "
+                                               f"({name} {n}: {_fmt(e)})")
+    return errs
 
 
 def _fmt(err: dict) -> str:
@@ -1180,9 +1285,11 @@ def check_backward_calls(fa, label: str, calls, expected: int) -> dict:
 
 def check_cases(fa, gen, device, cases, worst=None) -> dict:
     """Every kernel against its plain version on every case of ``cases``, the
-    forward at every tile compiled for the case's head dim and dtype; returns
-    the worst errors by (kernel, dtype, padded head dim), each with the case
-    and output it came from, added to ``worst`` if given."""
+    forward at every tile compiled for the case's head dim and dtype, f32
+    outputs also within their f32 bound (`case_f32_bounds`), which the
+    planted TF32 fault of each f32 case must fail (`check_tf32_fault`);
+    returns the worst errors by (kernel, dtype, padded head dim), each with
+    the case and output it came from, added to ``worst`` if given."""
     import torch
 
     outputs = {"fwd": ("o", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
@@ -1200,6 +1307,9 @@ def check_cases(fa, gen, device, cases, worst=None) -> dict:
         rows = no_key.transpose(1, 2)  # (B, Sq, H)
         unseen = ~fa._valid(shape[1], shape[2], qo, ko, causal, device).any(0)
         live = ~no_key
+        bounds = case_f32_bounds(fa, q, k, v, want, opts) if dtype == "float32" else {}
+        if bounds:
+            check_tf32_fault(fa, name, q, k, v, want, out_dtype, opts, bounds)
         for _, block_k in fa.compiled_blocks(shape[4], q.dtype):
             o_k, lse_k = fa._fwd_kernel(q, k, v, out_dtype=out_dtype, block_k=block_k, **opts)
             torch.cuda.synchronize()
@@ -1224,6 +1334,16 @@ def check_cases(fa, gen, device, cases, worst=None) -> dict:
             for n, e in errs.items():
                 require(_passes(e), f"{name}: {n} off its plain version: {_fmt(e)} "
                                     f"(tolerances: row {TOL_ROW}, elem {TOL_ELEM})")
+            for n, b in bounds.items():
+                require(_passes_f32(errs[n], b),
+                        f"{name}: {n} off its plain version beyond the f32 bound: "
+                        f"{_fmt(errs[n])} (bound: row {b['row']:.3e}, elem {b['elem']:.3e}; "
+                        f"the plain version's own error {_fmt(b['own'])})")
+            if bounds:
+                print(f"kernels {name}: within the f32 bound, " + "; ".join(
+                    f"{n} row {errs[n]['row']:.3e} of {b['row']:.3e} (TOL_ROW_F32 "
+                    f"{'met' if _passes_f32(errs[n]) else 'not met'}; the plain version's "
+                    f"own {b['own']['row']:.3e})" for n, b in bounds.items()))
             errs["lse"] = {"abs": lse_err}
             for kname, outs in outputs.items():
                 slot = worst.setdefault((kname, dtype, fa.padded_head_dim(shape[4])), {})
@@ -1331,6 +1451,29 @@ def _kernel_bounds(B, S, H, D, itemsize: int, peak: float) -> dict:
     }
 
 
+def kernel_bounds(B, S, H, D, dtype: str) -> dict:
+    """Each kernel's bound at a causal (B, S, H, D) in ``dtype``: kernel ->
+    {"bound_ms", "bound_by"}, the least time the card could take. 16-bit at
+    the bf16 tensor-core peak; f32 the smaller of the FMA bound (f32 outside
+    the tensor cores) and the 3xTF32 bound (each FLOP three TF32 ones on the
+    tensor cores), both kept as "bound_fma_ms" and "bound_tf32_ms"."""
+    if dtype != "float32":
+        return {k: {"bound_ms": ms, "bound_by": by}
+                for k, (ms, by) in _kernel_bounds(B, S, H, D, 2, PEAK_BF16_FLOPS).items()}
+    fma = _kernel_bounds(B, S, H, D, 4, PEAK_F32_FLOPS)
+    tf32 = _kernel_bounds(B, S, H, D, 4, PEAK_TF32_FLOPS / 3)
+    return {k: {"bound_ms": min(fma[k], tf32[k])[0], "bound_by": min(fma[k], tf32[k])[1],
+                "bound_fma_ms": fma[k][0], "bound_tf32_ms": tf32[k][0]} for k in fma}
+
+
+def _bound_text(b: dict) -> str:
+    """A row's bound as its log line gives it."""
+    text = f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+    if "bound_fma_ms" in b:
+        text += f"; FMA {b['bound_fma_ms']:.4f}, 3xTF32 {b['bound_tf32_ms']:.4f}"
+    return text
+
+
 def _design(fa, kname: str, dtype: str, D: int) -> str:
     """The design a kernel row's variant is built on."""
     import torch
@@ -1340,8 +1483,13 @@ def _design(fa, kname: str, dtype: str, D: int) -> str:
         cut = (f"{fa.slice_columns(kname, getattr(torch, dtype))} columns of "
                + {"fwd": "O", "bwd_dq": "dQ", "bwd_dkv": "dK and dV"}[kname]
                + " a block, scores summed over 64-column chunks")
-        if dtype == "float32":
+        if dtype == "float32" and kname == "fwd":
             return "f32 FMA tiles, " + cut
+        if dtype == "float32":
+            return ("3xTF32 mma.sync + TMA ring, a producer warpgroup and two consumer warpgroups "
+                    "(setmaxnreg), " + cut.replace("64-column", "32-column")
+                    + {"bwd_dq": ", the scores split by keys between the consumers, K read once",
+                       "bwd_dkv": ", the slice's Q and dO from the chunk stream"}[kname])
         return ("wgmma+TMA, a producer warpgroup and two consumer warpgroups (setmaxnreg), "
                 + cut + {"fwd": ", 128 rows a block, Q held in shared memory up to D 512",
                          "bwd_dq": ", the scores split by keys between the consumers, "
@@ -1447,32 +1595,37 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
     bwd_times = (time_ms(lib_bwd, reps), time_ms(lib_bwd, reps, batch=BACK_TO_BACK))
     library = {"fwd": fwd_times, "bwd_dq": bwd_times, "bwd_dkv": bwd_times}
     f32 = dtype == "float32"
-    bounds = _kernel_bounds(B, S, H, D, q.element_size(),
-                            PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    bounds = kernel_bounds(B, S, H, D, dtype)
+    tolerance = {"row": TOL_ROW, "elem": TOL_ELEM, "lse_abs": TOL_LSE}
+    if f32:
+        tolerance.update(row_f32=TOL_ROW_F32, elem_f32=TOL_ELEM_F32,
+                         f32_own_headroom=F32_OWN_HEADROOM)
     rows = []
     for (kname, bk), (kernel, plain) in timed.items():
         ms, plain_ms = time_ms(kernel, reps), time_ms(plain, reps=5, warmup=1)
         ms_b2b, wrapper_ms = time_ms(kernel, reps, batch=BACK_TO_BACK), host_ms(kernel, reps)
-        (lib_ms, lib_b2b), (bound_ms, bound_by) = library[kname], bounds[kname]
+        lib_ms, lib_b2b = library[kname]
         tile = f", keys a stage {bk}" if bk else ""
         print(f"time {kname} ({label}) at {shape} {dtype}{tile}: kernel {ms:.4f} ms one call "
               f"at a time ({ms_b2b:.4f} ms back to back; host {wrapper_ms:.4f} ms a call), "
               f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms ({lib_b2b:.4f} ms back to "
               f"back; SDPA's {lib_backend} backend serves it, its flash backend "
-              f"{flash_backend}), bound {bound_ms:.4f} ms ({bound_by})")
+              f"{flash_backend}), {_bound_text(bounds[kname])}")
         err = worst[(kname, dtype, fa.padded_head_dim(D))]
+        source = SOURCE_SLICED if D > 256 else SOURCE
+        if f32:
+            source = SOURCE_F32_SLICED.get(kname, SOURCE_F32) if D > 256 else SOURCE_F32
         rows.append(dict(
-            name=kname, route="cuda",
-            source=SOURCE_F32 if f32 else SOURCE_SLICED if D > 256 else SOURCE,
+            name=kname, route="cuda", source=source,
             replaces=KERNELS[kname][1], design=_design(fa, kname, dtype, D),
             head_dim=D, dtype=dtype, shape=[B, S, H, D], timed_at=label,
             block_k=bk if kname == "fwd" else None,
             max_abs_err=err["abs"][0],
             worst={m: {"value": x, "case": c} for m, (x, c) in err.items()},
-            tolerance={"row": TOL_ROW, "elem": TOL_ELEM, "lse_abs": TOL_LSE}, ms=ms,
+            tolerance=tolerance, ms=ms,
             ms_back_to_back=ms_b2b, host_ms=wrapper_ms,
-            plain_ms=plain_ms, plain=KERNELS[kname][0], bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=lib_ms, library_ms_back_to_back=lib_b2b,
+            plain_ms=plain_ms, plain=KERNELS[kname][0], **bounds[kname],
+            library_ms=lib_ms, library_ms_back_to_back=lib_b2b,
             library_call=("scaled_dot_product_attention(is_causal=True)"
                           if kname == "fwd" else
                           "scaled_dot_product_attention backward: dq, dk and dv together"),
@@ -1488,16 +1641,19 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
 
 
 #: the rows ``--turns`` times: (kernel, dtype, causal (B, S, H, D)): the
-#: sliced forward and dq at the D-512 LM's attention in bf16 and f16, and at
-#: the other head dims past 256 that the kernels' cases hold (264: a short
-#: last slice and chunk; 576: Q streamed in the forward, a one-chunk second
-#: slice; 1024) in bf16; the sliced dkv at D 512, whose code the trees
-#: compared so far share, is the control for the card's drift between turns
-TURNS = [("fwd", "bfloat16", LM_D512_ATTENTION), ("fwd", "float16", LM_D512_ATTENTION),
-         ("bwd_dq", "bfloat16", LM_D512_ATTENTION), ("bwd_dq", "float16", LM_D512_ATTENTION),
-         ("fwd", "bfloat16", (4, 2048, 8, 264)), ("fwd", "bfloat16", (4, 2048, 8, 576)),
-         ("fwd", "bfloat16", (4, 2048, 8, 1024)), ("bwd_dq", "bfloat16", (4, 2048, 8, 576)),
-         ("bwd_dq", "bfloat16", (4, 2048, 8, 1024)), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION)]
+#: sliced f32 dq and dkv at the JAX on-chip check's f32 (B, S, H) at D 512,
+#: at the D-512 LM's attention (1,024 dq blocks: the design free of the
+#: small shape's few blocks) and at the check's shape at D 264 (a short last
+#: chunk and slice) and 1024 (two dQ slices, four of dK and dV); the sliced
+#: f32 forward and the bf16 sliced dkv at their D-512 shapes, whose code the
+#: trees compared share, are the controls for the card's drift between turns
+F32_D512 = (*ONCHIP_CASES[0][:3], 512)
+TURNS = [("bwd_dq", "float32", F32_D512), ("bwd_dkv", "float32", F32_D512),
+         ("bwd_dq", "float32", LM_D512_ATTENTION), ("bwd_dkv", "float32", LM_D512_ATTENTION),
+         ("bwd_dq", "float32", (*F32_D512[:3], 264)), ("bwd_dkv", "float32", (*F32_D512[:3], 264)),
+         ("bwd_dq", "float32", (*F32_D512[:3], 1024)),
+         ("bwd_dkv", "float32", (*F32_D512[:3], 1024)),
+         ("fwd", "float32", F32_D512), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION)]
 
 
 def turns_main(root: str) -> int:
@@ -1527,12 +1683,40 @@ def turns_main(root: str) -> int:
     return 0
 
 
+def _exact_outputs(fa, kname: str, q, k, v, do, lse, delta, opts) -> tuple:
+    """Kernel ``kname``'s function evaluated in f64 on the same inputs (the
+    backward given lse and delta), rounded to f32: the outputs in the plain
+    version's order."""
+    import torch
+
+    valid = fa._valid(q.shape[1], k.shape[1], opts["q_offset"], opts["k_offset"],
+                      opts["causal"], q.device)
+    q, k, v = (x.double() for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * opts["scale"]
+    if kname == "fwd":
+        s = torch.where(valid, s, fa._NEG_INF)
+        p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v) / torch.where(l > 0, l, 1.0).permute(0, 2, 1, 3)
+        return (o.float(),)
+    p = torch.where(valid, torch.exp(s - lse.double()[..., None]), 0.0)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do.double(), v) - delta.double()[..., None]) \
+        * opts["scale"]
+    if kname == "bwd_dq":
+        return (torch.einsum("bhqk,bkhd->bqhd", ds, k).float(),)
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, q).float(),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.double()).float())
+
+
 def turn_row(fa, kname: str, dtype: str, shape, gen, device) -> dict:
     """One row of ``--turns``: kernel ``kname`` at the causal (B, S, H, D)
     ``shape`` in ``dtype``, first held against its plain version on the same
-    inputs (the kernel tolerances; the forward's lse too), then timed one
-    call at a time and ten back to back (medians of 20), beside the bound
-    and PyTorch's SDPA (the forward, or the backward: dq, dk and dv
+    inputs (the kernel tolerances; f32 also the f32 bound, or
+    ``F32_OWN_HEADROOM`` times the plain version's own error against the
+    function in f64 where that is larger; the forward's lse too), then
+    timed one call at a time and ten back to back (medians of 20), beside
+    the dtype's bound (`kernel_bounds`), the plain version (5 calls) and
+    PyTorch's SDPA (the forward, or the backward: dq, dk and dv
     together)."""
     import torch
     import torch.nn.functional as F
@@ -1546,8 +1730,11 @@ def turn_row(fa, kname: str, dtype: str, shape, gen, device) -> dict:
         def kernel():
             return fa._fwd_kernel(q, k, v, out_dtype=out_dtype, **opts)
 
-        (got, lse_k), (want, lse_p) = kernel(), fa._fwd_reference(q, k, v, out_dtype=out_dtype,
-                                                                  **opts)
+        def plain():
+            return fa._fwd_reference(q, k, v, out_dtype=out_dtype, **opts)
+
+        (got, lse_k), (want, lse_p) = kernel(), plain()
+        inputs = (q, k, v, None, None, None)
         lse_err = (lse_k - lse_p).abs().max().item()
         require(lse_err <= TOL_LSE, f"turns: fwd {dtype} {shape}: lse off its plain version "
                                     f"by {lse_err:.3e}")
@@ -1564,7 +1751,11 @@ def turn_row(fa, kname: str, dtype: str, shape, gen, device) -> dict:
         def kernel():
             return bwd(*args, **opts)
 
-        got, want = kernel(), getattr(fa, f"_{kname}_reference")(*args, **opts)
+        def plain():
+            return getattr(fa, f"_{kname}_reference")(*args, **opts)
+
+        got, want = kernel(), plain()
+        inputs = args
         got, want = ((got,), (want,)) if kname == "bwd_dq" else (got, want)
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         lib_do = do.transpose(1, 2)
@@ -1572,19 +1763,31 @@ def turn_row(fa, kname: str, dtype: str, shape, gen, device) -> dict:
         def library():
             return torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True)
     errs = [_compare(g, w) for g, w in zip(got, want)]
+    f32 = dtype == "float32"
+    tol = [{"row": TOL_ROW, "elem": TOL_ELEM}] * len(errs)
+    if f32:  # the f32 bound, or what the f32 plain version itself is off by
+        names = [str(i) for i in range(len(want))]
+        f32b = f32_bounds(names, dict(zip(names, want)), _exact_outputs(fa, kname, *inputs, opts))
+        tol = [f32b[n] for n in names]
+        print(f"turns: {kname} {dtype} {tuple(shape)}: the plain version against the function "
+              f"in f64: {[_fmt(b['own']) for b in tol]}; the f32 bound: "
+              + "; ".join(f"row {b['row']:.3e}, elem {b['elem']:.3e}" for b in tol))
     del got, want
-    require(all(_passes(e) for e in errs), f"turns: {kname} {dtype} {shape} off its plain "
-                                           f"version: {[_fmt(e) for e in errs]}")
-    bound_ms, bound_by = _kernel_bounds(B, S, H, D, q.element_size(), PEAK_BF16_FLOPS)[kname]
+    require(all(_passes(e) and (not f32 or _passes_f32(e, b)) for e, b in zip(errs, tol)),
+            f"turns: {kname} {dtype} {shape} off its plain version: {[_fmt(e) for e in errs]} "
+            f"(bounds: {[(b['row'], b['elem']) for b in tol]})")
+    bounds = kernel_bounds(B, S, H, D, dtype)[kname]
     row = dict(name=kname, dtype=dtype, shape=[B, S, H, D], ms=time_ms(kernel),
-               ms_back_to_back=time_ms(kernel, batch=BACK_TO_BACK), bound_ms=bound_ms,
-               bound_by=bound_by, library_ms_back_to_back=time_ms(library, batch=BACK_TO_BACK),
-               row_err=max(e["row"] for e in errs))
+               ms_back_to_back=time_ms(kernel, batch=BACK_TO_BACK), **bounds,
+               plain_ms=time_ms(plain, reps=5, warmup=1),
+               library_ms_back_to_back=time_ms(library, batch=BACK_TO_BACK),
+               row_err=max(e["row"] for e in errs), elem_err=max(e["elem"] for e in errs),
+               tolerance=[{m: b[m] for m in ("row", "elem")} for b in tol])
     print(f"turns: {kname} {dtype} {tuple(shape)}: {row['ms']:.4f} ms one call at a time, "
-          f"{row['ms_back_to_back']:.4f} ms back to back, bound {bound_ms:.4f} ms, "
-          f"{'SDPA' if kname == 'fwd' else 'SDPA backward'} "
+          f"{row['ms_back_to_back']:.4f} ms back to back, {_bound_text(bounds)}, plain "
+          f"{row['plain_ms']:.4f} ms, {'SDPA' if kname == 'fwd' else 'SDPA backward'} "
           f"{row['library_ms_back_to_back']:.4f} ms back to back; row error "
-          f"{row['row_err']:.3e}")
+          f"{row['row_err']:.3e}, elem error {row['elem_err']:.3e}")
     return row
 
 

@@ -1,5 +1,8 @@
-// Flash attention for f32 inputs: the forward kernel and the two backward
-// kernels on the CUDA cores, in f32 fused multiply-adds.
+// Flash attention for f32 inputs: the forward kernel and, up to a head dim of
+// 256, the two backward kernels on the CUDA cores, in f32 fused multiply-adds.
+// Past 256 the backward kernels run on the tensor cores in 3xTF32
+// (flash_bwd_dq_f32_sliced.cu, flash_bwd_dkv_f32_sliced.cu); this file
+// dispatches to them.
 //
 // They replace the same Pallas TPU kernels as flash_kernels.cuh
 // (edl_tpu/ops/flash_attention.py's _fwd_kernel, _bwd_dq_kernel and
@@ -7,11 +10,8 @@
 // with the same semantics: global-position causality, the ragged edge masked
 // in the kernel, masking through the validity bit, the -1e30 sentinel for rows
 // that see no key (O = 0, lse = -1e30), lse and delta (B, H, Sq) f32, dO f32
-// and contiguous. The Pallas kernels multiply f32 inputs in f32; so do these,
-// where the wgmma path could not: wgmma's TF32 form takes both operands
-// K-major only, while P·V and dkv's two products read V, dO and Q MN-major,
-// and one TF32 rounding of the inputs and of P may miss the JAX on-chip
-// check's 2e-3. exp and log are the accurate expf and logf.
+// and contiguous. The Pallas kernels multiply f32 inputs in f32; so do these.
+// exp and log are the accurate expf and logf.
 //
 // Bound on the H100: the same FLOPs as the 16-bit kernels (4·D, 6·D and 8·D
 // a visible pair) at the card's 67 TFLOP/s of f32 outside the tensor cores,
@@ -24,8 +24,8 @@
 // kernels. Each kernel is compiled for head dims up to DMAX: 128, whose
 // tiles are 64 wide, and 256 (accumulators of 64 floats a thread), where dq
 // and dkv stage tiles of COLS = 32 so that their shared memory fits the
-// H100's 227 KB (the forward's 64 fits). Past 256 a sliced form of each
-// serves every head dim (below): column slices of the output, scores summed
+// H100's 227 KB (the forward's 64 fits). Past 256 a sliced form of the
+// forward serves every head dim (below): column slices of O, scores summed
 // over 64-column chunks, no whole row in shared memory.
 
 #include <cuda_runtime.h>
@@ -308,17 +308,17 @@ __global__ void __launch_bounds__(kThreadsF32) flash_bwd_dkv_f32_kernel(BwdArgs 
 
 // -- past a head dim of 256: column slices and chunked scores -----------------
 //
-// No whole-D row lives in shared memory. A block owns the rows of one tile and
-// one slice of the output's columns (kSliceF32 of O or dQ; kKeySliceF32 of dK
-// and of dV, both summed by one block), sums each tile's scores over
-// kChunkF32-column chunks of the head dim staged one at a time, then stages
-// the tile's rows of the slice for the second product. The head dim is read
-// at run time, so one variant a kernel serves every D past 256. Every slice
-// of a row computes the same scores and statistics; only slice 0 writes lse.
+// The forward: no whole-D row lives in shared memory. A block owns the rows
+// of one tile and one slice of kSliceF32 columns of O, sums each tile's
+// scores over kChunkF32-column chunks of the head dim staged one at a time,
+// then stages the tile's rows of the slice for the second product. The head
+// dim is read at run time, so one variant serves every D past 256. Every
+// slice of a row computes the same scores and statistics; only slice 0
+// writes lse. The backward kernels past 256 run on the tensor cores
+// (flash_bwd_dq_f32_sliced.cu, flash_bwd_dkv_f32_sliced.cu).
 
 constexpr int kChunkF32 = 64;      // head-dim columns a staged chunk
-constexpr int kSliceF32 = 256;     // O's and dQ's columns a block
-constexpr int kKeySliceF32 = 128;  // dK's and dV's columns a block
+constexpr int kSliceF32 = 256;     // O's columns a block
 constexpr int kLdC = kChunkF32 + 1;  // a staged chunk's row stride: rows on distinct banks
 
 // Rows [row0, row0 + ROWS) x columns [col0, col0 + COLS) of head h, batch b of
@@ -422,153 +422,6 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_sliced_kernel(FwdAr
   }
 }
 
-// Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py for f32 inputs
-// past a head dim of 256.
-template <int COLS>
-__global__ void __launch_bounds__(kThreadsF32) flash_bwd_dq_f32_sliced_kernel(BwdArgs a) {
-  constexpr int kLdS = kSliceF32 + 1, kPLd = COLS + 1;
-  extern __shared__ float smem[];
-  float* sq = smem;                 // a Q chunk
-  float* sdo = sq + kRows * kLdC;   // a dO chunk
-  float* sk = sdo + kRows * kLdC;   // a K chunk
-  float* sv = sk + COLS * kLdC;     // a V chunk
-  float* sks = sv + COLS * kLdC;    // the tile's K slice
-  float* sds = sks + COLS * kLdS;   // dS
-
-  const int n_ch = (a.D + kChunkF32 - 1) / kChunkF32;
-  const SliceBlock blk = slice_block((a.Sq + kRows - 1) / kRows,
-                                     (a.D + kSliceF32 - 1) / kSliceF32, true);
-  const int b = blk.bh / a.H, h = blk.bh % a.H, col0 = blk.slice * kSliceF32;
-  const int q0 = blk.tile * kRows, r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const int row = q0 + r, qpos = a.q_offset + row;
-  const int n_kt = key_tiles_f32<COLS>(a.Sk, q0, a.q_offset, a.k_offset, a.causal);
-  // rows at or beyond Sq stay finite and are never written
-  const float lse = row < a.Sq ? a.lse[(long long)blk.bh * a.Sq + row] : 0.f;
-  const float delta = row < a.Sq ? a.delta[(long long)blk.bh * a.Sq + row] : 0.f;
-  const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
-
-  float acc[kSliceF32 / 4];
-#pragma unroll
-  for (int i = 0; i < kSliceF32 / 4; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    float s[COLS / 4], dp[COLS / 4];
-#pragma unroll
-    for (int i = 0; i < COLS / 4; ++i) s[i] = dp[i] = 0.f;
-    for (int ch = 0; ch < n_ch; ++ch) {
-      __syncthreads();
-      load_block<kRows, kChunkF32, kLdC>(sq, a.q, b, h, q0, a.Sq, ch * kChunkF32, a.D);
-      load_block<kRows, kChunkF32, kLdC>(sdo, dout, b, h, q0, a.Sq, ch * kChunkF32, a.D);
-      load_block<COLS, kChunkF32, kLdC>(sk, a.k, b, h, kt * COLS, a.Sk, ch * kChunkF32, a.D);
-      load_block<COLS, kChunkF32, kLdC>(sv, a.v, b, h, kt * COLS, a.Sk, ch * kChunkF32, a.D);
-      __syncthreads();
-      dot_cols<COLS, kLdC, true>(s, sq + r * kLdC, sk, c, kChunkF32);
-      dot_cols<COLS, kLdC, true>(dp, sdo + r * kLdC, sv, c, kChunkF32);
-    }
-#pragma unroll
-    for (int i = 0; i < COLS / 4; ++i) {
-      const int j = c + 4 * i, key = kt * COLS + j;
-      const bool ok = key < a.Sk && (!a.causal || a.k_offset + key <= qpos);
-      const float p = ok ? expf(s[i] * a.scale - lse) : 0.f;
-      sds[r * kPLd + j] = ok ? p * (dp[i] - delta) * a.scale : 0.f;
-    }
-    __syncthreads();
-    load_block<COLS, kSliceF32, kLdS>(sks, a.k, b, h, kt * COLS, a.Sk, col0, a.D);
-    __syncthreads();
-    acc_cols<kSliceF32, COLS, kLdS>(acc, sds + r * kPLd, sks, c, a.D - col0);
-  }
-  if (row >= a.Sq) return;
-  float* dq = static_cast<float*>(a.dq) + (((long long)b * a.Sq + row) * a.H + h) * a.D;
-#pragma unroll
-  for (int i = 0; i < kSliceF32 / 4; ++i) {
-    const int d = col0 + c + 4 * i;
-    if (d < a.D) dq[d] = acc[i];
-  }
-}
-
-// Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py for f32 inputs
-// past a head dim of 256.
-template <int COLS>
-__global__ void __launch_bounds__(kThreadsF32) flash_bwd_dkv_f32_sliced_kernel(BwdArgs a) {
-  constexpr int kLdS = kKeySliceF32 + 1, kPLd = COLS + 1;
-  extern __shared__ float smem[];
-  float* sk = smem;                  // a K chunk
-  float* sv = sk + kRows * kLdC;     // a V chunk
-  float* sq = sv + kRows * kLdC;     // a Q chunk
-  float* sdo = sq + COLS * kLdC;     // a dO chunk
-  float* sqs = sdo + COLS * kLdC;    // the query tile's Q slice
-  float* sdos = sqs + COLS * kLdS;   // its dO slice
-  float* sp = sdos + COLS * kLdS;    // Pᵀ
-  float* sds = sp + kRows * kPLd;    // dSᵀ
-  float* slse = sds + kRows * kPLd;
-  float* sdelta = slse + COLS;
-
-  const int n_ch = (a.D + kChunkF32 - 1) / kChunkF32;
-  const SliceBlock blk = slice_block((a.Sk + kRows - 1) / kRows,
-                                     (a.D + kKeySliceF32 - 1) / kKeySliceF32, false);
-  const int b = blk.bh / a.H, h = blk.bh % a.H, col0 = blk.slice * kKeySliceF32;
-  const int k0 = blk.tile * kRows, r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const int key = k0 + r, kpos = a.k_offset + key;
-  const int n_qt = (a.Sq + COLS - 1) / COLS;
-  int qt0 = 0;  // the first query tile that sees some key of the block
-  if (a.causal) {
-    const long long need = (long long)a.k_offset + k0 - a.q_offset - (COLS - 1);
-    qt0 = need <= 0 ? 0 : (int)((need + COLS - 1) / COLS);
-  }
-  const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
-
-  float dk[kKeySliceF32 / 4], dv[kKeySliceF32 / 4];
-#pragma unroll
-  for (int i = 0; i < kKeySliceF32 / 4; ++i) dk[i] = dv[i] = 0.f;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * COLS;
-    float st[COLS / 4], dpt[COLS / 4];
-#pragma unroll
-    for (int i = 0; i < COLS / 4; ++i) st[i] = dpt[i] = 0.f;
-    for (int ch = 0; ch < n_ch; ++ch) {
-      __syncthreads();
-      load_block<kRows, kChunkF32, kLdC>(sk, a.k, b, h, k0, a.Sk, ch * kChunkF32, a.D);
-      load_block<kRows, kChunkF32, kLdC>(sv, a.v, b, h, k0, a.Sk, ch * kChunkF32, a.D);
-      load_block<COLS, kChunkF32, kLdC>(sq, a.q, b, h, q0, a.Sq, ch * kChunkF32, a.D);
-      load_block<COLS, kChunkF32, kLdC>(sdo, dout, b, h, q0, a.Sq, ch * kChunkF32, a.D);
-      __syncthreads();
-      dot_cols<COLS, kLdC, true>(st, sk + r * kLdC, sq, c, kChunkF32);
-      dot_cols<COLS, kLdC, true>(dpt, sv + r * kLdC, sdo, c, kChunkF32);
-    }
-    __syncthreads();
-    load_block<COLS, kKeySliceF32, kLdS>(sqs, a.q, b, h, q0, a.Sq, col0, a.D);
-    load_block<COLS, kKeySliceF32, kLdS>(sdos, dout, b, h, q0, a.Sq, col0, a.D);
-    if (threadIdx.x < COLS) {
-      const int qi = q0 + threadIdx.x;
-      slse[threadIdx.x] = qi < a.Sq ? a.lse[(long long)blk.bh * a.Sq + qi] : 0.f;
-      sdelta[threadIdx.x] = qi < a.Sq ? a.delta[(long long)blk.bh * a.Sq + qi] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < COLS / 4; ++i) {
-      const int j = c + 4 * i;
-      const bool ok = key < a.Sk && q0 + j < a.Sq && (!a.causal || kpos <= a.q_offset + q0 + j);
-      const float p = ok ? expf(st[i] * a.scale - slse[j]) : 0.f;
-      sp[r * kPLd + j] = p;
-      sds[r * kPLd + j] = ok ? p * (dpt[i] - sdelta[j]) * a.scale : 0.f;
-    }
-    __syncwarp();  // the row's four threads share its Pᵀ and dSᵀ
-    acc_cols<kKeySliceF32, COLS, kLdS>(dv, sp + r * kPLd, sdos, c, a.D - col0);
-    acc_cols<kKeySliceF32, COLS, kLdS>(dk, sds + r * kPLd, sqs, c, a.D - col0);
-  }
-  if (key >= a.Sk) return;
-  const long long base = (((long long)b * a.Sk + key) * a.H + h) * a.D;
-  float* dkp = static_cast<float*>(a.dk) + base;
-  float* dvp = static_cast<float*>(a.dv) + base;
-#pragma unroll
-  for (int i = 0; i < kKeySliceF32 / 4; ++i) {
-    const int d = col0 + c + 4 * i;
-    if (d < a.D) {
-      dkp[d] = dk[i];
-      dvp[d] = dv[i];
-    }
-  }
-}
-
 template <int DMAX, int COLS>
 constexpr size_t fwd_smem_f32() {
   constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
@@ -585,20 +438,10 @@ constexpr size_t dkv_smem_f32() {
   return (2 * kRows * kLd + 2 * COLS * kLd + 2 * kRows * kPLd + 2 * COLS) * sizeof(float);
 }
 
-// The sliced kernels' shared memory, at COLS keys (dkv: queries) a tile.
+// The sliced forward's shared memory, at COLS keys a tile.
 template <int COLS>
 constexpr size_t fwd_sliced_smem_f32() {
   return ((kRows + COLS) * kLdC + COLS * (kSliceF32 + 1) + kRows * (COLS + 1)) * sizeof(float);
-}
-template <int COLS>
-constexpr size_t dq_sliced_smem_f32() {
-  return (2 * (kRows + COLS) * kLdC + COLS * (kSliceF32 + 1) + kRows * (COLS + 1)) *
-         sizeof(float);
-}
-template <int COLS>
-constexpr size_t dkv_sliced_smem_f32() {
-  return (2 * (kRows + COLS) * kLdC + 2 * COLS * (kKeySliceF32 + 1) + 2 * kRows * (COLS + 1) +
-          2 * COLS) * sizeof(float);
 }
 
 constexpr size_t kSmemMaxF32 = 232448;  // dynamic shared memory a block can take on the H100
@@ -610,12 +453,9 @@ static_assert(dq_smem_f32<128, 64>() <= kSmemMaxF32 && dq_smem_f32<256, 32>() <=
               "dq shared memory");
 static_assert(dkv_smem_f32<128, 64>() <= kSmemMaxF32 && dkv_smem_f32<256, 32>() <= kSmemMaxF32,
               "dkv shared memory");
-// Past a head dim of 256 (tiles of kSliced keys or queries).
+// Past a head dim of 256 (tiles of kSliced keys).
 constexpr int kSliced = 64;
-static_assert(fwd_sliced_smem_f32<kSliced>() <= kSmemMaxF32 &&
-                  dq_sliced_smem_f32<kSliced>() <= kSmemMaxF32 &&
-                  dkv_sliced_smem_f32<kSliced>() <= kSmemMaxF32,
-              "sliced shared memory");
+static_assert(fwd_sliced_smem_f32<kSliced>() <= kSmemMaxF32, "sliced shared memory");
 
 template <int DMAX, int COLS>
 cudaError_t launch_fwd_f32_at(const FwdArgs& a, cudaStream_t stream) {
@@ -678,8 +518,7 @@ cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream) {
 cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream) {
   if (a.D <= 0) return cudaErrorInvalidValue;
   if (a.D > 256) {
-    return launch_sliced_f32(flash_bwd_dq_f32_sliced_kernel<kSliced>,
-                             dq_sliced_smem_f32<kSliced>(), a, a.Sq, kSliceF32, stream);
+    return launch_bwd_dq_f32_sliced(a, stream);
   }
   return a.D <= 128 ? launch_bwd_dq_f32_at<128, 64>(a, stream)
                     : launch_bwd_dq_f32_at<256, 32>(a, stream);
@@ -688,8 +527,7 @@ cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream) {
 cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream) {
   if (a.D <= 0) return cudaErrorInvalidValue;
   if (a.D > 256) {
-    return launch_sliced_f32(flash_bwd_dkv_f32_sliced_kernel<kSliced>,
-                             dkv_sliced_smem_f32<kSliced>(), a, a.Sk, kKeySliceF32, stream);
+    return launch_bwd_dkv_f32_sliced(a, stream);
   }
   return a.D <= 128 ? launch_bwd_dkv_f32_at<128, 64>(a, stream)
                     : launch_bwd_dkv_f32_at<256, 32>(a, stream);

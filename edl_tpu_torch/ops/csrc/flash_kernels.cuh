@@ -127,6 +127,23 @@ __device__ __forceinline__ int open_key_tiles(int n_kt, int Sk, int wg_row0, int
   return n_open < n_kt ? n_open : n_kt;
 }
 
+// Column slices of `width` that cover a head dim D (the sliced kernels).
+__host__ __device__ constexpr int slices_of(int D, int width) { return (D + width - 1) / width; }
+
+// The grid of a sliced kernel: (batch, head) x row tiles of `rows` x column
+// slices of `width`, or 0 if that is past one launch's 2^31 - 1 blocks.
+inline unsigned sliced_blocks(int B, int H, int S, int D, int rows, int width) {
+  const long long n = (long long)B * H * ((S + rows - 1) / rows) * slices_of(D, width);
+  return n < (1ll << 31) ? (unsigned)n : 0u;
+}
+
+// A warp's release of a ring stage or buffer (an mbarrier that counts one
+// arrival per consumer warp): its lanes are done with it.
+__device__ __forceinline__ void release_stage(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(bar);
+}
+
 // -- shared pieces --------------------------------------------------------------
 //
 // The register budget. Every kernel of this file runs three warpgroups a

@@ -60,7 +60,6 @@ constexpr int kKeySlice = 256;                // dK's and dV's columns a block
 constexpr int kDsBarrier = 1;                 // dq's hand-over of dS (a named barrier)
 
 __host__ __device__ constexpr int chunks_of(int D) { return (D + kChunk - 1) / kChunk; }
-__host__ __device__ constexpr int slices_of(int D, int width) { return (D + width - 1) / width; }
 
 // The forward's shared memory, for 128 query rows a block: eight Q slots of
 // one 128-row chunk each, four K slots of one 64-key chunk each (the ring's
@@ -122,12 +121,6 @@ struct DkvSlicedSmem {
 __device__ __forceinline__ int slice_chunks(int D, int col0, int width) {
   const int n = chunks_of(D) - col0 / kChunk;
   return n < width / kChunk ? n : width / kChunk;
-}
-
-// A warp's release of a stage: its lanes are done with it.
-__device__ __forceinline__ void release_stage(uint64_t* bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(bar);
 }
 
 // X (64 x N) (+)= A_c·B_cᵀ over one 64-column chunk for one warpgroup: A a
@@ -791,13 +784,6 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bwd_dkv_sliced_kernel(
 }
 
 // -- launchers ----------------------------------------------------------------
-
-// The grid of a sliced kernel: (batch, head) x row tiles of `rows` x column
-// slices of `width`, or 0 if that is past one launch's 2^31 - 1 blocks.
-inline unsigned sliced_blocks(int B, int H, int S, int D, int rows, int width) {
-  const long long n = (long long)B * H * ((S + rows - 1) / rows) * slices_of(D, width);
-  return n < (1ll << 31) ? (unsigned)n : 0u;
-}
 
 template <typename T>
 cudaError_t launch_fwd_sliced(const FwdArgs& a, cudaStream_t stream) {

@@ -1,0 +1,212 @@
+// Building blocks of the f32 flash kernels on the tensor cores: f32 chunks
+// loaded by TMA, and 3xTF32 products on them (hopper.cuh, mma.sync m16n8k8).
+// flash_bwd_dq_f32_sliced.cu and flash_bwd_dkv_f32_sliced.cu build the
+// sliced f32 backward kernels from them, in flash_kernels.cuh's block (a
+// producer warpgroup and two consumer warpgroups with setmaxnreg).
+//
+// Layouts in shared memory:
+//  * A chunk is 64 rows (queries or keys) of 32 f32 head-dim columns as TMA
+//    writes it: 128-byte rows, 128B-swizzled (`hopper::f32_swizzled`), 8 KB,
+//    on a 1024-byte boundary. A tile of D columns is ceil(D / 32) chunks.
+//  * A score tile is 64 x 64 f32 (S, dS, Pᵀ or dSᵀ of a 64-row block and a
+//    64-row tile): 256-byte rows whose 16-byte units are XOR'ed with the row
+//    mod 8 (`score_at`), 16 KB, stored from the score accumulators and read
+//    as A fragments of the second product.
+// The mma's reduction index is permuted within each 8-wide step: its slots
+// t and t + 4 (the fragments' two k values) take columns 2t and 2t + 1, so
+// that a lane's two values of a row are adjacent and load as one 64-bit
+// access. A sum over the step is the same in any order of its terms. Loads
+// whose rows are the reduction (a product's B operand: rows 2t and 2t + 1 of
+// the step) are 32-bit and free of bank conflicts, since the 128-byte
+// swizzle maps a lane's column unit through the row mod 8.
+
+#pragma once
+
+#include "flash_kernels.cuh"
+
+namespace edl_flash {
+namespace tf32 {
+
+constexpr int kChunk = hopper::kF32Span;      // f32 head-dim columns a chunk
+constexpr int kChunkElems = kTile * kChunk;   // a 64-row chunk
+constexpr int kChunkBytes = kChunkElems * 4;  // 8 KB
+constexpr int kScoreElems = kTile * kTile;    // a 64 x 64 score tile, 16 KB
+constexpr int kHandBarrier = 1;  // named barrier: both consumers' halves of a score tile are stored
+constexpr int kFreeBarrier = 2;  // named barrier: both consumers are done with the last score tile
+
+__host__ __device__ constexpr int chunks_of(int D) { return (D + kChunk - 1) / kChunk; }
+
+// The number of the block's `width`-column slice's chunks that start below
+// D, from chunk c0: short for the last slice.
+__device__ __forceinline__ int slice_chunks(int D, int c0, int width) {
+  const int n = chunks_of(D) - c0;
+  return n < width / kChunk ? n : width / kChunk;
+}
+
+// Element offset of (row, col) in a score tile.
+__device__ __forceinline__ int score_at(int row, int col) {
+  return row * kTile + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
+// The chunk column held by a lane's accumulator value e (0 or 1 of a row)
+// in 8-column tile j (0-3) of a product that spans one chunk.
+__device__ __forceinline__ int col_of(int j, int t, int e) { return 8 * j + 2 * t + e; }
+
+// The split halves of a lane's A fragment pair, rows r and r + 8 of a step:
+// lo and hi of (row r, slot t), (r + 8, t), (r, t + 4), (r + 8, t + 4) from
+// the pairs p0 (row r, columns 2t and 2t + 1 of the step) and p1 (row r + 8).
+__device__ __forceinline__ void split_a(float2 p0, float2 p1, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  hopper::tf32_split(p0.x, hi[0], lo[0]);
+  hopper::tf32_split(p1.x, hi[1], lo[1]);
+  hopper::tf32_split(p0.y, hi[2], lo[2]);
+  hopper::tf32_split(p1.y, hi[3], lo[3]);
+}
+
+// X (16 x 32) += A·Bᵀ over one chunk's 32 columns, for one warp: A the
+// chunk a's rows a_row0 ... a_row0 + 15, B the chunk b's rows b_row0 ...
+// b_row0 + 31 (both multiples of 8), in 3xTF32, summed into a fresh
+// accumulator and added to X in f32. x[4j + e] is the m16n8 accumulator of
+// 8-column tile j: the lane's row g + 8(e >> 1), column 8j + 2t + (e & 1)
+// (a wgmma accumulator's layout, so flash_kernels.cuh's dq_probs and
+// dkv_probs read it). dq: S = Q·Kᵀ and dP = dO·Vᵀ; dkv: Sᵀ = K·Qᵀ and dPᵀ =
+// V·dOᵀ.
+__device__ __forceinline__ void chunk_scores(float (&x)[16], const float* a, int a_row0,
+                                             const float* b, int b_row0) {
+  using hopper::f32_swizzled;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ra = a_row0 + g;
+  float part[4][4] = {};
+#pragma unroll 2
+  for (int kk = 0; kk < kChunk / 8; ++kk) {
+    const int c = 8 * kk + 2 * t;
+    uint32_t ah[4], al[4];
+    split_a(*reinterpret_cast<const float2*>(a + f32_swizzled(ra, c)),
+            *reinterpret_cast<const float2*>(a + f32_swizzled(ra + 8, c)), ah, al);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 bv = *reinterpret_cast<const float2*>(b + f32_swizzled(b_row0 + 8 * j + g, c));
+      uint32_t bh[2], bl[2];
+      hopper::tf32_split(bv.x, bh[0], bl[0]);
+      hopper::tf32_split(bv.y, bh[1], bl[1]);
+      hopper::mma_3xtf32(part[j], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[4 * j + e] += part[j][e];
+}
+
+// A warp's X (16 x 32, `chunk_scores`' layout) into a score tile at rows
+// row0 ..., columns col0 ....
+__device__ __forceinline__ void store_scores(float* tile, const float (&x)[16], int row0,
+                                             int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      *reinterpret_cast<float2*>(tile + score_at(row, col0 + 8 * j + 2 * t)) =
+          make_float2(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+    }
+}
+
+// acc (64 x 64) += P·B for one warp, in 3xTF32: P a score tile (its columns
+// the reduction), B 64 rows of the chunks b and b + kChunkElems (rows the
+// reduction, the two chunks' 64 columns N), only the first n (0-2) of them.
+// Each 32 x 32 quarter is summed into a fresh accumulator (24 products
+// deep) and added to acc in f32, so acc, which sums every tile of a row or
+// key, never takes a truncated tensor-core addition. acc[m][4cc + j] is the
+// m16n8 accumulator of rows 16m ... 16m + 15 and of columns 8j ... 8j + 7 of
+// chunk cc: the lane's value e is row 16m + g + 8(e >> 1), column col_of(j,
+// t, e & 1) of chunk cc. dq: dQ += dS·K; dkv: dV += Pᵀ·dO and dK += dSᵀ·Q.
+__device__ __forceinline__ void tile_product(float (&acc)[4][8][4], const float* p,
+                                             const float* b, int n) {
+  using hopper::f32_swizzled;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    if (cc >= n) break;
+    const float* bc = b + cc * kChunkElems;
+#pragma unroll
+    for (int mp = 0; mp < 2; ++mp) {  // rows 32mp ... 32mp + 31
+      float part[2][4][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kTile / 8; ++kk) {
+        const int c = 8 * kk + 2 * t;  // the lane's reduction pair of the step: c and c + 1
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int r = 32 * mp + 16 * m + g;
+          split_a(*reinterpret_cast<const float2*>(p + score_at(r, c)),
+                  *reinterpret_cast<const float2*>(p + score_at(r + 8, c)), ah[m], al[m]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          hopper::tf32_split(bc[f32_swizzled(c, 8 * j + g)], bh[0], bl[0]);
+          hopper::tf32_split(bc[f32_swizzled(c + 1, 8 * j + g)], bh[1], bl[1]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) hopper::mma_3xtf32(part[m][j], ah[m], al[m], bh, bl);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[2 * mp + m][4 * cc + j][e] += part[m][j][e];
+    }
+  }
+}
+
+// A warp's acc (`tile_product`'s layout) into out, a contiguous (B, S, H,
+// D) f32 tensor: rows row0 + ... below S of head h, batch b, columns d0 +
+// ... below D (n chunks).
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[4][8][4], int b, int h,
+                                           int H, int S, int D, int row0, int d0, int n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * m + g + 8 * r;
+      if (row >= S) continue;
+      float* dst = out + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        if (cc >= n) break;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = d0 + cc * kChunk + col_of(j, t, 0);
+          if (d < D) {
+            *reinterpret_cast<float2*>(dst + d) =
+                make_float2(acc[m][4 * cc + j][2 * r], acc[m][4 * cc + j][2 * r + 1]);
+          }
+        }
+      }
+    }
+}
+
+// The TMA map of a (B, S, H, D) f32 view, in boxes of one chunk's 32
+// columns x 1 x 64 rows x 1, 128B-swizzled; elements outside the view (d >=
+// D, s >= S) load as 0. TMA needs a 16-byte aligned start and byte strides
+// that are multiples of 16.
+inline cudaError_t f32_map(CUtensorMap* map, const View& x, int B, int S, int H, int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.sh * 4, (cuuint64_t)x.ss * 4, (cuuint64_t)x.sb * 4};
+  const cuuint32_t box[4] = {kChunk, 1, kTile, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, hopper::Elem<float>::kTma, 4, const_cast<void*>(x.ptr), dims,
+                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace tf32
+}  // namespace edl_flash

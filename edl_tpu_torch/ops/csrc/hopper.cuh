@@ -4,7 +4,8 @@
 //
 // Element types: bf16 and f16 take every path alike; `Elem<T>` names the TMA
 // data type, the packing of two f32 values and the sum of a packed pair, and
-// the wgmma wrappers are specialised for both.
+// the wgmma wrappers are specialised for both. f32 has its TMA data type and
+// its own tile geometry and TF32 products (the end of this file).
 //
 // Shared-memory tiles are written by TMA with the swizzle whose span is one
 // tile row of up to 64 elements: a row of DP 16-bit elements is 2·DP bytes,
@@ -574,6 +575,73 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// -- f32 tiles and 3xTF32 products ---------------------------------------------
+//
+// An f32 tile row of 32 columns is 128 bytes, one 128-byte swizzle span: TMA
+// loads f32 tiles as chunks of kF32Span columns, each chunk a tile of its own
+// rows, 128B-swizzled (the 16-byte unit u of row R at unit u ^ (R mod 8)),
+// starting on a 1024-byte boundary, as the 16-bit tiles' 64-column chunks.
+//
+// The tensor cores take f32 operands as TF32 (10 explicit mantissa bits, one
+// rounding keeps about three decimal digits): they ignore the low 13 bits of
+// each f32. A product of f32 inputs is kept near f32 by the 3xTF32 split: x =
+// hi + lo with hi = x rounded to its top 19 bits (to nearest, by an integer
+// add and a mask: no conversion instruction, whose rate is a quarter of an
+// add's) and lo = x - hi (exact, at most 2^-11 of x), passed as it is (the
+// tensor cores read its top 19 bits: within 2^-21 of x), and a·b ≈ a_lo·b_hi
+// + a_hi·b_lo + a_hi·b_hi, the two small terms first (the dropped a_lo·b_lo
+// is at most 2^-22 of a·b). The products run as mma.sync m16n8k8, whose
+// operands come from registers, so the split happens in registers and
+// either operand may be read from shared memory in any layout. wgmma's TF32
+// form would read B (and A unless from registers) from shared memory,
+// K-major only, and every such operand would need its lo tile beside its hi
+// tile. The tensor cores add into their f32 accumulator with truncation, so
+// a long chain of products into one accumulator drifts toward zero: sum
+// short chains into a fresh accumulator and add it to the running sum in
+// f32 (see flash_tf32.cuh).
+
+constexpr int kF32Span = 32;  // f32 columns a 128-byte swizzle span (a chunk)
+
+template <>
+struct Elem<float> {
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+// Element offset of (row, col) in a chunk of kF32Span f32 columns as TMA's
+// 128-byte swizzle stores it.
+__device__ __forceinline__ int f32_swizzled(int row, int col) {
+  return row * kF32Span + ((((col >> 2) ^ row) & 7) << 2) + (col & 3);
+}
+
+// x = hi + lo as TF32 operands: hi x rounded to TF32 (its low 13 bits
+// zero), lo the rest, whose low 13 bits the tensor cores ignore.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += A (16 x 8) · B (8 x 8) in TF32. Fragments of the lane
+// with g = lane / 4, t = lane % 4: a = A(g, t), A(g + 8, t), A(g, t + 4),
+// A(g + 8, t + 4); b = B(t, g), B(t + 4, g); d = D(g, 2t), D(g, 2t + 1),
+// D(g + 8, 2t), D(g + 8, 2t + 1) (the layout of a 16-row slice of a wgmma
+// accumulator).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+      " {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A·B in 3xTF32 from the split fragments: the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
 }
 
 }  // namespace hopper

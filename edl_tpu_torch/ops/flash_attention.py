@@ -15,7 +15,8 @@ and f32 at any head dim: bf16 and f16 through the wgmma kernels
 (``flash_kernels.cuh`` up to 256; past 256 the sliced kernels of
 ``flash_sliced.cuh``, whose blocks each own a slice of the output's columns
 and sum the scores over 64-column chunks of the head dim), f32 through the
-f32 kernels (``flash_f32.cu``, sliced past 256 too). What their loads cannot
+f32 kernels (``flash_f32.cu``, sliced past 256 too, where the backward runs
+on the tensor cores in 3xTF32). What their loads cannot
 read, the wrapper first makes readable, on either device: a head dim that
 is not a multiple of 8 is zero-padded (zero columns change no score; the
 outputs are sliced back), and a view that TMA cannot read is copied to a
@@ -71,15 +72,16 @@ TILE = 64
 _PADDED = (16, 32, 64, 128, 192, 256)
 
 #: past a padded head dim of 256 (the sliced kernels, every dtype): the
-#: head-dim columns of a chunk of the scores' sum, and the output columns one
-#: block owns, by kernel (dkv: of dK and of dV), in bf16 and f16
+#: head-dim columns of a chunk of the scores' sum in 16 bits, and the output
+#: columns one block owns, by kernel (dkv: of dK and of dV), in bf16 and f16
 #: (``csrc/flash_sliced.cuh``: dq's and dkv's two consumer warpgroups sum
 #: 256 columns each, dq's of dQ, dkv's one of dK and dV; the forward's
-#: consumers split the block's 128 rows) and in f32 (``csrc/flash_f32.cu``:
-#: one block sums both)
+#: consumers split the block's 128 rows) and in f32 (the forward in
+#: ``csrc/flash_f32.cu``; dq and dkv in ``csrc/flash_bwd_*_f32_sliced.cu``,
+#: whose consumer warpgroups split the columns as the 16-bit ones do)
 CHUNK = 64
 SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 512, "bwd_dkv": 256}
-SLICE_COLUMNS_F32 = {"fwd": 256, "bwd_dq": 256, "bwd_dkv": 128}
+SLICE_COLUMNS_F32 = {"fwd": 256, "bwd_dq": 512, "bwd_dkv": 256}
 
 #: the element types the kernels take, with the C interface's codes
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -132,7 +134,8 @@ def column_slices(kernel: str, head_dim: int,
     as `VARIANT_LAUNCHES` names it: past a padded head dim of 256,
     ``"NxW"``, N blocks a row tile each owning W columns (`slice_columns`;
     the last slice short where W does not divide the padded head dim:
-    ``csrc/flash_sliced.cuh``, ``csrc/flash_f32.cu``); else None."""
+    ``csrc/flash_sliced.cuh``, ``csrc/flash_f32.cu``,
+    ``csrc/flash_bwd_*_f32_sliced.cu``); else None."""
     dp = padded_head_dim(head_dim)
     if dp <= _PADDED[-1]:
         return None

@@ -146,9 +146,8 @@ def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monke
     """A dkv call is one CUDA launch in every dtype at every head dim: up to
     a padded head dim of 256 named None (the 16-bit kernel sums dK and dV in
     one pass at 192 and 256 too), past 256 by its column slices (520 pads to
-    576: three slices of 256 columns in 16 bits, the last 64 wide; five of
-    128 in f32, the last 64 wide), as the forward and dq calls are (dq at
-    512: one slice of 512 columns in 16 bits, two of 256 in f32)."""
+    576: three slices of 256 columns in every dtype, the last 64 wide), as
+    the forward and dq calls are (dq at 512: one slice of 512 columns)."""
     monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
     monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
     fa._count("bwd_dkv", dtype, 200)
@@ -163,24 +162,22 @@ def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monke
     assert fa.VARIANT_LAUNCHES == {**{("bwd_dkv", name, 256, p): 1 for p in passes},
                                    **{("bwd_dkv", name, 192, p): 1 for p in passes},
                                    ("bwd_dkv", name, 128, None): 1,
-                                   ("bwd_dkv", name, 576,
-                                    "5x128" if dtype == torch.float32 else "3x256"): 1,
+                                   ("bwd_dkv", name, 576, "3x256"): 1,
                                    ("fwd", name, 576, "3x256"): 1,
-                                   ("bwd_dq", name, 512,
-                                    "2x256" if dtype == torch.float32 else "1x512"): 1}
+                                   ("bwd_dq", name, 512, "1x512"): 1}
 
 
-@pytest.mark.parametrize("D,bf16,f32", [(264, "2x256", "3x128"), (320, "2x256", "3x128"),
-                                        (512, "2x256", "4x128"), (576, "3x256", "5x128"),
-                                        (1024, "4x256", "8x128")])
+@pytest.mark.parametrize("D,bf16,f32", [(264, "2x256", "2x256"), (320, "2x256", "2x256"),
+                                        (512, "2x256", "2x256"), (576, "3x256", "3x256"),
+                                        (1024, "4x256", "4x256")])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_dkv_column_slices_past_256(D, bf16, f32, dtype, monkeypatch):
     """Past a padded head dim of 256 a dkv block owns 256 columns of dK and
-    of dV in bf16 and f16 (``csrc/flash_sliced.cuh``: each consumer
-    warpgroup sums one of the two) and 128 of both in f32
-    (``csrc/flash_f32.cu``); the last slice is short where the width does
-    not divide the padded head dim (264 pads to 320). Every call is one
-    launch, named by its slices."""
+    of dV in every dtype (``csrc/flash_sliced.cuh``,
+    ``csrc/flash_bwd_dkv_f32_sliced.cu``: each consumer warpgroup sums one of
+    the two), so the scores are summed twice a key tile at 512; the last
+    slice is short where the width does not divide the padded head dim (264
+    pads to 320). Every call is one launch, named by its slices."""
     monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
     monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
     want = f32 if dtype == torch.float32 else bf16
@@ -193,17 +190,17 @@ def test_dkv_column_slices_past_256(D, bf16, f32, dtype, monkeypatch):
     assert fa.VARIANT_LAUNCHES == {("bwd_dkv", name, fa.padded_head_dim(D), want): 1}
 
 
-@pytest.mark.parametrize("D,bf16,f32", [(264, "1x512", "2x256"), (320, "1x512", "2x256"),
-                                        (512, "1x512", "2x256"), (576, "2x512", "3x256"),
-                                        (1024, "2x512", "4x256")])
+@pytest.mark.parametrize("D,bf16,f32", [(264, "1x512", "1x512"), (320, "1x512", "1x512"),
+                                        (512, "1x512", "1x512"), (576, "2x512", "2x512"),
+                                        (1024, "2x512", "2x512")])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_dq_column_slices_past_256(D, bf16, f32, dtype, monkeypatch):
     """Past a padded head dim of 256 a dq block owns 512 columns of dQ in
-    bf16 and f16 (``csrc/flash_sliced.cuh``: the scores are summed once for
-    both 256-column halves, each consumer warpgroup sums one), so one block
-    covers a row up to 512 and two at 576 and 1024; in f32 a block owns 256
-    (``csrc/flash_f32.cu``). Every call is one launch, named by its
-    slices."""
+    every dtype (``csrc/flash_sliced.cuh``,
+    ``csrc/flash_bwd_dq_f32_sliced.cu``: the scores are summed once for both
+    256-column halves, each consumer warpgroup sums one), so one block
+    covers a row up to 512 and two at 576 and 1024. Every call is one
+    launch, named by its slices."""
     monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
     monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
     want = f32 if dtype == torch.float32 else bf16

@@ -2,6 +2,7 @@
 to it, and its end stops and reaps every descendant."""
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -168,26 +169,47 @@ def test_setmaxnreg_names_every_kernel_with_a_producer_warpgroup(cs):
     """The SASS check requires no local-memory access and no spill of every
     variant of the kernels that move registers with setmaxnreg: the three
     of ``csrc/flash_kernels.cuh`` and the three sliced ones of
-    ``csrc/flash_sliced.cuh``, every 16-bit flash kernel."""
+    ``csrc/flash_sliced.cuh``, every 16-bit flash kernel, and the two f32
+    backward kernels past 256 (``csrc/flash_bwd_*_f32_sliced.cu``), which
+    the SASS check also holds to ``mma.sync`` and TMA loads. Every name is
+    a kernel in the sources, and each kernel in a source that calls
+    setmaxnreg is named."""
     assert set(cs.SETMAXNREG_NAMES) == {"flash_fwd_kernel", "flash_bwd_dq_kernel",
                                         "flash_bwd_dkv_kernel", "flash_fwd_sliced_kernel",
                                         "flash_bwd_dq_sliced_kernel",
-                                        "flash_bwd_dkv_sliced_kernel"}
-    assert set(cs.SETMAXNREG_NAMES) == set(cs.FLASH_NAMES + cs.FLASH_SLICED_NAMES)
+                                        "flash_bwd_dkv_sliced_kernel",
+                                        "flash_bwd_dq_f32_sliced_kernel",
+                                        "flash_bwd_dkv_f32_sliced_kernel"}
+    assert set(cs.SETMAXNREG_NAMES) == set(cs.FLASH_NAMES + cs.FLASH_SLICED_NAMES
+                                           + cs.FLASH_TF32_NAMES)
+    assert set(cs.FLASH_TF32_NAMES) < set(cs.FLASH_F32_SLICED_NAMES)
+    csrc = ROOT / "edl_tpu_torch" / "ops" / "csrc"
+    kernels = {}
+    for src in sorted(csrc.glob("*.cu*")):
+        for name in re.findall(r"__global__ void __launch_bounds__\([^)]*\) (\w+)\(",
+                               src.read_text()):
+            kernels[name] = src
+    assert set(cs.SETMAXNREG_NAMES) <= set(kernels)
+    raised = {n for n, src in kernels.items() if "setmaxnreg_inc" in src.read_text()}
+    assert raised == set(cs.SETMAXNREG_NAMES)
 
 
 def test_turns_time_the_sliced_forward_and_dq_beside_an_unchanged_control(cs):
-    """``--turns`` times the sliced forward and dq at the D-512 LM's
-    attention in bf16 and f16, the forward at the other head dims past 256
-    that the kernel cases hold, and the sliced dkv at D 512 as the control
-    for the card's drift between turns."""
+    """``--turns`` times the sliced f32 dq and dkv at the JAX on-chip
+    check's f32 shape at D 512, at the D-512 LM's attention, and at the
+    check's shape at D 264 and 1024; the sliced f32 forward at D 512 and
+    the bf16 sliced dkv at the D-512 LM's attention, unchanged, are the
+    controls for the card's drift between turns."""
     rows = {(k, dtype, tuple(shape)) for k, dtype, shape in cs.TURNS}
-    for kname in ("fwd", "bwd_dq"):
-        for dtype in ("bfloat16", "float16"):
-            assert (kname, dtype, cs.LM_D512_ATTENTION) in rows
-    assert {shape[3] for k, dtype, shape in cs.TURNS if k == "fwd"} == {264, 512, 576, 1024}
-    assert [row for row in cs.TURNS if row[0] == "bwd_dkv"] == [
-        ("bwd_dkv", "bfloat16", cs.LM_D512_ATTENTION)]
+    check = tuple(cs.ONCHIP_CASES[0][:3])
+    assert cs.ONCHIP_CASES[0][5] == "float32"
+    for kname in ("bwd_dq", "bwd_dkv"):
+        for shape in [(*check, 512), cs.LM_D512_ATTENTION, (*check, 264), (*check, 1024)]:
+            assert (kname, "float32", tuple(shape)) in rows
+    controls = rows - {(k, "float32", s) for k, _, s in rows if k != "fwd"}
+    assert controls == {("fwd", "float32", (*check, 512)),
+                        ("bwd_dkv", "bfloat16", cs.LM_D512_ATTENTION)}
+    assert len(rows) == len(cs.TURNS) == 10
 
 
 def _stand_in_kernels(fa, monkeypatch, fwd_scale=None):
@@ -225,6 +247,130 @@ def test_a_turn_row_rejects_a_forward_off_its_plain_version(cs, monkeypatch):
     with pytest.raises(cs.SmokeFailure, match="turns: fwd bfloat16 .* off its plain version"):
         cs.turn_row(fa, "fwd", "bfloat16", (1, 70, 2, 264), torch.Generator().manual_seed(0),
                     torch.device("cpu"))
+
+
+def _f32_case(cs, fa, D=264):
+    """An f32 case as `check_cases` makes it, on the CPU: inputs drawn with
+    its generator, the ring's offsets and an lse cotangent, and the plain
+    versions' outputs."""
+    shape = (1, 70, 90, 2, D)
+    q, k, v, do, dlse, out_dtype = cs._case_inputs(shape, False, True,
+                                                   torch.Generator().manual_seed(0),
+                                                   torch.device("cpu"), "float32")
+    opts = dict(scale=1.0 / D ** 0.5, causal=True, q_offset=20, k_offset=0)
+    return q, k, v, out_dtype, opts, cs._plain_outputs(fa, q, k, v, do, dlse, out_dtype, opts)
+
+
+@pytest.mark.parametrize("D", [64, 264, 576])
+def test_the_f32_bound_passes_f32_outputs_and_rejects_tf32_rounded_inputs(cs, D):
+    """A case's f32 bounds (`case_f32_bounds`: ``TOL_*_F32``, or four times
+    the plain version's own error against the function in f64 where that is
+    larger) pass that function in f64 (rounded to f32) against the plain
+    versions' f32 outputs, and reject every output of the same plain
+    versions fed q, k, v and dO with the low 13 mantissa bits masked (TF32),
+    the planted fault `check_tf32_fault` holds them to; the kernel bounds
+    pass both."""
+    fa = cs._flash_module()
+    q, k, v, out_dtype, opts, want = _f32_case(cs, fa, D)
+    masked = cs.tf32_rounded(q)
+    assert masked.dtype == torch.float32 and bool((masked != q).any())
+    assert bool(((masked.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float((masked - q).abs().max()) <= 2.0 ** -10 * float(q.abs().max())
+    bounds = cs.case_f32_bounds(fa, q, k, v, want, opts)
+    assert set(bounds) == {"o", "dq", "dk", "dv"}
+    bwd = (q, k, v, want["do"], want["lse"], want["delta"])
+    exact = dict(zip(("o", "dq", "dk", "dv"), (
+        *cs._exact_outputs(fa, "fwd", q, k, v, None, None, None, opts),
+        *cs._exact_outputs(fa, "bwd_dq", *bwd, opts), *cs._exact_outputs(fa, "bwd_dkv", *bwd, opts))))
+    for name, b in bounds.items():
+        assert b["row"] >= cs.TOL_ROW_F32 and b["elem"] >= cs.TOL_ELEM_F32
+        assert cs._compare(want[name], exact[name]) == b["own"]
+        err = cs._compare(exact[name], want[name])
+        assert cs._passes_f32(err, b) and cs._passes(err), (name, err)
+    faulty = cs.tf32_fault_outputs(fa, q, k, v, want, out_dtype, opts)
+    assert set(faulty) == {"o", "dq", "dk", "dv"}
+    for name, got in faulty.items():
+        err = cs._compare(got, want[name])
+        assert not cs._passes_f32(err, bounds[name]) and not cs._passes_f32(err), (name, err)
+        assert cs._passes(err), (name, err)  # the bf16 bounds alone would let it through
+    cs.check_tf32_fault(fa, "cpu", q, k, v, want, out_dtype, opts, bounds)
+
+
+def test_the_tf32_fault_check_fails_a_bound_too_loose_to_reject_it(cs, monkeypatch):
+    fa = cs._flash_module()
+    q, k, v, out_dtype, opts, want = _f32_case(cs, fa)
+    monkeypatch.setattr(cs, "TOL_ROW_F32", cs.TOL_ROW)
+    monkeypatch.setattr(cs, "TOL_ELEM_F32", cs.TOL_ELEM)
+    bounds = cs.case_f32_bounds(fa, q, k, v, want, opts)
+    with pytest.raises(cs.SmokeFailure, match="the f32 bound passes the planted TF32 fault"):
+        cs.check_tf32_fault(fa, "cpu", q, k, v, want, out_dtype, opts, bounds)
+
+
+def test_an_f32_bound_is_the_fixed_one_or_a_multiple_of_the_plain_versions_own_error(cs):
+    """Where the plain version is within the fixed f32 bound of the exact
+    function the bound is ``TOL_*_F32``; where it is further off (a row of
+    dq that cancels, at a long sequence) the bound is ``F32_OWN_HEADROOM``
+    times its own error, metric by metric."""
+    exact = torch.ones(2, 3, 8)
+    want = {"close": exact * (1 + 1e-7), "far": exact * (1 + 1e-3)}
+    bounds = cs.f32_bounds(("close", "far"), want, (exact, exact))
+    assert bounds["close"]["row"] == cs.TOL_ROW_F32
+    assert bounds["close"]["elem"] == cs.TOL_ELEM_F32
+    own = cs._compare(want["far"], exact)
+    assert bounds["far"]["own"] == own
+    assert bounds["far"]["row"] == pytest.approx(cs.F32_OWN_HEADROOM * own["row"])
+    assert bounds["far"]["elem"] == pytest.approx(cs.F32_OWN_HEADROOM * own["elem"])
+    assert bounds["far"]["row"] > cs.TOL_ROW_F32
+
+
+def test_kernel_bounds_take_the_smaller_of_the_fma_and_3xtf32_bounds_in_f32(cs):
+    """An f32 row's bound is the least time of its work: the smaller of its
+    FLOPs at the f32 FMA peak and three TF32 FLOPs a FLOP at the TF32 peak
+    (both kept), or its bytes at the HBM rate if more; 16-bit rows keep the
+    bf16 peak."""
+    shape = (2, 1024, 4, 512)
+    pairs = 2 * 4 * 1024 * 1025 // 2
+    f32 = cs.kernel_bounds(*shape, "float32")
+    bf16 = cs.kernel_bounds(*shape, "bfloat16")
+    for kname, per_pair in (("fwd", 4), ("bwd_dq", 6), ("bwd_dkv", 8)):
+        flops = per_pair * pairs * 512
+        row = f32[kname]
+        assert row["bound_fma_ms"] == pytest.approx(flops / cs.PEAK_F32_FLOPS * 1e3)
+        assert row["bound_tf32_ms"] == pytest.approx(3 * flops / cs.PEAK_TF32_FLOPS * 1e3)
+        assert row["bound_ms"] == row["bound_tf32_ms"] and row["bound_by"] == "operations"
+        assert (bf16[kname]["bound_ms"], bf16[kname]["bound_by"]) == cs._kernel_bounds(
+            *shape, 2, cs.PEAK_BF16_FLOPS)[kname]
+        assert set(bf16[kname]) == {"bound_ms", "bound_by"}
+    # the sliced dq's FMA and 3xTF32 bounds at the JAX check's f32 shape
+    assert round(f32["bwd_dq"]["bound_fma_ms"], 4) == 0.1925
+    assert round(f32["bwd_dq"]["bound_tf32_ms"], 4) == 0.0782
+
+
+@pytest.mark.parametrize("kname", ["bwd_dq", "bwd_dkv", "fwd"])
+def test_an_f32_turn_row_holds_the_f32_bound_and_reports_both_bounds(cs, kname, monkeypatch):
+    """An f32 row of ``--turns`` (`turn_row`), rehearsed on the CPU with the
+    plain versions standing in for the kernels and a stub clock: it holds
+    the f32 bound and reports its FMA and 3xTF32 bounds, the smaller as its
+    bound, and the plain version's time; a kernel whose output is off by
+    one TF32 rounding of its inputs fails it."""
+    fa = cs._flash_module()
+    _stand_in_kernels(fa, monkeypatch)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps=20, warmup=3, batch=1: (fn(), 1.0)[1])
+    shape = (1, 70, 2, 264)
+    row = cs.turn_row(fa, kname, "float32", shape, torch.Generator().manual_seed(0),
+                      torch.device("cpu"))
+    want = cs.kernel_bounds(*shape, "float32")[kname]
+    assert row["bound_ms"] == want["bound_ms"] == min(row["bound_fma_ms"], row["bound_tf32_ms"])
+    assert row["bound_tf32_ms"] <= row["bound_fma_ms"]
+    assert row["row_err"] == 0.0 and row["plain_ms"] == 1.0
+    if kname == "bwd_dq":
+        plain = fa._bwd_dq_reference
+        monkeypatch.setattr(fa, "_bwd_dq_kernel", lambda q, k, v, do, *rest, **opts: plain(
+            cs.tf32_rounded(q), cs.tf32_rounded(k), cs.tf32_rounded(v), cs.tf32_rounded(do),
+            *rest, **opts))
+        with pytest.raises(cs.SmokeFailure, match="turns: bwd_dq float32 .* off its plain"):
+            cs.turn_row(fa, kname, "float32", shape, torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
 
 
 # Phases 12-16's group runner on the CPU, with stub phases: groups "a + b"
