@@ -14,7 +14,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
     python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
     python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
-    python3 chip_smoke.py --turns ROOT  # time the f32 sliced backward of the checkout at ROOT
+    python3 chip_smoke.py --turns ROOT  # time the f32 backward of the checkout at ROOT
 
 ``--turns`` compares two trees on one card: run it on each in turn, parent,
 tree, tree, parent, each in a process of its own (`turns_main`).
@@ -41,9 +41,10 @@ exits non-zero without its last line:
    ptxas reports their registers at launch) no local-memory access and no
    spill, and every variant compiled
    for head dims up to 256 and the sliced ones past 256
-   (``flash_sliced.cuh``) must be in the library; the f32 kernels (head
-   dims up to 128, up to 256, and sliced past 256) print what they use,
-   and the f32 backward past 256 (3xTF32, setmaxnreg) must have
+   (``flash_sliced.cuh``) must be in the library; the f32 forward
+   kernels (head dims up to 128, up to 256, and sliced past 256) print
+   what they use, and every variant of the f32 backward kernels (3xTF32,
+   setmaxnreg: up to 128, up to 256, and sliced past 256) must have
    ``mma.sync`` and TMA loads and neither local-memory access nor spill.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs (the forward at every tile compiled
@@ -52,8 +53,8 @@ exits non-zero without its last line:
    a whole 128-row query block that sees none), head dims 8, 16, 32, 40,
    80, 96, 128, 136, 192, 200 and 256 (at 256 a whole 64-row block that
    sees no key, and a 128-row block whose first 64 rows see none), past 256 through the sliced kernels 264, 320, 512, 576
-   and 1024, f16 at 64, 128, 192, 256, 320 and 512, f32 at 64, 128, 192,
-   256, 264, 512, 576 and 1024, and fewer queries than keys, row by row
+   and 1024, f16 at 64, 128, 192, 256, 320 and 512, f32 at 40, 64, 128,
+   192, 200, 256, 264, 512, 576 and 1024, and fewer queries than keys, row by row
    and element by element, f32 outputs also within the f32 bound
    (``TOL_ROW_F32``, ``TOL_ELEM_F32``), which the plain versions on inputs
    rounded to TF32 must fail at every f32 case; the JAX on-chip check's
@@ -77,7 +78,7 @@ exits non-zero without its last line:
    once), its plain version's time, one library call's (timed both ways)
    and the card's bound, at the slice's shape (bf16 and f16, D 64), the
    D-128 LM's attention (bf16 and f16), the D-256 LM's attention (bf16 and
-   f16) and the same shape at D 192 (bf16), the D-512 LM's attention
+   f16) and the same shape at D 192 (bf16 and f16), the D-512 LM's attention
    (bf16), and the JAX check's D-128 shape (bf16) and its f32 shape, also
    at D 128, 192, 256 and 512 (each f32 row with its FMA and its 3xTF32
    bound, the smaller its bound), with whether SDPA's flash backend takes
@@ -373,7 +374,7 @@ import tempfile
 import time
 
 #: NVIDIA H100 SXM data sheet: dense bf16 (and fp16) tensor-core peak, f32
-#: outside the tensor cores (the f32 kernels' FMAs), dense TF32 on the tensor
+#: outside the tensor cores (the f32 forwards' FMAs), dense TF32 on the tensor
 #: cores (an f32 product in 3xTF32 takes three: 165 TFLOP/s of f32 work),
 #: and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -404,8 +405,9 @@ TOL_LSE = 1e-4
 #: kernels multiply in f32 (FMA) or 3xTF32 (about 2^-21 a product), where one
 #: TF32 rounding of the inputs (2^-11) puts a row off by 2e-3 to 5e-1 (the
 #: planted TF32 fault, `tf32_fault_outputs`, which must fail the bound). The
-#: FMA kernels sum in the plain version's order and stay within 4.7e-7 of a
-#: row and 1.9e-6 of an element of it on an H100 (PERF.md §6). A kernel that
+#: FMA kernels (the forwards) sum in the plain version's order and stay
+#: within 4.7e-7 of a row and 1.9e-6 of an element of it on an H100 (PERF.md
+#: §6). A kernel that
 #: sums in another order is off the f32 plain version by the plain version's
 #: own rounding, largest in a row whose dq cancels (the ROW_FLOOR clamp
 #: weighs it): the function in f64 is off it by 6.8e-5 of a row at the D-512
@@ -521,22 +523,26 @@ KERNELS = {  # name -> (plain version, TPU kernel it replaces)
 SOURCE = "edl_tpu_torch/ops/csrc/flash_kernels.cuh"
 SOURCE_SLICED = "edl_tpu_torch/ops/csrc/flash_sliced.cuh"
 SOURCE_F32 = "edl_tpu_torch/ops/csrc/flash_f32.cu"
-#: the f32 backward kernels past a head dim of 256 (3xTF32 on the tensor cores)
+#: the f32 backward kernels up to a head dim of 256 and past it (3xTF32 on the
+#: tensor cores)
+SOURCE_F32_BWD = {"bwd_dq": "edl_tpu_torch/ops/csrc/flash_bwd_dq_f32.cu",
+                  "bwd_dkv": "edl_tpu_torch/ops/csrc/flash_bwd_dkv_f32.cu"}
 SOURCE_F32_SLICED = {"bwd_dq": "edl_tpu_torch/ops/csrc/flash_bwd_dq_f32_sliced.cu",
                      "bwd_dkv": "edl_tpu_torch/ops/csrc/flash_bwd_dkv_f32_sliced.cu"}
 FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 #: the 16-bit kernels past a head dim of 256 (wgmma and TMA, column slices)
 FLASH_SLICED_NAMES = ("flash_fwd_sliced_kernel", "flash_bwd_dq_sliced_kernel",
                       "flash_bwd_dkv_sliced_kernel")
-#: the f32 kernels, up to a head dim of 256 and past it: on the CUDA cores
-#: (no tensor cores, no TMA), but for the backward past 256
+#: the f32 kernels, up to a head dim of 256 and past it: the forward on the
+#: CUDA cores (no tensor cores, no TMA), the backward on the tensor cores
 FLASH_F32_NAMES = ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
                    "flash_bwd_dkv_f32_kernel")
 FLASH_F32_SLICED_NAMES = ("flash_fwd_f32_sliced_kernel", "flash_bwd_dq_f32_sliced_kernel",
                           "flash_bwd_dkv_f32_sliced_kernel")
-#: the f32 backward kernels past 256: 3xTF32 on the tensor cores (mma.sync,
-#: HMMA), fed by TMA
-FLASH_TF32_NAMES = ("flash_bwd_dq_f32_sliced_kernel", "flash_bwd_dkv_f32_sliced_kernel")
+#: the f32 backward kernels, up to a head dim of 256 and past it: 3xTF32 on
+#: the tensor cores (mma.sync, HMMA), fed by TMA
+FLASH_TF32_NAMES = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
+                    "flash_bwd_dq_f32_sliced_kernel", "flash_bwd_dkv_f32_sliced_kernel")
 #: the ring's hop counts held on one card: the merged (out, lse) of this many
 #: offset hops against the plain full attention (1: one kernel call on the
 #: whole sequence, the baseline)
@@ -571,8 +577,9 @@ SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA", "LDL", "STL")
 #: the kernels that run a producer warpgroup and two consumer warpgroups
 #: with setmaxnreg (the 16-bit ones of csrc/flash_kernels.cuh up to a padded
 #: head dim of 256 and of csrc/flash_sliced.cuh past it, and the f32
-#: backward past 256): ptxas reports their registers at launch (168), so
-#: their SASS must show no local-memory load or store, and ptxas no spill
+#: backward at every head dim): ptxas reports their registers at launch
+#: (168), so their SASS must show no local-memory load or store, and ptxas
+#: no spill
 SETMAXNREG_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                     "flash_fwd_sliced_kernel", "flash_bwd_dq_sliced_kernel",
                     "flash_bwd_dkv_sliced_kernel") + FLASH_TF32_NAMES
@@ -668,6 +675,13 @@ LATE_CASES = [
     # slices of dQ and four of dK and dV, rows that see no key, fused slices
     ("f32_head_dim_576_uneven", (1, 100, 260, 2, 576), True, 160, 0, True, False, "float32"),
     ("f32_head_dim_1024_no_key_rows", (1, 200, 200, 2, 1024), True, 0, 69, True, True,
+     "float32"),
+    # the f32 backward up to 256 (3xTF32, all D columns a block): a last
+    # 32-column chunk of 8 columns (D 40, fused slices; D 200 with fewer
+    # queries than keys), and at D 256 a whole 64-key block that no query sees
+    ("f32_head_dim_40", (2, 300, 300, 2, 40), True, 0, 0, True, True, "float32"),
+    ("f32_head_dim_200_uneven", (1, 100, 260, 2, 200), True, 160, 0, True, False, "float32"),
+    ("f32_head_dim_256_no_key_block", (1, 300, 300, 2, 256), True, 0, 200, True, False,
      "float32"),
 ]
 LATE_FAULT_CASES = (
@@ -1495,8 +1509,16 @@ def _design(fa, kname: str, dtype: str, D: int) -> str:
                          "bwd_dq": ", the scores split by keys between the consumers, "
                                    "K read once",
                          "bwd_dkv": ", the slice's Q and dO from the chunk stream"}[kname])
+    if dtype == "float32" and kname == "fwd":
+        return "f32 FMA tiles"
     if dtype == "float32":
-        return "f32 FMA tiles" + (", 32-wide tiles in dq and dkv" if dp > 128 else "")
+        return ("3xTF32 mma.sync + TMA, a producer warpgroup and two consumer warpgroups "
+                "(setmaxnreg), all D columns of "
+                + {"bwd_dq": "dQ", "bwd_dkv": "dK and dV"}[kname]
+                + " a block, the second products spread over all eight consumer warps"
+                + {"bwd_dq": ", Q and dO held, K read once",
+                   "bwd_dkv": (", K and V held, Q and dO double-buffered" if dp <= 128 else
+                               ", the tile's Q and dO held, K and V streamed")}[kname])
     if kname == "bwd_dq":
         return DESIGNS[kname][1] + (", 32-key stages" if dp > 128 else ", 64-key stages")
     if kname == "bwd_dkv":
@@ -1614,7 +1636,7 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
         err = worst[(kname, dtype, fa.padded_head_dim(D))]
         source = SOURCE_SLICED if D > 256 else SOURCE
         if f32:
-            source = SOURCE_F32_SLICED.get(kname, SOURCE_F32) if D > 256 else SOURCE_F32
+            source = (SOURCE_F32_SLICED if D > 256 else SOURCE_F32_BWD).get(kname, SOURCE_F32)
         rows.append(dict(
             name=kname, route="cuda", source=source,
             replaces=KERNELS[kname][1], design=_design(fa, kname, dtype, D),
@@ -1641,19 +1663,18 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
 
 
 #: the rows ``--turns`` times: (kernel, dtype, causal (B, S, H, D)): the
-#: sliced f32 dq and dkv at the JAX on-chip check's f32 (B, S, H) at D 512,
-#: at the D-512 LM's attention (1,024 dq blocks: the design free of the
-#: small shape's few blocks) and at the check's shape at D 264 (a short last
-#: chunk and slice) and 1024 (two dQ slices, four of dK and dV); the sliced
-#: f32 forward and the bf16 sliced dkv at their D-512 shapes, whose code the
-#: trees compared share, are the controls for the card's drift between turns
+#: f32 dq and dkv up to a head dim of 256 at the JAX on-chip check's f32 (B,
+#: S, H) at D 64, 128, 192 and 256 (128 blocks: the small shape's few
+#: blocks), and at the D-128 and D-256 LMs' attention (2,048 blocks: the
+#: design free of them); the sliced f32 forward at D 512 and the bf16 sliced
+#: dkv at the D-512 LM's attention, whose code the trees compared share, are
+#: the controls for the card's drift between turns
 F32_D512 = (*ONCHIP_CASES[0][:3], 512)
-TURNS = [("bwd_dq", "float32", F32_D512), ("bwd_dkv", "float32", F32_D512),
-         ("bwd_dq", "float32", LM_D512_ATTENTION), ("bwd_dkv", "float32", LM_D512_ATTENTION),
-         ("bwd_dq", "float32", (*F32_D512[:3], 264)), ("bwd_dkv", "float32", (*F32_D512[:3], 264)),
-         ("bwd_dq", "float32", (*F32_D512[:3], 1024)),
-         ("bwd_dkv", "float32", (*F32_D512[:3], 1024)),
-         ("fwd", "float32", F32_D512), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION)]
+F32_TURN_SHAPES = ([(*F32_D512[:3], D) for D in (64, 128, 192, 256)]
+                   + [LM_D128_ATTENTION, LM_D256_ATTENTION])
+TURNS = [(kname, "float32", shape) for shape in F32_TURN_SHAPES
+         for kname in ("bwd_dq", "bwd_dkv")]
+TURNS += [("fwd", "float32", F32_D512), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION)]
 
 
 def turns_main(root: str) -> int:
@@ -1896,6 +1917,8 @@ def phase_kernels(device, table_out=None) -> tuple:
     # rows off every model's path, timed over fewer runs
     rows += time_kernel_rows(fa, gen, device, LM_D256_ATTENTION, "float16", worst,
                              "lm_d256 f16", reps=OFF_PATH_REPS)
+    rows += time_kernel_rows(fa, gen, device, D192_ATTENTION, "float16", worst, "d192 f16",
+                             reps=OFF_PATH_REPS)
     rows += time_kernel_rows(fa, gen, device, LM_D512_ATTENTION, "float16", worst,
                              "lm_d512 f16", reps=OFF_PATH_REPS)
     rows += time_kernel_rows(fa, gen, device, ONCHIP_CASES[0][:4], "float32", worst,

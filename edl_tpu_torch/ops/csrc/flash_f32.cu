@@ -1,32 +1,29 @@
-// Flash attention for f32 inputs: the forward kernel and, up to a head dim of
-// 256, the two backward kernels on the CUDA cores, in f32 fused multiply-adds.
-// Past 256 the backward kernels run on the tensor cores in 3xTF32
-// (flash_bwd_dq_f32_sliced.cu, flash_bwd_dkv_f32_sliced.cu); this file
-// dispatches to them.
+// Flash attention for f32 inputs: the forward kernels, on the CUDA cores in
+// f32 fused multiply-adds. The two backward kernels run on the tensor cores
+// in 3xTF32: up to a head dim of 256 in flash_bwd_dq_f32.cu and
+// flash_bwd_dkv_f32.cu, past it in flash_bwd_dq_f32_sliced.cu and
+// flash_bwd_dkv_f32_sliced.cu.
 //
-// They replace the same Pallas TPU kernels as flash_kernels.cuh
-// (edl_tpu/ops/flash_attention.py's _fwd_kernel, _bwd_dq_kernel and
-// _bwd_dkv_kernel) where q, k and v are f32, and compute the same functions
-// with the same semantics: global-position causality, the ragged edge masked
-// in the kernel, masking through the validity bit, the -1e30 sentinel for rows
-// that see no key (O = 0, lse = -1e30), lse and delta (B, H, Sq) f32, dO f32
-// and contiguous. The Pallas kernels multiply f32 inputs in f32; so do these.
-// exp and log are the accurate expf and logf.
+// They replace _fwd_kernel of edl_tpu/ops/flash_attention.py where q, k and v
+// are f32, as flash_kernels.cuh does for 16-bit inputs, and compute the same
+// function with the same semantics: global-position causality, the ragged
+// edge masked in the kernel, masking through the validity bit, the -1e30
+// sentinel for rows that see no key (O = 0, lse = -1e30), lse (B, H, Sq)
+// f32. The Pallas kernel multiplies f32 inputs in f32; so do these. exp and
+// log are the accurate expf and logf.
 //
-// Bound on the H100: the same FLOPs as the 16-bit kernels (4·D, 6·D and 8·D
-// a visible pair) at the card's 67 TFLOP/s of f32 outside the tensor cores,
-// and twice their bytes. Design, simple and not tuned: a block of 256
-// threads owns 64 query rows (dkv: 64 keys) of one (batch, head) and walks
-// COLS-key (dkv: COLS-query) tiles staged in shared memory; four threads
-// share a row, each taking every fourth score of a tile and every fourth
-// head-dim column of the accumulators; the scores pass through shared memory
-// to the second product. Causally dead tiles are skipped, as in the 16-bit
-// kernels. Each kernel is compiled for head dims up to DMAX: 128, whose
-// tiles are 64 wide, and 256 (accumulators of 64 floats a thread), where dq
-// and dkv stage tiles of COLS = 32 so that their shared memory fits the
-// H100's 227 KB (the forward's 64 fits). Past 256 a sliced form of the
-// forward serves every head dim (below): column slices of O, scores summed
-// over 64-column chunks, no whole row in shared memory.
+// Bound on the H100: the same FLOPs as the 16-bit forward (4·D a visible
+// pair) at the card's 67 TFLOP/s of f32 outside the tensor cores, and twice
+// its bytes. Design, simple and not tuned: a block of 256 threads owns 64
+// query rows of one (batch, head) and walks COLS-key tiles staged in shared
+// memory; four threads share a row, each taking every fourth score of a tile
+// and every fourth head-dim column of the accumulator; the scores pass
+// through shared memory to the second product. Causally dead tiles are
+// skipped, as in the 16-bit kernels. The kernel is compiled for head dims up
+// to DMAX: 128 and 256 (accumulators of 64 floats a thread), both with
+// 64-key tiles. Past 256 a sliced form serves every head dim (below): column
+// slices of O, scores summed over 64-column chunks, no whole row in shared
+// memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +33,7 @@
 namespace edl_flash {
 namespace {
 
-constexpr int kRows = 64;              // query rows a block (dkv: keys a block)
+constexpr int kRows = 64;              // query rows a block
 constexpr int kThreadsF32 = 4 * kRows;  // four a row
 constexpr float kNegInfF32 = -1e30f;   // the TPU kernels' _NEG_INF sentinel
 
@@ -178,134 +175,6 @@ __global__ void __launch_bounds__(kThreadsF32) flash_fwd_f32_kernel(FwdArgs a) {
   if (c == 0) a.lse[(long long)bh * a.Sq + row] = l > 0.f ? m + logf(l) : kNegInfF32;
 }
 
-// Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py for f32 inputs.
-template <int DMAX, int COLS>
-__global__ void __launch_bounds__(kThreadsF32) flash_bwd_dq_f32_kernel(BwdArgs a) {
-  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + kRows * kLd;
-  float* sk = sdo + kRows * kLd;
-  float* sv = sk + COLS * kLd;
-  float* sds = sv + COLS * kLd;
-
-  const int n_qt = (a.Sq + kRows - 1) / kRows;
-  const int BH = gridDim.x / n_qt;
-  const int qt = n_qt - 1 - blockIdx.x / BH;
-  const int bh = blockIdx.x % BH, b = bh / a.H, h = bh % a.H;
-  const int q0 = qt * kRows, r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const int row = q0 + r, qpos = a.q_offset + row;
-  const int n_kt = key_tiles_f32<COLS>(a.Sk, q0, a.q_offset, a.k_offset, a.causal);
-  // rows at or beyond Sq stay finite and are never written
-  const float lse = row < a.Sq ? a.lse[(long long)bh * a.Sq + row] : 0.f;
-  const float delta = row < a.Sq ? a.delta[(long long)bh * a.Sq + row] : 0.f;
-  const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
-
-  load_rows<kRows, kLd>(sq, a.q, b, h, q0, a.Sq, a.D);
-  load_rows<kRows, kLd>(sdo, dout, b, h, q0, a.Sq, a.D);
-  float acc[DMAX / 4];
-#pragma unroll
-  for (int i = 0; i < DMAX / 4; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_rows<COLS, kLd>(sk, a.k, b, h, kt * COLS, a.Sk, a.D);
-    load_rows<COLS, kLd>(sv, a.v, b, h, kt * COLS, a.Sk, a.D);
-    __syncthreads();
-    float s[COLS / 4], dp[COLS / 4];
-    dot_cols<COLS, kLd>(s, sq + r * kLd, sk, c, a.D);
-    dot_cols<COLS, kLd>(dp, sdo + r * kLd, sv, c, a.D);
-#pragma unroll
-    for (int i = 0; i < COLS / 4; ++i) {
-      const int j = c + 4 * i, key = kt * COLS + j;
-      const bool ok = key < a.Sk && (!a.causal || a.k_offset + key <= qpos);
-      const float p = ok ? expf(s[i] * a.scale - lse) : 0.f;
-      sds[r * kPLd + j] = ok ? p * (dp[i] - delta) * a.scale : 0.f;
-    }
-    __syncwarp();
-    acc_cols<DMAX, COLS, kLd>(acc, sds + r * kPLd, sk, c, a.D);
-  }
-  if (row >= a.Sq) return;
-  float* dq = static_cast<float*>(a.dq) + (((long long)b * a.Sq + row) * a.H + h) * a.D;
-#pragma unroll
-  for (int i = 0; i < DMAX / 4; ++i) {
-    const int d = c + 4 * i;
-    if (d < a.D) dq[d] = acc[i];
-  }
-}
-
-// Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py for f32 inputs.
-template <int DMAX, int COLS>
-__global__ void __launch_bounds__(kThreadsF32) flash_bwd_dkv_f32_kernel(BwdArgs a) {
-  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + kRows * kLd;
-  float* sq = sv + kRows * kLd;
-  float* sdo = sq + COLS * kLd;
-  float* sp = sdo + COLS * kLd;
-  float* sds = sp + kRows * kPLd;
-  float* slse = sds + kRows * kPLd;
-  float* sdelta = slse + COLS;
-
-  const int n_kt = (a.Sk + kRows - 1) / kRows;
-  const int BH = gridDim.x / n_kt;
-  const int kt = blockIdx.x / BH;  // the first key tiles are seen by the most queries
-  const int bh = blockIdx.x % BH, b = bh / a.H, h = bh % a.H;
-  const int k0 = kt * kRows, r = threadIdx.x >> 2, c = threadIdx.x & 3;
-  const int key = k0 + r, kpos = a.k_offset + key;
-  const int n_qt = (a.Sq + COLS - 1) / COLS;
-  int qt0 = 0;  // the first query tile that sees some key of the block
-  if (a.causal) {
-    const long long need = (long long)a.k_offset + k0 - a.q_offset - (COLS - 1);
-    qt0 = need <= 0 ? 0 : (int)((need + COLS - 1) / COLS);
-  }
-  const View dout = {a.dout, (long long)a.Sq * a.H * a.D, (long long)a.H * a.D, a.D};
-
-  load_rows<kRows, kLd>(sk, a.k, b, h, k0, a.Sk, a.D);
-  load_rows<kRows, kLd>(sv, a.v, b, h, k0, a.Sk, a.D);
-  float dk[DMAX / 4], dv[DMAX / 4];
-#pragma unroll
-  for (int i = 0; i < DMAX / 4; ++i) dk[i] = dv[i] = 0.f;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * COLS;
-    __syncthreads();
-    load_rows<COLS, kLd>(sq, a.q, b, h, q0, a.Sq, a.D);
-    load_rows<COLS, kLd>(sdo, dout, b, h, q0, a.Sq, a.D);
-    if (threadIdx.x < COLS) {
-      const int qi = q0 + threadIdx.x;
-      slse[threadIdx.x] = qi < a.Sq ? a.lse[(long long)bh * a.Sq + qi] : 0.f;
-      sdelta[threadIdx.x] = qi < a.Sq ? a.delta[(long long)bh * a.Sq + qi] : 0.f;
-    }
-    __syncthreads();
-    float st[COLS / 4], dpt[COLS / 4];
-    dot_cols<COLS, kLd>(st, sk + r * kLd, sq, c, a.D);
-    dot_cols<COLS, kLd>(dpt, sv + r * kLd, sdo, c, a.D);
-#pragma unroll
-    for (int i = 0; i < COLS / 4; ++i) {
-      const int j = c + 4 * i;
-      const bool ok = key < a.Sk && q0 + j < a.Sq && (!a.causal || kpos <= a.q_offset + q0 + j);
-      const float p = ok ? expf(st[i] * a.scale - slse[j]) : 0.f;
-      sp[r * kPLd + j] = p;
-      sds[r * kPLd + j] = ok ? p * (dpt[i] - sdelta[j]) * a.scale : 0.f;
-    }
-    __syncwarp();
-    acc_cols<DMAX, COLS, kLd>(dv, sp + r * kPLd, sdo, c, a.D);
-    acc_cols<DMAX, COLS, kLd>(dk, sds + r * kPLd, sq, c, a.D);
-  }
-  if (key >= a.Sk) return;
-  const long long base = (((long long)b * a.Sk + key) * a.H + h) * a.D;
-  float* dkp = static_cast<float*>(a.dk) + base;
-  float* dvp = static_cast<float*>(a.dv) + base;
-#pragma unroll
-  for (int i = 0; i < DMAX / 4; ++i) {
-    const int d = c + 4 * i;
-    if (d < a.D) {
-      dkp[d] = dk[i];
-      dvp[d] = dv[i];
-    }
-  }
-}
-
 // -- past a head dim of 256: column slices and chunked scores -----------------
 //
 // The forward: no whole-D row lives in shared memory. A block owns the rows
@@ -427,16 +296,6 @@ constexpr size_t fwd_smem_f32() {
   constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
   return (kRows * kLd + 2 * COLS * kLd + kRows * kPLd) * sizeof(float);
 }
-template <int DMAX, int COLS>
-constexpr size_t dq_smem_f32() {
-  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
-  return (2 * kRows * kLd + 2 * COLS * kLd + kRows * kPLd) * sizeof(float);
-}
-template <int DMAX, int COLS>
-constexpr size_t dkv_smem_f32() {
-  constexpr int kLd = DMAX + 1, kPLd = COLS + 1;  // row strides: rows on distinct banks
-  return (2 * kRows * kLd + 2 * COLS * kLd + 2 * kRows * kPLd + 2 * COLS) * sizeof(float);
-}
 
 // The sliced forward's shared memory, at COLS keys a tile.
 template <int COLS>
@@ -449,10 +308,6 @@ constexpr size_t kSmemMaxF32 = 232448;  // dynamic shared memory a block can tak
 // The compiled variants: (head dims up to DMAX, tile COLS) by kernel.
 static_assert(fwd_smem_f32<128, 64>() <= kSmemMaxF32 && fwd_smem_f32<256, 64>() <= kSmemMaxF32,
               "forward shared memory");
-static_assert(dq_smem_f32<128, 64>() <= kSmemMaxF32 && dq_smem_f32<256, 32>() <= kSmemMaxF32,
-              "dq shared memory");
-static_assert(dkv_smem_f32<128, 64>() <= kSmemMaxF32 && dkv_smem_f32<256, 32>() <= kSmemMaxF32,
-              "dkv shared memory");
 // Past a head dim of 256 (tiles of kSliced keys).
 constexpr int kSliced = 64;
 static_assert(fwd_sliced_smem_f32<kSliced>() <= kSmemMaxF32, "sliced shared memory");
@@ -464,26 +319,6 @@ cudaError_t launch_fwd_f32_at(const FwdArgs& a, cudaStream_t stream) {
   if (rc != cudaSuccess) return rc;
   const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
   flash_fwd_f32_kernel<DMAX, COLS><<<blocks, kThreadsF32, kBytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int DMAX, int COLS>
-cudaError_t launch_bwd_dq_f32_at(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t kBytes = dq_smem_f32<DMAX, COLS>();
-  cudaError_t rc = allow_smem(flash_bwd_dq_f32_kernel<DMAX, COLS>, kBytes);
-  if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sq + kRows - 1) / kRows);
-  flash_bwd_dq_f32_kernel<DMAX, COLS><<<blocks, kThreadsF32, kBytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int DMAX, int COLS>
-cudaError_t launch_bwd_dkv_f32_at(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t kBytes = dkv_smem_f32<DMAX, COLS>();
-  cudaError_t rc = allow_smem(flash_bwd_dkv_f32_kernel<DMAX, COLS>, kBytes);
-  if (rc != cudaSuccess) return rc;
-  const int blocks = a.B * a.H * ((a.Sk + kRows - 1) / kRows);
-  flash_bwd_dkv_f32_kernel<DMAX, COLS><<<blocks, kThreadsF32, kBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -513,24 +348,6 @@ cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream) {
                              a, a.Sq, kSliceF32, stream);
   }
   return a.D <= 128 ? launch_fwd_f32_at<128, 64>(a, stream) : launch_fwd_f32_at<256, 64>(a, stream);
-}
-
-cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream) {
-  if (a.D <= 0) return cudaErrorInvalidValue;
-  if (a.D > 256) {
-    return launch_bwd_dq_f32_sliced(a, stream);
-  }
-  return a.D <= 128 ? launch_bwd_dq_f32_at<128, 64>(a, stream)
-                    : launch_bwd_dq_f32_at<256, 32>(a, stream);
-}
-
-cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream) {
-  if (a.D <= 0) return cudaErrorInvalidValue;
-  if (a.D > 256) {
-    return launch_bwd_dkv_f32_sliced(a, stream);
-  }
-  return a.D <= 128 ? launch_bwd_dkv_f32_at<128, 64>(a, stream)
-                    : launch_bwd_dkv_f32_at<256, 32>(a, stream);
 }
 
 }  // namespace edl_flash

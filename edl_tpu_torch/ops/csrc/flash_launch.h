@@ -1,8 +1,8 @@
 // The launchers of the flash-attention kernels, as the C interface
 // (flash_attention.cu) calls them. Each variant is compiled in its own
 // translation unit (flash_fwd_*.cu, flash_bwd_*.cu, flash_*_sliced.cu,
-// flash_f32.cu, flash_bwd_*_f32_sliced.cu), so that the build runs one nvcc
-// process per unit, all at once.
+// flash_f32.cu, flash_bwd_*_f32.cu, flash_bwd_*_f32_sliced.cu), so that the
+// build runs one nvcc process per unit, all at once.
 
 #pragma once
 
@@ -59,7 +59,11 @@ cudaError_t launch_bwd_dq_sliced(const BwdArgs& a, cudaStream_t stream);
 template <typename T>
 cudaError_t launch_bwd_dkv_sliced(const BwdArgs& a, cudaStream_t stream);
 
-// The f32 kernels (any head dim: whole rows up to 256, column slices past it).
+// The f32 kernels (any head dim: whole rows up to 256, column slices past
+// it). The forward runs on the CUDA cores (flash_f32.cu); dq and dkv on the
+// tensor cores in 3xTF32, up to 256 with a block owning all D columns of dQ,
+// or of dK and dV (flash_bwd_dq_f32.cu, flash_bwd_dkv_f32.cu), past 256
+// through the two sliced launchers below.
 cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream);

@@ -1,8 +1,9 @@
 // Building blocks of the f32 flash kernels on the tensor cores: f32 chunks
 // loaded by TMA, and 3xTF32 products on them (hopper.cuh, mma.sync m16n8k8).
-// flash_bwd_dq_f32_sliced.cu and flash_bwd_dkv_f32_sliced.cu build the
-// sliced f32 backward kernels from them, in flash_kernels.cuh's block (a
-// producer warpgroup and two consumer warpgroups with setmaxnreg).
+// The f32 backward kernels are built from them, in flash_kernels.cuh's block
+// (a producer warpgroup and two consumer warpgroups with setmaxnreg): up to
+// a head dim of 256 in flash_bwd_dq_f32.cu and flash_bwd_dkv_f32.cu, past it
+// in flash_bwd_dq_f32_sliced.cu and flash_bwd_dkv_f32_sliced.cu.
 //
 // Layouts in shared memory:
 //  * A chunk is 64 rows (queries or keys) of 32 f32 head-dim columns as TMA
@@ -70,14 +71,19 @@ __device__ __forceinline__ void split_a(float2 p0, float2 p1, uint32_t (&hi)[4],
 // 8-column tile j: the lane's row g + 8(e >> 1), column 8j + 2t + (e & 1)
 // (a wgmma accumulator's layout, so flash_kernels.cuh's dq_probs and
 // dkv_probs read it). dq: S = Q·Kᵀ and dP = dO·Vᵀ; dkv: Sᵀ = K·Qᵀ and dPᵀ =
-// V·dOᵀ.
+// V·dOᵀ. UNROLL unrolls the chunk's four steps: 2, or 1 where a kernel's
+// registers are short (ptxas spills at 2). With kStepSums each step's three
+// products go into a fresh accumulator added to the chunk's in f32, so no
+// tensor-core chain is more than 3 deep (12 otherwise): dq's rows whose dQ
+// cancels weigh the scores' truncated adds.
+template <int UNROLL = 2, bool kStepSums = false>
 __device__ __forceinline__ void chunk_scores(float (&x)[16], const float* a, int a_row0,
                                              const float* b, int b_row0) {
   using hopper::f32_swizzled;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int ra = a_row0 + g;
   float part[4][4] = {};
-#pragma unroll 2
+#pragma unroll UNROLL
   for (int kk = 0; kk < kChunk / 8; ++kk) {
     const int c = 8 * kk + 2 * t;
     uint32_t ah[4], al[4];
@@ -89,7 +95,14 @@ __device__ __forceinline__ void chunk_scores(float (&x)[16], const float* a, int
       uint32_t bh[2], bl[2];
       hopper::tf32_split(bv.x, bh[0], bl[0]);
       hopper::tf32_split(bv.y, bh[1], bl[1]);
-      hopper::mma_3xtf32(part[j], ah, al, bh, bl);
+      if constexpr (kStepSums) {
+        float step[4] = {};
+        hopper::mma_3xtf32(step, ah, al, bh, bl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] += step[e];
+      } else {
+        hopper::mma_3xtf32(part[j], ah, al, bh, bl);
+      }
     }
   }
 #pragma unroll
@@ -185,6 +198,92 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[4][8][
             *reinterpret_cast<float2*>(dst + d) =
                 make_float2(acc[m][4 * cc + j][2 * r], acc[m][4 * cc + j][2 * r + 1]);
           }
+        }
+      }
+    }
+}
+
+// acc += P·B for one warp's share of a product whose output rows are a
+// score tile's and whose output columns are the head dim's, in 3xTF32: P a
+// score tile (its 64 columns the reduction), of which the warp takes M row
+// tiles of 16 from row0; B a tile of kChunk-column chunks at b (chunk i at b
+// + i·kChunkElems, its 64 rows the reduction), of which the warp takes the
+// 8-column tile j0 (0-3) of chunks 0 ... NT - 1, those that start below D:
+// head-dim column tiles jt = j0 + 4i below n_jt = ceil(D / 8). Each group
+// of two row tiles by TG chunks' column tiles (32 x 8·TG) is summed into a
+// fresh accumulator over the reduction (24 products deep) and added to acc
+// in f32, as in `tile_product`; a wider group splits each P fragment for
+// more products. acc[m][i][e] is row row0 + 16m + g + 8(e >> 1),
+// head-dim column 32i + 8·j0 + 2t + (e & 1). The kernels up to a head dim of
+// 256 spread their second products over all eight consumer warps this way,
+// at every head dim: four warps take the four column tiles of every chunk.
+template <int M, int NT, int TG = 4>
+__device__ __forceinline__ void spread_product(float (&acc)[M][NT][4], const float* p, int row0,
+                                               const float* b, int j0, int n_jt) {
+  using hopper::f32_swizzled;
+  static_assert(M % 2 == 0 && NT % TG == 0, "groups of two row tiles by TG chunks");
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int col = 8 * j0 + g;  // the lane's column of each chunk
+#pragma unroll
+  for (int mp = 0; mp < M / 2; ++mp) {  // rows row0 + 32mp ... row0 + 32mp + 31
+#pragma unroll
+    for (int tg = 0; tg < NT / TG; ++tg) {  // chunks TG·tg ... TG·tg + TG - 1
+      if (j0 + 4 * TG * tg >= n_jt) break;  // warp-uniform: the head dim ends before the group
+      float part[2][TG][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kTile / 8; ++kk) {
+        const int c = 8 * kk + 2 * t;  // the lane's reduction pair of the step: c and c + 1
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int r = row0 + 32 * mp + 16 * m + g;
+          split_a(*reinterpret_cast<const float2*>(p + score_at(r, c)),
+                  *reinterpret_cast<const float2*>(p + score_at(r + 8, c)), ah[m], al[m]);
+        }
+        const float* b0 = b + f32_swizzled(c, col);
+        const float* b1 = b + f32_swizzled(c + 1, col);
+#pragma unroll
+        for (int j = 0; j < TG; ++j) {
+          const int i = TG * tg + j;  // the chunk
+          if (j0 + 4 * i < n_jt) {  // warp-uniform
+            uint32_t bh[2], bl[2];
+            hopper::tf32_split(b0[i * kChunkElems], bh[0], bl[0]);
+            hopper::tf32_split(b1[i * kChunkElems], bh[1], bl[1]);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) hopper::mma_3xtf32(part[m][j], ah[m], al[m], bh, bl);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < TG; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[2 * mp + m][TG * tg + j][e] += part[m][j][e];
+    }
+  }
+}
+
+// A warp's acc (`spread_product`'s layout, column tile j0 of each chunk)
+// into out, a contiguous (B, S, H, D) f32 tensor: rows row0 + ... below S of
+// head h, batch b, columns below D.
+template <int M, int NT>
+__device__ __forceinline__ void store_spread(float* out, const float (&acc)[M][NT][4], int b,
+                                             int h, int H, int S, int D, int row0, int j0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * m + g + 8 * r;
+      if (row >= S) continue;
+      float* dst = out + (((long long)b * S + row) * H + h) * D + 8 * j0 + 2 * t;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        // D is a multiple of 8, so d + 1 < D where d = 32i + 8·j0 + 2t < D
+        if (32 * i + 8 * j0 + 2 * t < D) {
+          *reinterpret_cast<float2*>(dst + 32 * i) =
+              make_float2(acc[m][i][2 * r], acc[m][i][2 * r + 1]);
         }
       }
     }

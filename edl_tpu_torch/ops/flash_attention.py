@@ -15,8 +15,10 @@ and f32 at any head dim: bf16 and f16 through the wgmma kernels
 (``flash_kernels.cuh`` up to 256; past 256 the sliced kernels of
 ``flash_sliced.cuh``, whose blocks each own a slice of the output's columns
 and sum the scores over 64-column chunks of the head dim), f32 through the
-f32 kernels (``flash_f32.cu``, sliced past 256 too, where the backward runs
-on the tensor cores in 3xTF32). What their loads cannot
+f32 kernels: the forward on the CUDA cores (``flash_f32.cu``, sliced past
+256 too), the backward on the tensor cores in 3xTF32 (``flash_bwd_*_f32.cu``
+up to 256, a block owning all D columns of its output;
+``flash_bwd_*_f32_sliced.cu`` past it). What their loads cannot
 read, the wrapper first makes readable, on either device: a head dim that
 is not a multiple of 8 is zero-padded (zero columns change no score; the
 outputs are sliced back), and a view that TMA cannot read is copied to a
@@ -78,7 +80,8 @@ _PADDED = (16, 32, 64, 128, 192, 256)
 #: 256 columns each, dq's of dQ, dkv's one of dK and dV; the forward's
 #: consumers split the block's 128 rows) and in f32 (the forward in
 #: ``csrc/flash_f32.cu``; dq and dkv in ``csrc/flash_bwd_*_f32_sliced.cu``,
-#: whose consumer warpgroups split the columns as the 16-bit ones do)
+#: whose consumer warpgroups split the columns as the 16-bit ones do; up to
+#: 256, ``csrc/flash_bwd_*_f32.cu``, a block owns all D columns)
 CHUNK = 64
 SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 512, "bwd_dkv": 256}
 SLICE_COLUMNS_F32 = {"fwd": 256, "bwd_dq": 512, "bwd_dkv": 256}
