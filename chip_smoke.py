@@ -14,7 +14,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
     python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
     python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
-    python3 chip_smoke.py --turns ROOT  # time the f32 backward of the checkout at ROOT
+    python3 chip_smoke.py --turns ROOT  # time the f32 forward of the checkout at ROOT
 
 ``--turns`` compares two trees on one card: run it on each in turn, parent,
 tree, tree, parent, each in a process of its own (`turns_main`).
@@ -41,11 +41,10 @@ exits non-zero without its last line:
    ptxas reports their registers at launch) no local-memory access and no
    spill, and every variant compiled
    for head dims up to 256 and the sliced ones past 256
-   (``flash_sliced.cuh``) must be in the library; the f32 forward
-   kernels (head dims up to 128, up to 256, and sliced past 256) print
-   what they use, and every variant of the f32 backward kernels (3xTF32,
-   setmaxnreg: up to 128, up to 256, and sliced past 256) must have
-   ``mma.sync`` and TMA loads and neither local-memory access nor spill.
+   (``flash_sliced.cuh``) must be in the library; every variant of the
+   three f32 kernels (3xTF32, setmaxnreg: up to 128, up to 256, and sliced
+   past 256) must have ``mma.sync`` and TMA loads and neither local-memory
+   access nor spill.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs (the forward at every tile compiled
    for the case), at the slice's shape, a ragged shape, the ring's offset
@@ -54,7 +53,9 @@ exits non-zero without its last line:
    80, 96, 128, 136, 192, 200 and 256 (at 256 a whole 64-row block that
    sees no key, and a 128-row block whose first 64 rows see none), past 256 through the sliced kernels 264, 320, 512, 576
    and 1024, f16 at 64, 128, 192, 256, 320 and 512, f32 at 40, 64, 128,
-   192, 200, 256, 264, 512, 576 and 1024, and fewer queries than keys, row by row
+   192, 200, 256, 264, 512, 576 and 1024 (and at 64, 256 and 512 with each
+   row's maximum rising in every key tile, in the tile's last 32 keys:
+   ``RISING_MAX_CASES``), and fewer queries than keys, row by row
    and element by element, f32 outputs also within the f32 bound
    (``TOL_ROW_F32``, ``TOL_ELEM_F32``), which the plain versions on inputs
    rounded to TF32 must fail at every f32 case; the JAX on-chip check's
@@ -374,7 +375,7 @@ import tempfile
 import time
 
 #: NVIDIA H100 SXM data sheet: dense bf16 (and fp16) tensor-core peak, f32
-#: outside the tensor cores (the f32 forwards' FMAs), dense TF32 on the tensor
+#: outside the tensor cores (the f32 FMA bound), dense TF32 on the tensor
 #: cores (an f32 product in 3xTF32 takes three: 165 TFLOP/s of f32 work),
 #: and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
@@ -402,12 +403,10 @@ ROW_FLOOR = 1e-2
 #: absolute, since an error in lse is a relative error of the softmax's sum
 TOL_LSE = 1e-4
 #: every f32 kernel output is also held to f32, by the same metrics: the
-#: kernels multiply in f32 (FMA) or 3xTF32 (about 2^-21 a product), where one
-#: TF32 rounding of the inputs (2^-11) puts a row off by 2e-3 to 5e-1 (the
-#: planted TF32 fault, `tf32_fault_outputs`, which must fail the bound). The
-#: FMA kernels (the forwards) sum in the plain version's order and stay
-#: within 4.7e-7 of a row and 1.9e-6 of an element of it on an H100 (PERF.md
-#: §6). A kernel that
+#: kernels multiply in 3xTF32 (about 2^-21 a product), where one TF32
+#: rounding of the inputs (2^-11) puts a row off by 2e-3 to 5e-1 (the
+#: planted TF32 fault, `tf32_fault_outputs`, which must fail the bound). A
+#: kernel that
 #: sums in another order is off the f32 plain version by the plain version's
 #: own rounding, largest in a row whose dq cancels (the ROW_FLOOR clamp
 #: weighs it): the function in f64 is off it by 6.8e-5 of a row at the D-512
@@ -522,27 +521,26 @@ KERNELS = {  # name -> (plain version, TPU kernel it replaces)
 }
 SOURCE = "edl_tpu_torch/ops/csrc/flash_kernels.cuh"
 SOURCE_SLICED = "edl_tpu_torch/ops/csrc/flash_sliced.cuh"
-SOURCE_F32 = "edl_tpu_torch/ops/csrc/flash_f32.cu"
-#: the f32 backward kernels up to a head dim of 256 and past it (3xTF32 on the
-#: tensor cores)
-SOURCE_F32_BWD = {"bwd_dq": "edl_tpu_torch/ops/csrc/flash_bwd_dq_f32.cu",
-                  "bwd_dkv": "edl_tpu_torch/ops/csrc/flash_bwd_dkv_f32.cu"}
-SOURCE_F32_SLICED = {"bwd_dq": "edl_tpu_torch/ops/csrc/flash_bwd_dq_f32_sliced.cu",
+#: the f32 kernels up to a head dim of 256 and past it (3xTF32 on the tensor
+#: cores), by kernel
+SOURCE_F32 = {"fwd": "edl_tpu_torch/ops/csrc/flash_fwd_f32.cu",
+              "bwd_dq": "edl_tpu_torch/ops/csrc/flash_bwd_dq_f32.cu",
+              "bwd_dkv": "edl_tpu_torch/ops/csrc/flash_bwd_dkv_f32.cu"}
+SOURCE_F32_SLICED = {"fwd": "edl_tpu_torch/ops/csrc/flash_fwd_f32_sliced.cu",
+                     "bwd_dq": "edl_tpu_torch/ops/csrc/flash_bwd_dq_f32_sliced.cu",
                      "bwd_dkv": "edl_tpu_torch/ops/csrc/flash_bwd_dkv_f32_sliced.cu"}
 FLASH_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 #: the 16-bit kernels past a head dim of 256 (wgmma and TMA, column slices)
 FLASH_SLICED_NAMES = ("flash_fwd_sliced_kernel", "flash_bwd_dq_sliced_kernel",
                       "flash_bwd_dkv_sliced_kernel")
-#: the f32 kernels, up to a head dim of 256 and past it: the forward on the
-#: CUDA cores (no tensor cores, no TMA), the backward on the tensor cores
+#: the f32 kernels, up to a head dim of 256 and past it
 FLASH_F32_NAMES = ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
                    "flash_bwd_dkv_f32_kernel")
 FLASH_F32_SLICED_NAMES = ("flash_fwd_f32_sliced_kernel", "flash_bwd_dq_f32_sliced_kernel",
                           "flash_bwd_dkv_f32_sliced_kernel")
-#: the f32 backward kernels, up to a head dim of 256 and past it: 3xTF32 on
-#: the tensor cores (mma.sync, HMMA), fed by TMA
-FLASH_TF32_NAMES = ("flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel",
-                    "flash_bwd_dq_f32_sliced_kernel", "flash_bwd_dkv_f32_sliced_kernel")
+#: the f32 kernels, up to a head dim of 256 and past it: 3xTF32 on the
+#: tensor cores (mma.sync, HMMA), fed by TMA
+FLASH_TF32_NAMES = FLASH_F32_NAMES + FLASH_F32_SLICED_NAMES
 #: the ring's hop counts held on one card: the merged (out, lse) of this many
 #: offset hops against the plain full attention (1: one kernel call on the
 #: whole sequence, the baseline)
@@ -576,8 +574,8 @@ DESIGNS = {
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "FFMA", "LDL", "STL")
 #: the kernels that run a producer warpgroup and two consumer warpgroups
 #: with setmaxnreg (the 16-bit ones of csrc/flash_kernels.cuh up to a padded
-#: head dim of 256 and of csrc/flash_sliced.cuh past it, and the f32
-#: backward at every head dim): ptxas reports their registers at launch
+#: head dim of 256 and of csrc/flash_sliced.cuh past it, and the f32 ones
+#: at every head dim): ptxas reports their registers at launch
 #: (168), so their SASS must show no local-memory load or store, and ptxas
 #: no spill
 SETMAXNREG_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -688,6 +686,26 @@ LATE_FAULT_CASES = (
     ("head_dim_256_ring_ragged", (2, 700, 700, 2, 256), True, 300, 300, True, False,
      "bfloat16"),
 )
+#: f32 cases whose rows' maximum rises in every 64-key tile and lies in the
+#: tile's last 32 keys, those of the f32 forward's consumer warpgroup 1
+#: (`rising_max`), so that every tile's alpha rescales O and warpgroup 0
+#: takes its rows' maximum from warpgroup 1: at D 64 unmasked with a ragged
+#: last tile, at D 256 causal, and at D 512 through the sliced kernel.
+#: Checked last, so that every check before them draws what it drew before
+RISING_MAX_CASES = [
+    ("f32_rising_max_64", (2, 300, 300, 2, 64), False, 0, 0, True, False, "float32"),
+    ("f32_rising_max_256", (1, 300, 300, 2, 256), True, 0, 0, True, False, "float32"),
+    ("f32_rising_max_512", (1, 300, 300, 2, 512), False, 0, 0, True, False, "float32"),
+]
+#: k's first column rises by RISING_MAX_SLOPE·sqrt(D) a key and q's first
+#: column is at least 1, so each row's scores rise by at least
+#: RISING_MAX_SLOPE a key: about twice the scores' own spread of 1 over 32
+#: keys, with the largest score near 85
+RISING_MAX_SLOPE = 0.06
+#: of the (row, key tile) pairs whose row sees a key of the tile's last 32,
+#: the least share whose tile maximum lies there (97 % and more at these
+#: shapes) and the least share whose maximum rises past the earlier tiles'
+RISING_MAX_SHARES = (0.95, 0.99)
 
 #: the JAX package's on-chip check (`onchip_flash_check.py:22-28`), letter
 #: for letter: (B, S, H, D, causal, dtype). Each runs forward and backward
@@ -847,7 +865,7 @@ def phase_build() -> dict:
 def check_sass(build: dict) -> None:
     """The build's SASS counts (`phase_build`'s thread), printed beside
     ptxas's line and held: every bf16 and f16 flash kernel has wgmma and TMA
-    loads and no ``mma.sync``; the f32 backward past 256
+    loads and no ``mma.sync``; every f32 kernel at every head dim
     (``FLASH_TF32_NAMES``) has ``mma.sync`` and TMA loads; the setmaxnreg
     kernels (``SETMAXNREG_NAMES``) have no local-memory load or store in
     their SASS and no spill in ptxas's line; and every compiled variant is in
@@ -918,8 +936,8 @@ def _label(dtype: str, dp: int, block_k=None) -> str:
 def _variant(mangled: str):
     """(kernel, variant label) of a flash kernel's mangled name, or None:
     its template arguments are (T, DP, KEYS) for the forward and dq, (T, DP)
-    for dkv and (DMAX, COLS) for the f32 kernels; the sliced kernels' are (T)
-    and (COLS)."""
+    for dkv and (DMAX) for the f32 kernels; the sliced kernels' are (T), or
+    none in f32."""
     sliced = next((n for n in FLASH_SLICED_NAMES + FLASH_F32_SLICED_NAMES if n in mangled), None)
     if sliced is not None:  # one variant a dtype serves every head dim past 256
         ty = ("f32" if sliced in FLASH_F32_SLICED_NAMES else
@@ -1297,13 +1315,49 @@ def check_backward_calls(fa, label: str, calls, expected: int) -> dict:
     return worst
 
 
-def check_cases(fa, gen, device, cases, worst=None) -> dict:
+def rising_max(fa, name, q, k, opts) -> None:
+    """Plants a rising row maximum in a case's q and k (separate tensors),
+    in place: q's first column made at least 1 and k's first column
+    RISING_MAX_SLOPE·sqrt(D) times the key's position. Then of the (row, key
+    tile) pairs whose row sees one of the tile's last 32 keys, the share
+    whose tile maximum lies among them and the share whose maximum rises past
+    the earlier tiles' must reach ``RISING_MAX_SHARES``."""
+    import torch
+
+    D, Sk = q.shape[3], k.shape[1]
+    q[..., 0] = q[..., 0].abs() + 1
+    k[..., 0] = RISING_MAX_SLOPE * math.sqrt(D) * torch.arange(Sk, device=k.device)[None, :, None]
+    valid = fa._valid(q.shape[1], Sk, opts["q_offset"], opts["k_offset"], opts["causal"],
+                      q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).masked_fill(~valid, -math.inf)
+    late = seen = rises = 0
+    before = torch.full(s.shape[:-1], -math.inf, device=s.device)
+    for k0 in range(0, Sk, fa.TILE):
+        tile = s[..., k0:k0 + fa.TILE]
+        counted = valid[:, k0 + 32:k0 + fa.TILE].any(-1).expand(tile.shape[:-1])
+        top, at = tile.max(-1)
+        seen += int(counted.sum())
+        late += int((counted & (at >= 32)).sum())
+        rises += int((counted & (top > before)).sum())
+        before = torch.maximum(before, top)
+    shares = (late / seen, rises / seen)
+    print(f"rising maximum ({name}): of {seen} (row, key tile) pairs that see the tile's last "
+          f"32 keys, {shares[0]:.4f} have their maximum there and {shares[1]:.4f} a maximum "
+          f"past the earlier tiles'")
+    require(all(x >= want for x, want in zip(shares, RISING_MAX_SHARES)),
+            f"{name}: the rising maximum is not planted: shares {shares}, "
+            f"need {RISING_MAX_SHARES}")
+
+
+def check_cases(fa, gen, device, cases, worst=None, prepare=None) -> dict:
     """Every kernel against its plain version on every case of ``cases``, the
     forward at every tile compiled for the case's head dim and dtype, f32
     outputs also within their f32 bound (`case_f32_bounds`), which the
     planted TF32 fault of each f32 case must fail (`check_tf32_fault`);
-    returns the worst errors by (kernel, dtype, padded head dim), each with
-    the case and output it came from, added to ``worst`` if given."""
+    ``prepare(fa, name, q, k, opts)``, if given, shapes each case's q and k
+    in place first (`rising_max`). Returns the worst errors by (kernel,
+    dtype, padded head dim), each with the case and output it came from,
+    added to ``worst`` if given."""
     import torch
 
     outputs = {"fwd": ("o", "lse"), "bwd_dq": ("dq",), "bwd_dkv": ("dk", "dv")}
@@ -1313,6 +1367,8 @@ def check_cases(fa, gen, device, cases, worst=None) -> dict:
         q, k, v, do, dlse, out_dtype = _case_inputs(shape, fused, ret_lse, gen, device, dtype)
         opts = dict(scale=1.0 / math.sqrt(shape[4]), causal=causal,
                     q_offset=qo, k_offset=ko)
+        if prepare is not None:
+            prepare(fa, name, q, k, opts)
         want = _plain_outputs(fa, q, k, v, do, dlse, out_dtype, opts)
         do, lse_p, delta = want["do"], want["lse"], want["delta"]
         dq_k = fa._bwd_dq_kernel(q, k, v, do, lse_p, delta, **opts)
@@ -1497,26 +1553,27 @@ def _design(fa, kname: str, dtype: str, D: int) -> str:
         cut = (f"{fa.slice_columns(kname, getattr(torch, dtype))} columns of "
                + {"fwd": "O", "bwd_dq": "dQ", "bwd_dkv": "dK and dV"}[kname]
                + " a block, scores summed over 64-column chunks")
-        if dtype == "float32" and kname == "fwd":
-            return "f32 FMA tiles, " + cut
         if dtype == "float32":
             return ("3xTF32 mma.sync + TMA ring, a producer warpgroup and two consumer warpgroups "
                     "(setmaxnreg), " + cut.replace("64-column", "32-column")
-                    + {"bwd_dq": ", the scores split by keys between the consumers, K read once",
+                    + {"fwd": ", the scores split by keys between the consumers, the rows' "
+                              "statistics exchanged, Q with K from the chunk stream",
+                       "bwd_dq": ", the scores split by keys between the consumers, K read once",
                        "bwd_dkv": ", the slice's Q and dO from the chunk stream"}[kname])
         return ("wgmma+TMA, a producer warpgroup and two consumer warpgroups (setmaxnreg), "
                 + cut + {"fwd": ", 128 rows a block, Q held in shared memory up to D 512",
                          "bwd_dq": ", the scores split by keys between the consumers, "
                                    "K read once",
                          "bwd_dkv": ", the slice's Q and dO from the chunk stream"}[kname])
-    if dtype == "float32" and kname == "fwd":
-        return "f32 FMA tiles"
     if dtype == "float32":
         return ("3xTF32 mma.sync + TMA, a producer warpgroup and two consumer warpgroups "
                 "(setmaxnreg), all D columns of "
-                + {"bwd_dq": "dQ", "bwd_dkv": "dK and dV"}[kname]
+                + {"fwd": "O", "bwd_dq": "dQ", "bwd_dkv": "dK and dV"}[kname]
                 + " a block, the second products spread over all eight consumer warps"
-                + {"bwd_dq": ", Q and dO held, K read once",
+                + {"fwd": (", the scores split by keys, the rows' statistics exchanged, Q held, "
+                           "K through a ring, V " + ("double-buffered" if dp <= 128 else
+                                                     "in one buffer")),
+                   "bwd_dq": ", Q and dO held, K read once",
                    "bwd_dkv": (", K and V held, Q and dO double-buffered" if dp <= 128 else
                                ", the tile's Q and dO held, K and V streamed")}[kname])
     if kname == "bwd_dq":
@@ -1636,7 +1693,7 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
         err = worst[(kname, dtype, fa.padded_head_dim(D))]
         source = SOURCE_SLICED if D > 256 else SOURCE
         if f32:
-            source = (SOURCE_F32_SLICED if D > 256 else SOURCE_F32_BWD).get(kname, SOURCE_F32)
+            source = (SOURCE_F32_SLICED if D > 256 else SOURCE_F32)[kname]
         rows.append(dict(
             name=kname, route="cuda", source=source,
             replaces=KERNELS[kname][1], design=_design(fa, kname, dtype, D),
@@ -1663,18 +1720,17 @@ def time_kernel_rows(fa, gen, device, shape, dtype, worst, label, host=False,
 
 
 #: the rows ``--turns`` times: (kernel, dtype, causal (B, S, H, D)): the
-#: f32 dq and dkv up to a head dim of 256 at the JAX on-chip check's f32 (B,
-#: S, H) at D 64, 128, 192 and 256 (128 blocks: the small shape's few
-#: blocks), and at the D-128 and D-256 LMs' attention (2,048 blocks: the
-#: design free of them); the sliced f32 forward at D 512 and the bf16 sliced
-#: dkv at the D-512 LM's attention, whose code the trees compared share, are
-#: the controls for the card's drift between turns
+#: f32 forward at the JAX on-chip check's f32 (B, S, H) at D 64, 128, 192,
+#: 256 and 512 (128 blocks, 256 at 512: the small shape's few blocks), and
+#: at the D-128, D-256 and D-512 LMs' attention (2,048 blocks: the design
+#: free of them), each beside SDPA's f32 forward; the f32 sliced dq at D 512
+#: and the bf16 sliced dkv at the D-512 LM's attention, whose code the trees
+#: compared share, are the controls for the card's drift between turns
 F32_D512 = (*ONCHIP_CASES[0][:3], 512)
-F32_TURN_SHAPES = ([(*F32_D512[:3], D) for D in (64, 128, 192, 256)]
-                   + [LM_D128_ATTENTION, LM_D256_ATTENTION])
-TURNS = [(kname, "float32", shape) for shape in F32_TURN_SHAPES
-         for kname in ("bwd_dq", "bwd_dkv")]
-TURNS += [("fwd", "float32", F32_D512), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION)]
+F32_TURN_SHAPES = ([(*F32_D512[:3], D) for D in (64, 128, 192, 256, 512)]
+                   + [LM_D128_ATTENTION, LM_D256_ATTENTION, LM_D512_ATTENTION])
+TURNS = [("fwd", "float32", shape) for shape in F32_TURN_SHAPES]
+TURNS += [("bwd_dq", "float32", F32_D512), ("bwd_dkv", "bfloat16", LM_D512_ATTENTION)]
 
 
 def turns_main(root: str) -> int:
@@ -1902,6 +1958,7 @@ def phase_kernels(device, table_out=None) -> tuple:
     check_cases(fa, gen, device, LATE_CASES, worst)
     for case in LATE_FAULT_CASES:
         check_planted_faults(fa, gen, device, case)
+    check_cases(fa, gen, device, RISING_MAX_CASES, worst, prepare=rising_max)
     B, S, _, H, D = CASES[0][1]
     rows = time_kernel_rows(fa, gen, device, (B, S, H, D), "bfloat16", worst, "slice",
                             host=True)
@@ -6811,7 +6868,7 @@ def main(argv) -> int:
         return entry_record_main(argv[1:])
     if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
         return ctl_entry_main(argv[1:])
-    if argv and argv[0] == "--turns":  # the sliced kernels of a checkout, timed
+    if argv and argv[0] == "--turns":  # the f32 forward of a checkout, timed
         return turns_main(argv[1])
     adopt_orphans()
     try:

@@ -7,9 +7,8 @@
 // edl_tpu/ops/flash_attention.py: flash_fwd_kernel, flash_bwd_dq_kernel and
 // flash_bwd_dkv_kernel (flash_kernels.cuh, wgmma and TMA, for bf16 and f16),
 // their sliced forms past a head dim of 256 (flash_sliced.cuh) and their f32
-// counterparts (the forward in flash_f32.cu; the backward ones in
-// flash_bwd_*_f32.cu, past 256 in flash_bwd_*_f32_sliced.cu). The compiled
-// set:
+// counterparts (3xTF32 on the tensor cores: flash_*_f32.cu, past 256
+// flash_*_f32_sliced.cu). The compiled set:
 //
 //   element type   padded head dim               forward tile (rows, keys a stage)
 //   bf16           16, 32, 64, 128               (128, 64); also (128, 128) at 64 and 128
@@ -20,13 +19,11 @@
 //   f16            16, 32, 64, 128               (128, 64)
 //                  192, 256                      (128, 64)
 //                  past 256, as bf16             (128, 64), sliced
-//   f32            any D up to 256               (64, 64); the backward on the tensor
-//                                                cores in 3xTF32, a block owning all D
-//                                                columns of dQ, or of dK and dV
-//                  past 256, read at run time    (64, 64), sliced: 256 columns of O;
-//                                                the backward on the tensor cores in
-//                                                3xTF32, 512 columns of dQ, or 256 of
-//                                                dK and of dV
+//   f32            any D up to 256               (64, 64); all three on the tensor cores
+//                                                in 3xTF32, a block owning all D columns
+//                                                of O, of dQ, or of dK and dV
+//                  past 256, read at run time    (64, 64), sliced: 512 columns of O, 512
+//                                                of dQ, or 256 of dK and of dV
 //
 // A head dim D (a multiple of 8) runs the variant of the next padded head
 // dim; columns from D on load as zeros. flash_attention.py's

@@ -3,7 +3,7 @@
 // so that the build runs one nvcc process per unit (flash_launch.h).
 //
 // Replaces _bwd_dkv_kernel of edl_tpu/ops/flash_attention.py for f32 q, k and
-// v where D > 256, with flash_f32.cu's semantics: global positions, the
+// v where D > 256, with flash_kernels.cuh's semantics: global positions, the
 // ragged edge masked in the kernel, masking through the validity bit, a key
 // that no query sees writes dK = dV = 0 exactly, lse and delta (B, H, Sq)
 // f32, dO f32 and contiguous. The Pallas kernel multiplies in f32; 3xTF32

@@ -4,7 +4,7 @@
 // goes to flash_bwd_dq_f32_sliced.cu.
 //
 // Replaces _bwd_dq_kernel of edl_tpu/ops/flash_attention.py for f32 q, k and
-// v where D <= 256, with flash_f32.cu's semantics: global positions, the
+// v where D <= 256, with flash_kernels.cuh's semantics: global positions, the
 // ragged edge masked in the kernel, masking through the validity bit, a row
 // that sees no key writes dQ = 0 exactly, lse and delta (B, H, Sq) f32, dO
 // f32 and contiguous, the heaviest query tiles first. The Pallas kernel

@@ -13,8 +13,8 @@
 // dS = P ∘ (dO Vᵀ − delta) · scale, delta = rowsum(dO ∘ O) − dlse computed by
 // the caller in plain PyTorch, as the JAX package computes it outside Pallas,
 // from the same dO (in q's type) that these kernels read. The f32 inputs go to
-// the kernels of flash_f32.cu and flash_bwd_*_f32*.cu instead, and head dims
-// past 256 to the sliced kernels of flash_sliced.cuh.
+// the 3xTF32 kernels of flash_*_f32*.cu instead, and head dims past 256 to
+// the sliced kernels of flash_sliced.cuh.
 //
 // Semantics kept from the TPU kernels:
 //  * q, k, v are (B, S, H, D) views with unit stride along D. The kernels read

@@ -1,8 +1,8 @@
 // The launchers of the flash-attention kernels, as the C interface
 // (flash_attention.cu) calls them. Each variant is compiled in its own
 // translation unit (flash_fwd_*.cu, flash_bwd_*.cu, flash_*_sliced.cu,
-// flash_f32.cu, flash_bwd_*_f32.cu, flash_bwd_*_f32_sliced.cu), so that the
-// build runs one nvcc process per unit, all at once.
+// flash_*_f32.cu, flash_*_f32_sliced.cu), so that the build runs one nvcc
+// process per unit, all at once.
 
 #pragma once
 
@@ -60,18 +60,19 @@ template <typename T>
 cudaError_t launch_bwd_dkv_sliced(const BwdArgs& a, cudaStream_t stream);
 
 // The f32 kernels (any head dim: whole rows up to 256, column slices past
-// it). The forward runs on the CUDA cores (flash_f32.cu); dq and dkv on the
-// tensor cores in 3xTF32, up to 256 with a block owning all D columns of dQ,
-// or of dK and dV (flash_bwd_dq_f32.cu, flash_bwd_dkv_f32.cu), past 256
-// through the two sliced launchers below.
+// it), all three on the tensor cores in 3xTF32, up to 256 with a block owning
+// all D columns of O, of dQ, or of dK and dV (flash_fwd_f32.cu,
+// flash_bwd_dq_f32.cu, flash_bwd_dkv_f32.cu), past 256 through the three
+// sliced launchers below.
 cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dq_f32(const BwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dkv_f32(const BwdArgs& a, cudaStream_t stream);
 
-// The f32 backward kernels past a head dim of 256, on the tensor cores in
-// 3xTF32 (flash_bwd_dq_f32_sliced.cu, flash_bwd_dkv_f32_sliced.cu), which the
-// two above call for D > 256: a block owns 512 columns of dQ, or 256 of dK
-// and of dV.
+// The f32 kernels past a head dim of 256, on the tensor cores in 3xTF32
+// (flash_fwd_f32_sliced.cu, flash_bwd_dq_f32_sliced.cu,
+// flash_bwd_dkv_f32_sliced.cu), which the three above call for D > 256: a
+// block owns 512 columns of O, 512 of dQ, or 256 of dK and of dV.
+cudaError_t launch_fwd_f32_sliced(const FwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dq_f32_sliced(const BwdArgs& a, cudaStream_t stream);
 cudaError_t launch_bwd_dkv_f32_sliced(const BwdArgs& a, cudaStream_t stream);
 

@@ -1,15 +1,15 @@
 // Building blocks of the f32 flash kernels on the tensor cores: f32 chunks
 // loaded by TMA, and 3xTF32 products on them (hopper.cuh, mma.sync m16n8k8).
-// The f32 backward kernels are built from them, in flash_kernels.cuh's block
-// (a producer warpgroup and two consumer warpgroups with setmaxnreg): up to
-// a head dim of 256 in flash_bwd_dq_f32.cu and flash_bwd_dkv_f32.cu, past it
-// in flash_bwd_dq_f32_sliced.cu and flash_bwd_dkv_f32_sliced.cu.
+// All six f32 kernels are built from them, in flash_kernels.cuh's block (a
+// producer warpgroup and two consumer warpgroups with setmaxnreg): up to a
+// head dim of 256 in flash_fwd_f32.cu, flash_bwd_dq_f32.cu and
+// flash_bwd_dkv_f32.cu, past it in the three *_f32_sliced.cu units.
 //
 // Layouts in shared memory:
 //  * A chunk is 64 rows (queries or keys) of 32 f32 head-dim columns as TMA
 //    writes it: 128-byte rows, 128B-swizzled (`hopper::f32_swizzled`), 8 KB,
 //    on a 1024-byte boundary. A tile of D columns is ceil(D / 32) chunks.
-//  * A score tile is 64 x 64 f32 (S, dS, Pᵀ or dSᵀ of a 64-row block and a
+//  * A score tile is 64 x 64 f32 (P, dS, Pᵀ or dSᵀ of a 64-row block and a
 //    64-row tile): 256-byte rows whose 16-byte units are XOR'ed with the row
 //    mod 8 (`score_at`), 16 KB, stored from the score accumulators and read
 //    as A fragments of the second product.
@@ -34,6 +34,7 @@ constexpr int kChunkBytes = kChunkElems * 4;  // 8 KB
 constexpr int kScoreElems = kTile * kTile;    // a 64 x 64 score tile, 16 KB
 constexpr int kHandBarrier = 1;  // named barrier: both consumers' halves of a score tile are stored
 constexpr int kFreeBarrier = 2;  // named barrier: both consumers are done with the last score tile
+constexpr int kStatBarrier = 3;  // named barrier: both consumers' row maxima are stored
 
 __host__ __device__ constexpr int chunks_of(int D) { return (D + kChunk - 1) / kChunk; }
 
@@ -70,9 +71,9 @@ __device__ __forceinline__ void split_a(float2 p0, float2 p1, uint32_t (&hi)[4],
 // accumulator and added to X in f32. x[4j + e] is the m16n8 accumulator of
 // 8-column tile j: the lane's row g + 8(e >> 1), column 8j + 2t + (e & 1)
 // (a wgmma accumulator's layout, so flash_kernels.cuh's dq_probs and
-// dkv_probs read it). dq: S = Q·Kᵀ and dP = dO·Vᵀ; dkv: Sᵀ = K·Qᵀ and dPᵀ =
-// V·dOᵀ. UNROLL unrolls the chunk's four steps: 2, or 1 where a kernel's
-// registers are short (ptxas spills at 2). With kStepSums each step's three
+// dkv_probs read it). fwd and dq: S = Q·Kᵀ; dq: dP = dO·Vᵀ; dkv: Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ. UNROLL unrolls the chunk's four steps: 2, or 1 where a
+// kernel's registers are short (ptxas spills at 2). With kStepSums each step's three
 // products go into a fresh accumulator added to the chunk's in f32, so no
 // tensor-core chain is more than 3 deep (12 otherwise): dq's rows whose dQ
 // cancels weigh the scores' truncated adds.
@@ -134,7 +135,8 @@ __device__ __forceinline__ void store_scores(float* tile, const float (&x)[16], 
 // key, never takes a truncated tensor-core addition. acc[m][4cc + j] is the
 // m16n8 accumulator of rows 16m ... 16m + 15 and of columns 8j ... 8j + 7 of
 // chunk cc: the lane's value e is row 16m + g + 8(e >> 1), column col_of(j,
-// t, e & 1) of chunk cc. dq: dQ += dS·K; dkv: dV += Pᵀ·dO and dK += dSᵀ·Q.
+// t, e & 1) of chunk cc. fwd: O += P·V; dq: dQ += dS·K; dkv: dV += Pᵀ·dO and
+// dK += dSᵀ·Q.
 __device__ __forceinline__ void tile_product(float (&acc)[4][8][4], const float* p,
                                              const float* b, int n) {
   using hopper::f32_swizzled;
@@ -287,6 +289,147 @@ __device__ __forceinline__ void store_spread(float* out, const float (&acc)[M][N
         }
       }
     }
+}
+
+// -- the forwards' online softmax -----------------------------------------------
+//
+// In the two f32 forwards the consumer warpgroups split each 64-key tile's
+// scores by keys, as dq does: warpgroup w holds keys 32w ... 32w + 31 of
+// every row (its warp i rows 16i ... 16i + 15). A row's softmax statistics
+// need both halves, so the two exchange them through shared memory: each
+// stores its half's row maxima, and after a named barrier both form the same
+// new maximum m_new, rescale factor alpha = exp(m - m_new) and P = exp(s -
+// m_new) in f32 (masked entries exactly 0 through their validity), store
+// their half of P into the score tile and their half's row sums of P. The
+// barrier that hands P over (kHandBarrier) also hands over the sums, from
+// which both grow the same l in f32, and alpha, by which the warps that own
+// a row of O rescale it. The next tile's statistics are stored only after
+// every consumer thread has passed its next kStatBarrier, that is, after its
+// P·V of this tile: so P, alpha and the sums need no second buffer.
+
+// Each row's statistics of the current key tile, in shared memory.
+struct RowStats {
+  float max[2][kTile];  // warpgroup w's maximum of its 32 scores of each row
+  float sum[2][kTile];  // warpgroup w's sum of its 32 P of each row
+  float alpha[kTile];   // exp(m - m_new): the factor that rescales each row of O
+  float l[kTile];       // each row's sum of P once every key tile is summed
+};
+
+// What the forwards' softmax needs to mask one thread's two rows of a
+// score tile: the global position of row g (row g + 8 is 8 further), the
+// lane's column pair t, and the request.
+struct F32Rows {
+  int qpos, t, Sk, causal, k_offset;
+  float scale;
+};
+
+// Whether key `key` (of the call's keys) counts for the thread's row g + 8r.
+__device__ __forceinline__ bool f32_visible(const F32Rows& q, int key, int r) {
+  return key < q.Sk && (!q.causal || q.k_offset + key <= q.qpos + 8 * r);
+}
+
+// One score tile's online-softmax step for one consumer warp, in place: x
+// (Q·Kᵀ of the warp's 16 rows from row0 and its warpgroup's 32 keys from
+// key0, `chunk_scores`' layout) becomes P = exp(x·scale - m_new), which is
+// stored into the score tile `ptile`; m moves to m_new and alpha is
+// exp(m - m_new), for the thread's rows g and g + 8. exp is expf: P·V and l
+// take P in f32, as the f32 plain version does. After it the caller's
+// kHandBarrier, then `fwd_row_sums`.
+__device__ __forceinline__ void fwd_tile_softmax(float (&x)[16], float (&m)[2], float (&alpha)[2],
+                                                 RowStats& st, float* ptile, int wg, int row0,
+                                                 int key0, const F32Rows& q) {
+  const int g = (threadIdx.x & 31) >> 2;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = (i >> 1) & 1;
+    x[i] *= q.scale;
+    if (f32_visible(q, key0 + (i >> 2) * 8 + 2 * q.t + (i & 1), r)) mx[r] = fmaxf(mx[r], x[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    if (q.t == 0) st.max[wg][row0 + g + 8 * r] = mx[r];
+  }
+  hopper::named_bar_sync(kStatBarrier, 256);  // both halves' maxima are in place
+  float m_new[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    m_new[r] = fmaxf(m[r], fmaxf(st.max[0][row], st.max[1][row]));
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = (i >> 1) & 1;
+    const bool ok = f32_visible(q, key0 + (i >> 2) * 8 + 2 * q.t + (i & 1), r);
+    x[i] = ok ? expf(x[i] - m_new[r]) : 0.f;
+    rs[r] += x[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    rs[r] = quad_sum(rs[r]);
+    alpha[r] = expf(m[r] - m_new[r]);  // 1 while a row has seen no key: m = m_new = -1e30
+    m[r] = m_new[r];
+    if (q.t == 0) {
+      st.sum[wg][row] = rs[r];
+      if (wg == 0) st.alpha[row] = alpha[r];
+    }
+  }
+  store_scores(ptile, x, row0, 32 * wg);
+}
+
+// l (the thread's rows g and g + 8 from row0: their sums of P) rescaled by
+// alpha and grown by both warpgroups' sums of the tile, warpgroup 0's first,
+// so that both hold the same l; after the kHandBarrier that follows
+// `fwd_tile_softmax`.
+__device__ __forceinline__ void fwd_row_sums(float (&l)[2], const float (&alpha)[2],
+                                             const RowStats& st, int row0) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    l[r] = l[r] * alpha[r] + (st.sum[0][row] + st.sum[1][row]);
+  }
+}
+
+// A warp's accumulator rows (`spread_product`'s or `tile_product`'s layout:
+// the lane's value e of acc[m][i] is row row0 + 16m + g + 8(e >> 1)) times
+// f[row], or (kDivide) divided by f[row] where f[row] > 0 (a row that sees no
+// key keeps its zeros).
+template <bool kDivide, int M, int NT>
+__device__ __forceinline__ void rows_by(float (&acc)[M][NT][4], const float* f, int row0) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float x = f[row0 + 16 * m + g + 8 * r];
+      const float safe = x > 0.f ? x : 1.f;
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          if constexpr (kDivide) {
+            acc[m][i][e] = acc[m][i][e] / safe;
+          } else {
+            acc[m][i][e] *= x;
+          }
+        }
+    }
+}
+
+// The thread's two rows' lse, m + log(l), or -1e30 for a row that sees no
+// key, into lse (row q0 + row0 + g + 8r of (batch, head) bh) where the row
+// is below Sq.
+__device__ __forceinline__ void store_lse(float* lse, const float (&m)[2], const float (&l)[2],
+                                          long long bh, int Sq, int q0, int row0) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + g + 8 * r;
+    if (row < Sq) lse[bh * Sq + row] = l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
+  }
 }
 
 // The TMA map of a (B, S, H, D) f32 view, in boxes of one chunk's 32

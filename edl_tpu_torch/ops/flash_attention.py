@@ -15,10 +15,9 @@ and f32 at any head dim: bf16 and f16 through the wgmma kernels
 (``flash_kernels.cuh`` up to 256; past 256 the sliced kernels of
 ``flash_sliced.cuh``, whose blocks each own a slice of the output's columns
 and sum the scores over 64-column chunks of the head dim), f32 through the
-f32 kernels: the forward on the CUDA cores (``flash_f32.cu``, sliced past
-256 too), the backward on the tensor cores in 3xTF32 (``flash_bwd_*_f32.cu``
-up to 256, a block owning all D columns of its output;
-``flash_bwd_*_f32_sliced.cu`` past it). What their loads cannot
+f32 kernels, all three on the tensor cores in 3xTF32 (``flash_*_f32.cu`` up
+to 256, a block owning all D columns of its output; ``flash_*_f32_sliced.cu``
+past it, a block owning a slice of them). What their loads cannot
 read, the wrapper first makes readable, on either device: a head dim that
 is not a multiple of 8 is zero-padded (zero columns change no score; the
 outputs are sliced back), and a view that TMA cannot read is copied to a
@@ -78,13 +77,14 @@ _PADDED = (16, 32, 64, 128, 192, 256)
 #: columns one block owns, by kernel (dkv: of dK and of dV), in bf16 and f16
 #: (``csrc/flash_sliced.cuh``: dq's and dkv's two consumer warpgroups sum
 #: 256 columns each, dq's of dQ, dkv's one of dK and dV; the forward's
-#: consumers split the block's 128 rows) and in f32 (the forward in
-#: ``csrc/flash_f32.cu``; dq and dkv in ``csrc/flash_bwd_*_f32_sliced.cu``,
-#: whose consumer warpgroups split the columns as the 16-bit ones do; up to
-#: 256, ``csrc/flash_bwd_*_f32.cu``, a block owns all D columns)
+#: consumers split the block's 128 rows) and in f32
+#: (``csrc/flash_*_f32_sliced.cu``, whose consumer warpgroups split the
+#: columns as the 16-bit dq and dkv do: the forward's and dq's 256 each, so
+#: one block sums a row's scores once up to D 512; up to 256,
+#: ``csrc/flash_*_f32.cu``, a block owns all D columns)
 CHUNK = 64
 SLICE_COLUMNS = {"fwd": 256, "bwd_dq": 512, "bwd_dkv": 256}
-SLICE_COLUMNS_F32 = {"fwd": 256, "bwd_dq": 512, "bwd_dkv": 256}
+SLICE_COLUMNS_F32 = {"fwd": 512, "bwd_dq": 512, "bwd_dkv": 256}
 
 #: the element types the kernels take, with the C interface's codes
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -137,8 +137,8 @@ def column_slices(kernel: str, head_dim: int,
     as `VARIANT_LAUNCHES` names it: past a padded head dim of 256,
     ``"NxW"``, N blocks a row tile each owning W columns (`slice_columns`;
     the last slice short where W does not divide the padded head dim:
-    ``csrc/flash_sliced.cuh``, ``csrc/flash_f32.cu``,
-    ``csrc/flash_bwd_*_f32_sliced.cu``); else None."""
+    ``csrc/flash_sliced.cuh``, ``csrc/flash_*_f32_sliced.cu``); else
+    None."""
     dp = padded_head_dim(head_dim)
     if dp <= _PADDED[-1]:
         return None

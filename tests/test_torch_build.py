@@ -147,7 +147,8 @@ def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monke
     a padded head dim of 256 named None (the 16-bit kernel sums dK and dV in
     one pass at 192 and 256 too), past 256 by its column slices (520 pads to
     576: three slices of 256 columns in every dtype, the last 64 wide), as
-    the forward and dq calls are (dq at 512: one slice of 512 columns)."""
+    the forward and dq calls are (the forward at 576: three slices of 256 in
+    bf16 and f16, two of 512 in f32; dq at 512: one slice of 512 columns)."""
     monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
     monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
     fa._count("bwd_dkv", dtype, 200)
@@ -163,7 +164,8 @@ def test_dkv_past_128_counts_one_launch_and_names_each_pass(dtype, passes, monke
                                    **{("bwd_dkv", name, 192, p): 1 for p in passes},
                                    ("bwd_dkv", name, 128, None): 1,
                                    ("bwd_dkv", name, 576, "3x256"): 1,
-                                   ("fwd", name, 576, "3x256"): 1,
+                                   ("fwd", name, 576,
+                                    "2x512" if dtype == torch.float32 else "3x256"): 1,
                                    ("bwd_dq", name, 512, "1x512"): 1}
 
 
@@ -188,6 +190,29 @@ def test_dkv_column_slices_past_256(D, bf16, f32, dtype, monkeypatch):
             torch.float32: "float32"}[dtype]
     assert fa.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 1}
     assert fa.VARIANT_LAUNCHES == {("bwd_dkv", name, fa.padded_head_dim(D), want): 1}
+
+
+@pytest.mark.parametrize("D,bf16,f32", [(264, "2x256", "1x512"), (320, "2x256", "1x512"),
+                                        (512, "2x256", "1x512"), (576, "3x256", "2x512"),
+                                        (1024, "4x256", "2x512")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_fwd_column_slices_past_256(D, bf16, f32, dtype, monkeypatch):
+    """Past a padded head dim of 256 a forward block owns 256 columns of O
+    in bf16 and f16 (``csrc/flash_sliced.cuh``: the consumer warpgroups
+    split the block's 128 rows) and 512 in f32
+    (``csrc/flash_fwd_f32_sliced.cu``: each consumer warpgroup sums 256 of
+    them), so the f32 scores are summed once a row up to 512 and twice at
+    576 and 1024. Every call is one launch, named by its slices."""
+    monkeypatch.setattr(fa, "LAUNCHES", dict.fromkeys(fa.LAUNCHES, 0))
+    monkeypatch.setattr(fa, "VARIANT_LAUNCHES", {})
+    want = f32 if dtype == torch.float32 else bf16
+    assert fa.column_slices("fwd", D, dtype) == want
+    assert fa.slice_columns("fwd", dtype) == int(want.split("x")[1])
+    fa._count("fwd", dtype, D, 64)
+    name = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+            torch.float32: "float32"}[dtype]
+    assert fa.LAUNCHES == {"fwd": 1, "bwd_dq": 0, "bwd_dkv": 0}
+    assert fa.VARIANT_LAUNCHES == {("fwd", name, fa.padded_head_dim(D), want): 1}
 
 
 @pytest.mark.parametrize("D,bf16,f32", [(264, "1x512", "1x512"), (320, "1x512", "1x512"),

@@ -169,23 +169,25 @@ def test_setmaxnreg_names_every_kernel_with_a_producer_warpgroup(cs):
     """The SASS check requires no local-memory access and no spill of every
     variant of the kernels that move registers with setmaxnreg: the three
     of ``csrc/flash_kernels.cuh`` and the three sliced ones of
-    ``csrc/flash_sliced.cuh``, every 16-bit flash kernel, and the four f32
-    backward kernels (``csrc/flash_bwd_*_f32.cu`` up to 256,
-    ``csrc/flash_bwd_*_f32_sliced.cu`` past it), which the SASS check also
-    holds to ``mma.sync`` and TMA loads. Every name is a kernel in the
-    sources, and each kernel in a source that calls setmaxnreg is named."""
+    ``csrc/flash_sliced.cuh``, every 16-bit flash kernel, and the six f32
+    kernels (``csrc/flash_*_f32.cu`` up to 256, ``csrc/flash_*_f32_sliced.cu``
+    past it), which the SASS check also holds to ``mma.sync`` and TMA loads.
+    Every name is a kernel in the sources, and each kernel in a source that
+    calls setmaxnreg is named."""
     assert set(cs.SETMAXNREG_NAMES) == {"flash_fwd_kernel", "flash_bwd_dq_kernel",
                                         "flash_bwd_dkv_kernel", "flash_fwd_sliced_kernel",
                                         "flash_bwd_dq_sliced_kernel",
                                         "flash_bwd_dkv_sliced_kernel",
+                                        "flash_fwd_f32_kernel",
                                         "flash_bwd_dq_f32_kernel",
                                         "flash_bwd_dkv_f32_kernel",
+                                        "flash_fwd_f32_sliced_kernel",
                                         "flash_bwd_dq_f32_sliced_kernel",
                                         "flash_bwd_dkv_f32_sliced_kernel"}
     assert set(cs.SETMAXNREG_NAMES) == set(cs.FLASH_NAMES + cs.FLASH_SLICED_NAMES
                                            + cs.FLASH_TF32_NAMES)
-    # the TF32 names are the f32 backward kernels, up to 256 and past it
-    assert set(cs.FLASH_TF32_NAMES) == set(cs.FLASH_F32_NAMES[1:] + cs.FLASH_F32_SLICED_NAMES[1:])
+    # the TF32 names are every f32 kernel, up to 256 and past it
+    assert set(cs.FLASH_TF32_NAMES) == set(cs.FLASH_F32_NAMES + cs.FLASH_F32_SLICED_NAMES)
     csrc = ROOT / "edl_tpu_torch" / "ops" / "csrc"
     kernels = {}
     for src in sorted(csrc.glob("*.cu*")):
@@ -208,57 +210,62 @@ def test_setmaxnreg_names_every_kernel_with_a_producer_warpgroup(cs):
      "PKfS4_PfS5_iiiiiiffi", ("flash_bwd_dkv_f32_kernel", "f32 D256")),
     ("_ZN9edl_flash12_GLOBAL__N_130flash_bwd_dq_f32_sliced_kernelE14CUtensorMap_stS1_S1_S1_"
      "PKfS3_Pfiiiiiiffi", ("flash_bwd_dq_f32_sliced_kernel", "f32 sliced")),
-    ("_ZN9edl_flash12_GLOBAL__N_120flash_fwd_f32_kernelILi256ELi64EEEvNS_7FwdArgsE",
-     ("flash_fwd_f32_kernel", "f32 D256")),
+    ("_ZN9edl_flash12_GLOBAL__N_120flash_fwd_f32_kernelILi256EEEv14CUtensorMap_stS2_S2_PfS3_"
+     "iiiiiifi", ("flash_fwd_f32_kernel", "f32 D256")),
+    ("_ZN9edl_flash12_GLOBAL__N_127flash_fwd_f32_sliced_kernelE14CUtensorMap_stS1_S1_PfS2_"
+     "iiiiiifi", ("flash_fwd_f32_sliced_kernel", "f32 sliced")),
 ])
 def test_variant_names_the_f32_backward_kernels_by_the_labels_the_build_check_wants(
         cs, mangled, want):
-    """`_variant` maps each f32 kernel's mangled name (its first template
-    argument the largest head dim it takes) to the label that the build
-    check's ``want`` lists for it: "f32 D128" and "f32 D256" up to 256 for
-    the 3xTF32 dq and dkv as for the FMA forward, "f32 sliced" past it."""
+    """`_variant` maps each f32 kernel's mangled name (its template argument
+    the largest head dim it takes) to the label that the build check's
+    ``want`` lists for it: "f32 D128" and "f32 D256" up to 256 for the
+    3xTF32 forward, dq and dkv, "f32 sliced" past it."""
     assert cs._variant(mangled) == want
     fn, label = want
     assert fn in cs.FLASH_F32_NAMES + cs.FLASH_F32_SLICED_NAMES
     if fn in cs.FLASH_F32_NAMES:
         assert label in [cs._label("float32", dp) for dp in (128, 256)]
-    assert (fn in cs.FLASH_TF32_NAMES) == (fn != "flash_fwd_f32_kernel")
+    assert fn in cs.FLASH_TF32_NAMES
 
 
 @pytest.mark.parametrize("D", [64, 128, 192, 256])
 def test_the_f32_backward_rows_name_the_3xtf32_design_and_source_up_to_256(cs, D):
     """An f32 kernel row up to a head dim of 256 names the 3xTF32 design of
-    dq and dkv (all D columns a block, the second products over all eight
-    consumer warps) and their sources, and the forward's FMA tiles."""
+    the forward, dq and dkv (all D columns a block, the second products over
+    all eight consumer warps) and their sources; past 256 the sliced ones."""
     fa = cs._flash_module()
-    for kname in ("bwd_dq", "bwd_dkv"):
+    for kname in ("fwd", "bwd_dq", "bwd_dkv"):
         design = cs._design(fa, kname, "float32", D)
         assert design.startswith("3xTF32 mma.sync + TMA") and "all eight" in design
         assert ("K and V held" in design) == (kname == "bwd_dkv" and D <= 128)
-        assert (ROOT / cs.SOURCE_F32_BWD[kname]).is_file()
-    assert cs._design(fa, "fwd", "float32", D) == "f32 FMA tiles"
+        assert ("V double-buffered" in design) == (kname == "fwd" and D <= 128)
+        assert (ROOT / cs.SOURCE_F32[kname]).is_file()
+        sliced = cs._design(fa, kname, "float32", 2 * D + 256)
+        assert sliced.startswith("3xTF32 mma.sync + TMA ring") and "FMA" not in sliced
+        assert (ROOT / cs.SOURCE_F32_SLICED[kname]).is_file()
+    assert "512 columns of O a block" in cs._design(fa, "fwd", "float32", 512)
 
 
 def test_turns_time_the_sliced_forward_and_dq_beside_an_unchanged_control(cs):
-    """``--turns`` times the f32 dq and dkv up to a head dim of 256 at the
-    JAX on-chip check's f32 shape at D 64, 128, 192 and 256 and at the
-    D-128 and D-256 LMs' attention; the sliced f32 forward at D 512 and the
-    bf16 sliced dkv at the D-512 LM's attention, unchanged, are the
-    controls for the card's drift between turns."""
+    """``--turns`` times the f32 forward at the JAX on-chip check's f32
+    shape at D 64, 128, 192, 256 and 512 and at the D-128, D-256 and D-512
+    LMs' attention; the f32 sliced dq at D 512 and the bf16 sliced dkv at
+    the D-512 LM's attention, unchanged, are the controls for the card's
+    drift between turns."""
     rows = {(k, dtype, tuple(shape)) for k, dtype, shape in cs.TURNS}
     check = tuple(cs.ONCHIP_CASES[0][:3])
     assert cs.ONCHIP_CASES[0][5] == "float32"
-    shapes = [(*check, D) for D in (64, 128, 192, 256)] + [cs.LM_D128_ATTENTION,
-                                                           cs.LM_D256_ATTENTION]
-    assert [s[3] for s in shapes] == [64, 128, 192, 256, 128, 256]
-    for kname in ("bwd_dq", "bwd_dkv"):
-        for shape in shapes:
-            assert (kname, "float32", tuple(shape)) in rows
-    controls = rows - {(k, "float32", s) for k, _, s in rows if k != "fwd"}
-    assert controls == {("fwd", "float32", (*check, 512)),
+    shapes = [(*check, D) for D in (64, 128, 192, 256, 512)] + [
+        cs.LM_D128_ATTENTION, cs.LM_D256_ATTENTION, cs.LM_D512_ATTENTION]
+    assert [s[3] for s in shapes] == [64, 128, 192, 256, 512, 128, 256, 512]
+    for shape in shapes:
+        assert ("fwd", "float32", tuple(shape)) in rows
+    controls = rows - {("fwd", "float32", tuple(s)) for s in shapes}
+    assert controls == {("bwd_dq", "float32", (*check, 512)),
                         ("bwd_dkv", "bfloat16", cs.LM_D512_ATTENTION)}
-    assert all(s[3] > 256 for _, _, s in controls)  # the sliced kernels: unchanged
-    assert len(rows) == len(cs.TURNS) == 14
+    assert all(s[3] > 256 for _, _, s in controls)  # the sliced backward: unchanged
+    assert len(rows) == len(cs.TURNS) == 10
 
 
 def _stand_in_kernels(fa, monkeypatch, fwd_scale=None):
