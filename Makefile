@@ -176,3 +176,50 @@ bench-serve:
 	$(PYTHON) bench_serve.py
 
 lint: analyze
+
+## The PyTorch port (edl_tpu_torch): its analyzer, tests and CPU deploy
+## gates, the on-card smoke and the port's images. These targets name only
+## the port; the JAX package's targets above name only edl_tpu.
+.PHONY: analyze-torch test-torch obs-smoke-torch serve-smoke-torch serve-lm-smoke-torch ckpt-plane-smoke-torch modelcheck-torch chip-smoke images-torch verify-torch
+
+## Static analysis of the port against its own accepted-debt baseline (the
+## scope and baseline of tests/test_torch_analysis.py's repo gate).
+analyze-torch:
+	$(PYTHON) -m edl_tpu_torch.analysis edl_tpu_torch --baseline edl_tpu_torch/analysis/baseline.json
+
+## The port's CPU tests (each held against the JAX package where it has a
+## counterpart; tests marked cuda skip without a card).
+test-torch:
+	$(PYTHON) -m pytest tests/test_torch_*.py -q -m 'not slow'
+
+## The port's deploy gates on the CPU: the telemetry plane, the batch and LM
+## serving tiers, the checkpoint plane, and the protocol model check.
+obs-smoke-torch:
+	$(PYTHON) -m edl_tpu_torch.obs --device cpu
+
+serve-smoke-torch:
+	$(PYTHON) -m edl_tpu_torch.serving --device cpu
+
+serve-lm-smoke-torch:
+	$(PYTHON) -m edl_tpu_torch.serving lm --device cpu
+
+ckpt-plane-smoke-torch:
+	$(PYTHON) -m edl_tpu_torch.ckpt_plane --device cpu
+
+modelcheck-torch:
+	$(PYTHON) -m edl_tpu_torch.analysis.modelcheck --timings
+
+## Every phase of the port on one card (needs a CUDA device and nvcc; run
+## from the repo root): builds the kernels, holds each against its plain
+## version, trains, serves, and runs the LM job from the trainer image's
+## staged file tree.
+chip-smoke:
+	python3 chip_smoke.py
+
+## The port's controller and trainer images (needs docker and network
+## access; see deploy/torch/).
+images-torch:
+	sh deploy/torch/build.sh
+
+## Everything of the port that runs on the CPU.
+verify-torch: analyze-torch test-torch modelcheck-torch obs-smoke-torch serve-smoke-torch serve-lm-smoke-torch ckpt-plane-smoke-torch

@@ -12,8 +12,9 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_smoke.py --mp       # phases 1-3 and 14 (mp) only
     python3 chip_smoke.py --elastic  # phases 1-3 and 13 (elastic) only
     python3 chip_smoke.py --entries  # phases 1-4 and 15 (entries) only
-    python3 chip_smoke.py --controller  # phases 1-3 and 16 (controller) only
-    python3 chip_smoke.py --chaos    # phases 1-3 and 17 (chaos) only
+    python3 chip_smoke.py --deploy   # phases 1 and 16 (deploy) only
+    python3 chip_smoke.py --controller  # phases 1-3 and 17 (controller) only
+    python3 chip_smoke.py --chaos    # phases 1-3 and 18 (chaos) only
     python3 chip_smoke.py --turns ROOT  # time the f32 forward of the checkout at ROOT
 
 ``--turns`` compares two trees on one card: run it on each in turn, parent,
@@ -47,7 +48,8 @@ exits non-zero without its last line:
    access nor spill.
 3. Kernels: each of the three flash-attention kernels against its plain
    PyTorch version on the same inputs (the forward at every tile compiled
-   for the case), at the slice's shape, a ragged shape, the ring's offset
+   for the case), at the slice's shape, the deploy phase's trainer's shape
+   (``DEPLOY_ATTENTION``, D 32), a ragged shape, the ring's offset
    cases (with an lse cotangent), cases with rows that see no key (one with
    a whole 128-row query block that sees none), head dims 8, 16, 32, 40,
    80, 96, 128, 136, 192, 200 and 256 (at 256 a whole 64-row block that
@@ -78,7 +80,8 @@ exits non-zero without its last line:
    call (and, at the slice's shape, the whole backward's, inputs checked
    once), its plain version's time, one library call's (timed both ways)
    and the card's bound, at the slice's shape (bf16 and f16, D 64), the
-   D-128 LM's attention (bf16 and f16), the D-256 LM's attention (bf16 and
+   deploy phase's trainer's attention (bf16, D 32), the D-128 LM's
+   attention (bf16 and f16), the D-256 LM's attention (bf16 and
    f16) and the same shape at D 192 (bf16 and f16), the D-512 LM's attention
    (bf16), and the JAX check's D-128 shape (bf16) and its f32 shape, also
    at D 128, 192, 256 and 512 (each f32 row with its FMA and its 3xTF32
@@ -169,12 +172,12 @@ exits non-zero without its last line:
     ``/predict``), with version 2 (two more adagrad steps) exported
     mid-traffic and swapped in with no failed request; every answer against
     the module's ``predict``. The serving path launches no flash kernel.
-Phases 12-15 run at once, in groups of processes of their own
+Phases 12-16 run at once, in groups of processes of their own
 (``PHASE_GROUPS``: 13's part (c) then 12; 13's parts (a) and (b) then 14;
-15; each group ``chip_smoke.py --phases JOB``, its standard output printed
-whole as it ends), so that their processes' start-ups overlap; their times
-are taken beside the other groups' load. Phases 16 and 17 run after them,
-each alone.
+15 then 16; each group ``chip_smoke.py --phases JOB``, its standard output
+printed whole as it ends), so that their processes' start-ups overlap;
+their times are taken beside the other groups' load. Phases 17 and 18 run
+after them, each alone.
 
 12. Data parallelism (``dp``): (a) an NCCL process group at world 1,
     formed by the port's ``distributed_init`` against an
@@ -282,7 +285,40 @@ each alone.
     Is phase 4's step profiler part. (d) The obs smoke, ``python -m
     edl_tpu_torch.obs`` on the card, exits 0. The phase's own seconds are
     printed.
-16. The control plane (``controller``): the port's `Controller` over a
+16. Deploy (``deploy``): first, alone before the groups start (its
+    ``nvcc`` processes would load the host under their start-up times),
+    the trainer image's file tree, staged from this
+    checkout in a temporary root by `stage_deploy` and `stage_image`, which applies
+    ``deploy/torch/Dockerfile.trainer``'s WORKDIR, ENV and COPY lines
+    there (``/usr/local/bin`` under the root, first on PATH) and runs its
+    RUN lines, each timed: ``make -C native/coordinator`` and the kernels'
+    bake (``_build.build()``, nvcc only) for real, the apt-get and pip
+    lines checked on the host instead (each package's command on PATH,
+    each module imported, torch at the pinned version); an instruction it
+    does not know fails the phase. Then, in group 3, the port's LM manifest
+    (``edl_tpu_torch/examples/lm/job.yaml``, loaded from the staged tree
+    and validated) runs through the port's `Controller` over a
+    `ProcessCluster` of one node of one card, in a process of its own
+    (``chip_smoke.py --deploy-drive JOB``) whose working directory and
+    only PYTHONPATH are the staged WORKDIR, with the overrides it prints
+    and no others (one card, one trainer, no model axes, 2 shards, a free
+    port, the checkpoint dir and workspace under the root, the
+    coordinator at 127.0.0.1): the coordinator pod runs the jobparser's
+    default, ``edl-launch start_coordinator``, through the staged shim,
+    the trainer the manifest's entrypoint unchanged. Holds: the job
+    Succeeded; the trainer's metrics line shows the expected steps and a
+    finite loss, the line before it its flash launches, each kernel steps
+    x layers (the forward twice: ``--remat``), all bf16 at D 32 (the kernels line's
+    D-32 rows carry them as ``launches`` and ``launches_deploy``); the
+    coordinator ran the staged binary; the baked library
+    and libcuda were mapped into the trainer while it trained (its
+    ``/proc/<pid>/maps``); no pod compiled (the baked library, its log
+    and the coordinator binary unchanged, no ``*.objs``). Printed: each
+    RUN line's seconds, the seconds from the trainer pod's process start
+    to its first step's loss (the entry's ``first_step_at``) and to the
+    library's mapping (its first flash call; polled every 50 ms), the
+    steps, the loss, the launches and the overrides.
+17. The control plane (``controller``): the port's `Controller` over a
     `ProcessCluster` of three one-chip nodes, all three the one card. (a)
     ``lm-grow`` (2..3 trainers: the LM entry at phase 4's width and 4
     layers, batch 8 a
@@ -311,7 +347,7 @@ each alone.
     into the slowest rank's start-up and the rest), the LM's step ms at
     each world, each incarnation's peak memory, w2v-admit's wait from
     submit to its first step, the collector's samples and the wall time.
-17. Composed chaos (``chaos``), the port's counterpart of
+18. Composed chaos (``chaos``), the port's counterpart of
     ``tests/test_chaos_composed.py`` at phase 4's width and 4 layers: two
     LM jobs, each
     with its own native coordinator at the launcher's 10 s heartbeat TTL,
@@ -336,7 +372,7 @@ each alone.
     kill-to-first-step recovery and its start-up share, beta's blip rides
     and its park decision, the steps and losses, the fired timeline's
     spec.
-18. One JSON line ``{"kernels": [...]}`` (a row per kernel and variant
+19. One JSON line ``{"kernels": [...]}`` (a row per kernel and variant
     timed, with its ``head_dim`` and ``dtype``), one ``{"kernel_checks":
     {...}}`` (the build's seconds, the JAX check's cases, the sweep), one
     ``{"phase_seconds": {...}}``, one ``{"zoo": [...]}`` (a row per model,
@@ -344,9 +380,9 @@ each alone.
     {...}}``, one ``{"lm_d512": {...}}``, one ``{"serve": {...}}``, one
     ``{"data_path": {...}}``, one ``{"moe": {...}}``, one ``{"dp":
     {...}}``, one ``{"elastic": {...}}``, one ``{"mp": {...}}``, one
-    ``{"entries": {...}}``, one ``{"controller": {...}}`` and one
-    ``{"chaos": {...}}``.
-19. The last line: ``{"ok": true, "device": {...}}``.
+    ``{"entries": {...}}``, one ``{"deploy": {...}}``, one ``{"controller":
+    {...}}`` and one ``{"chaos": {...}}``.
+20. The last line: ``{"ok": true, "device": {...}}``.
 
 No process the script starts outlives it. It makes itself the reaper of
 its orphaned descendants (``PR_SET_CHILD_SUBREAPER`` on its own process):
@@ -439,6 +475,10 @@ LM_D128_BATCH = 4
 LM_D128_STEPS = 5
 #: its attention's causal (B, S, H, D)
 LM_D128_ATTENTION = (4, 2048, 16, 128)
+#: the attention of the deploy phase's trainer, the LM manifest's entry at
+#: its defaults (batch 8, ``--seq-len 4096``, 8 heads of d_model 256): the
+#: bf16 kernels at a padded head dim of 32
+DEPLOY_ATTENTION = (8, 4096, 8, 32)
 
 #: the LM at GPT-J-6B's widths (EleutherAI/gpt-j-6b ``config.json``: n_embd
 #: 4096, n_head 16, n_inner null so 4 x 4096, n_positions 2048, vocab_size
@@ -598,6 +638,9 @@ CASES = [
     ("head_dim_8", (1, 100, 100, 2, 8), True, 0, 0, False, True, "bfloat16"),
     ("head_dim_16", (1, 100, 100, 2, 16), True, 0, 0, False, True, "bfloat16"),
     ("head_dim_32", (1, 100, 100, 2, 32), False, 0, 0, False, True, "bfloat16"),
+    # the deploy phase's trainer, at the shape its entry gives the kernels
+    ("deploy", (DEPLOY_ATTENTION[0], DEPLOY_ATTENTION[1], *DEPLOY_ATTENTION[1:]), True, 0, 0,
+     False, True, "bfloat16"),
     # fewer queries than keys, the queries late in the sequence
     ("uneven", (1, 100, 260, 2, 32), True, 160, 0, True, False, "bfloat16"),
     # head dims past 64: 40 runs the D-64 kernels with its last 24 columns
@@ -1962,6 +2005,7 @@ def phase_kernels(device, table_out=None) -> tuple:
     B, S, _, H, D = CASES[0][1]
     rows = time_kernel_rows(fa, gen, device, (B, S, H, D), "bfloat16", worst, "slice",
                             host=True)
+    rows += time_kernel_rows(fa, gen, device, DEPLOY_ATTENTION, "bfloat16", worst, "deploy")
     rows += time_kernel_rows(fa, gen, device, LM_D128_ATTENTION, "bfloat16", worst, "lm_d128")
     rows += time_kernel_rows(fa, gen, device, LM_D256_ATTENTION, "bfloat16", worst, "lm_d256")
     rows += time_kernel_rows(fa, gen, device, D192_ATTENTION, "bfloat16", worst, "d192")
@@ -6767,16 +6811,576 @@ def phase_chaos(device) -> dict:
     return out
 
 
+# -- deploy: the trainer image's file tree, and the LM job run from it -----------
+
+#: the trainer image the deploy phase stages, and the job it runs from it
+DEPLOY_DOCKERFILE = "deploy/torch/Dockerfile.trainer"
+DEPLOY_MANIFEST = "edl_tpu_torch/examples/lm/job.yaml"
+#: the instructions the stager knows; it refuses any other
+DOCKER_INSTRUCTIONS = ("FROM", "RUN", "WORKDIR", "ENV", "COPY", "ENTRYPOINT", "CMD")
+#: a package line's packages, each checked on the host in place of its
+#: install: a pip requirement's name -> the module it provides (imported, at
+#: the pinned version if the line pins one), an apt package -> the command
+#: it provides (found on the staged PATH)
+PIP_MODULES = {"torch": "torch", "numpy": "numpy", "pyyaml": "yaml"}
+APT_COMMANDS = {"python3": "python3", "python3-pip": "pip", "python-is-python3": "python",
+                "g++": "g++", "make": "make"}
+#: pip's options that take a value (the next word is no package)
+PIP_VALUE_OPTIONS = ("--index-url",)
+#: the deploy job's one node: the chip machine (one card, 8 cores, 96 GiB)
+DEPLOY_NODE = {"cpu": 8, "memory": "96Gi", "tpu": 1}
+#: the manifest's data shards the job keeps (the first ones)
+DEPLOY_SHARDS = 2
+#: the seconds the job may take from its submit to Succeeded
+DEPLOY_TIMEOUT = 300
+
+
+def parse_dockerfile(path: str) -> list:
+    """(line number, instruction, arguments) of each instruction of the
+    Dockerfile at ``path``: comments and blank lines dropped, a line that
+    ends in a backslash joined to the next. Raises ``ValueError`` on an
+    instruction not in ``DOCKER_INSTRUCTIONS``, so that none is passed over
+    without a word."""
+    out, pending, start = [], "", 0
+    with open(path) as f:
+        for no, raw in enumerate(f, 1):
+            line = raw.rstrip("\n")
+            if not line.strip() or line.lstrip().startswith("#"):
+                continue
+            start = start if pending else no
+            if line.endswith("\\"):
+                pending += line[:-1]
+                continue
+            instruction, _, args = (pending + line).strip().partition(" ")
+            pending = ""
+            if instruction.upper() not in DOCKER_INSTRUCTIONS:
+                raise ValueError(f"{path}:{start}: the stager does not know {instruction}")
+            out.append((start, instruction.upper(), args.strip()))
+    if pending:
+        raise ValueError(f"{path}:{start}: the last line continues past the end")
+    return out
+
+
+def _rooted(root: str, path: str) -> str:
+    """The image's absolute ``path`` under the staged ``root``."""
+    import os
+
+    return os.path.join(root, path.lstrip("/"))
+
+
+def _copy_into(src: str, dest: str, into_dir: bool) -> None:
+    """Docker's COPY of one source: a directory's contents into ``dest``, a
+    file to ``dest`` or, when ``into_dir``, into it; mtimes kept, as Docker
+    keeps a context file's."""
+    import os
+    import shutil
+
+    if os.path.isdir(src):
+        shutil.copytree(src, dest, dirs_exist_ok=True)
+        return
+    if into_dir:
+        dest = os.path.join(dest, os.path.basename(src))
+    os.makedirs(os.path.dirname(dest), exist_ok=True)
+    shutil.copy2(src, dest)
+
+
+def _packages(command: str) -> tuple:
+    """A package line's installer (``apt-get`` or ``pip``) and the packages
+    its ``install`` commands name; the rest of the line (the index update,
+    the cleanup) does nothing on the host."""
+    import shlex
+
+    words = shlex.split(command)
+    installer, packages, segment = words[0], [], []
+    for word in words + ["&&"]:
+        if word != "&&":
+            segment.append(word)
+            continue
+        if segment[:2] == [installer, "install"]:
+            args = iter(segment[2:])
+            for arg in args:
+                if arg in PIP_VALUE_OPTIONS:
+                    next(args)
+                elif not arg.startswith("-"):
+                    packages.append(arg)
+        segment = []
+    return installer, packages
+
+
+def check_packages(command: str, env: dict) -> dict:
+    """A package line, checked on the host in place of its install: each
+    apt package's command on the staged PATH, each pip requirement's
+    module imported by the staged ``python`` (at the pinned version if
+    pinned). Returns package -> what was found."""
+    import shutil
+
+    installer, packages = _packages(command)
+    found = {}
+    if installer == "apt-get":
+        for package in packages:
+            require(package in APT_COMMANDS, f"deploy: no check for apt package {package}")
+            found[package] = shutil.which(APT_COMMANDS[package], path=env["PATH"])
+            require(found[package] is not None,
+                    f"deploy: {package}'s {APT_COMMANDS[package]} is not on the host's PATH")
+        return found
+    pins = dict((req.split("==") + [""])[:2] for req in packages)
+    require(pins and all(name in PIP_MODULES for name in pins),
+            f"deploy: no check for pip requirements {sorted(set(pins) - set(PIP_MODULES))}")
+    code = ("import importlib, importlib.metadata as m, json, sys\n"
+            "print(json.dumps({d: [importlib.import_module(mod).__file__, m.version(d)]\n"
+            "                  for d, mod in json.loads(sys.argv[1]).items()}))")
+    proc = subprocess.run([shutil.which("python", path=env["PATH"]), "-c", code,
+                           json.dumps({d: PIP_MODULES[d] for d in pins})],
+                          env=env, capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, f"deploy: the host cannot import {sorted(pins)}:\n"
+                                  f"{proc.stderr[-2000:]}")
+    for name, (module, version) in json.loads(proc.stdout).items():
+        require(not pins[name] or version.split("+")[0] == pins[name],
+                f"deploy: the host has {name} {version}, the image pins {pins[name]}")
+        found[name] = f"{version} {module}"
+    return found
+
+
+def stage_run(command: str, cwd: str, env: dict) -> dict:
+    """One RUN line, timed: a package line (one that begins with
+    ``apt-get`` or ``pip``) is checked on the host (`check_packages`); any
+    other runs through ``sh -c`` in ``cwd`` with ``env`` and must exit 0."""
+    t0 = time.perf_counter()
+    if command.split()[0] in ("apt-get", "pip"):
+        return {"run": command, "checked": check_packages(command, env),
+                "seconds": time.perf_counter() - t0}
+    proc = subprocess.run(["sh", "-c", command], cwd=cwd, env=env, capture_output=True,
+                          text=True)
+    require(proc.returncode == 0, f"deploy: RUN {command} exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return {"run": command, "seconds": time.perf_counter() - t0}
+
+
+def stage_image(dockerfile: str, context: str, root: str) -> dict:
+    """The image ``dockerfile`` builds from ``context``, staged as a file
+    tree under ``root``: its WORKDIR, COPY and ENV lines applied there (an
+    absolute path of the image, a destination or an ENV value's, maps under
+    ``root``, and a COPY destination outside WORKDIR goes first on PATH),
+    its RUN lines run in the staged WORKDIR (`stage_run`), FROM's image
+    taken to be the host. Returns the staged WORKDIR, the environment the
+    image gives a process (the host's, without its PYTHONPATH, with the
+    image's ENV and PATH), each RUN line's record, ENTRYPOINT and CMD."""
+    import os
+    import posixpath
+    import shlex
+
+    workdir, env_lines, path_dirs, steps = "/", {}, [], []
+    image = {"from": None, "entrypoint": None, "cmd": None}
+
+    def environ() -> dict:
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(env_lines)
+        env["PATH"] = os.pathsep.join([*path_dirs, os.environ.get("PATH", "")])
+        return env
+
+    for no, instruction, args in parse_dockerfile(dockerfile):
+        if instruction == "FROM":
+            image["from"] = args
+        elif instruction == "WORKDIR":
+            workdir = posixpath.join(workdir, args)
+            os.makedirs(_rooted(root, workdir), exist_ok=True)
+        elif instruction == "ENV":
+            for pair in shlex.split(args):
+                key, sep, value = pair.partition("=")
+                require(sep == "=", f"deploy: {dockerfile}:{no}: ENV {pair} is not KEY=VALUE")
+                env_lines[key] = os.pathsep.join(
+                    _rooted(root, part) if part.startswith("/") else part
+                    for part in value.split(":"))
+        elif instruction == "COPY":
+            *sources, dest = shlex.split(args)
+            require(sources and not any(s.startswith("--") for s in sources),
+                    f"deploy: {dockerfile}:{no}: COPY {args} (no sources, or a flag)")
+            target = posixpath.join(workdir, dest)
+            into_dir = dest.endswith("/") or len(sources) > 1
+            if not (target + "/").startswith(workdir.rstrip("/") + "/"):
+                bin_dir = _rooted(root, target if into_dir else posixpath.dirname(target))
+                if bin_dir not in path_dirs:
+                    path_dirs.insert(0, bin_dir)
+            for src in sources:
+                full = os.path.realpath(os.path.join(context, src))
+                require(full.startswith(os.path.realpath(context) + os.sep)
+                        and os.path.exists(full),
+                        f"deploy: {dockerfile}:{no}: COPY source {src} is not in the context")
+                _copy_into(full, _rooted(root, target), into_dir)
+        elif instruction == "RUN":
+            steps.append(stage_run(args, _rooted(root, workdir), environ()))
+        else:  # ENTRYPOINT, CMD: the exec form
+            image[instruction.lower()] = json.loads(args)
+    return {**image, "workdir": _rooted(root, workdir), "env": environ(), "steps": steps}
+
+
+def _job_port() -> int:
+    """A port for the job whose next port (where its process group listens,
+    ``EDL_PORT`` + 1) is free too, both below the host's ephemeral range,
+    from which the kernel hands ports to outgoing connections (the other
+    groups' processes make many)."""
+    import random
+    import socket
+
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    rng = random.Random()
+    for _ in range(100):
+        port = rng.randrange(low // 2, low - 2)
+        with contextlib.ExitStack() as stack:
+            try:
+                for p in (port, port + 1):
+                    stack.enter_context(socket.socket()).bind(("", p))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("deploy: no free pair of ports below the ephemeral range")
+
+
+def _proc_read(pid: int, name: str) -> str:
+    """``/proc/<pid>/<name>``, or "" once the process has gone."""
+    try:
+        with open(f"/proc/{pid}/{name}", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+    except OSError:
+        return ""
+
+
+def _children_exes(pid: int) -> list:
+    """The executables of ``pid``'s children, from ``/proc``."""
+    import os
+
+    exes = []
+    for child in filter(str.isdigit, os.listdir("/proc")):
+        stat = _proc_read(int(child), "stat")
+        if stat and int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            with contextlib.suppress(OSError):
+                exes.append(os.readlink(f"/proc/{child}/exe"))
+    return exes
+
+
+def _pod_logs(root: str) -> dict:
+    """Each pod's log under ``root/pods``, by pod name."""
+    import os
+
+    logs = {}
+    for name in sorted(os.listdir(os.path.join(root, "pods"))):
+        with open(os.path.join(root, "pods", name)) as f:
+            logs[name.removesuffix(".log")] = f.read()
+    return logs
+
+
+def deploy_drive_main(job_path: str) -> int:
+    """``chip_smoke.py --deploy-drive JOB``: `deploy_drive` in the image's
+    environment and WORKDIR, as the deploy phase starts it; its record
+    written to the job's ``out``."""
+    with open(job_path) as f:
+        job = json.load(f)
+    with open(job["out"], "w") as f:
+        json.dump(deploy_drive(job["root"], job["manifest"], job["library"]), f)
+    return 0
+
+
+def deploy_drive(root: str, manifest: str, library: str) -> dict:
+    """Run ``manifest``'s job through the port's `Controller` over a
+    `ProcessCluster` of one node of one card (``DEPLOY_NODE``), from this
+    process's working directory and environment, which are the staged
+    image's. The overrides, and no others: one card a trainer, one trainer,
+    no model axes, the first ``DEPLOY_SHARDS`` shards, a free port, the
+    checkpoint dir and the coordinator's workspace under ``root``, and the
+    coordinator's address 127.0.0.1 (no cluster DNS here). Polls the pods
+    until the job has Succeeded: each pod's process start (`_proc_started`)
+    and command lines, the coordinator's native child, and the trainer's
+    ``/proc/<pid>/maps`` for ``library`` and ``libcuda``. Returns what it
+    saw."""
+    import os
+    import shutil
+    import signal
+
+    from edl_tpu_torch.api.quantity import ResourceList
+    from edl_tpu_torch.api.types import TrainingJob
+    from edl_tpu_torch.api.validation import normalize
+    from edl_tpu_torch.controller import (AutoscalerConfig, Controller, NodeInfo,
+                                          UpdaterConfig)
+    from edl_tpu_torch.controller.jobparser import parse_job
+    from edl_tpu_torch.controller.process_cluster import ProcessCluster
+
+    with open(manifest) as f:
+        job = normalize(TrainingJob.from_yaml(f.read()))
+    port = _job_port()
+    overrides = {
+        "tpu.chips_per_trainer": 1, "trainer.min_instance": 1, "trainer.max_instance": 1,
+        "parallelism": {}, "data_shards": job.spec.data_shards[:DEPLOY_SHARDS], "port": port,
+        "checkpoint_dir": _rooted(root, job.spec.checkpoint_dir),
+        "coordinator.workspace": _rooted(root, job.spec.coordinator.workspace),
+        "trainer.env.EDL_COORDINATOR_ENDPOINT": f"127.0.0.1:{port}",
+    }
+    for key, value in overrides.items():
+        *path, last = key.split(".")
+        obj = job.spec
+        for name in path:
+            obj = getattr(obj, name)
+        if isinstance(obj, dict):
+            obj[last] = value
+        else:
+            setattr(obj, last, value)
+    job = normalize(job)
+    os.makedirs(job.spec.coordinator.workspace)  # the volume a pod would mount there
+    workloads = {w.role: w.entrypoint for w in parse_job(job)}
+    print(f"deploy: {manifest}'s job {job.name}, with these overrides and no others: "
+          f"{overrides}; the controller dials its coordinator at 127.0.0.1:{port} too")
+    print(f"deploy: the pods' commands {workloads}; edl-launch is "
+          f"{shutil.which('edl-launch')}; PYTHONPATH {os.environ.get('PYTHONPATH')}; "
+          f"working directory {os.getcwd()}")
+    cluster = ProcessCluster([NodeInfo(name="h100-0",
+                                       allocatable=ResourceList.make(DEPLOY_NODE))],
+                             log_dir=os.path.join(root, "pods"))
+    controller = Controller(
+        cluster, autoscaler_config=AutoscalerConfig(loop_seconds=2.0, max_load_desired=0.9),
+        updater_config=UpdaterConfig(convert_seconds=0.5, poll_seconds=0.2,
+                                     create_timeout=120.0))
+    controller.actuator.set_endpoint(job.name, "127.0.0.1", port)
+    pods, trainer, coordinator = {}, {}, {}
+    groups = set()
+    t_submit = time.time()
+    deadline = time.monotonic() + DEPLOY_TIMEOUT
+    try:
+        controller.start()
+        controller.submit(job)
+        while True:
+            with cluster._lock:
+                live = [(p.info.name, p.info.role, p.proc.pid, p.entrypoint)
+                        for p in cluster.pods if p.proc is not None]
+            now = time.time()
+            for name, role, pid, entry in live:
+                groups.add(pid)
+                if name not in pods:
+                    pods[name] = {"role": role, "pid": pid, "entrypoint": entry,
+                                  "started": _proc_started(pid), "cmdlines": []}
+                pod = pods[name]
+                cmdline = _proc_read(pid, "cmdline")
+                if cmdline and cmdline not in pod["cmdlines"]:
+                    pod["cmdlines"].append(cmdline)
+                if role == "trainer" and "library_mapped" not in trainer:
+                    maps = _proc_read(pid, "maps")
+                    if library in maps:
+                        trainer.update(pod=name, library_mapped=now,
+                                       libcuda="libcuda.so" in maps,
+                                       mapped=sorted({line.split()[-1] for line in
+                                                      maps.splitlines()
+                                                      if "edl_tpu_torch_kernels" in line}))
+                if role == "coordinator" and "native" not in coordinator:
+                    native = [e for e in _children_exes(pid) if e.endswith("edl-coordinator")]
+                    if native:
+                        coordinator.update(pod=name, native=native[0])
+            phase = controller.job_status(job.name).status.phase.value
+            if phase == "Succeeded":
+                break
+            failed = [p.name for role in ("coordinator", "trainer")
+                      for p in cluster.job_pods(job.name, role) if p.phase == "Failed"]
+            if failed or phase == "Failed" or time.monotonic() > deadline:
+                tails = "\n".join(f"--- {n}\n{text[-3000:]}"
+                                  for n, text in _pod_logs(root).items())
+                raise RuntimeError(f"deploy: the job is {phase}, failed pods {failed}, "
+                                   f"{DEPLOY_TIMEOUT} s allowed:\n{tails}")
+            time.sleep(0.05)
+        t_done = time.time()
+        exits = {p.name: p.phase for p in cluster.job_pods(job.name, "trainer")}
+    finally:
+        controller.stop()
+        cluster.shutdown(grace=5.0)
+        alive = _live_groups(groups)
+        for pgid in alive:
+            os.killpg(pgid, signal.SIGKILL)
+    require(not alive, f"deploy: pod process groups {alive} outlived the job")
+    return {"job": job.name, "overrides": overrides, "workloads": workloads,
+            "edl_launch": shutil.which("edl-launch"), "pods": pods, "pod_phases": exits,
+            "trainer": trainer, "coordinator": coordinator, "logs": _pod_logs(root),
+            "submit_to_succeeded_s": t_done - t_submit, "t_submit": t_submit}
+
+
+def deploy_state(workdir: str) -> dict:
+    """What a pod that compiled would change: each file under the staged
+    ``build/kernels`` (the baked library, its ``.log``, any ``*.objs``
+    directory) with its mtime and size, and the coordinator binary's
+    mtime."""
+    import os
+
+    kernels = os.path.join(workdir, "build", "kernels")
+    binary = os.path.join(workdir, "native", "coordinator", "edl-coordinator")
+    return {"kernels": {n: [os.stat(os.path.join(kernels, n)).st_mtime_ns,
+                            os.stat(os.path.join(kernels, n)).st_size]
+                        for n in sorted(os.listdir(kernels))},
+            "coordinator_mtime_ns": os.stat(binary).st_mtime_ns}
+
+
+def _proc_started(pid: int) -> float:
+    """The wall time ``pid`` started at, from its start tick in
+    ``/proc/<pid>/stat`` (field 22) and ``/proc/uptime``."""
+    import os
+
+    ticks = int(_proc_read(pid, "stat").rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _deploy_entry() -> tuple:
+    """The LM manifest's trainer spec, its entrypoint's words and the
+    entry's parsed arguments."""
+    import os
+    import shlex
+
+    from edl_tpu_torch.api.types import TrainingJob
+    from edl_tpu_torch.examples.lm import train as lm_train
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), DEPLOY_MANIFEST)) as f:
+        spec = TrainingJob.from_yaml(f.read()).spec
+    entry = shlex.split(spec.trainer.entrypoint)
+    return spec, entry, lm_train.parse_args(entry[3:])
+
+
+def stage_deploy(root: str) -> dict:
+    """The deploy phase's first part: the trainer image's tree staged from
+    this checkout under ``root`` (`stage_image`), its kernels baked. It
+    runs alone, before the phase groups: the bake's ``nvcc`` processes
+    would load the host's cores under the groups' start-up times. Holds
+    that the bake left the library and its log and nothing else; returns
+    the staged image with ``root``, the library's path and `deploy_state`."""
+    import os
+
+    from edl_tpu_torch.ops import _build
+
+    _, _, args = _deploy_entry()
+    attention = (args.batch_size, args.seq_len, args.n_heads, args.d_model // args.n_heads)
+    require(attention == DEPLOY_ATTENTION, f"deploy: the manifest's entry attends at "
+                                           f"{attention}, phase 3 times {DEPLOY_ATTENTION}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    image = stage_image(os.path.join(repo, DEPLOY_DOCKERFILE), repo, root)
+    for step in image["steps"]:
+        print(f"deploy: RUN {step['run']}: {step['seconds']:.1f} s"
+              + (f", checked on the host: {step['checked']}" if "checked" in step else ""))
+    library = os.path.join(image["workdir"], "build", "kernels", _build.library_path().name)
+    before = deploy_state(image["workdir"])
+    require(sorted(before["kernels"]) == sorted(
+        [os.path.basename(library), os.path.basename(library)[:-3] + ".log"]),
+        f"deploy: the bake left {sorted(before['kernels'])}, want the library "
+        f"{os.path.basename(library)} and its log")
+    return {**image, "root": root, "library": library, "before": before}
+
+
+def phase_deploy(staged: dict) -> dict:
+    """The deploy phase's second part: the port's LM manifest run from the
+    tree `stage_deploy` staged (`deploy_drive`, in a process of its own
+    with the image's environment and WORKDIR) and held: the job Succeeded,
+    the coordinator pod started through ``edl-launch`` and ran the staged
+    native binary, the trainer ran the manifest's entrypoint on the card
+    with the baked library mapped, its metrics line shows the expected
+    steps and a finite loss and the line before it the flash launches those
+    steps make (steps x layers, the forward twice under ``--remat``), and no
+    pod compiled
+    anything (`deploy_state` unchanged)."""
+    import os
+
+    fa = _flash_module()
+    t0 = time.perf_counter()
+    spec, entry, args = _deploy_entry()
+    want_steps = DEPLOY_SHARDS * args.batches_per_shard * spec.passes
+    root, workdir, library = staged["root"], staged["workdir"], staged["library"]
+    job = os.path.join(root, "drive.json")
+    with open(job, "w") as f:
+        json.dump({"root": root, "manifest": os.path.join(workdir, DEPLOY_MANIFEST),
+                   "library": library, "out": f"{job}.out"}, f)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--deploy-drive", job],
+                          cwd=workdir, env=staged["env"], capture_output=True, text=True,
+                          timeout=DEPLOY_TIMEOUT + 120)
+    sys.stdout.write(proc.stdout)
+    require(proc.returncode == 0, f"deploy: the drive exited {proc.returncode}:\n"
+                                  f"{proc.stderr[-5000:]}")
+    with open(f"{job}.out") as f:
+        drive = json.load(f)
+    after = deploy_state(workdir)
+    pods = drive["pods"]
+    trainer_pod = next(n for n, p in pods.items() if p["role"] == "trainer")
+    coord_pod = next(n for n, p in pods.items() if p["role"] == "coordinator")
+    lines = [json.loads(x) for x in drive["logs"][trainer_pod].splitlines()
+             if x.startswith("{")]
+    launched, metrics = lines[-2:] if len(lines) > 1 else ({}, {})
+    tr, co = drive["trainer"], drive["coordinator"]
+    require(drive["pod_phases"] == {trainer_pod: "Succeeded"} and len(pods) == 2,
+            f"deploy: pods {sorted(pods)}, trainers {drive['pod_phases']}: want one "
+            "coordinator pod and one trainer pod, Succeeded")
+    require(metrics.get("steps") == want_steps and math.isfinite(metrics.get("final_loss", math.nan)),
+            f"deploy: the trainer's metrics {metrics}, want {want_steps} steps and a finite "
+            f"loss:\n{drive['logs'][trainer_pod][-3000:]}")
+    variants = {tuple(v[:4]): v[4] for v in launched.get("flash_launches", [])}
+    launches = dict.fromkeys(fa.LAUNCHES, 0)
+    for (kernel, dtype, dp, _), n in variants.items():
+        require(dtype == "bfloat16" and dp == fa.padded_head_dim(DEPLOY_ATTENTION[3]),
+                f"deploy: the trainer launched {kernel} in {dtype} at padded head dim {dp}, "
+                f"want bfloat16 at {fa.padded_head_dim(DEPLOY_ATTENTION[3])}")
+        launches[kernel] += n
+    per_step = args.n_layers * want_steps
+    want_launches = {"fwd": per_step * (2 if args.remat else 1), "bwd_dq": per_step,
+                     "bwd_dkv": per_step}
+    require(launches == want_launches,
+            f"deploy: the trainer's flash launches {launches}, want {want_launches} "
+            f"({want_steps} steps of {args.n_layers} layers, remat {args.remat})")
+    require(staged["before"] == after,
+            f"deploy: a pod compiled: {staged['before']} before the job, {after} after")
+    require(tr.get("mapped") == [library] and tr.get("libcuda"),
+            f"deploy: the trainer's maps {tr}, want {library} and libcuda")
+    require(pods[trainer_pod]["entrypoint"] == spec.trainer.entrypoint
+            and any(c.split()[1:] == entry[1:] for c in pods[trainer_pod]["cmdlines"]),
+            f"deploy: the trainer ran {pods[trainer_pod]}, want {spec.trainer.entrypoint}")
+    shim = _rooted(root, "/usr/local/bin/edl-launch")
+    require(pods[coord_pod]["entrypoint"].split()[0] == "edl-launch"
+            and drive["edl_launch"] == shim
+            and any("-m edl_tpu_torch.launcher start_coordinator" in c
+                    for c in pods[coord_pod]["cmdlines"])
+            and co.get("native") == os.path.join(workdir, "native", "coordinator",
+                                                 "edl-coordinator"),
+            f"deploy: the coordinator pod {pods[coord_pod]}, native child {co}, edl-launch "
+            f"{drive['edl_launch']}: want edl-launch from the staged tree and its binary")
+    started = pods[trainer_pod]["started"]
+    first_step = launched["first_step_at"] - started
+    require(0 < first_step < DEPLOY_TIMEOUT,
+            f"deploy: the trainer's first step {first_step} s after its pod's process started")
+    out = {"base": staged["from"], "entrypoint": staged["entrypoint"], "cmd": staged["cmd"],
+           "bake": [{"run": s["run"], "seconds": s["seconds"]} for s in staged["steps"]],
+           "overrides": drive["overrides"], "workloads": drive["workloads"],
+           "pod_start_to_first_step_s": first_step,
+           "pod_start_to_library_mapped_s": tr["library_mapped"] - started,
+           "submit_to_trainer_start_s": started - drive["t_submit"],
+           "submit_to_succeeded_s": drive["submit_to_succeeded_s"],
+           "steps": metrics["steps"], "final_loss": metrics["final_loss"],
+           "launches": launches, "variant_launches": [[*k, n] for k, n in variants.items()],
+           "trainer_seconds": metrics.get("seconds"), "want_steps": want_steps,
+           "coordinator_cmdlines": pods[coord_pod]["cmdlines"],
+           "library": os.path.basename(library), "libcuda": tr["libcuda"],
+           "unchanged": sorted(after["kernels"]) + ["edl-coordinator"],
+           "seconds": time.perf_counter() - t0}
+    print(f"deploy: {drive['job']} Succeeded {out['submit_to_succeeded_s']:.1f} s after its "
+          f"submit from the staged tree: the coordinator through edl-launch "
+          f"({pods[coord_pod]['cmdlines']}), the trainer `{spec.trainer.entrypoint}` "
+          f"{out['steps']:.0f} steps, loss {out['final_loss']}, flash launches {launches}; "
+          f"its first step's loss back {first_step:.2f} s after its pod's process started "
+          f"(the baked library mapped at {out['pod_start_to_library_mapped_s']:.2f} s, "
+          f"polled); no pod compiled ({', '.join(out['unchanged'])} unchanged); the "
+          f"drive took {out['seconds']:.1f} s")
+    return out
+
+
 # -- phases 12-16 at once --------------------------------------------------------
 
-#: phases 12-15 drive processes of their own (ranks, launchers, entries),
+#: phases 12-16 drive processes of their own (ranks, launchers, entries, pods),
 #: whose start-ups take most of their time while the card idles: each group
 #: runs in a process of its own (`phases_main`), every group at once, its
 #: phases in order; the elastic phase is cut in two (`elastic_local`, part
 #: (c)) to even the groups out. The controller and chaos phases run after
 #: them, each alone: the controller's regrow must come while lm-grow's
 #: queue lasts, and chaos's faults gate on heartbeats timed to the second
-PHASE_GROUPS = (("elastic_mp", "dp"), ("elastic_local", "mp"), ("entries",))
+PHASE_GROUPS = (("elastic_mp", "dp"), ("elastic_local", "mp"), ("entries", "deploy"))
 #: the seconds the groups may take together before the script stops them
 PHASE_GROUPS_TIMEOUT = 720
 #: name -> the phase, called with the device and the group's job
@@ -6786,6 +7390,7 @@ GROUP_PHASES = {
     "elastic_mp": lambda device, job: elastic_mp(device),
     "mp": lambda device, job: phase_mp(device),
     "entries": lambda device, job: phase_entries(job["profiler"]),
+    "deploy": lambda device, job: phase_deploy(job["deploy_stage"]),
 }
 
 
@@ -6808,10 +7413,11 @@ def phases_main(job_path: str) -> int:
 
 
 def run_phase_groups(device, seconds: dict, profiler: dict,
-                     groups=PHASE_GROUPS, timeout: float = PHASE_GROUPS_TIMEOUT) -> dict:
-    """Every group of ``groups`` at once, each in a process of its own;
-    returns each phase's record by name and adds its seconds to
-    ``seconds``. A group's standard output is printed whole once it has
+                     groups=PHASE_GROUPS, timeout: float = PHASE_GROUPS_TIMEOUT,
+                     deploy_stage: dict | None = None) -> dict:
+    """Every group of ``groups`` at once, each in a process of its own,
+    given ``profiler`` and the tree `stage_deploy` staged; returns each
+    phase's record by name and adds its seconds to ``seconds``. A group's standard output is printed whole once it has
     ended, so that the groups' lines do not interleave. A group that fails,
     or that is still running ``timeout`` seconds after the start, fails the
     run once every group has ended or been stopped."""
@@ -6828,7 +7434,7 @@ def run_phase_groups(device, seconds: dict, profiler: dict,
             job = os.path.join(root, f"group{i}.json")
             with open(job, "w") as f:
                 json.dump({"phases": list(names), "device": str(device), "profiler": profiler,
-                           "out": f"{job}.out"}, f)
+                           "deploy_stage": deploy_stage, "out": f"{job}.out"}, f)
             log = open(f"{job}.log", "w+")
             started.append((names, job, log, subprocess.Popen(
                 [sys.executable, __file__, "--phases", job], stdout=log)))
@@ -6868,6 +7474,8 @@ def main(argv) -> int:
         return entry_record_main(argv[1:])
     if argv and argv[0] == "--ctl-entry":  # one trainer of the controller phase
         return ctl_entry_main(argv[1:])
+    if argv and argv[0] == "--deploy-drive":  # the deploy phase's job, in the image's tree
+        return deploy_drive_main(argv[1])
     if argv and argv[0] == "--turns":  # the f32 forward of a checkout, timed
         return turns_main(argv[1])
     adopt_orphans()
@@ -6942,8 +7550,17 @@ def stop_descendants(timeout: float = 60.0) -> list:
 
 def run(argv) -> int:
     """Every phase, or those that ``argv``'s flag names (the docstring)."""
+    import os
+
     t0, seconds = time.perf_counter(), {}
     device = phase_device()
+    if "--deploy" in argv:  # the deploy phase only: it bakes the kernels of its own tree
+        with tempfile.TemporaryDirectory(prefix="edl-deploy-") as root:
+            staged = timed(seconds, "deploy_stage", stage_deploy, os.path.realpath(root))
+            deploy = timed(seconds, "deploy", phase_deploy, staged)
+        print(json.dumps({"deploy": deploy}))
+        print(json.dumps({"phase_seconds": {**seconds, "script": time.perf_counter() - t0}}))
+        return 0
     build = timed(seconds, "build", phase_build)
     table_out = argv[argv.index("--tile-table") + 1] if "--tile-table" in argv else None
     rows, checks = timed(seconds, "kernels", phase_kernels, device, table_out)
@@ -7068,11 +7685,22 @@ def run(argv) -> int:
         others = timed(seconds, "zoo", phase_zoo, device)
         remat = timed(seconds, "remat", phase_remat, device, lm)
         serve = timed(seconds, "serve", phase_serve, device, lm_export, ctr_staged)
-    grouped = timed(seconds, "groups", run_phase_groups, device, seconds, lm["profiler"])
+    # the deploy phase's bake runs alone, its job in a group; /proc/<pid>/maps
+    # names the library by its real path
+    with tempfile.TemporaryDirectory(prefix="edl-deploy-") as deploy_root:
+        staged = timed(seconds, "deploy_stage", stage_deploy, os.path.realpath(deploy_root))
+        grouped = timed(seconds, "groups", run_phase_groups, device, seconds, lm["profiler"],
+                        deploy_stage=staged)
     dp, mp, entries = grouped["dp"], grouped["mp"], grouped["entries"]
     elastic = elastic_record(grouped["elastic_local"], grouped["elastic_mp"])
     controller = timed(seconds, "controller", phase_controller)
     chaos = timed(seconds, "chaos", phase_chaos, device)
+    deploy = grouped["deploy"]
+    deploy_variants = {tuple(v[:4]): v[4] for v in deploy["variant_launches"]}
+    for row in rows:
+        key = (row["name"], row["dtype"], fa.padded_head_dim(row["head_dim"]), row["block_k"])
+        if key in deploy_variants:
+            row["launches_deploy"] = deploy_variants[key]
     for name, row in kernels.items():
         row["launches_remat"] = remat["launches"][name]
         row["launches_serve"] = serve["lm"]["flash_launches"][name]
@@ -7084,7 +7712,8 @@ def run(argv) -> int:
         row["launches_controller"] = controller["launches"][name]
         row["launches_chaos"] = chaos["launches"][name]
     emit({**variants_of(launches), **wide_variants("lm_d128", lm_d128),
-          **wide_variants("lm_d256", lm_d256), **wide_variants("lm_d512", lm_d512)}, in_step,
+          **wide_variants("lm_d256", lm_d256), **wide_variants("lm_d512", lm_d512),
+          **deploy_variants}, in_step,
          {"lm_d128": lm_d128, "lm_d256": lm_d256, "lm_d512": lm_d512})
     print(json.dumps({"zoo": [ctr_row, *others, lm, remat]}))
     print(json.dumps({"lm_d128": lm_d128}))
@@ -7097,6 +7726,7 @@ def run(argv) -> int:
     print(json.dumps({"elastic": elastic}))
     print(json.dumps({"mp": mp}))
     print(json.dumps({"entries": entries}))
+    print(json.dumps({"deploy": deploy}))
     print(json.dumps({"controller": controller}))
     print(json.dumps({"chaos": chaos}))
     # count: the devices this run uses

@@ -47,7 +47,7 @@ from typing import List, Optional
 
 from edl_tpu_torch.api.types import TrainingJob
 from edl_tpu_torch.api.validation import ValidationError, normalize
-from edl_tpu_torch.tools.mfu import H100_PEAK_BF16_TFLOPS
+from edl_tpu_torch.tools.peaks import H100_PEAK_BF16_TFLOPS
 
 
 def _add_nodes_flags(p: argparse.ArgumentParser) -> None:
@@ -443,7 +443,9 @@ def cmd_serve(args) -> int:
         replica.stop()
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: every subcommand and flag, each subcommand's
+    handler as ``fn``."""
     parser = argparse.ArgumentParser(prog="edl-tpu-torch",
                                      description="elastic training framework on the card")
     parser.add_argument("--log-level", default="info",
@@ -560,8 +562,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="device to train on (default: the card; 'cpu' asks "
                         "for the CPU)")
     p.set_defaults(fn=cmd_train)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
     from edl_tpu_torch.obs.logs import configure_logging
 
     configure_logging(level=args.log_level, fmt=args.log_format)

@@ -28,6 +28,13 @@ on the CPU, with a pod's env protocol (``EDL_COORDINATOR_ENDPOINT``,
     python -m edl_tpu_torch.examples.lm.train --seq-len 512 --remat --zero1
     python -m edl_tpu_torch.examples.lm.train --axes '{"seq": 2, "model": 2}' \
         --seq-len 512 --remat
+
+Trained by a worker, the entry's last line is its metrics as JSON (the
+JAX entry's keys), and the line before it ``{"first_step_at": ...,
+"flash_launches": [...]}``: the wall time the first step's loss came back,
+and the flash kernels' launches in this process, one ``[kernel, dtype,
+padded head dim, cut, launches]`` a variant
+(`edl_tpu_torch.ops.flash_attention.VARIANT_LAUNCHES`), none on the CPU.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import List, Optional
 from edl_tpu_torch.examples._common import cloud_bring_up
 from edl_tpu_torch.launcher.launch import LaunchContext
 from edl_tpu_torch.models import transformer
+from edl_tpu_torch.ops.flash_attention import VARIANT_LAUNCHES
 from edl_tpu_torch.runtime import (ElasticConfig, ElasticWorker, MultiHostWorker,
                                    SyntheticShardSource, pass_tasks)
 from edl_tpu_torch.runtime.data import shard_names
@@ -146,6 +154,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         client = coord.client("worker-0")
         ctx.checkpoint_dir = ctx.checkpoint_dir or tempfile.mkdtemp(prefix="edl-lm-")
 
+    first_step_at: List[float] = []
+
+    def note_first_step(step, state) -> None:
+        if not first_step_at:
+            first_step_at.append(time.time())
+
     cfg = ElasticConfig(
         checkpoint_dir=ctx.checkpoint_dir,
         checkpoint_interval=ctx.checkpoint_interval,
@@ -153,6 +167,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                               learning_rate=args.learning_rate,
                               shard_opt_state=args.zero1,
                               batch_axis=model.config.batch_axis),
+        step_callback=note_first_step,
     )
     if ident is not None:
         worker = MultiHostWorker(model, client, source, cfg, device=device,
@@ -161,6 +176,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         worker = ElasticWorker(model, client, source, cfg, device=device,
                                mesh_axes=axes or None)
     metrics = worker.run()
+    print(json.dumps({"first_step_at": first_step_at[0] if first_step_at else None,
+                      "flash_launches": [[*key, n] for key, n in VARIANT_LAUNCHES.items()]}))
     print(json.dumps({k: round(v, 4) for k, v in metrics.items()}))
 
 

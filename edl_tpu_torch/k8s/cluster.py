@@ -192,7 +192,7 @@ class K8sCluster:
         labels = role_labels(job_name, role)
         container = {
             "name": role,
-            "image": workload.image if workload else "edl-tpu:latest",
+            "image": workload.image if workload else "edl-tpu-torch:latest",
             "resources": {
                 "requests": resources_to_k8s(requests),
                 "limits": resources_to_k8s(limits),

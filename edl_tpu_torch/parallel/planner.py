@@ -49,7 +49,7 @@ from edl_tpu_torch.parallel.collective import (
 )
 from edl_tpu_torch.parallel.mesh import MeshSpec
 from edl_tpu_torch.parallel.pipeline import bubble_fraction, stash_slots
-from edl_tpu_torch.tools.mfu import H100_PEAK_BF16_TFLOPS
+from edl_tpu_torch.tools.peaks import H100_PEAK_BF16_TFLOPS
 
 __all__ = [
     "Candidate",

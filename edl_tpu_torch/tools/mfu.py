@@ -15,9 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-#: the H100 SXM's dense bf16 tensor-core peak, TFLOP/s (NVIDIA data sheet,
-#: no sparsity); also the planner's default card (`parallel.planner.Topology`)
-H100_PEAK_BF16_TFLOPS = 989.0
+from edl_tpu_torch.tools.peaks import H100_PEAK_BF16_TFLOPS
 
 #: dense bf16 tensor-core peak TFLOP/s per card (NVIDIA data sheets, no
 #: sparsity), by a substring of the device name, matched most specific first

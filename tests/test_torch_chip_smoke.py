@@ -520,12 +520,12 @@ def test_a_phase_group_past_the_timeout_is_stopped_and_fails_the_run(grouped):
 
 
 def test_phase_groups_hold_each_process_phase_once_and_leave_controller_and_chaos_alone(cs):
-    """Phases 12-15 run at once in `PHASE_GROUPS`, each in one group; the
+    """Phases 12-16 run at once in `PHASE_GROUPS`, each in one group; the
     elastic phase's two halves compose its record; the controller and chaos
     phases, whose checks are timed against their own processes, run alone."""
     names = [name for group in cs.PHASE_GROUPS for name in group]
     assert sorted(names) == sorted(cs.GROUP_PHASES) == [
-        "dp", "elastic_local", "elastic_mp", "entries", "mp"]
+        "deploy", "dp", "elastic_local", "elastic_mp", "entries", "mp"]
     local = {"rows": {"lm": {"launches": {"fwd": 3, "bwd_dq": 2, "bwd_dkv": 2}}},
              "multihost": {}, "ckpt_plane": {}}
     mp = {"launches": {"fwd": 16, "bwd_dq": 8, "bwd_dkv": 8}}

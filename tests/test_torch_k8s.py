@@ -298,6 +298,29 @@ def test_manifests_equal_the_jax_package_but_the_accelerator_name():
     assert got["seen"] == want["seen"]
 
 
+def test_default_pod_image_is_the_port_trainer_image():
+    """A role created without a workload runs the port's trainer image,
+    ``edl-tpu-torch:latest``; its Job equals the JAX package's but for the
+    image's name and the accelerator's."""
+    import importlib
+
+    held = {}
+    for side, pkg in (("jax", "edl_tpu"), ("torch", "edl_tpu_torch")):
+        k8s = importlib.import_module(f"{pkg}.k8s")
+        srv, base = _server(RESOURCE[side])
+        try:
+            cluster = k8s.K8sCluster(k8s.ApiClient(k8s.KubeConfig(host=base), timeout=5.0))
+            cluster.create_role("demo", ROLE_TRAINER, 1,
+                                ResourceList.make({"cpu": 1, "tpu": 4}), ResourceList())
+            held[side] = srv.jobs[("default", "demo-trainer")]
+        finally:
+            srv.close()
+    image = held["torch"]["spec"]["template"]["spec"]["containers"][0]["image"]
+    assert image == "edl-tpu-torch:latest"
+    want = json.dumps(held["jax"], sort_keys=True).replace(RESOURCE["jax"], RESOURCE["torch"])
+    assert json.loads(want.replace('"edl-tpu:latest"', '"edl-tpu-torch:latest"')) == held["torch"]
+
+
 # -- K8sJobStore ---------------------------------------------------------------
 
 
@@ -421,6 +444,8 @@ def test_watch_tolerates_bookmarks_and_slow_lists(apiserver):
     rec = Recorder(with_phase=False)
     store.create(_job())
     store.watch(rec, replay=True)
+    # the replayed add comes after the slow list, later than that under load
+    _wait(lambda: rec.events, "the replayed add never arrived")
     time.sleep(1.0)  # an idle-watch cycle of bookmarks
     n_before = len(rec.events)
     status = store.get("demo").status
